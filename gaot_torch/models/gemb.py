@@ -1,0 +1,166 @@
+"""Geometric embedding and node positional encoding.
+
+Counterpart of ``gaot_tpu/models/gemb.py`` (statistical method): per-query
+neighbor count, mean/variance of distances, centroid offset and covariance
+eigenvalues (closed-form symmetric 2x2/3x3 solvers), standardized over the
+queries and passed through a two-layer MLP.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.padding import BucketedGraph
+from .mlp import Dense
+
+
+def node_pos_encode(x: torch.Tensor, freq: int = 4) -> torch.Tensor:
+    """Fourier node positional encoding: x [n, d] in [-1, 1] → [n, d·2·freq]."""
+    freqs = torch.arange(1, freq + 1, dtype=x.dtype, device=x.device)
+    phi = math.pi * (x + 1.0)
+    angles = freqs[None, :, None] * phi[:, None, :]              # [n, freq, d]
+    enc = torch.cat([torch.sin(angles), torch.cos(angles)], dim=2)
+    return enc.reshape(x.shape[0], -1)
+
+
+def eigvalsh_2x2(cov: torch.Tensor) -> torch.Tensor:
+    """Descending eigenvalues of symmetric 2x2 matrices. cov: [..., 2, 2]."""
+    a, b, c = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
+    mean = 0.5 * (a + c)
+    disc = torch.sqrt((0.25 * (a - c) ** 2 + b * b).clamp(min=0.0))
+    return torch.stack([mean + disc, mean - disc], dim=-1)
+
+
+def eigvalsh_3x3(cov: torch.Tensor) -> torch.Tensor:
+    """Descending eigenvalues of symmetric 3x3 matrices (trigonometric
+    method); degenerate (≈scalar) matrices give the diagonal mean."""
+    a11, a22, a33 = cov[..., 0, 0], cov[..., 1, 1], cov[..., 2, 2]
+    a12, a13, a23 = cov[..., 0, 1], cov[..., 0, 2], cov[..., 1, 2]
+    q = (a11 + a22 + a33) / 3.0
+    p1 = a12 ** 2 + a13 ** 2 + a23 ** 2
+    p2 = (a11 - q) ** 2 + (a22 - q) ** 2 + (a33 - q) ** 2 + 2.0 * p1
+    p = torch.sqrt((p2 / 6.0).clamp(min=0.0))
+    safe_p = torch.where(p > 0, p, torch.ones_like(p))
+    b11, b22, b33 = (a11 - q) / safe_p, (a22 - q) / safe_p, (a33 - q) / safe_p
+    b12, b13, b23 = a12 / safe_p, a13 / safe_p, a23 / safe_p
+    det_b = (b11 * (b22 * b33 - b23 * b23)
+             - b12 * (b12 * b33 - b23 * b13)
+             + b13 * (b12 * b23 - b22 * b13))
+    r = (det_b / 2.0).clamp(-1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    e1 = q + 2.0 * p * torch.cos(phi)
+    e3 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    e2 = 3.0 * q - e1 - e3
+    degenerate = p2 <= 0
+    e1 = torch.where(degenerate, q, e1)
+    e2 = torch.where(degenerate, q, e2)
+    e3 = torch.where(degenerate, q, e3)
+    return torch.stack([e1, e2, e3], dim=-1)
+
+
+def raw_statistical_features(input_geom: torch.Tensor,
+                             latent_queries: torch.Tensor, graph,
+                             nbr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unnormalized per-query geometric statistics: input_geom [N, d],
+    latent_queries [Q, d], graph [Q, K] → [Q, 3 + 2d]. ``nbr`` optionally
+    supplies the pre-gathered input_geom[indices]."""
+    indices, mask = graph.indices, graph.mask
+    d = latent_queries.shape[-1]
+    if nbr is None:
+        nbr = input_geom[indices]                                # [Q, K, d]
+    diff = (nbr - latent_queries[:, None, :]).float()
+    dist2 = (diff * diff).sum(-1)
+    dist = torch.sqrt(dist2.clamp(min=0.0))
+    iu, ju = np.triu_indices(d)
+    pairs = torch.stack([diff[..., int(i)] * diff[..., int(j)]
+                         for i, j in zip(iu, ju)], dim=-1)
+    feat = torch.cat([torch.ones_like(dist)[..., None], dist[..., None],
+                      dist2[..., None], diff, pairs], dim=-1)    # [Q, K, F]
+    feat = torch.where(mask[..., None], feat, torch.zeros((), device=feat.device))
+    sums = feat.sum(1)                                           # [Q, F]
+
+    counts = sums[:, 0]
+    has_nbrs = counts > 0
+    inv_n = 1.0 / counts.clamp(min=1.0)
+    d_avg = sums[:, 1] * inv_n
+    d_var = (sums[:, 2] * inv_n - d_avg * d_avg).clamp(min=0.0)
+    delta = sums[:, 3:3 + d] * inv_n[:, None]                    # centroid - x
+    raw2 = sums[:, 3 + d:] * inv_n[:, None]                      # [Q, P]
+    pair_pos = {(int(i), int(j)): col for col, (i, j) in enumerate(zip(iu, ju))}
+    cvals = [raw2[:, col] - delta[:, int(i)] * delta[:, int(j)]
+             for col, (i, j) in enumerate(zip(iu, ju))]
+    cov = torch.stack(
+        [torch.stack([cvals[pair_pos[(min(r, s), max(r, s))]]
+                      for s in range(d)], dim=-1)
+         for r in range(d)], dim=-2)                             # [Q, d, d]
+    eig = eigvalsh_2x2(cov) if d == 2 else eigvalsh_3x3(cov)
+    eig = torch.where(has_nbrs[:, None], eig, torch.zeros_like(eig))
+    feats = torch.cat([counts[:, None], d_avg[:, None], d_var[:, None], delta,
+                       eig], dim=-1).to(input_geom.dtype)
+    return torch.where(has_nbrs[:, None], feats, torch.zeros_like(feats))
+
+
+def _standardize_grouped(feats: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """Standardize over queries per sample (unbiased std, as torch .std)."""
+    flat_q = feats.shape[0]
+    per = flat_q // num_samples
+    grouped = feats.reshape(num_samples, per, -1)
+    mean = grouped.mean(1, keepdim=True)
+    var = grouped.var(1, keepdim=True, unbiased=False) * (per / max(per - 1, 1))
+    std = torch.sqrt(var)
+    std = torch.where(std < 1e-6, torch.ones_like(std), std)
+    return ((grouped - mean) / std).reshape(flat_q, -1)
+
+
+def _standardize_valid(feats: torch.Tensor, row_valid: torch.Tensor) -> torch.Tensor:
+    """Standardize over the valid rows only (bucketed layouts carry
+    tile-padding rows that must not shift the statistics)."""
+    v = row_valid.to(feats.dtype)[:, None]
+    n = v.sum()
+    mean = (feats * v).sum(0, keepdim=True) / n.clamp(min=1.0)
+    var = (((feats - mean) ** 2) * v).sum(0, keepdim=True) / (n - 1.0).clamp(min=1.0)
+    std = torch.sqrt(var)
+    std = torch.where(std < 1e-6, torch.ones_like(std), std)
+    return (feats - mean) / std
+
+
+class GeometricEmbedding(nn.Module):
+    """Per-query statistical geometric embedding (``mlp.0``, ``mlp.2``)."""
+
+    def __init__(self, coord_dim: int, output_dim: int,
+                 method: str = "statistical", dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        if method != "statistical":
+            raise NotImplementedError(f"geometric embedding {method!r} is not ported")
+        self.mlp = nn.Sequential(
+            Dense(3 + 2 * coord_dim, 64, compute_dtype=dtype, device=device),
+            nn.ReLU(),
+            Dense(64, output_dim, compute_dtype=dtype, device=device),
+            nn.ReLU())
+
+    def forward(self, input_geom: torch.Tensor, latent_queries: torch.Tensor,
+                graph, num_samples: int = 1,
+                nbr: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """graph: PaddedGraph [Q, K], or BucketedGraph with latent_queries
+        in bucket-concatenated order (the result is in that order too)."""
+        if isinstance(graph, BucketedGraph):
+            parts, offset = [], 0
+            for g in graph.buckets:
+                nb = g.indices.shape[-2]
+                parts.append(raw_statistical_features(
+                    input_geom, latent_queries[offset:offset + nb], g))
+                offset += nb
+            feats = torch.cat(parts, dim=0)
+            if num_samples > 1:
+                raise NotImplementedError("vx bucketed standardization is not ported")
+            feats = _standardize_valid(feats, graph.row_valid)
+        else:
+            feats = _standardize_grouped(
+                raw_statistical_features(input_geom, latent_queries, graph, nbr),
+                num_samples)
+        return self.mlp(feats)

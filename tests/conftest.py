@@ -44,6 +44,8 @@ def pytest_configure(config):
         "default tier (46 skips as of round 5): all but a handful are "
         "slow-marked heavy-tier tests; the remainder are TPU-only Pallas "
         "kernel tests that conditionally skip on the CPU mesh.")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (gaot_torch kernels); skips elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):
