@@ -1,9 +1,10 @@
-// AGNO multiply-reduce for Hopper (sm_90a):
-//   out[q, w] = sum_k coef[k, q, w mod C] * gath[k, q, w],   W = b * C.
-// Memory-bound: every element of gath [K, Q, W] is read once, with 16-byte
-// vector loads, and summed down k in fp32 registers. The coef rows of the
-// block's queries are staged in shared memory in chunks of k.
-// Plain C interface; returns cudaGetLastError() after the launch.
+// AGNO multiply-reduce for Hopper (sm_90a), forward and coefficient gradient:
+//   gaot_mulred_k: out[q, w] = sum_k coef[k, q, w mod C] * gath[k, q, w],
+//   gaot_mulred_b: d_coef[k, q, c] = sum_b gath[k, q, b C + c] * dout[q, b C + c],
+// with W = b * C. Both are memory-bound: every element of gath [K, Q, W] is
+// read once, with 16-byte vector loads, and summed in fp32 registers. The
+// coef rows of a mulred_k block are staged in shared memory in chunks of k.
+// Plain C interface; each entry returns cudaGetLastError() after the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,7 +103,112 @@ cudaError_t launch(const void* gath, const void* coef, void* out, int K,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// d_coef[k, q, c] = sum_b gath[k, q, b * C + c] * dout[q, b * C + c].
+// One block per query row q. Thread (cv, slice) owns the channel vector
+// c = cv * VEC .. cv * VEC + VEC - 1 and the batch slice b = slice,
+// slice + ns, ...: it streams 16-byte vectors of gath for kKChunk values of
+// k at once (dout's vector is loaded once per b and reused across them) and
+// sums over its b in fp32 registers. The ns slices are then folded in a fixed
+// order through shared memory, so the result is deterministic. The dout row
+// is read from device memory once; later k-chunks find it in L1.
+constexpr int kBThreads = 256;
+constexpr int kKChunk = 4;
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBThreads)
+mulred_b_kernel(const T* __restrict__ gath, const T* __restrict__ dout,
+                T* __restrict__ out, int K, int Q, int C, int W, int tc,
+                int ns) {
+  extern __shared__ float red[];                      // [kKChunk][ns][C]
+  const int q = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int cv0 = tid % tc, slice = tid / tc;
+  const int ncv = C / VEC, nb = W / C;
+  const long long plane = (long long)Q * W;
+  const T* drow = dout + (long long)q * W;
+  const T* grow = gath + (long long)q * W;
+
+  for (int k0 = 0; k0 < K; k0 += kKChunk) {
+    const int kn = min(kKChunk, K - k0);
+    if (slice < ns) {
+      for (int cv = cv0; cv < ncv; cv += tc) {
+        float acc[kKChunk][VEC];
+#pragma unroll
+        for (int kk = 0; kk < kKChunk; ++kk)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[kk][j] = 0.f;
+        for (int bb = slice; bb < nb; bb += ns) {
+          const int w = bb * C + cv * VEC;
+          const Pack<T, VEC> d = *reinterpret_cast<const Pack<T, VEC>*>(drow + w);
+#pragma unroll
+          for (int kk = 0; kk < kKChunk; ++kk) {
+            if (kk < kn) {
+              const Pack<T, VEC> g = *reinterpret_cast<const Pack<T, VEC>*>(
+                  grow + (long long)(k0 + kk) * plane + w);
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) acc[kk][j] += to_f(g.v[j]) * to_f(d.v[j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKChunk; ++kk)
+          if (kk < kn)
+#pragma unroll
+            for (int j = 0; j < VEC; ++j)
+              red[(kk * ns + slice) * C + cv * VEC + j] = acc[kk][j];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kn * C; i += blockDim.x) {
+      const int kk = i / C, c = i % C;
+      float s = 0.f;
+      for (int sl = 0; sl < ns; ++sl) s += red[(kk * ns + sl) * C + c];
+      out[((long long)(k0 + kk) * Q + q) * C + c] = from_f<T>(s);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_b(const void* gath, const void* dout, void* out, int K,
+                     int Q, int C, int W, cudaStream_t stream) {
+  const int ncv = C / VEC;
+  const int tc = ncv < kBThreads ? ncv : kBThreads;
+  int ns = kBThreads / tc;
+  if (ns > W / C) ns = W / C;
+  const size_t smem = sizeof(float) * (size_t)kKChunk * ns * C;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mulred_b_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  mulred_b_kernel<T, VEC><<<Q, tc * ns, smem, stream>>>(
+      static_cast<const T*>(gath), static_cast<const T*>(dout),
+      static_cast<T*>(out), K, Q, C, W, tc, ns);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int gaot_mulred_b(const void* gath, const void* dout, void* out,
+                             int K, int Q, int C, int W, int dtype,
+                             void* stream) {
+  if (K <= 0 || Q <= 0 || C <= 0 || W <= 0 || W % C)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec_ok = aligned16(gath) && aligned16(dout);
+  if (dtype == 1) {
+    if (vec_ok && C % 8 == 0)
+      return (int)launch_b<__nv_bfloat16, 8>(gath, dout, out, K, Q, C, W, s);
+    return (int)launch_b<__nv_bfloat16, 1>(gath, dout, out, K, Q, C, W, s);
+  }
+  if (dtype == 0) {
+    if (vec_ok && C % 4 == 0)
+      return (int)launch_b<float, 4>(gath, dout, out, K, Q, C, W, s);
+    return (int)launch_b<float, 1>(gath, dout, out, K, Q, C, W, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int gaot_mulred_k(const void* gath, const void* coef, void* out,
                              int K, int Q, int C, int W, long long cs_k,

@@ -90,7 +90,7 @@ class _MAGNOBase(nn.Module):
             if cat.dim() == 3:
                 gemb = gemb.unsqueeze(0).expand(cat.shape[0], *gemb.shape)
             cat = self.recovery(torch.cat([cat, gemb], dim=-1))
-        return unpermute_rows(cat, bg.inv_perm)
+        return unpermute_rows(cat, bg.inv_perm, bg.perm, bg.row_valid)
 
     def _combine_scales(self, per_scale: Sequence[torch.Tensor],
                         weight_coords: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Counterparts of ``gaot_tpu/ops/pallas``: each module holds one kernel's
-wrapper (CUDA tensors launch the kernel, CPU tensors take the plain
-version), the plain version, and a launch counter.
+Counterparts of ``gaot_tpu/ops/pallas``: each module holds its kernels'
+wrappers (CUDA tensors launch the kernel, CPU tensors take the plain
+version), the plain versions, and a launch counter per kernel
+(``launches``, a dict keyed by kernel name).
 """
 from . import flash_attention, fused_ffn, multiply_reduce
 
@@ -11,8 +12,9 @@ WRAPPERS = (multiply_reduce, flash_attention, fused_ffn)
 
 def reset_launches() -> None:
     for mod in WRAPPERS:
-        mod.launches = 0
+        for name in mod.launches:
+            mod.launches[name] = 0
 
 
 def launch_counts() -> dict:
-    return {mod.KERNEL_NAME: mod.launches for mod in WRAPPERS}
+    return {name: n for mod in WRAPPERS for name, n in mod.launches.items()}

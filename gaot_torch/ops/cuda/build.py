@@ -99,14 +99,3 @@ def check(rc: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
-
-
-def refuse_grad(*tensors) -> None:
-    """The kernels have no backward yet: refuse a launch whose result
-    would need a gradient, rather than silently cutting the graph."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the CUDA kernels are forward-only until the training slice "
-            "ports their backward; run the forward under torch.no_grad()")

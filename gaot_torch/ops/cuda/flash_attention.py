@@ -1,26 +1,39 @@
-"""Grouped-query attention forward: softmax(Q·Kᵀ/√D)·V.
+"""Grouped-query attention softmax(Q·Kᵀ/√D)·V, forward and backward.
 
 Replaces ``gaot_tpu/ops/pallas/flash_attention.py::_flash_forward``
-(kernel body ``_attn_kernel``) for the UViT processor: once per layer on
-the fx main path (B=64, H=Hkv=8, S=1024, D=32).
+(kernel bodies ``_attn_kernel`` and, with the LSE output, ``_attn_kernel_lse``)
+and ``_flash_backward`` at S ≤ 1024 (``_attn_bwd_kernel``, math
+``_bwd_core``) for the UViT processor: forward and backward once per layer
+on the fx main path (B=64, H=Hkv=8, S=1024, D=32).
 
-Bound on the H100: at D=32 the two products do 4·B·H·S²·D operations
-against 2·S·D bytes of K/V per query tile, so the tensor cores and the
-softmax's exp2 (one per score) bound it, not memory: the [S, S] scores never
-leave the chip.
+Bound on the H100: at D=32 the products do 4·B·H·S²·D operations forward and
+10·B·H·S²·D backward against 2·S·D bytes of K/V per query tile, so the
+tensor cores and the exp2 (one per score, each way) bound them, not memory:
+the [S, S] scores never leave the chip.
 
-Design (``gaot_torch/csrc/flash_attention.cu``): one block per
+Forward design (``gaot_torch/csrc/flash_attention.cu``): one block per
 (batch·q-head, 64-query tile), four warps of 16 query rows. The block
 indexes its kv-head as head // (H / Hkv), so GQA needs no copy of K/V. It
 streams K/V through shared memory in tiles of 64 keys with an online
 softmax: fp32 running max and denominator, exp2 with the logit scale folded
 with log2(e), P cast to V's dtype before the P·V product (as the TPU kernel
-does), and the output normalised once at the end. bf16 runs on the tensor
-cores (``mma.sync`` m16n8k16, fp32 accumulation); fp32 runs the same
-algorithm on the CUDA cores. The TPU kernel keeps all of K/V resident
-instead; in fp32 that is 256 KB per head at S=1024, above a block's
-227 KB of shared memory, and 3D grids reach S = 32k. Any S is taken (the
-ragged last tile is masked); D must be 32, the head dim it is built for.
+does), and the output normalised once at the end. For training it also
+writes the base-2 row LSE m + log2(l), as ``_attn_kernel_lse`` defines it.
+bf16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulation);
+fp32 runs the same algorithm on the CUDA cores. The TPU kernel keeps all of
+K/V resident instead; in fp32 that is 256 KB per head at S=1024, above a
+block's 227 KB of shared memory, and 3D grids reach S = 32k. Any S is taken
+(the ragged last tile is masked); D must be 32, the head dim it is built for.
+
+Backward design: the TPU kernel holds a head's whole [S, S] row block in
+VMEM; on the card the standard tiled flash backward, which the JAX package
+itself runs for long S (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), normalises
+each tile from the saved LSE: δ = rowsum(dO∘O) once in fp32, then a dQ
+kernel (one block per batch·q-head and 64-query tile, looping over the key
+tiles) and a dK/dV kernel (one block per batch·kv-head and 64-key tile,
+looping over the group's q-heads and every query tile, so the GQA group sum
+stays in fp32 registers). No float atomics; P and dS are rounded to V's and
+Q's dtype before their products, as ``_bwd_core`` does.
 """
 from __future__ import annotations
 
@@ -29,47 +42,86 @@ import math
 
 import torch
 
-KERNEL_NAME = "flash_attention_fwd"
-launches = 0
+# The forward with the LSE output (training) counts apart from the one
+# without (evaluation): they replace two TPU kernels.
+launches = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
+            "flash_attention_bwd": 0}
 
 HEAD_DIM = 32
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    with_lse: bool = False):
     """The plain PyTorch version, with the kernel's arithmetic: fp32
     logits, exp2 against the row max, unnormalised P cast to V's dtype,
     fp32 P·V, one division by the fp32 denominator at the end.
 
-    q: [B, S, H, D]; k, v: [B, S, Hkv, D]. Returns [B, S, H, D]."""
+    q: [B, S, H, D]; k, v: [B, S, Hkv, D]. Returns [B, S, H, D], and with
+    ``with_lse`` also the fp32 base-2 row LSE [B, H, S]."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
     qf = q.float().reshape(b, s, hkv, g, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * (scale * _LOG2E)
-    logits = logits - logits.amax(dim=-1, keepdim=True)
-    p = torch.exp2(logits)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp2(logits - m)
     den = p.sum(dim=-1)                                     # [B, Hkv, G, S]
     acc = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
-    out = acc / den.permute(0, 3, 1, 2)[..., None]
-    return out.reshape(b, s, h, d).to(v.dtype)
+    out = (acc / den.permute(0, 3, 1, 2)[..., None]).reshape(b, s, h, d).to(v.dtype)
+    if not with_lse:
+        return out
+    return out, (m[..., 0] + torch.log2(den)).reshape(b, h, s)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """GQA attention. q: [B, S, H, D]; k, v: [B, S, Hkv, D] (any strides
-    over B, S and heads, D contiguous). Returns a contiguous [B, S, H, D].
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor):
+    """The plain backward, with the arithmetic of the TPU kernel's
+    ``_bwd_core``: recomputed row softmax (unnormalised p̂ against the row
+    max), every per-row scale folded into the [*, D] operands
+    (dO/den and scale·dO/den cast to V's dtype, δ′ = scale·rowsum(dO∘O)/den),
+    dS = p̂∘(dP′ − δ′) cast to Q's dtype, per-q-head dK/dV partials stored
+    in Q's dtype and summed over the GQA group.
+
+    Shapes as :func:`attention_plain`; do like q. Returns (dq, dk, dv) in
+    q's, k's and v's dtypes."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    vt = v.dtype
+    heads = lambda x: x.float().reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
+    qh, do32, o32 = heads(q), heads(do.to(q.dtype)), heads(o)   # [B,Hkv,G,S,D]
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bhgqd,bkhd->bhgqk", qh, kf) * (scale * _LOG2E)
+    p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+    pb = p.to(vt).float()
+    inv = 1.0 / p.sum(dim=-1, keepdim=True)                     # [B,Hkv,G,S,1]
+    delta = (do32 * o32).sum(-1, keepdim=True) * (inv * scale)
+    do_n = (do32 * inv).to(vt).float()
+    dv_part = torch.einsum("bhgqk,bhgqd->bhgkd", pb, do_n)
+    do_s = (do32 * (inv * scale)).to(vt).float()
+    dp = torch.einsum("bhgqd,bkhd->bhgqk", do_s, vf)
+    dsb = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", dsb, kf).reshape(b, s, h, d)
+    dk_part = torch.einsum("bhgqk,bhgqd->bhgkd", dsb, qh)
+    fold = lambda x: x.to(q.dtype).float().sum(2).permute(0, 2, 1, 3)
+    return (dq.to(q.dtype), fold(dk_part).to(k.dtype).contiguous(),
+            fold(dv_part).to(vt).contiguous())
+
+
+def _check(q, k, v):
     b, s, h, d = q.shape
     hkv = k.shape[2]
     if k.shape != (b, s, hkv, d) or v.shape != k.shape or h % hkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
+
+
+def _check_kernel_inputs(q, k, v):
+    d = q.shape[-1]
     if d != HEAD_DIM:
         raise ValueError(f"flash_attention kernel is built for head dim "
                          f"{HEAD_DIM}, got {d}")
@@ -84,28 +136,118 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                 or any(t.stride(i) % vec for i in range(3))):
             raise ValueError("flash_attention takes a contiguous head dim, "
                              "16-byte aligned rows and strides")
-    from .build import check, load, refuse_grad
 
-    refuse_grad(q, k, v)
 
-    global launches
+def _strides(*ts):
+    return [st for t in ts for st in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _forward_kernel(q, k, v, with_lse: bool):
+    _check_kernel_inputs(q, k, v)
+    from .build import check, load
+
+    b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b * s * h == 0:
-        return out
+        return out, lse
     lib = load("flash_attention")
     fn = lib.gaot_flash_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale_log2 = (1.0 / math.sqrt(d)) * _LOG2E
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, h, hkv,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            scale_log2, _DTYPES[q.dtype], stream)
+            None if lse is None else lse.data_ptr(), b, s, h, k.shape[2],
+            *_strides(q, k, v), scale_log2, _DTYPES[q.dtype], stream)
     check(rc, "flash_attention")
-    launches += 1
-    return out
+    launches["flash_attention_fwd_lse" if with_lse else "flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor = None):
+    """(dq, dk, dv) of GQA attention, contiguous, in q's, k's and v's
+    dtypes. o is the forward's output and lse its base-2 row LSE
+    [B, H, S] (needed on the card only). CPU tensors take the plain
+    version; CUDA tensors launch the backward kernels."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, do)
+    _check_kernel_inputs(q, k, v)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    if lse is None or lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError("the backward kernel needs the forward's fp32 LSE [B, H, S]")
+    from .build import check, load
+
+    o = o.to(q.dtype).contiguous()
+    do = do.to(q.dtype).contiguous()
+    lse = lse.contiguous()
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if b * s * h == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = load("flash_attention")
+    fn = lib.gaot_flash_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = 1.0 / math.sqrt(d)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, *_strides(q, k, v),
+            scale * _LOG2E, scale, _DTYPES[q.dtype], stream)
+    check(rc, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention whose gradient is the backward kernel (the plain backward
+    on CPU tensors). Saves q, k, v, the output and the LSE (which only the
+    kernel reads)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, dout, lse)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """GQA attention. q: [B, S, H, D]; k, v: [B, S, Hkv, D] (any strides
+    over B, S and heads, D contiguous). Returns a contiguous [B, S, H, D].
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Where a gradient is needed the call is differentiable through
+    :func:`flash_attention_bwd`, and the forward also keeps the LSE."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    return _forward_kernel(q, k, v, with_lse=False)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(out, base-2 row LSE [B, H, S]) of the forward, as training keeps
+    them. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, with_lse=True)
+    return _forward_kernel(q, k, v, with_lse=True)

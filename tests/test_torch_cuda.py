@@ -1,7 +1,9 @@
 """gaot_torch's CUDA kernels against their plain versions on the card, at the
 shapes the main path does not reach: GQA, ragged sequence and row counts,
 channel counts without 16-byte vectors, coef staged in several k-chunks,
-fp32 attention, and the small fx forward against the CPU plain route.
+fp32 attention, K = 1 and an all-masked row of a transpose graph; the
+gradients of every kernel; and the small fx forward and training step
+against the CPU plain route.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. On the machine with the card
 (which has no JAX, so without the JAX-loading conftest):
@@ -32,6 +34,17 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
+def _close_scaled(got, want, rel, dtype):
+    """Every entry within ``rel`` of the tensor's largest magnitude, plus the
+    dtype's atol: for gradients, whose small entries are sums that cancel
+    (at S = 1 dQ is zero up to rounding)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    bound = rel * float(want.abs().max()) + TOL[dtype][1]
+    assert float((got - want).abs().max()) <= bound
+
+
 def _rnd(gen, *shape):
     return torch.randn(*shape, generator=gen, device="cuda")
 
@@ -47,11 +60,29 @@ def test_multiply_reduce_k(dtype, k, q, c, b):
     gen = torch.Generator(device="cuda").manual_seed(k + q)
     coef = _rnd(gen, q, k, c).to(dtype).transpose(0, 1)
     gath = _rnd(gen, k, q, b * c).to(dtype)
-    n0 = mr.launches
+    n0 = mr.launches["multiply_reduce_k"]
     got = mr.multiply_reduce_k(coef, gath, b)
     torch.cuda.synchronize()
-    assert mr.launches == n0 + 1
+    assert mr.launches["multiply_reduce_k"] == n0 + 1
     _close(got, mr.multiply_reduce_k_plain(coef, gath, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,q,c,b", [(3, 37, 12, 5),      # no 16-byte vectors
+                                     (1, 16, 64, 64),     # K = 1
+                                     (6, 50, 2048, 3),    # wide channels
+                                     (5, 96, 64, 64)])    # the main path's C, b
+def test_multiply_reduce_b(dtype, k, q, c, b):
+    from gaot_torch.ops.cuda import multiply_reduce as mr
+
+    gen = torch.Generator(device="cuda").manual_seed(k * q)
+    gath = _rnd(gen, k, q, b * c).to(dtype)
+    dout = _rnd(gen, q, b * c).to(dtype)
+    n0 = mr.launches["multiply_reduce_b"]
+    got = mr.multiply_reduce_b(gath, dout, b)
+    torch.cuda.synchronize()
+    assert mr.launches["multiply_reduce_b"] == n0 + 1
+    _close(got, mr.multiply_reduce_b_plain(gath, dout, b), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -69,6 +100,37 @@ def test_flash_attention(dtype, b, s, h, hkv):
     _close(got, fa.attention_plain(q, k, v), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,hkv", [(2, 100, 8, 2), (1, 1, 4, 4),
+                                       (3, 257, 6, 3), (1, 128, 4, 1)])
+def test_flash_attention_backward(dtype, b, s, h, hkv):
+    """The LSE output and dQ, dK, dV (through autograd) against the plain
+    versions. GQA and ragged S. bf16: the kernel normalises p from the LSE
+    where the plain version follows the TPU kernel's folded scales, so bf16
+    rounds at other places: 3% of each gradient's largest entry."""
+    from gaot_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7 * s + h)
+    qkv = _rnd(gen, b, s, h + 2 * hkv, 32).to(dtype)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    out, lse = fa.flash_attention_lse(q, k, v)
+    want_out, want_lse = fa.attention_plain(q, k, v, with_lse=True)
+    _close(out, want_out, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+    dout = _rnd(gen, b, s, h, 32).to(dtype)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = dict(fa.launches)
+    fa.flash_attention(*leaves).backward(dout)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention_fwd_lse"] == n0["flash_attention_fwd_lse"] + 1
+    assert fa.launches["flash_attention_bwd"] == n0["flash_attention_bwd"] + 1
+    want = fa.attention_bwd_plain(q, k, v, want_out, dout)
+    rel = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    for leaf, w in zip(leaves, want):
+        _close_scaled(leaf.grad, w, rel, dtype)
+
+
 @pytest.mark.parametrize("r,m,f", [(200, 256, 96), (64, 256, 1024), (1, 256, 32)])
 def test_fused_ffn(r, m, f):
     from gaot_torch.ops.cuda import fused_ffn as ff
@@ -83,9 +145,89 @@ def test_fused_ffn(r, m, f):
     _close(got, ff.fused_ffn_plain(x, w1, w3, w2), torch.bfloat16)
 
 
+@pytest.mark.parametrize("r,f", [(200, 96), (1, 32), (4096, 1024), (70, 64)])
+def test_fused_ffn_backward(r, f):
+    """dx and dW1, dW3, dW2 (through autograd) against the plain backward,
+    ragged R included. Both round dh1 and dh3 to bf16 from fp32 sums taken
+    in other orders: 2% of each gradient's largest entry."""
+    from gaot_torch.ops.cuda import fused_ffn as ff
+
+    m = 256
+    gen = torch.Generator(device="cuda").manual_seed(3 * r + f)
+    x = _rnd(gen, r, m).bfloat16()
+    ws = [(_rnd(gen, f, m) / m ** 0.5).bfloat16(),
+          (_rnd(gen, f, m) / m ** 0.5).bfloat16(),
+          (_rnd(gen, m, f) / f ** 0.5).bfloat16()]
+    dout = _rnd(gen, r, m).bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in [x] + ws]
+    n0 = ff.launches["fused_ffn_bwd"]
+    ff.fused_ffn(*leaves).backward(dout)
+    torch.cuda.synchronize()
+    assert ff.launches["fused_ffn_bwd"] == n0 + 1
+    want = ff.fused_ffn_bwd_plain(x, *ws, dout)
+    for leaf, w in zip(leaves, want):
+        _close_scaled(leaf.grad, w.to(leaf.dtype), 2e-2, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_apply_grads_card_vs_cpu(dtype):
+    """The dense transpose-graph route with K = 1 and a source node no edge
+    reaches (an all-masked transpose row, whose d_f must be 0), the
+    bucketed route with a grouped transpose graph, and unpermute_rows: d_f
+    and d_coef on the card against the CPU plain route."""
+    from gaot_torch.ops import gather_apply as ga
+    from gaot_torch.ops.padding import (PaddedGraph, TransposeGraph,
+                                        bucketize_graph, degree_group_tgraph,
+                                        graph_to_device, transpose_graph)
+
+    rng = np.random.default_rng(0)
+    n, q, b, c = 40, 300, 3, 16
+    idx = rng.integers(1, n, size=(q, 1)).astype(np.int32)   # node 0 unreached
+    dense = PaddedGraph(idx, np.ones((q, 1), bool))
+    tg = transpose_graph(dense, n)
+    assert not tg.mask[0].any()
+    deg = rng.integers(1, 20, size=q)
+    big = rng.integers(0, n, size=(q, 24)).astype(np.int32)
+    msk = np.arange(24)[None] < deg[:, None]
+    bg = bucketize_graph(PaddedGraph(np.where(msk, big, 0), msk), n,
+                         tile=8, launch_penalty_rows=0, min_k=1, min_gain=0.0)
+    assert bg is not None and len(bg.buckets) > 1
+    t = bg.tgraph
+    bg = bg._replace(tgraph=degree_group_tgraph(
+        TransposeGraph(t.edge_pos[None], t.query[None], t.mask[None])))
+    f = rng.normal(size=(n, b, c)).astype(np.float32)
+    coef = rng.normal(size=(q, 1, c)).astype(np.float32)
+    coefs = [rng.normal(size=(*g.indices.shape, c)).astype(np.float32)
+             for g in bg.buckets]
+    rows = sum(g.indices.shape[0] for g in bg.buckets)
+    dout = rng.normal(size=(q, b, c)).astype(np.float32)
+    dcat = rng.normal(size=(rows, b, c)).astype(np.float32)
+    xcat = rng.normal(size=(b, rows, c)).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaf = lambda a: torch.from_numpy(a).to(dev, dtype).requires_grad_(True)
+        dg, dt, dbg = (graph_to_device(x, dev) for x in (dense, tg, bg))
+        fl, fb, cl, xl = leaf(f), leaf(f), leaf(coef), leaf(xcat)
+        cls = [leaf(a) for a in coefs]
+        out = ga.gather_multiply_reduce_nbc(cl, fl, dg.indices, dt.edge_pos,
+                                            dt.query, dt.mask)
+        out.backward(torch.from_numpy(dout).to(dev, dtype))
+        cat = ga.bucketed_gather_multiply_reduce(
+            cls, fb, [g.indices for g in dbg.buckets], dbg.tgraph)
+        cat.backward(torch.from_numpy(dcat).to(dev, dtype))
+        un = ga.unpermute_rows(xl, dbg.inv_perm, dbg.perm, dbg.row_valid)
+        un.square().sum().backward()
+        grads[dev] = [g.grad.float().cpu() for g in [fl, fb, cl, xl] + cls]
+    assert not grads["cuda"][0][0].any()        # the node no edge reaches
+    rtol, atol = TOL[dtype]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol * 10)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     from gaot_torch.ops.cuda import flash_attention as fa
     from gaot_torch.ops.cuda import fused_ffn as ff
+    from gaot_torch.ops.cuda import multiply_reduce as mr
 
     q = torch.zeros(1, 8, 2, 16, device="cuda")
     with pytest.raises(ValueError):
@@ -97,9 +239,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     x, w = x[:, :128].bfloat16().contiguous(), w[:, :128].bfloat16().contiguous()
     with pytest.raises(ValueError):
         ff.fused_ffn(x, w, w, w.t().contiguous())       # M = 128
-    q = torch.zeros(1, 8, 2, 32, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, q, q)                     # no backward yet
+    q = torch.zeros(1, 8, 2, 32, device="cuda")
+    with pytest.raises(ValueError, match="LSE"):
+        fa.flash_attention_bwd(q, q, q, q, q)           # no forward LSE
+    g = torch.zeros(2, 4, 8, device="cuda")
+    with pytest.raises(TypeError):
+        mr.multiply_reduce_b(g, g[0].bfloat16(), 2)     # mixed dtypes
 
 
 def test_auto_routes_raise_on_widths_the_kernels_do_not_take():
@@ -118,16 +263,9 @@ def test_auto_routes_raise_on_widths_the_kernels_do_not_take():
         ffn(_rnd(gen, 2, 16, 128).bfloat16())           # M = 128
 
 
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
-def test_small_forward_card_vs_cpu(dtype):
-    """A small fx GAOT (hidden 256, GQA with head dim 32, SwiGLU width 1024): every kernel launches
-    and the card agrees with the CPU plain route (fp32: rtol 1e-3; bf16:
-    relative L2 2e-2, bf16 rounds at other places on the CPU)."""
+def _small_setup():
     from gaot_torch.core.config import ModelConfig, merge_config
-    from gaot_torch.data.graph_builder import GraphBuilder, prepare_fx_device_graphs
-    from gaot_torch.models import GAOT
-    from gaot_torch.ops import cuda as kernels
-    from gaot_torch.train.static_trainer import FxGraphs, eval_step
+    from gaot_torch.data.graph_builder import GraphBuilder
 
     cfg = merge_config(ModelConfig, {
         "latent_tokens_size": [32, 32],
@@ -142,7 +280,22 @@ def test_small_forward_card_vs_cpu(dtype):
     lat = np.stack(np.meshgrid(ax, ax, indexing="ij"), -1).reshape(-1, 2)
     lat = lat.astype(np.float32)
     pndata = rng.normal(size=(2, 2000, 1)).astype(np.float32)
+    target = rng.normal(size=(2, 2000, 1)).astype(np.float32)
     enc, dec = GraphBuilder().build_fx_graphs(coords, lat, 0.067, [1.0])
+    return cfg, coords, lat, pndata, target, enc, dec
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_small_forward_card_vs_cpu(dtype):
+    """A small fx GAOT (hidden 256, GQA with head dim 32, SwiGLU width 1024): every kernel launches
+    and the card agrees with the CPU plain route (fp32: rtol 1e-3; bf16:
+    relative L2 2e-2, bf16 rounds at other places on the CPU)."""
+    from gaot_torch.data.graph_builder import prepare_fx_device_graphs
+    from gaot_torch.models import GAOT
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train.static_trainer import FxGraphs, eval_step
+
+    cfg, coords, lat, pndata, _, enc, dec = _small_setup()
     preds = {}
     kernels.reset_launches()
     for dev in ("cuda", "cpu"):
@@ -164,3 +317,49 @@ def test_small_forward_card_vs_cpu(dtype):
                                    atol=1e-3 * float(want.abs().max()))
     else:
         assert float((got - want).norm() / want.norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_small_train_step_card_vs_cpu(dtype):
+    """Two AdamW steps of the small fx GAOT: every backward kernel launches
+    in each, and the card's losses and updated weights agree with the CPU
+    plain route (fp32: 1e-3 relative; bf16: relative L2 5e-2 over all
+    weights, bf16 rounds at other places on the CPU)."""
+    from gaot_torch.core.config import OptimizerConfig, merge_config
+    from gaot_torch.data.graph_builder import prepare_fx_device_graphs
+    from gaot_torch.models import GAOT
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train.schedules import make_optimizer
+    from gaot_torch.train.static_trainer import FxGraphs, train_step
+
+    cfg, coords, lat, pndata, target, enc, dec = _small_setup()
+    ocfg = merge_config(OptimizerConfig, {"args": {"epoch": 10}})
+    losses, weights = {}, {}
+    for dev in ("cuda", "cpu"):
+        g = prepare_fx_device_graphs(enc, dec, 2000, lat.shape[0],
+                                     cfg.args.magno, device=dev)
+        model = GAOT(1, 1, cfg, dtype=dtype, device=dev,
+                     generator=torch.Generator().manual_seed(3))
+        opt, sched = make_optimizer(ocfg, model.parameters(), steps_per_epoch=1)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        kernels.reset_launches()
+        losses[dev] = [float(train_step(
+            model, opt, sched, step, FxGraphs(t(lat), *g), t(coords), t(pndata),
+            t(target), torch.ones(2, dtype=torch.bool, device=dev)))
+            for step in range(2)]
+        counts = kernels.launch_counts()
+        if dev == "cuda":
+            assert counts["multiply_reduce_b"] >= 4 and counts["flash_attention_bwd"] == 6
+            assert counts["fused_ffn_bwd"] == (6 if dtype == torch.bfloat16 else 0)
+        else:
+            assert not any(counts.values())
+        weights[dev] = torch.cat([p.detach().float().cpu().reshape(-1)
+                                  for p in model.parameters()])
+    assert all(np.isfinite(losses["cuda"]))
+    got, want = weights["cuda"], weights["cpu"]
+    if dtype is None:
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    else:
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=5e-2)
+        assert float((got - want).norm() / want.norm()) <= 5e-2

@@ -202,3 +202,31 @@ def test_segment_ops_match(name):
     want = np.asarray(getattr(jops, name)(jnp.asarray(x), jnp.asarray(mask)))
     got = getattr(tops, name)(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_flax_gradient_pytree_relabels_to_torch_names(setup):
+    """``flax_to_torch_state_dict`` applied to a JAX gradient pytree gives
+    the port's gradients by name: a torch weight is the transpose of a flax
+    kernel (linear), a norm weight is itself, so their gradients relabel the
+    same way. Shown on the UViT processor (linear and norm entries); the
+    whole-model test (test_torch_train.py) covers the conv1d entries."""
+    from gaot_torch.utils.torch_interop import flax_to_torch_state_dict
+
+    s = setup
+    rng = np.random.default_rng(8)
+    tokens = rng.normal(size=(tp.BATCH, 256, 32)).astype(np.float32)
+    loss = lambda p: jnp.sum(s["jmodel"].apply(
+        p, jnp.asarray(tokens), method=lambda m, t: m.processor(t)) ** 2)
+    want = flax_to_torch_state_dict(jax.tree.map(np.asarray, jax.grad(loss)(s["params"])))
+    model = tp.torch_model()
+    (model.processor(torch.from_numpy(tokens)) ** 2).sum().backward()
+    names = [n for n, _ in model.named_parameters() if n.startswith("processor.")]
+    assert names and set(names) <= set(want)
+    assert any("norm" in n for n in names)
+    for name, p in model.named_parameters():
+        w = want[name]
+        if not name.startswith("processor."):
+            assert p.grad is None and not np.abs(w).any(), name
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=RTOL,
+                                   atol=ATOL * float(np.abs(w).max()), err_msg=name)
