@@ -1,5 +1,8 @@
-// Grouped-query attention for Hopper (sm_90a), head dim 32, forward and
-// backward:  out = softmax(Q K^T / sqrt(D)) V,  kv-head = head / (H / Hkv).
+// Grouped-query attention for Hopper (sm_90a), forward and backward:
+//   out = softmax(Q K^T / sqrt(D)) V,  kv-head = head / (H / Hkv).
+// Every kernel is a template on the head dim D, instantiated for D = 24 and
+// D = 32 (the 3D and 2D UViT configurations); the entry points dispatch on D
+// and refuse any other.
 // Forward:
 // One block per (batch * q-head, 64-query tile). K/V stream through shared
 // memory in tiles of 64 keys with an online softmax (fp32 running max and
@@ -8,7 +11,11 @@
 // With an LSE pointer it also writes the base-2 log-sum-exp m + log2(l) of
 // every row, which training keeps for the backward (further below).
 // bf16: four warps of 16 query rows on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulation). fp32: one thread per query row on the CUDA cores.
+// fp32 accumulation). Products that contract over D take ceil(D / 16)
+// k-steps; the fragment columns at or past D are zero registers (at D = 24
+// the second k-step's upper half), and zero columns change neither QK^T nor
+// dO V^T. Products whose N dimension is D take D / 8 n-tiles. fp32: one
+// thread per query row on the CUDA cores, looping over D.
 // Plain C interface; each entry returns cudaGetLastError() after its launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -17,11 +24,20 @@
 
 namespace {
 
-constexpr int D = 32;        // head dim the kernels are built for
 constexpr int BQ = 64;       // queries per block
 constexpr int BK = 64;       // keys per streamed tile
-constexpr int KPAD = D + 8;  // K tile row stride (bf16): conflict-free fragments
-constexpr int VPAD = BK + 8; // transposed V tile row stride (bf16)
+constexpr int VPAD = BK + 8; // transposed tile row stride (bf16)
+
+template <int D>
+struct Dims {
+  static constexpr int KSTEPS = (D + 15) / 16;  // k-steps of 16 over D
+  static constexpr int NT = D / 8;              // n-tiles of 8 over D
+  // Row stride (bf16) of a tile whose fragments are read along D: an odd
+  // number of 16-byte chunks puts the 8 rows of a fragment load on distinct
+  // banks (D = 24: 24, D = 32: 40).
+  static constexpr int KPAD = (D / 8) % 2 ? D : D + 8;
+  static_assert(D % 8 == 0 && D <= 64, "head dim must be a multiple of 8, at most 64");
+};
 
 using bf16 = __nv_bfloat16;
 
@@ -47,12 +63,37 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// A fragment (16 rows x 16 of D) of k-step st, rows r0 and r0 + 8 at p0 and
+// p1 (read only where ok0 / ok1); columns at or past D are zero.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* p0,
+                                       const bf16* p1, bool ok0, bool ok1,
+                                       int st, int t) {
+  const int c = st * 16 + 2 * t;
+  const bool lo = st * 16 < D, hi = st * 16 + 8 < D;
+  a[0] = ok0 && lo ? ld32(p0 + c) : 0u;
+  a[1] = ok1 && lo ? ld32(p1 + c) : 0u;
+  a[2] = ok0 && hi ? ld32(p0 + c + 8) : 0u;
+  a[3] = ok1 && hi ? ld32(p1 + c + 8) : 0u;
+}
+
+// c += A . B for k-step st of a product contracting over D; kr points at
+// column st * 16 + 2t of the B row in shared memory.
+template <int D>
+__device__ __forceinline__ void mma_over_d(float c[4], const uint32_t a[4],
+                                           const bf16* kr, int st) {
+  const uint32_t b1 = st * 16 + 8 < D ? ld32(kr + 8) : 0u;
+  mma_bf16_16816(c, a, ld32(kr), b1);
+}
+
+template <int D>
 __global__ void __launch_bounds__(128)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ out,
                float* __restrict__ lse, int S, int H, int Hkv, Strides qs,
                Strides ks, Strides vs, float scale_log2) {
-  __shared__ __align__(16) bf16 Ks[BK][KPAD];
+  using Dm = Dims<D>;
+  __shared__ __align__(16) bf16 Ks[BK][Dm::KPAD];
   __shared__ __align__(16) bf16 Vt[D][VPAD];
 
   const int bh = blockIdx.x;
@@ -67,20 +108,16 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
 
-  // Q fragments of this warp's 16 rows: two k-steps of 16 over D = 32.
-  uint32_t qa[2][4];
+  // Q fragments of this warp's 16 rows.
+  uint32_t qa[Dm::KSTEPS][4];
 #pragma unroll
-  for (int st = 0; st < 2; ++st) {
-    const int c = st * 16 + 2 * t;
-    qa[st][0] = r0 < S ? ld32(qb + r0 * qs.s + c) : 0u;
-    qa[st][1] = r1 < S ? ld32(qb + r1 * qs.s + c) : 0u;
-    qa[st][2] = r0 < S ? ld32(qb + r0 * qs.s + c + 8) : 0u;
-    qa[st][3] = r1 < S ? ld32(qb + r1 * qs.s + c + 8) : 0u;
-  }
+  for (int st = 0; st < Dm::KSTEPS; ++st)
+    load_a<D>(qa[st], qb + (long long)r0 * qs.s, qb + (long long)r1 * qs.s,
+              r0 < S, r1 < S, st, t);
 
-  float o[4][4];
+  float o[Dm::NT][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < Dm::NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
@@ -108,10 +145,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {
-        const bf16* kr = &Ks[8 * j + g][st * 16 + 2 * t];
-        mma_bf16_16816(s[j], qa[st], ld32(kr), ld32(kr + 8));
-      }
+      for (int st = 0; st < Dm::KSTEPS; ++st)
+        mma_over_d<D>(s[j], qa[st], &Ks[8 * j + g][st * 16 + 2 * t], st);
     }
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
@@ -151,7 +186,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < Dm::NT; ++n) {
       o[n][0] *= a0;
       o[n][1] *= a0;
       o[n][2] *= a1;
@@ -167,7 +202,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pa[2] = pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]);
       pa[3] = pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3]);
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < Dm::NT; ++n) {
         const bf16* vr = &Vt[8 * n + g][st * 16 + 2 * t];
         mma_bf16_16816(o[n], pa, ld32(vr), ld32(vr + 8));
       }
@@ -175,7 +210,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < Dm::NT; ++n) {
     const int c = 8 * n + 2 * t;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(out + (((long long)b * S + r0) * H + h) * D + c) =
@@ -190,6 +225,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(BQ)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
@@ -281,7 +317,7 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // delta[b, h, s] = sum_d dout[b, s, h, d] * o[b, s, h, d]; rows in [B, S, H]
 // order, dout and o contiguous.
-template <typename T>
+template <typename T, int D>
 __global__ void flash_bwd_delta(const T* __restrict__ dout,
                                 const T* __restrict__ o,
                                 float* __restrict__ delta, int S, int H,
@@ -300,14 +336,16 @@ __global__ void flash_bwd_delta(const T* __restrict__ dout,
   delta[(b * H + h) * S + s] = acc;
 }
 
+template <int D>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   bf16* __restrict__ dq, int S, int H, int Hkv, Strides qs,
                   Strides ks, Strides vs, float scale_log2, float scale) {
-  __shared__ __align__(16) bf16 Ks[BK][KPAD];
-  __shared__ __align__(16) bf16 Vs[BK][KPAD];
+  using Dm = Dims<D>;
+  __shared__ __align__(16) bf16 Ks[BK][Dm::KPAD];
+  __shared__ __align__(16) bf16 Vs[BK][Dm::KPAD];
   __shared__ __align__(16) bf16 Kt[D][VPAD];
 
   const int bh = blockIdx.x;
@@ -325,27 +363,21 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* db = dout + ((long long)b * S * H + h) * D;
 
   // Q and dO fragments of this warp's 16 rows (A operands of S and dP).
-  uint32_t qa[2][4], da[2][4];
+  uint32_t qa[Dm::KSTEPS][4], da[Dm::KSTEPS][4];
 #pragma unroll
-  for (int st = 0; st < 2; ++st) {
-    const int c = st * 16 + 2 * t;
-    qa[st][0] = r0 < S ? ld32(qb + r0 * qs.s + c) : 0u;
-    qa[st][1] = r1 < S ? ld32(qb + r1 * qs.s + c) : 0u;
-    qa[st][2] = r0 < S ? ld32(qb + r0 * qs.s + c + 8) : 0u;
-    qa[st][3] = r1 < S ? ld32(qb + r1 * qs.s + c + 8) : 0u;
-    da[st][0] = r0 < S ? ld32(db + r0 * drs + c) : 0u;
-    da[st][1] = r1 < S ? ld32(db + r1 * drs + c) : 0u;
-    da[st][2] = r0 < S ? ld32(db + r0 * drs + c + 8) : 0u;
-    da[st][3] = r1 < S ? ld32(db + r1 * drs + c + 8) : 0u;
+  for (int st = 0; st < Dm::KSTEPS; ++st) {
+    load_a<D>(qa[st], qb + (long long)r0 * qs.s, qb + (long long)r1 * qs.s,
+              r0 < S, r1 < S, st, t);
+    load_a<D>(da[st], db + r0 * drs, db + r1 * drs, r0 < S, r1 < S, st, t);
   }
   const float* lrow = lse + (long long)bh * S;
   const float* drow = delta + (long long)bh * S;
   const float lse0 = r0 < S ? lrow[r0] : 0.f, lse1 = r1 < S ? lrow[r1] : 0.f;
   const float dl0 = r0 < S ? drow[r0] : 0.f, dl1 = r1 < S ? drow[r1] : 0.f;
 
-  float acc[4][4];
+  float acc[Dm::NT][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < Dm::NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -373,11 +405,9 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {
-        const bf16* kr = &Ks[8 * j + g][st * 16 + 2 * t];
-        mma_bf16_16816(s[j], qa[st], ld32(kr), ld32(kr + 8));
-        const bf16* vr = &Vs[8 * j + g][st * 16 + 2 * t];
-        mma_bf16_16816(dp[j], da[st], ld32(vr), ld32(vr + 8));
+      for (int st = 0; st < Dm::KSTEPS; ++st) {
+        mma_over_d<D>(s[j], qa[st], &Ks[8 * j + g][st * 16 + 2 * t], st);
+        mma_over_d<D>(dp[j], da[st], &Vs[8 * j + g][st * 16 + 2 * t], st);
       }
     }
     // dS = p (dP - delta), in place of S.
@@ -400,7 +430,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pa[2] = pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]);
       pa[3] = pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3]);
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < Dm::NT; ++n) {
         const bf16* kr = &Kt[8 * n + g][st * 16 + 2 * t];
         mma_bf16_16816(acc[n], pa, ld32(kr), ld32(kr + 8));
       }
@@ -408,7 +438,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < Dm::NT; ++n) {
     const int c = 8 * n + 2 * t;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * S + r0) * H + h) * D + c) =
@@ -419,6 +449,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -426,10 +457,11 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
                    int Hkv, Strides qs, Strides ks, Strides vs,
                    float scale_log2, float scale) {
-  __shared__ __align__(16) bf16 Qs[BQ][KPAD];    // [query][d]
-  __shared__ __align__(16) bf16 Ds[BQ][KPAD];    // dO [query][d]
-  __shared__ __align__(16) bf16 Qt[D][VPAD];     // [d][query]
-  __shared__ __align__(16) bf16 Dt[D][VPAD];     // dO [d][query]
+  using Dm = Dims<D>;
+  __shared__ __align__(16) bf16 Qs[BQ][Dm::KPAD];   // [query][d]
+  __shared__ __align__(16) bf16 Ds[BQ][Dm::KPAD];   // dO [query][d]
+  __shared__ __align__(16) bf16 Qt[D][VPAD];        // [d][query]
+  __shared__ __align__(16) bf16 Dt[D][VPAD];        // dO [d][query]
   __shared__ float Ls[BQ], Dl[BQ];
 
   const int bkv = blockIdx.x;
@@ -444,22 +476,17 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
   // K and V fragments of this warp's 16 keys (A operands of S^T and dP^T).
-  uint32_t ka[2][4], va[2][4];
+  uint32_t ka[Dm::KSTEPS][4], va[Dm::KSTEPS][4];
 #pragma unroll
-  for (int st = 0; st < 2; ++st) {
-    const int c = st * 16 + 2 * t;
-    ka[st][0] = r0 < S ? ld32(kb + r0 * ks.s + c) : 0u;
-    ka[st][1] = r1 < S ? ld32(kb + r1 * ks.s + c) : 0u;
-    ka[st][2] = r0 < S ? ld32(kb + r0 * ks.s + c + 8) : 0u;
-    ka[st][3] = r1 < S ? ld32(kb + r1 * ks.s + c + 8) : 0u;
-    va[st][0] = r0 < S ? ld32(vb + r0 * vs.s + c) : 0u;
-    va[st][1] = r1 < S ? ld32(vb + r1 * vs.s + c) : 0u;
-    va[st][2] = r0 < S ? ld32(vb + r0 * vs.s + c + 8) : 0u;
-    va[st][3] = r1 < S ? ld32(vb + r1 * vs.s + c + 8) : 0u;
+  for (int st = 0; st < Dm::KSTEPS; ++st) {
+    load_a<D>(ka[st], kb + (long long)r0 * ks.s, kb + (long long)r1 * ks.s,
+              r0 < S, r1 < S, st, t);
+    load_a<D>(va[st], vb + (long long)r0 * vs.s, vb + (long long)r1 * vs.s,
+              r0 < S, r1 < S, st, t);
   }
-  float dka[4][4], dva[4][4];
+  float dka[Dm::NT][4], dva[Dm::NT][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < Dm::NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
@@ -502,11 +529,9 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-        for (int st = 0; st < 2; ++st) {
-          const bf16* qr = &Qs[8 * j + g][st * 16 + 2 * t];
-          mma_bf16_16816(s[j], ka[st], ld32(qr), ld32(qr + 8));
-          const bf16* dr = &Ds[8 * j + g][st * 16 + 2 * t];
-          mma_bf16_16816(dp[j], va[st], ld32(dr), ld32(dr + 8));
+        for (int st = 0; st < Dm::KSTEPS; ++st) {
+          mma_over_d<D>(s[j], ka[st], &Qs[8 * j + g][st * 16 + 2 * t], st);
+          mma_over_d<D>(dp[j], va[st], &Ds[8 * j + g][st * 16 + 2 * t], st);
         }
       }
 #pragma unroll
@@ -532,7 +557,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         sa[2] = pack_bf16(dp[2 * st + 1][0], dp[2 * st + 1][1]);
         sa[3] = pack_bf16(dp[2 * st + 1][2], dp[2 * st + 1][3]);
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < Dm::NT; ++n) {
           const bf16* dr = &Dt[8 * n + g][st * 16 + 2 * t];
           mma_bf16_16816(dva[n], pa, ld32(dr), ld32(dr + 8));
           const bf16* qr = &Qt[8 * n + g][st * 16 + 2 * t];
@@ -543,7 +568,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < Dm::NT; ++n) {
     const int c = 8 * n + 2 * t;
     if (r0 < S) {
       const long long o = (((long long)b * S + r0) * Hkv + hk) * D + c;
@@ -564,6 +589,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // fp32 backward on the CUDA cores: one thread per query row (dQ) or per key
 // row (dK/dV), the other side streamed through shared memory in 64-row tiles.
+template <int D>
 __global__ void __launch_bounds__(BQ)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
@@ -626,6 +652,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(BK)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
@@ -702,35 +729,95 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int S, int H, int Hkv, Strides qs,
+               Strides ks, Strides vs, float scale_log2, int dtype,
+               cudaStream_t st) {
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  if (dtype == 1) {
+    flash_fwd_bf16<D><<<grid, 128, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, Hkv,
+        qs, ks, vs, scale_log2);
+  } else {
+    flash_fwd_f32<D><<<grid, BQ, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, Hkv,
+        qs, ks, vs, scale_log2);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* l, float* dl, void* dq, void* dk,
+               void* dv, int B, int S, int H, int Hkv, Strides qs, Strides ks,
+               Strides vs, float scale_log2, float scale, int dtype,
+               cudaStream_t st) {
+  const long long rows = (long long)B * S * H;
+  const int dblocks = (int)((rows + 255) / 256);
+  const dim3 gq(B * H, (S + BQ - 1) / BQ), gk(B * Hkv, (S + BK - 1) / BK);
+  if (dtype == 1) {
+    flash_bwd_delta<bf16, D><<<dblocks, 256, 0, st>>>(
+        static_cast<const bf16*>(dout), static_cast<const bf16*>(o), dl, S, H, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_bf16<D><<<gq, 128, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+        static_cast<bf16*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkv_bf16<D><<<gk, 128, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv, qs, ks, vs,
+        scale_log2, scale);
+  } else {
+    flash_bwd_delta<float, D><<<dblocks, 256, 0, st>>>(
+        static_cast<const float*>(dout), static_cast<const float*>(o), dl, S, H, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_f32<D><<<gq, BQ, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
+        static_cast<float*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkv_f32<D><<<gk, BK, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
+        static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, qs, ks, vs,
+        scale_log2, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// q, k, v: [B, S, H or Hkv, D] with the given element strides (D
+// contiguous); out contiguous [B, S, H, D]; lse (optional) fp32 [B, H, S].
 extern "C" int gaot_flash_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int B, int S, int H,
-                              int Hkv, long long qsb, long long qss,
+                              int Hkv, int D, long long qsb, long long qss,
                               long long qsh, long long ksb, long long kss,
                               long long ksh, long long vsb, long long vss,
                               long long vsh, float scale_log2, int dtype,
                               void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv)
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
   float* l = static_cast<float*>(lse);
-  if (dtype == 1) {
-    flash_fwd_bf16<<<grid, 128, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), l, S, H, Hkv,
-        qs, ks, vs, scale_log2);
-  } else if (dtype == 0) {
-    flash_fwd_f32<<<grid, BQ, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), l, S, H, Hkv,
-        qs, ks, vs, scale_log2);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 24:
+      return launch_fwd<24>(q, k, v, out, l, B, S, H, Hkv, qs, ks, vs, scale_log2, dtype, st);
+    case 32:
+      return launch_fwd<32>(q, k, v, out, l, B, S, H, Hkv, qs, ks, vs, scale_log2, dtype, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // dq, dk, dv contiguous ([B, S, H, D], [B, S, Hkv, D]); o and dout contiguous
@@ -738,7 +825,7 @@ extern "C" int gaot_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int gaot_flash_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const void* lse,
                               void* delta, void* dq, void* dk, void* dv, int B,
-                              int S, int H, int Hkv, long long qsb,
+                              int S, int H, int Hkv, int D, long long qsb,
                               long long qss, long long qsh, long long ksb,
                               long long kss, long long ksh, long long vsb,
                               long long vss, long long vsh, float scale_log2,
@@ -747,43 +834,16 @@ extern "C" int gaot_flash_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  const long long rows = (long long)B * S * H;
-  const int dblocks = (int)((rows + 255) / 256);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const dim3 gq(B * H, (S + BQ - 1) / BQ), gk(B * Hkv, (S + BK - 1) / BK);
-  if (dtype == 1) {
-    flash_bwd_delta<bf16><<<dblocks, 256, 0, st>>>(
-        static_cast<const bf16*>(dout), static_cast<const bf16*>(o), dl, S, H, rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16<<<gq, 128, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_bf16<<<gk, 128, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv, qs, ks, vs,
-        scale_log2, scale);
-  } else {
-    flash_bwd_delta<float><<<dblocks, 256, 0, st>>>(
-        static_cast<const float*>(dout), static_cast<const float*>(o), dl, S, H, rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32<<<gq, BQ, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_f32<<<gk, BK, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, qs, ks, vs,
-        scale_log2, scale);
+  switch (D) {
+    case 24:
+      return launch_bwd<24>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, Hkv,
+                            qs, ks, vs, scale_log2, scale, dtype, st);
+    case 32:
+      return launch_bwd<32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, Hkv,
+                            qs, ks, vs, scale_log2, scale, dtype, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

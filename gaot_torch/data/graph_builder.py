@@ -1,15 +1,16 @@
 """Graph construction for the fx data pipeline.
 
 fx mode: one encoder graph (physical→latent) and one decoder graph
-(latent→physical) per scale, shared by every batch. The host builds padded
-NumPy graphs; :func:`prepare_fx_device_graphs` makes the same degree-bucketing
-decision as the JAX package and puts the graphs on a torch device.
+(latent→physical) per scale, shared by every batch, from a radius or a
+k-nearest-neighbor search. The host builds padded NumPy graphs;
+:func:`prepare_fx_device_graphs` makes the same degree-bucketing decision as
+the JAX package and puts the graphs on a torch device.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-from ..ops.neighbor_search import radius_search, resolve_method
+from ..ops.neighbor_search import knn_search, radius_search, resolve_method
 from ..ops.padding import (
     PaddedGraph,
     TransposeGraph,
@@ -22,28 +23,41 @@ from ..ops.padding import (
 
 
 class GraphBuilder:
-    """Builds padded radius graphs on the host."""
+    """Builds padded radius or kNN graphs on the host."""
 
     def __init__(self, method: str = "auto", pad_multiple: int = 8,
-                 neighbor_cap: Optional[int] = None, strategy: str = "radius"):
-        if strategy != "radius":
-            raise NotImplementedError(
-                f"neighbor strategy {strategy!r}: only 'radius' is ported")
+                 neighbor_cap: Optional[int] = None, strategy: str = "radius",
+                 knn_k: int = 16):
+        if strategy not in ("radius", "knn"):
+            raise ValueError(f"Unknown neighbor strategy: {strategy}")
         self.method = method
         self.pad_multiple = pad_multiple
         self.neighbor_cap = neighbor_cap
+        self.strategy = strategy
+        self.knn_k = knn_k
 
     @classmethod
     def from_magno_config(cls, magno) -> "GraphBuilder":
+        """Builder configured from a MAGNOConfig; the kNN k is
+        ``max_neighbors``, or 16 where that is unset."""
         return cls(method=magno.neighbor_search_method,
                    pad_multiple=magno.neighbor_pad_multiple,
                    neighbor_cap=magno.neighbor_cap,
-                   strategy=magno.neighbor_strategy)
+                   strategy=magno.neighbor_strategy,
+                   knn_k=magno.max_neighbors or 16)
 
     @property
     def search_method(self) -> str:
         """The search method the builder runs on this host."""
         return resolve_method(self.method)
+
+    def _search(self, data, queries, radius: float, scale: float = 1.0):
+        """Radius or kNN search per the strategy; for 'knn' the scale
+        multiplies k instead of the radius."""
+        if self.strategy == "knn":
+            k = max(1, int(round(self.knn_k * scale)))
+            return knn_search(data, queries, k, method=self.method)
+        return radius_search(data, queries, radius * scale, method=self.method)
 
     def _pad(self, csr) -> PaddedGraph:
         return pad_csr(*csr, pad_multiple=self.pad_multiple, cap=self.neighbor_cap)
@@ -53,10 +67,8 @@ class GraphBuilder:
         """One (encoder, decoder) padded graph pair per scale."""
         encoder, decoder = [], []
         for s in scales:
-            encoder.append(self._pad(radius_search(
-                x_coord, latent_queries, radius * s, method=self.method)))
-            decoder.append(self._pad(radius_search(
-                latent_queries, x_coord, radius * s, method=self.method)))
+            encoder.append(self._pad(self._search(x_coord, latent_queries, radius, s)))
+            decoder.append(self._pad(self._search(latent_queries, x_coord, radius, s)))
         return encoder, decoder
 
 

@@ -102,21 +102,28 @@ class FFN(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.fused = fused
+        self.ffn_hidden_size = ffn_hidden_size
         mk = lambda i, o: Dense(i, o, bias=False, compute_dtype=dtype, device=device)
         self.w1 = mk(input_size, ffn_hidden_size)
         self.w3 = mk(input_size, ffn_hidden_size)
         self.w2 = mk(ffn_hidden_size, input_size)
 
     def _use_fused(self, x: torch.Tensor) -> bool:
-        """The fused SwiGLU kernel's wrapper serves bf16 compute under "auto"
-        and every call under "on"; on a CUDA tensor it launches the kernel
-        or raises on a width it was not built for. fp32 under "auto", and
-        "off", take the plain three-product path, as the JAX package leaves
-        them to XLA."""
-        if self.fused == "on":
-            return True
-        return (self.fused == "auto" and self.dtype == torch.bfloat16
-                and x.dtype == torch.bfloat16)
+        """The JAX package's routing: the fused SwiGLU kernel's wrapper
+        serves bf16 compute under "auto" and every dtype under "on", but
+        only at the shapes the JAX gate accepts
+        (:func:`~gaot_torch.ops.cuda.fused_ffn.supported`); on a CUDA
+        tensor the wrapper launches the kernel or raises on a width it was
+        not built for. Everything else, and "off", takes the plain
+        three-product path, as the JAX package leaves it to XLA."""
+        if self.fused == "off":
+            return False
+        if self.fused != "on" and not (self.dtype == torch.bfloat16
+                                       and x.dtype == torch.bfloat16):
+            return False
+        m = x.shape[-1]
+        return ffn_kernel.supported(x.numel() // max(m, 1), m,
+                                    self.ffn_hidden_size, x.dtype) > 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._use_fused(x):

@@ -2,9 +2,13 @@
 
 Replaces ``gaot_tpu/ops/pallas/flash_attention.py::_flash_forward``
 (kernel bodies ``_attn_kernel`` and, with the LSE output, ``_attn_kernel_lse``)
-and ``_flash_backward`` at S ≤ 1024 (``_attn_bwd_kernel``, math
-``_bwd_core``) for the UViT processor: forward and backward once per layer
-on the fx main path (B=64, H=Hkv=8, S=1024, D=32).
+and all three regimes of the TPU backward: ``_flash_backward`` at S ≤ 1024
+(``_attn_bwd_kernel``) and at 1024 < S ≤ 4096 (``_attn_bwd_tiled_kernel``),
+both with the math of ``_bwd_core``, and ``_flash_backward_long`` for
+S > 4096 (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). Forward and backward run
+once per UViT layer: on the fx main path at (B=64, H=Hkv=8, S=1024, D=32),
+on the 3D flagship at (B=4, H=Hkv=8, S=4096, D=24), and at patch 2 at
+S=32768.
 
 Bound on the H100: at D=32 the products do 4·B·H·S²·D operations forward and
 10·B·H·S²·D backward against 2·S·D bytes of K/V per query tile, so the
@@ -23,7 +27,9 @@ bf16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulation);
 fp32 runs the same algorithm on the CUDA cores. The TPU kernel keeps all of
 K/V resident instead; in fp32 that is 256 KB per head at S=1024, above a
 block's 227 KB of shared memory, and 3D grids reach S = 32k. Any S is taken
-(the ragged last tile is masked); D must be 32, the head dim it is built for.
+(the ragged last tile is masked); D must be 24 or 32, the head dims it is
+built for. At D = 24 the bf16 products that contract over D take a k-step
+of 16 and one whose upper 8 columns are zero registers.
 
 Backward design: the TPU kernel holds a head's whole [S, S] row block in
 VMEM; on the card the standard tiled flash backward, which the JAX package
@@ -33,7 +39,11 @@ kernel (one block per batch·q-head and 64-query tile, looping over the key
 tiles) and a dK/dV kernel (one block per batch·kv-head and 64-key tile,
 looping over the group's q-heads and every query tile, so the GQA group sum
 stays in fp32 registers). No float atomics; P and dS are rounded to V's and
-Q's dtype before their products, as ``_bwd_core`` does.
+Q's dtype before their products, as ``_bwd_core`` does. Its arithmetic is
+``_flash_backward_long``'s (p from the LSE, the scale applied at the end of
+dQ and dK); the plain backward keeps ``_bwd_core``'s. In bf16 the two stay
+within half of the CPU tests' bound (rtol 8e-3, atol 1e-2) at S = 384, so
+one plain backward serves every regime.
 """
 from __future__ import annotations
 
@@ -47,7 +57,7 @@ import torch
 launches = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
             "flash_attention_bwd": 0}
 
-HEAD_DIM = 32
+HEAD_DIMS = (24, 32)        # the head dims the kernels are instantiated for
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -122,9 +132,9 @@ def _check(q, k, v):
 
 def _check_kernel_inputs(q, k, v):
     d = q.shape[-1]
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_attention kernel is built for head dim "
-                         f"{HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel is built for head dim in "
+                         f"{HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or fp32 with equal "
                         f"dtypes, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -155,13 +165,13 @@ def _forward_kernel(q, k, v, with_lse: bool):
     lib = load("flash_attention")
     fn = lib.gaot_flash_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale_log2 = (1.0 / math.sqrt(d)) * _LOG2E
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, s, h, k.shape[2],
+            None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], d,
             *_strides(q, k, v), scale_log2, _DTYPES[q.dtype], stream)
     check(rc, "flash_attention")
     launches["flash_attention_fwd_lse" if with_lse else "flash_attention_fwd"] += 1
@@ -197,14 +207,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = load("flash_attention")
     fn = lib.gaot_flash_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_float,
                                   ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(d)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, *_strides(q, k, v),
+            dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, d, *_strides(q, k, v),
             scale * _LOG2E, scale, _DTYPES[q.dtype], stream)
     check(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1

@@ -53,6 +53,25 @@ M_BUILT = (256,)
 F_CHUNK = 32
 
 
+def supported(r: int, m: int, f: int, dtype) -> int:
+    """The port's copy of the JAX package's gate
+    ``gaot_tpu/ops/pallas/fused_ffn.py::supported``: the TPU kernel's row
+    tile for R rows of width M and FFN width F, or 0 where the JAX package
+    leaves the SwiGLU to XLA's three products (not bf16 or fp32, M or F not
+    a multiple of 128, or weights and fp32 dW accumulators above 64 MiB).
+    The FFN routes by this rule, so a width it accepts that the kernel was
+    not built for (M not in ``M_BUILT``) still reaches the wrapper and
+    raises on the card."""
+    if dtype not in (torch.bfloat16, torch.float32) or m % 128 or f % 128:
+        return 0
+    per_row = f * 4 * 4 + m * 8          # fp32 h1, h3, dz (+ slack) per row
+    budget = 6 << 20
+    if (m * f * 3) * (2 + 4) > 64 << 20:
+        return 0
+    t = max(budget // per_row, 128) // 128 * 128
+    return min(t, 2048)
+
+
 def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                     w2: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version, with the kernel's numerics (the JAX

@@ -1,4 +1,5 @@
-"""ctypes loader for the native host radius search (cpp/neighbor_search.cc).
+"""ctypes loader for the native host radius and kNN searches
+(cpp/neighbor_search.cc).
 
 The shared C++ source is compiled with g++ on first use into this package's
 own build directory (``gaot_torch/_build/native``, rebuilt when the source
@@ -39,6 +40,11 @@ class NativeLib:
             f32p, ctypes.c_int64, f32p, ctypes.c_int64,
             ctypes.c_int, ctypes.c_float, i64p, i64p,
         ]
+        self._lib.gaot_knn.restype = ctypes.c_int
+        self._lib.gaot_knn.argtypes = [
+            f32p, ctypes.c_int64, f32p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, i64p,
+        ]
 
     def radius_search(self, data: np.ndarray, queries: np.ndarray,
                       radius: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -66,6 +72,24 @@ class NativeLib:
         if rc != 0:
             raise RuntimeError(f"gaot_radius_fill failed with code {rc}")
         return index, row_splits
+
+    def knn_search(self, data: np.ndarray, queries: np.ndarray,
+                   k: int) -> np.ndarray:
+        """[q, k] indices of the k nearest data points of each query, each
+        row sorted by (distance, index). data/queries: contiguous float32
+        [n, d] with d in (2, 3); requires 1 <= k <= n."""
+        if data.dtype != np.float32 or queries.dtype != np.float32:
+            raise TypeError("knn_search needs float32 points")
+        n, dim = data.shape
+        q = queries.shape[0]
+        out = np.empty((q, int(k)), dtype=np.int64)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        rc = self._lib.gaot_knn(
+            data.ctypes.data_as(f32p), n, queries.ctypes.data_as(f32p), q,
+            dim, int(k), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        if rc != 0:
+            raise RuntimeError(f"gaot_knn failed with code {rc}")
+        return out
 
 
 def _build() -> bool:

@@ -1,9 +1,10 @@
 """gaot_torch's CUDA kernels against their plain versions on the card, at the
 shapes the main path does not reach: GQA, ragged sequence and row counts,
 channel counts without 16-byte vectors, coef staged in several k-chunks,
-fp32 attention, K = 1 and an all-masked row of a transpose graph; the
-gradients of every kernel; and the small fx forward and training step
-against the CPU plain route.
+fp32 attention, head dim 24 at ragged and at the 3D sequence lengths, K = 1
+and an all-masked row of a transpose graph; the gradients of every kernel;
+the SwiGLU width the JAX gate sends to the plain route; and the small fx
+forward and training step against the CPU plain route.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. On the machine with the card
 (which has no JAX, so without the JAX-loading conftest):
@@ -85,40 +86,50 @@ def test_multiply_reduce_b(dtype, k, q, c, b):
     _close(got, mr.multiply_reduce_b_plain(gath, dout, b), dtype)
 
 
+# GQA and ragged S at both built head dims; head dim 24 (the 3D flagship's)
+# also at S = 4096 (the regime of the TPU's q-tiled backward) and 8192 (its
+# two-kernel long backward). At D = 24 the bf16 products over D take a
+# k-step of 16 and one whose upper half is zero.
+_FLASH_SHAPES = [(b, s, h, hkv, d) for d in (24, 32)
+                 for b, s, h, hkv in ((2, 100, 8, 2), (1, 1, 4, 4), (3, 257, 6, 3))]
+_FLASH_3D = [(2, 4096, 8, 8, 24), (1, 8192, 4, 2, 24)]
+
+
+def _qkv(gen, dtype, b, s, h, hkv, d):
+    """Strided views of one packed projection, as the attention block makes."""
+    qkv = _rnd(gen, b, s, h + 2 * hkv, d).to(dtype)
+    return qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,hkv", [(2, 100, 8, 2), (1, 1, 4, 4),
-                                       (3, 257, 6, 3)])
-def test_flash_attention(dtype, b, s, h, hkv):
+@pytest.mark.parametrize("b,s,h,hkv,d", _FLASH_SHAPES + _FLASH_3D)
+def test_flash_attention(dtype, b, s, h, hkv, d):
     from gaot_torch.ops.cuda import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(s + h)
-    # Strided views of one packed projection, as the attention block makes.
-    qkv = _rnd(gen, b, s, h + 2 * hkv, 32).to(dtype)
-    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    gen = torch.Generator(device="cuda").manual_seed(s + h + d)
+    q, k, v = _qkv(gen, dtype, b, s, h, hkv, d)
     got = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     _close(got, fa.attention_plain(q, k, v), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,hkv", [(2, 100, 8, 2), (1, 1, 4, 4),
-                                       (3, 257, 6, 3), (1, 128, 4, 1)])
-def test_flash_attention_backward(dtype, b, s, h, hkv):
+@pytest.mark.parametrize("b,s,h,hkv,d", _FLASH_SHAPES + [(1, 128, 4, 1, 32)] + _FLASH_3D)
+def test_flash_attention_backward(dtype, b, s, h, hkv, d):
     """The LSE output and dQ, dK, dV (through autograd) against the plain
     versions. GQA and ragged S. bf16: the kernel normalises p from the LSE
     where the plain version follows the TPU kernel's folded scales, so bf16
     rounds at other places: 3% of each gradient's largest entry."""
     from gaot_torch.ops.cuda import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(7 * s + h)
-    qkv = _rnd(gen, b, s, h + 2 * hkv, 32).to(dtype)
-    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    gen = torch.Generator(device="cuda").manual_seed(7 * s + h + d)
+    q, k, v = _qkv(gen, dtype, b, s, h, hkv, d)
     out, lse = fa.flash_attention_lse(q, k, v)
     want_out, want_lse = fa.attention_plain(q, k, v, with_lse=True)
     _close(out, want_out, dtype)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
 
-    dout = _rnd(gen, b, s, h, 32).to(dtype)
+    dout = _rnd(gen, b, s, h, d).to(dtype)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     n0 = dict(fa.launches)
     fa.flash_attention(*leaves).backward(dout)
@@ -129,6 +140,27 @@ def test_flash_attention_backward(dtype, b, s, h, hkv):
     rel = 3e-2 if dtype == torch.bfloat16 else 1e-4
     for leaf, w in zip(leaves, want):
         _close_scaled(leaf.grad, w, rel, dtype)
+
+
+def test_ffn_width_192_runs_plain_on_the_card():
+    """The flagship's SwiGLU width M = 192 fails the JAX package's gate, so
+    a bf16 CUDA tensor takes the plain three products: no kernel launch, no
+    error, the plain route recorded."""
+    from gaot_torch.models.transformer import FFN
+    from gaot_torch.ops.cuda import fused_ffn as ff
+    from gaot_torch.utils.routing import format_routes, reset_routes
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ffn = FFN(192, 768, dtype=torch.bfloat16, fused="auto", device="cuda")
+    x = _rnd(gen, 2, 64, 192).bfloat16().requires_grad_(True)
+    n0 = dict(ff.launches)
+    reset_routes()
+    out = ffn(x)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert ff.launches == n0
+    assert "ffn=plain" in format_routes()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(x.grad.float()).all()
 
 
 @pytest.mark.parametrize("r,m,f", [(200, 256, 96), (64, 256, 1024), (1, 256, 32)])

@@ -5,28 +5,8 @@ transpose graphs — on a point cloud whose encoder graph buckets and whose
 decoder graph stays dense, as on the main path."""
 import numpy as np
 import pytest
-import torch
 
 import torch_parity as tp
-
-
-def _assert_same(jg, tg, path="graph"):
-    """Walk two graph containers (NamedTuples / tuples / arrays) in step."""
-    if jg is None or tg is None:
-        assert jg is None and tg is None, path
-        return
-    if isinstance(tg, torch.Tensor):
-        ja = np.asarray(jg)
-        assert tg.device.type == "cpu", path
-        assert tuple(tg.shape) == ja.shape, path
-        assert (tg.dtype == torch.bool) == (ja.dtype == np.bool_), path
-        np.testing.assert_array_equal(tg.numpy(), ja, err_msg=path)
-        return
-    assert type(tg).__name__ == type(jg).__name__, path
-    assert len(tg) == len(jg), path
-    fields = getattr(tg, "_fields", range(len(tg)))
-    for i, name in enumerate(fields):
-        _assert_same(jg[i], tg[i], f"{path}.{name}")
 
 
 @pytest.mark.parametrize("method", ["auto", "kdtree"])
@@ -52,7 +32,7 @@ def test_fx_graphs_identical(method):
     tout = prepare_fx_device_graphs(tenc, tdec, tp.NUM_NODES, lat.shape[0],
                                     tcfg.args.magno, device="cpu")
     for name, j, t in zip(("enc", "dec", "enc_t", "dec_t"), jout, tout):
-        _assert_same(j, t, name)
+        tp.assert_same_graphs(j, t, name)
 
     enc, dec, enc_t, dec_t = tout
     # The main path's layout: bucketed encoder with an in-degree-grouped
@@ -79,4 +59,4 @@ def test_dense_layout_when_bucketing_off():
     tout = prepare_fx_device_graphs(enc, dec, tp.NUM_NODES, lat.shape[0],
                                     tcfg.args.magno, device="cpu")
     for name, j, t in zip(("enc", "dec", "enc_t", "dec_t"), jout, tout):
-        _assert_same(j, t, name)
+        tp.assert_same_graphs(j, t, name)

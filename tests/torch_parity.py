@@ -101,3 +101,23 @@ def rel_l2(a, b) -> float:
 
 def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
+
+
+def assert_same_graphs(jg, tg, path="graph"):
+    """Walk a JAX and a port graph container (NamedTuples / tuples / arrays)
+    in step: same types, shapes, dtypes (bool or not) and values."""
+    if jg is None or tg is None:
+        assert jg is None and tg is None, path
+        return
+    if isinstance(tg, torch.Tensor):
+        ja = np.asarray(jg)
+        assert tg.device.type == "cpu", path
+        assert tuple(tg.shape) == ja.shape, path
+        assert (tg.dtype == torch.bool) == (ja.dtype == np.bool_), path
+        np.testing.assert_array_equal(tg.numpy(), ja, err_msg=path)
+        return
+    assert type(tg).__name__ == type(jg).__name__, path
+    assert len(tg) == len(jg), path
+    fields = getattr(tg, "_fields", range(len(tg)))
+    for i, name in enumerate(fields):
+        assert_same_graphs(jg[i], tg[i], f"{path}.{name}")
