@@ -16,7 +16,13 @@ failure):
   0. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit; TF32 off for fp32 products.
   1. build: compiles every hand-written kernel (gaot_torch/csrc/*.cu) with
-     one nvcc per source, all at once.
+     one nvcc per source, all at once; logs, from nvcc's -Xptxas -v, the
+     registers, shared memory and spills of the bf16 flash forward and
+     multiply_reduce_b and of every kernel that spills.
+  1b. widths: the flash forward (with and without the LSE) and backward at
+     every head dim from 8 to 128, and the SwiGLU forward and backward at
+     M = 128, 384 and 512, each against its plain version on the card at a
+     small shape (bf16, and fp32 for attention).
   2. per-kernel checks at each path's shapes, forward and backward kernels:
      each kernel against its plain PyTorch version on the card (bf16 and
      fp32), with CUDA-event timings of the kernel, the plain version and one
@@ -48,6 +54,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -130,11 +137,11 @@ SOURCES = {   # kernel: (source, the TPU kernel's pallas_call it replaces)
                             "gaot_tpu/ops/pallas/flash_attention.py:495"),
     "flash_attention_fwd_lse": ("gaot_torch/csrc/flash_attention.cu",
                                 "gaot_tpu/ops/pallas/flash_attention.py:484"),
-    "flash_attention_bwd": ("gaot_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": ("gaot_torch/csrc/flash_attention_bwd.cu",
                             "gaot_tpu/ops/pallas/flash_attention.py:416"),
-    "flash_attention_bwd_tiled": ("gaot_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_tiled": ("gaot_torch/csrc/flash_attention_bwd.cu",
                                   "gaot_tpu/ops/pallas/flash_attention.py:439"),
-    "flash_attention_bwd_long": ("gaot_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_long": ("gaot_torch/csrc/flash_attention_bwd.cu",
                                  "gaot_tpu/ops/pallas/flash_attention.py:180,199"),
     "fused_ffn_fwd": ("gaot_torch/csrc/fused_ffn.cu",
                       "gaot_tpu/ops/pallas/fused_ffn.py:136"),
@@ -171,22 +178,23 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
+    """CUDA-event time of one call: ``iters`` calls issued back to back
+    after warm-up, over their count. Timing one call between two events
+    would add the host's time to issue it to the kernel's, most of the time
+    of a reduce of a few MB (kernel_ab.py times both ways)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float, exps: float = 0.0):
@@ -241,6 +249,11 @@ def phase_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+# The kernels whose ptxas report the build logs, beside that of every kernel
+# that spills: the bf16 flash forward and multiply_reduce_b.
+PTXAS_LOGGED = ("flash_fwd_bf16", "mulred_b_kernel")
+
+
 def phase_build():
     from gaot_torch.ops.cuda import build
 
@@ -248,10 +261,69 @@ def phase_build():
     secs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f}s wall "
         + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
-    for name, out in build.ptxas_info.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    # nvcc -Xptxas -v, per entry function (mangled name): its spills, its
+    # registers and static shared memory (the bf16 flash kernels and the
+    # SwiGLU kernels take theirs dynamically).
+    for lib, out in build.ptxas_info.items():
+        for entry in out.split("Compiling entry function ")[1:]:
+            name = entry.split("'")[1]
+            if not (any(k in name for k in PTXAS_LOGGED)
+                    or re.search(r"[1-9]\d* bytes spill", entry)):
+                continue
+            facts = [ln.split(":", 1)[-1].strip() for ln in entry.splitlines()[1:]
+                     if "spill" in ln or "registers" in ln]
+            log(f"  ptxas {lib}: {name}: " + "; ".join(facts))
+
+
+def phase_widths(rnd):
+    """The widths the kernels take beyond the paths' own: the flash forward
+    (with and without the LSE) and backward at every head dim, and the
+    SwiGLU forward and backward at M = 128, 384, 512, against their plain
+    versions, at the tolerances of the per-kernel checks."""
+    import torch
+
+    from gaot_torch.ops.cuda import flash_attention as fa
+    from gaot_torch.ops.cuda import fused_ffn as ff
+
+    b, s, h, hkv = 2, 257, 6, 3          # ragged S, GQA 6:3
+    log(f"widths: flash attention at head dims {fa.HEAD_DIMS[0]}..{fa.HEAD_DIMS[-1]}, "
+        f"B={b} S={s} H={h} Hkv={hkv}:")
+    for d in fa.HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            name = f"D={d} {str(dtype)[6:]}"
+            tol = (1e-2, 2e-3) if bf16 else (1e-4, 1e-5)
+            qkv = rnd(b, s, h + 2 * hkv, d).to(dtype)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+            compare(f"widths flash fwd {name}", fa.flash_attention(q, k, v),
+                    fa.attention_plain(q, k, v), *tol)
+            out, lse = fa.flash_attention_lse(q, k, v)
+            want_out, want_lse = fa.attention_plain(q, k, v, with_lse=True)
+            compare(f"widths flash fwd+LSE {name} out", out, want_out, *tol)
+            compare(f"widths flash fwd+LSE {name} lse", lse, want_lse, 1e-5, 1e-4)
+            dout = rnd(b, s, h, d).to(dtype)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+            want = fa.attention_bwd_plain(q, k, v, out, dout)
+            for n, g, wt in zip("qkv", got, want):
+                compare_grad(f"widths flash bwd {name} d{n}", g, wt, 3e-2 if bf16 else 1e-4)
+    r, f = 200, 256
+    log(f"widths: fused SwiGLU at M in {[m for m in ff.M_BUILT if m != 256]}, "
+        f"R={r} F={f} (bf16):")
+    for m in ff.M_BUILT:
+        if m == 256:
+            continue                      # the fx path's width, checked below
+        x = rnd(r, m).bfloat16()
+        w1 = (rnd(f, m) / m ** 0.5).bfloat16()
+        w3 = (rnd(f, m) / m ** 0.5).bfloat16()
+        w2 = (rnd(m, f) / f ** 0.5).bfloat16()
+        compare(f"widths fused_ffn fwd M={m}", ff.fused_ffn(x, w1, w3, w2),
+                ff.fused_ffn_plain(x, w1, w3, w2), 1e-2, 1e-2)
+        dout = rnd(r, m).bfloat16()
+        got = ff.fused_ffn_bwd(x, w1, w3, w2, dout)
+        want = ff.fused_ffn_bwd_plain(x, w1, w3, w2, dout)
+        for n, g, wt in zip(("dx", "dw1", "dw3", "dw2"), got, want):
+            compare_grad(f"widths fused_ffn bwd M={m} {n}", g, wt, 2e-2)
+    torch.cuda.synchronize()
 
 
 def _lattice(shape):
@@ -927,6 +999,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    phase_widths(rnd)
     tcfg3 = cfg3.model.args.transformer
     h3 = tcfg3.attn_config.num_heads
     d3 = tcfg3.hidden_size // h3

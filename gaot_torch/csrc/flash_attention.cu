@@ -1,227 +1,413 @@
-// Grouped-query attention for Hopper (sm_90a), forward and backward:
-//   out = softmax(Q K^T / sqrt(D)) V,  kv-head = head / (H / Hkv).
-// Every kernel is a template on the head dim D, instantiated for D = 24 and
-// D = 32 (the 3D and 2D UViT configurations); the entry points dispatch on D
-// and refuse any other.
-// Forward:
-// One block per (batch * q-head, 64-query tile). K/V stream through shared
-// memory in tiles of 64 keys with an online softmax (fp32 running max and
-// denominator, exp2 with the scale folded with log2 e). P is cast to V's
-// dtype before the P.V product and the output is normalised once at the end.
-// With an LSE pointer it also writes the base-2 log-sum-exp m + log2(l) of
-// every row, which training keeps for the backward (further below).
-// bf16: four warps of 16 query rows on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulation). Products that contract over D take ceil(D / 16)
-// k-steps; the fragment columns at or past D are zero registers (at D = 24
-// the second k-step's upper half), and zero columns change neither QK^T nor
-// dO V^T. Products whose N dimension is D take D / 8 n-tiles. fp32: one
-// thread per query row on the CUDA cores, looping over D.
-// Plain C interface; each entry returns cudaGetLastError() after its launches.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+// Grouped-query attention forward for Hopper (sm_90a):
+//   out = softmax(Q K^T / sqrt(D)) V,  kv-head = head / (H / Hkv),
+// with an optional base-2 row log-sum-exp m + log2(l) [B, H, S] for the
+// backward (flash_attention_bwd.cu). Replaces the TPU kernels _attn_kernel
+// and _attn_kernel_lse of gaot_tpu/ops/pallas/flash_attention.py
+// (_flash_forward). Every kernel is a template on the head dim D, built for
+// every multiple of 8 from 8 to 128.
+//
+// bf16 (flash_fwd_bf16). What bounds it: one exp2 per score on the
+// special-function units (16 per clock per SM), then the two products on
+// the tensor cores; the [S, S] scores never leave the chip. The design:
+// - One block per (batch * q-head, 128 queries): two warpgroups of 64 query
+//   rows each; up to D = 64 two blocks share an SM. The blocks of one head
+//   are neighbours in the grid, so its K and V are read from device memory
+//   once. The Q rows stay in registers as wgmma A fragments.
+// - K and V stream through a ring of three shared-memory stages of 64 keys,
+//   filled by 16-byte cp.async: the copy of tile j + 1 is issued right after
+//   the barrier that opens tile j, so it overlaps that tile's work. Keys
+//   past S are zero-filled.
+// - The tiles are kept in the wgmma core-matrix layout without swizzle (8
+//   rows x 16 bytes contiguous, filled chunk by chunk), so K serves as the
+//   K-major B operand of S = Q K^T and V, in its natural [key, D] layout, as
+//   the MN-major (transposed) B operand of P V: no element-wise transpose.
+//   At D % 16 == 8 the K rows are padded to the next k-step of 16 with a
+//   zeroed 16-byte chunk (the Q fragment columns there are zero too).
+// - Products on the tensor cores through wgmma with A in registers:
+//   S is m64 x n64 x k16 over ceil(D / 16) k-steps; the S accumulator is, per
+//   8 keys, the A fragment layout of P V, whose N = D is issued as wgmma
+//   pieces of N = 128, 64, 32, 16, 8 (D = 24: 16 + 8).
+// - Softmax off the products' path: S_j is issued together with the
+//   previous tile's P_{j-1} V_{j-1}, and the softmax of S_j runs while that
+//   product is still on the tensor cores; O is rescaled once it has landed.
+//   fp32 running max (shuffled over the row's four threads) and a per-thread
+//   partial denominator, reduced once at the end; one FFMA and one
+//   ex2.approx.ftz per score (exp2(s c - m c) with c = scale log2 e); only
+//   the ragged last tile is masked. P is rounded to bf16 before P V and the
+//   output is divided by the fp32 denominator once at the end.
+// fp32 (flash_fwd_f32): one thread per query row on the CUDA cores, looping
+// over D; tiles of 64 keys (32 above D = 64), an online softmax over chunks
+// of 8 keys.
+// Plain C interface; each entry returns cudaGetLastError() after its launch.
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // queries per block
-constexpr int BK = 64;       // keys per streamed tile
-constexpr int VPAD = BK + 8; // transposed tile row stride (bf16)
+using namespace flash;
 
-template <int D>
-struct Dims {
-  static constexpr int KSTEPS = (D + 15) / 16;  // k-steps of 16 over D
-  static constexpr int NT = D / 8;              // n-tiles of 8 over D
-  // Row stride (bf16) of a tile whose fragments are read along D: an odd
-  // number of 16-byte chunks puts the 8 rows of a fragment load on distinct
-  // banks (D = 24: 24, D = 32: 40).
-  static constexpr int KPAD = (D / 8) % 2 ? D : D + 8;
-  static_assert(D % 8 == 0 && D <= 64, "head dim must be a multiple of 8, at most 64");
+// ---- wgmma with A from registers: d[64 x N] (+)= a[64 x 16] . B[16 x N],
+// B in shared memory by descriptor; TB = 1 reads B MN-major (transposed).
+template <int N, int TB>
+struct Wgmma;
+
+template <int TB>
+struct Wgmma<8, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+          "n"(TB));
+  }
 };
 
-using bf16 = __nv_bfloat16;
-
-struct Strides {
-  long long b, s, h;
+template <int TB>
+struct Wgmma<16, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+          "n"(TB));
+  }
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int TB>
+struct Wgmma<32, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct Wgmma<64, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct Wgmma<128, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+// Shared-memory matrix descriptor, no swizzle: start address, leading byte
+// offset (between core matrices along K) and stride byte offset (between
+// core matrices along M or N), each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups of this warpgroup still run.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from reading an accumulator before wg_wait, and from
+// reusing the registers of an A operand still in flight.
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async one.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// A fragment (16 rows x 16 of D) of k-step st, rows r0 and r0 + 8 at p0 and
-// p1 (read only where ok0 / ok1); columns at or past D are zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int D>
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* p0,
-                                       const bf16* p1, bool ok0, bool ok1,
-                                       int st, int t) {
-  const int c = st * 16 + 2 * t;
-  const bool lo = st * 16 < D, hi = st * 16 + 8 < D;
-  a[0] = ok0 && lo ? ld32(p0 + c) : 0u;
-  a[1] = ok1 && lo ? ld32(p1 + c) : 0u;
-  a[2] = ok0 && hi ? ld32(p0 + c + 8) : 0u;
-  a[3] = ok1 && hi ? ld32(p1 + c + 8) : 0u;
+struct FwdTile {
+  static constexpr int BQW = 128;                 // queries per block
+  static constexpr int THREADS = 2 * BQW;         // two warpgroups of 64 rows
+  static constexpr int MINB = D <= 64 ? 2 : 1;    // blocks an SM must hold
+  static constexpr int BKW = 64;                  // keys per tile
+  static constexpr int NSTAGE = 3;                // K/V stages in the ring
+  static constexpr int KSTEPS = (D + 15) / 16;    // k-steps of S over D
+  static constexpr int DK8 = 2 * KSTEPS;          // 16-byte chunks of a K row
+  static constexpr int D8 = D / 8;                // 16-byte chunks of a V row
+  static constexpr int KGRP = DK8 * 128;          // bytes between 8-key groups of K
+  static constexpr int VGRP = D8 * 128;           // the same of V
+  static constexpr int KBYTES = BKW * DK8 * 16, STAGE = KBYTES + BKW * D8 * 16;
+  static constexpr int SMEM = NSTAGE * STAGE;
+  static_assert(D % 8 == 0 && D >= 8 && D <= MAX_D, "head dim must be a multiple of 8 from 8 to 128");
+  static_assert(SMEM <= 232448, "flash forward stages exceed shared memory");
+};
+
+// P V for one k-step of 16 keys: the pieces of N = 128, 64, 32, 16, 8 that
+// make up D, from column C0 on; o holds the D / 8 n-tiles of 4 values.
+template <int D, int C0 = 0>
+__device__ __forceinline__ void pv_pieces(float* o, const uint32_t a[4], uint32_t vaddr) {
+  if constexpr (C0 < D) {
+    constexpr int R = D - C0;
+    constexpr int N = R >= 128 ? 128 : R >= 64 ? 64 : R >= 32 ? 32 : R >= 16 ? 16 : 8;
+    Wgmma<N, 1>::run(o + C0 / 2, a,
+                     smem_desc(vaddr + C0 / 8 * 128, FwdTile<D>::VGRP, 128), 1);
+    pv_pieces<D, C0 + N>(o, a, vaddr);
+  }
 }
 
-// c += A . B for k-step st of a product contracting over D; kr points at
-// column st * 16 + 2t of the B row in shared memory.
+// Issues the cp.async copies of the K and V tile of keys kt .. kt + BKW - 1
+// into one stage (not committed).
 template <int D>
-__device__ __forceinline__ void mma_over_d(float c[4], const uint32_t a[4],
-                                           const bf16* kr, int st) {
-  const uint32_t b1 = st * 16 + 8 < D ? ld32(kr + 8) : 0u;
-  mma_bf16_16816(c, a, ld32(kr), b1);
+__device__ __forceinline__ void load_kv_tile(const bf16* kb, const bf16* vb,
+                                             long long kss, long long vss,
+                                             int kt, int S, uint32_t stage) {
+  using T = FwdTile<D>;
+  for (int i = threadIdx.x; i < T::BKW * T::D8; i += blockDim.x) {
+    const int key = i / T::D8, c = i % T::D8;
+    const bool ok = kt + key < S;
+    const long long row = ok ? kt + key : 0;
+    const uint32_t off = (key & 7) * 16 + c * 128;   // within the 8-key group
+    cp_async16(stage + (key >> 3) * T::KGRP + off, kb + row * kss + c * 8, ok);
+    cp_async16(stage + T::KBYTES + (key >> 3) * T::VGRP + off, vb + row * vss + c * 8, ok);
+  }
 }
 
+// Up to D = 64 two blocks share an SM (registers capped at 128 a thread).
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::MINB)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ out,
                float* __restrict__ lse, int S, int H, int Hkv, Strides qs,
                Strides ks, Strides vs, float scale_log2) {
-  using Dm = Dims<D>;
-  __shared__ __align__(16) bf16 Ks[BK][Dm::KPAD];
-  __shared__ __align__(16) bf16 Vt[D][VPAD];
+  using T = FwdTile<D>;
+  constexpr int BKW = T::BKW, NS = BKW / 2, NO = D / 2, NST = T::NSTAGE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
-  const int bh = blockIdx.x;
+  // The query blocks of one head are neighbours in the grid, so its K and V
+  // come from device memory once and from L2 after.
+  const int nqb = (S + T::BQW - 1) / T::BQW;
+  const int bh = blockIdx.x / nqb, qblk = blockIdx.x % nqb;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.y * BQ + warp * 16 + g;
-  const int r1 = r0 + 8;
-
-  const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
+  const int ntiles = (S + BKW - 1) / BKW;
 
-  // Q fragments of this warp's 16 rows.
-  uint32_t qa[Dm::KSTEPS][4];
+  // The zero pad chunk of every K row (D % 16 == 8), in every stage.
+  if (T::DK8 != T::D8) {
+    for (int i = threadIdx.x; i < NST * BKW; i += blockDim.x) {
+      const int st = i / BKW, key = i % BKW;
+      *reinterpret_cast<uint4*>(smem + st * T::STAGE + (key >> 3) * T::KGRP +
+                                T::D8 * 128 + (key & 7) * 16) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  load_kv_tile<D>(kb, vb, ks.s, vs.s, 0, S, sbase);
+  cp_async_commit();
+
+  // Warp w of warpgroup w / 4 owns rows 16 (w mod 4) .. + 15 of its 64.
+  const int r0 = qblk * T::BQW + (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  const int r1 = r0 + 8;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  uint32_t qa[T::KSTEPS][4];
 #pragma unroll
-  for (int st = 0; st < Dm::KSTEPS; ++st)
+  for (int st = 0; st < T::KSTEPS; ++st)
     load_a<D>(qa[st], qb + (long long)r0 * qs.s, qb + (long long)r1 * qs.s,
               r0 < S, r1 < S, st, t);
 
-  float o[Dm::NT][4];
+  float o[NO];
 #pragma unroll
-  for (int n = 0; n < Dm::NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  // Running max in unscaled score units, per-thread partial denominators.
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  // P of the previous tile (bf16): the n-tiles 2kk and 2kk + 1 of its S
+  // are the A fragment of the k-step kk of P V.
+  uint32_t pa[BKW / 16][4];
 
-  for (int kt = 0; kt < S; kt += BK) {
+  // Tile j: S_j = Q K_j^T is issued together with the previous tile's
+  // O += P_{j-1} V_{j-1}; the softmax of S_j runs while P V is still on the
+  // tensor cores, and O is rescaled once P V has landed.
+  for (int j = 0; j < ntiles; ++j) {
+    const uint32_t stage = sbase + (j % NST) * T::STAGE;
+    const uint32_t prev = sbase + ((j + NST - 1) % NST) * T::STAGE;
+    const int kt = j * BKW;
+    cp_async_wait_all();
+    fence_proxy_async();
+    // Tile j is in shared memory, and both warpgroups are done with tile
+    // j - 2, whose stage the next copy overwrites.
     __syncthreads();
-    for (int i = threadIdx.x; i < BK * (D / 8); i += blockDim.x) {
-      const int key = i / (D / 8), ch = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (kt + key < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + (kt + key) * ks.s + ch);
-        vv = *reinterpret_cast<const uint4*>(vb + (kt + key) * vs.s + ch);
-      }
-      *reinterpret_cast<uint4*>(&Ks[key][ch]) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[ch + j][key] = ve[j];
-    }
-    __syncthreads();
+    if (j + 1 < ntiles)
+      load_kv_tile<D>(kb, vb, ks.s, vs.s, kt + BKW, S, sbase + ((j + 1) % NST) * T::STAGE);
+    cp_async_commit();
 
-    // Scores for 16 rows x 64 keys: eight n-tiles of 8 keys.
-    float s[8][4];
+    float s[NS];
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int st = 0; st < T::KSTEPS; ++st)
+      Wgmma<BKW, 0>::run(s, qa[st], smem_desc(stage + st * 256, 128, T::KGRP), st > 0);
+    wg_commit();
+    if (j > 0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int st = 0; st < Dm::KSTEPS; ++st)
-        mma_over_d<D>(s[j], qa[st], &Ks[8 * j + g][st * 16 + 2 * t], st);
+      for (int kk = 0; kk < BKW / 16; ++kk)
+        pv_pieces<D>(o, pa[kk], prev + T::KBYTES + 2 * kk * T::VGRP);
     }
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+    wg_commit();
+    wg_wait<1>();   // S_j has landed; P_{j-1} V_{j-1} may still run
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int i = 0; i < NS; ++i) reg_fence(s[i]);
+
+    if (kt + BKW > S) {   // the ragged last tile
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + 8 * j + 2 * t + (e & 1);
-        s[j][e] = key < S ? s[j][e] * scale_log2 : -CUDART_INF_F;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      for (int i = 0; i < NS; ++i)
+        if (kt + 8 * (i >> 2) + 2 * t + (i & 1) >= S) s[i] = -CUDART_INF_F;
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < BKW / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    const float ms0 = mx0 * scale_log2, ms1 = mx1 * scale_log2;
+    const float a0 = ex2(m0 * scale_log2 - ms0), a1 = ex2(m1 * scale_log2 - ms1);
+    m0 = mx0;
+    m1 = mx1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    for (int n = 0; n < BKW / 8; ++n) {
+      s[4 * n] = ex2(fmaf(s[4 * n], scale_log2, -ms0));
+      s[4 * n + 1] = ex2(fmaf(s[4 * n + 1], scale_log2, -ms0));
+      s[4 * n + 2] = ex2(fmaf(s[4 * n + 2], scale_log2, -ms1));
+      s[4 * n + 3] = ex2(fmaf(s[4 * n + 3], scale_log2, -ms1));
+      sum0 += s[4 * n] + s[4 * n + 1];
+      sum1 += s[4 * n + 2] + s[4 * n + 3];
     }
     l0 = l0 * a0 + sum0;
     l1 = l1 * a1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
+
+    wg_wait<0>();   // P_{j-1} V_{j-1} has landed: O and pa are free
 #pragma unroll
-    for (int n = 0; n < Dm::NT; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
+    for (int i = 0; i < NO; ++i) reg_fence(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < BKW / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= a0;
+      o[4 * n + 1] *= a0;
+      o[4 * n + 2] *= a1;
+      o[4 * n + 3] *= a1;
     }
-    // P (bf16) . V: the score accumulators of n-tiles 2st, 2st+1 are the
-    // A fragment of k-step st.
 #pragma unroll
-    for (int st = 0; st < 4; ++st) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * st][0], s[2 * st][1]);
-      pa[1] = pack_bf16(s[2 * st][2], s[2 * st][3]);
-      pa[2] = pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]);
-      pa[3] = pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3]);
-#pragma unroll
-      for (int n = 0; n < Dm::NT; ++n) {
-        const bf16* vr = &Vt[8 * n + g][st * 16 + 2 * t];
-        mma_bf16_16816(o[n], pa, ld32(vr), ld32(vr + 8));
-      }
+    for (int kk = 0; kk < BKW / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
   }
+  // The last tile's P V.
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKW / 16; ++kk)
+    pv_pieces<D>(o, pa[kk], sbase + ((ntiles - 1) % NST) * T::STAGE + T::KBYTES +
+                                2 * kk * T::VGRP);
+  wg_commit();
+  wg_wait<0>();
+#pragma unroll
+  for (int i = 0; i < NO; ++i) reg_fence(o[i]);
 
 #pragma unroll
-  for (int n = 0; n < Dm::NT; ++n) {
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * t;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(out + (((long long)b * S + r0) * H + h) * D + c) =
-          __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
+          __floats2bfloat162_rn(o[4 * n] / l0, o[4 * n + 1] / l0);
     if (r1 < S)
       *reinterpret_cast<__nv_bfloat162*>(out + (((long long)b * S + r1) * H + h) * D + c) =
-          __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
+          __floats2bfloat162_rn(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
   }
   if (lse != nullptr && t == 0) {
-    if (r0 < S) lse[(long long)bh * S + r0] = m0 + log2f(l0);
-    if (r1 < S) lse[(long long)bh * S + r1] = m1 + log2f(l1);
+    if (r0 < S) lse[(long long)bh * S + r0] = m0 * scale_log2 + log2f(l0);
+    if (r1 < S) lse[(long long)bh * S + r1] = m1 * scale_log2 + log2f(l1);
   }
 }
 
@@ -231,8 +417,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int S, int H, int Hkv, Strides qs,
               Strides ks, Strides vs, float scale_log2) {
-  __shared__ __align__(16) float Ks[BK][D];
-  __shared__ __align__(16) float Vs[BK][D];
+  constexpr int KT = D > 64 ? 32 : BK;   // keys per tile: static shared memory
+  __shared__ __align__(16) float Ks[KT][D];
+  __shared__ __align__(16) float Vs[KT][D];
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -250,9 +437,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   float m = -CUDART_INF_F, l = 0.f;
 
-  for (int kt = 0; kt < S; kt += BK) {
+  for (int kt = 0; kt < S; kt += KT) {
     __syncthreads();
-    for (int i = threadIdx.x; i < BK * (D / 4); i += blockDim.x) {
+    for (int i = threadIdx.x; i < KT * (D / 4); i += blockDim.x) {
       const int key = i / (D / 4), ch = (i % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (kt + key < S) {
@@ -264,32 +451,38 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[BK];
-    float mx = -CUDART_INF_F;
+    // Online softmax over chunks of 8 keys: the chunk loop stays rolled, so
+    // the code does not grow with the tile.
+    const int kn = min(KT, S - kt);
+#pragma unroll 1
+    for (int j0 = 0; j0 < kn; j0 += 8) {
+      float s[8];
+      float mx = -CUDART_INF_F;
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
+      for (int jj = 0; jj < 8; ++jj) {
+        float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j][d], dot);
-      s[j] = kt + j < S ? dot * scale_log2 : -CUDART_INF_F;
-      mx = fmaxf(mx, s[j]);
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j0 + jj][d], dot);
+        s[jj] = j0 + jj < kn ? dot * scale_log2 : -CUDART_INF_F;
+        mx = fmaxf(mx, s[jj]);
+      }
+      const float mn = fmaxf(m, mx);
+      const float alpha = exp2f(m - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        s[jj] = exp2f(s[jj] - mn);
+        sum += s[jj];
+      }
+      l = l * alpha + sum;
+      m = mn;
+#pragma unroll
+      for (int d = 0; d < D; ++d) o[d] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int d = 0; d < D; ++d) o[d] = fmaf(s[jj], Vs[j0 + jj][d], o[d]);
     }
-    const float mn = fmaxf(m, mx);
-    const float alpha = exp2f(m - mn);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = exp2f(s[j] - mn);
-      sum += s[j];
-    }
-    l = l * alpha + sum;
-    m = mn;
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j)
-#pragma unroll
-      for (int d = 0; d < D; ++d) o[d] = fmaf(s[j], Vs[j][d], o[d]);
   }
   if (valid) {
     float* orow = out + (((long long)b * S + row) * H + h) * D;
@@ -300,504 +493,39 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ---------------------------------------------------------------------------
-// Backward from the forward's base-2 row LSE (the kv-tiled flash backward):
-//   p = exp2(s * scale_log2 - lse)     normalised probabilities
-//   delta = rowsum(dO * O)             flash_bwd_delta, fp32, once
-//   dS = p * (dO V^T - delta)
-//   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = p^T dO
-// Two deterministic kernels, no atomics: dQ with one block per
-// (batch * q-head, 64-query tile) looping over the key tiles; dK/dV with one
-// block per (batch * kv-head, 64-key tile) looping over the group's q-heads
-// and every query tile, so the GQA group sum stays in fp32 registers. In bf16
-// p and dS are rounded to bf16 before their products, as the TPU kernels do.
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-// delta[b, h, s] = sum_d dout[b, s, h, d] * o[b, s, h, d]; rows in [B, S, H]
-// order, dout and o contiguous.
-template <typename T, int D>
-__global__ void flash_bwd_delta(const T* __restrict__ dout,
-                                const T* __restrict__ o,
-                                float* __restrict__ delta, int S, int H,
-                                long long rows) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const T* a = dout + i * D;
-  const T* c = o + i * D;
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc += to_f(a[d]) * to_f(c[d]);
-  const long long bs = i / H;
-  const int h = (int)(i % H);
-  const long long b = bs / S;
-  const int s = (int)(bs % S);
-  delta[(b * H + h) * S + s] = acc;
-}
-
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dq, int S, int H, int Hkv, Strides qs,
-                  Strides ks, Strides vs, float scale_log2, float scale) {
-  using Dm = Dims<D>;
-  __shared__ __align__(16) bf16 Ks[BK][Dm::KPAD];
-  __shared__ __align__(16) bf16 Vs[BK][Dm::KPAD];
-  __shared__ __align__(16) bf16 Kt[D][VPAD];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.y * BQ + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const long long drs = (long long)H * D;     // row stride of dout
-
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  const bf16* db = dout + ((long long)b * S * H + h) * D;
-
-  // Q and dO fragments of this warp's 16 rows (A operands of S and dP).
-  uint32_t qa[Dm::KSTEPS][4], da[Dm::KSTEPS][4];
-#pragma unroll
-  for (int st = 0; st < Dm::KSTEPS; ++st) {
-    load_a<D>(qa[st], qb + (long long)r0 * qs.s, qb + (long long)r1 * qs.s,
-              r0 < S, r1 < S, st, t);
-    load_a<D>(da[st], db + r0 * drs, db + r1 * drs, r0 < S, r1 < S, st, t);
-  }
-  const float* lrow = lse + (long long)bh * S;
-  const float* drow = delta + (long long)bh * S;
-  const float lse0 = r0 < S ? lrow[r0] : 0.f, lse1 = r1 < S ? lrow[r1] : 0.f;
-  const float dl0 = r0 < S ? drow[r0] : 0.f, dl1 = r1 < S ? drow[r1] : 0.f;
-
-  float acc[Dm::NT][4];
-#pragma unroll
-  for (int n = 0; n < Dm::NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = 0; kt < S; kt += BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * (D / 8); i += blockDim.x) {
-      const int key = i / (D / 8), ch = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (kt + key < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + (kt + key) * ks.s + ch);
-        vv = *reinterpret_cast<const uint4*>(vb + (kt + key) * vs.s + ch);
-      }
-      *reinterpret_cast<uint4*>(&Ks[key][ch]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[key][ch]) = vv;
-      const bf16* ke = reinterpret_cast<const bf16*>(&kv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Kt[ch + j][key] = ke[j];
+struct LaunchFwd {
+  static int run(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int B, int S, int H, int Hkv, Strides qs,
+                 Strides ks, Strides vs, float scale_log2, int dtype,
+                 cudaStream_t st) {
+    if (dtype == 1) {
+      using T = FwdTile<D>;
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      const long long blocks = (long long)B * H * ((S + T::BQW - 1) / T::BQW);
+      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      flash_fwd_bf16<D><<<(unsigned)blocks, T::THREADS, T::SMEM, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, Hkv,
+          qs, ks, vs, scale_log2);
+    } else {
+      const dim3 grid(B * H, (S + BQ - 1) / BQ);
+      flash_fwd_f32<D><<<grid, BQ, 0, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, Hkv,
+          qs, ks, vs, scale_log2);
     }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for 16 rows x 64 keys.
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int st = 0; st < Dm::KSTEPS; ++st) {
-        mma_over_d<D>(s[j], qa[st], &Ks[8 * j + g][st * 16 + 2 * t], st);
-        mma_over_d<D>(dp[j], da[st], &Vs[8 * j + g][st * 16 + 2 * t], st);
-      }
-    }
-    // dS = p (dP - delta), in place of S.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + 8 * j + 2 * t + (e & 1);
-        const bool lo = e < 2;
-        const float p = key < S ? exp2f(s[j][e] * scale_log2 - (lo ? lse0 : lse1)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (lo ? dl0 : dl1));
-      }
-    }
-    // dQ += dS (bf16) K: n-tiles 2st, 2st+1 of dS are the A fragment of k-step st.
-#pragma unroll
-    for (int st = 0; st < 4; ++st) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * st][0], s[2 * st][1]);
-      pa[1] = pack_bf16(s[2 * st][2], s[2 * st][3]);
-      pa[2] = pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]);
-      pa[3] = pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3]);
-#pragma unroll
-      for (int n = 0; n < Dm::NT; ++n) {
-        const bf16* kr = &Kt[8 * n + g][st * 16 + 2 * t];
-        mma_bf16_16816(acc[n], pa, ld32(kr), ld32(kr + 8));
-      }
-    }
+    return (int)cudaGetLastError();
   }
-
-#pragma unroll
-  for (int n = 0; n < Dm::NT; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * S + r0) * H + h) * D + c) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-    if (r1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * S + r1) * H + h) * D + c) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-                   int Hkv, Strides qs, Strides ks, Strides vs,
-                   float scale_log2, float scale) {
-  using Dm = Dims<D>;
-  __shared__ __align__(16) bf16 Qs[BQ][Dm::KPAD];   // [query][d]
-  __shared__ __align__(16) bf16 Ds[BQ][Dm::KPAD];   // dO [query][d]
-  __shared__ __align__(16) bf16 Qt[D][VPAD];        // [d][query]
-  __shared__ __align__(16) bf16 Dt[D][VPAD];        // dO [d][query]
-  __shared__ float Ls[BQ], Dl[BQ];
-
-  const int bkv = blockIdx.x;
-  const int b = bkv / Hkv, hk = bkv % Hkv;
-  const int group = H / Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.y * BK + warp * 16 + g;  // key rows
-  const int r1 = r0 + 8;
-  const long long drs = (long long)H * D;
-
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  // K and V fragments of this warp's 16 keys (A operands of S^T and dP^T).
-  uint32_t ka[Dm::KSTEPS][4], va[Dm::KSTEPS][4];
-#pragma unroll
-  for (int st = 0; st < Dm::KSTEPS; ++st) {
-    load_a<D>(ka[st], kb + (long long)r0 * ks.s, kb + (long long)r1 * ks.s,
-              r0 < S, r1 < S, st, t);
-    load_a<D>(va[st], vb + (long long)r0 * vs.s, vb + (long long)r1 * vs.s,
-              r0 < S, r1 < S, st, t);
-  }
-  float dka[Dm::NT][4], dva[Dm::NT][4];
-#pragma unroll
-  for (int n = 0; n < Dm::NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* db = dout + ((long long)b * S * H + h) * D;
-    const float* lrow = lse + ((long long)b * H + h) * S;
-    const float* drow = delta + ((long long)b * H + h) * S;
-    for (int qt = 0; qt < S; qt += BQ) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < BQ * (D / 8); i += blockDim.x) {
-        const int row = i / (D / 8), ch = (i % (D / 8)) * 8;
-        uint4 qv = make_uint4(0, 0, 0, 0), dv8 = make_uint4(0, 0, 0, 0);
-        if (qt + row < S) {
-          qv = *reinterpret_cast<const uint4*>(qb + (qt + row) * qs.s + ch);
-          dv8 = *reinterpret_cast<const uint4*>(db + (qt + row) * drs + ch);
-        }
-        *reinterpret_cast<uint4*>(&Qs[row][ch]) = qv;
-        *reinterpret_cast<uint4*>(&Ds[row][ch]) = dv8;
-        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
-        const bf16* de = reinterpret_cast<const bf16*>(&dv8);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          Qt[ch + j][row] = qe[j];
-          Dt[ch + j][row] = de[j];
-        }
-      }
-      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        const bool ok = qt + i < S;
-        Ls[i] = ok ? lrow[qt + i] : CUDART_INF_F;   // exp2(-inf) = 0
-        Dl[i] = ok ? drow[qt + i] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 64 queries.
-      float s[8][4], dp[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-        for (int st = 0; st < Dm::KSTEPS; ++st) {
-          mma_over_d<D>(s[j], ka[st], &Qs[8 * j + g][st * 16 + 2 * t], st);
-          mma_over_d<D>(dp[j], va[st], &Ds[8 * j + g][st * 16 + 2 * t], st);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1);
-          const float p = exp2f(s[j][e] * scale_log2 - Ls[col]);
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - Dl[col]);
-        }
-      }
-      // dV += P^T (bf16) dO and dK += dS^T (bf16) Q over this query tile.
-#pragma unroll
-      for (int st = 0; st < 4; ++st) {
-        uint32_t pa[4], sa[4];
-        pa[0] = pack_bf16(s[2 * st][0], s[2 * st][1]);
-        pa[1] = pack_bf16(s[2 * st][2], s[2 * st][3]);
-        pa[2] = pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]);
-        pa[3] = pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3]);
-        sa[0] = pack_bf16(dp[2 * st][0], dp[2 * st][1]);
-        sa[1] = pack_bf16(dp[2 * st][2], dp[2 * st][3]);
-        sa[2] = pack_bf16(dp[2 * st + 1][0], dp[2 * st + 1][1]);
-        sa[3] = pack_bf16(dp[2 * st + 1][2], dp[2 * st + 1][3]);
-#pragma unroll
-        for (int n = 0; n < Dm::NT; ++n) {
-          const bf16* dr = &Dt[8 * n + g][st * 16 + 2 * t];
-          mma_bf16_16816(dva[n], pa, ld32(dr), ld32(dr + 8));
-          const bf16* qr = &Qt[8 * n + g][st * 16 + 2 * t];
-          mma_bf16_16816(dka[n], sa, ld32(qr), ld32(qr + 8));
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < Dm::NT; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < S) {
-      const long long o = (((long long)b * S + r0) * Hkv + hk) * D + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
-    }
-    if (r1 < S) {
-      const long long o = (((long long)b * S + r1) * Hkv + hk) * D + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
-    }
-  }
-}
-
-// fp32 backward on the CUDA cores: one thread per query row (dQ) or per key
-// row (dK/dV), the other side streamed through shared memory in 64-row tiles.
-template <int D>
-__global__ void __launch_bounds__(BQ)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq, int S, int H, int Hkv, Strides qs,
-                 Strides ks, Strides vs, float scale_log2, float scale) {
-  __shared__ __align__(16) float Ks[BK][D];
-  __shared__ __align__(16) float Vs[BK][D];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int row = blockIdx.y * BQ + threadIdx.x;
-  const bool valid = row < S;
-  const float* kb = k + b * ks.b + hk * ks.h;
-  const float* vb = v + b * vs.b + hk * vs.h;
-  const float* drow = dout + (((long long)b * S + row) * H + h) * D;
-
-  float qr[D], dr[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = valid ? q[b * qs.b + row * qs.s + h * qs.h + d] : 0.f;
-    dr[d] = valid ? drow[d] : 0.f;
-    acc[d] = 0.f;
-  }
-  const float lse_r = valid ? lse[(long long)bh * S + row] : 0.f;
-  const float dl = valid ? delta[(long long)bh * S + row] : 0.f;
-
-  for (int kt = 0; kt < S; kt += BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * (D / 4); i += blockDim.x) {
-      const int key = i / (D / 4), ch = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (kt + key < S) {
-        kv = *reinterpret_cast<const float4*>(kb + (kt + key) * ks.s + ch);
-        vv = *reinterpret_cast<const float4*>(vb + (kt + key) * vs.s + ch);
-      }
-      *reinterpret_cast<float4*>(&Ks[key][ch]) = kv;
-      *reinterpret_cast<float4*>(&Vs[key][ch]) = vv;
-    }
-    __syncthreads();
-    const int kn = min(BK, S - kt);
-    for (int j = 0; j < kn; ++j) {
-      float sd = 0.f, pd = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        sd = fmaf(qr[d], Ks[j][d], sd);
-        pd = fmaf(dr[d], Vs[j][d], pd);
-      }
-      const float p = exp2f(sd * scale_log2 - lse_r);
-      const float ds = p * (pd - dl);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, Ks[j][d], acc[d]);
-    }
-  }
-  if (valid) {
-    float* o = dq + (((long long)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = acc[d] * scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(BK)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int S, int H,
-                  int Hkv, Strides qs, Strides ks, Strides vs,
-                  float scale_log2, float scale) {
-  __shared__ __align__(16) float Qs[BQ][D];
-  __shared__ __align__(16) float Ds[BQ][D];
-  __shared__ float Ls[BQ], Dl[BQ];
-
-  const int bkv = blockIdx.x;
-  const int b = bkv / Hkv, hk = bkv % Hkv;
-  const int group = H / Hkv;
-  const int row = blockIdx.y * BK + threadIdx.x;   // key row
-  const bool valid = row < S;
-  const long long drs = (long long)H * D;
-
-  float kr[D], vr[D], dka[D], dva[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = valid ? k[b * ks.b + row * ks.s + hk * ks.h + d] : 0.f;
-    vr[d] = valid ? v[b * vs.b + row * vs.s + hk * vs.h + d] : 0.f;
-    dka[d] = dva[d] = 0.f;
-  }
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const float* qb = q + b * qs.b + h * qs.h;
-    const float* db = dout + ((long long)b * S * H + h) * D;
-    const float* lrow = lse + ((long long)b * H + h) * S;
-    const float* drow = delta + ((long long)b * H + h) * S;
-    for (int qt = 0; qt < S; qt += BQ) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < BQ * (D / 4); i += blockDim.x) {
-        const int r = i / (D / 4), ch = (i % (D / 4)) * 4;
-        float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), dv4 = qv;
-        if (qt + r < S) {
-          qv = *reinterpret_cast<const float4*>(qb + (qt + r) * qs.s + ch);
-          dv4 = *reinterpret_cast<const float4*>(db + (qt + r) * drs + ch);
-        }
-        *reinterpret_cast<float4*>(&Qs[r][ch]) = qv;
-        *reinterpret_cast<float4*>(&Ds[r][ch]) = dv4;
-      }
-      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        Ls[i] = qt + i < S ? lrow[qt + i] : 0.f;
-        Dl[i] = qt + i < S ? drow[qt + i] : 0.f;
-      }
-      __syncthreads();
-      const int qn = min(BQ, S - qt);
-      for (int j = 0; j < qn; ++j) {
-        float sd = 0.f, pd = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          sd = fmaf(Qs[j][d], kr[d], sd);
-          pd = fmaf(Ds[j][d], vr[d], pd);
-        }
-        const float p = exp2f(sd * scale_log2 - Ls[j]);
-        const float ds = p * (pd - Dl[j]);
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          dva[d] = fmaf(p, Ds[j][d], dva[d]);
-          dka[d] = fmaf(ds, Qs[j][d], dka[d]);
-        }
-      }
-    }
-  }
-  if (valid) {
-    const long long o = (((long long)b * S + row) * Hkv + hk) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk[o + d] = dka[d] * scale;
-      dv[o + d] = dva[d];
-    }
-  }
-}
-
-template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, int B, int S, int H, int Hkv, Strides qs,
-               Strides ks, Strides vs, float scale_log2, int dtype,
-               cudaStream_t st) {
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  if (dtype == 1) {
-    flash_fwd_bf16<D><<<grid, 128, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, Hkv,
-        qs, ks, vs, scale_log2);
-  } else {
-    flash_fwd_f32<D><<<grid, BQ, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, Hkv,
-        qs, ks, vs, scale_log2);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* l, float* dl, void* dq, void* dk,
-               void* dv, int B, int S, int H, int Hkv, Strides qs, Strides ks,
-               Strides vs, float scale_log2, float scale, int dtype,
-               cudaStream_t st) {
-  const long long rows = (long long)B * S * H;
-  const int dblocks = (int)((rows + 255) / 256);
-  const dim3 gq(B * H, (S + BQ - 1) / BQ), gk(B * Hkv, (S + BK - 1) / BK);
-  if (dtype == 1) {
-    flash_bwd_delta<bf16, D><<<dblocks, 256, 0, st>>>(
-        static_cast<const bf16*>(dout), static_cast<const bf16*>(o), dl, S, H, rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16<D><<<gq, 128, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_bf16<D><<<gk, 128, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv, qs, ks, vs,
-        scale_log2, scale);
-  } else {
-    flash_bwd_delta<float, D><<<dblocks, 256, 0, st>>>(
-        static_cast<const float*>(dout), static_cast<const float*>(o), dl, S, H, rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32<D><<<gq, BQ, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_f32<D><<<gk, BK, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, qs, ks, vs,
-        scale_log2, scale);
-  }
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
 // q, k, v: [B, S, H or Hkv, D] with the given element strides (D
-// contiguous); out contiguous [B, S, H, D]; lse (optional) fp32 [B, H, S].
+// contiguous, 16-byte aligned rows); out contiguous [B, S, H, D]; lse
+// (optional) fp32 [B, H, S].
 extern "C" int gaot_flash_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int B, int S, int H,
                               int Hkv, int D, long long qsb, long long qss,
@@ -807,43 +535,8 @@ extern "C" int gaot_flash_fwd(const void* q, const void* k, const void* v,
                               void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  float* l = static_cast<float*>(lse);
-  switch (D) {
-    case 24:
-      return launch_fwd<24>(q, k, v, out, l, B, S, H, Hkv, qs, ks, vs, scale_log2, dtype, st);
-    case 32:
-      return launch_fwd<32>(q, k, v, out, l, B, S, H, Hkv, qs, ks, vs, scale_log2, dtype, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// dq, dk, dv contiguous ([B, S, H, D], [B, S, Hkv, D]); o and dout contiguous
-// [B, S, H, D]; lse and the delta scratch fp32 [B, H, S].
-extern "C" int gaot_flash_bwd(const void* q, const void* k, const void* v,
-                              const void* o, const void* dout, const void* lse,
-                              void* delta, void* dq, void* dk, void* dv, int B,
-                              int S, int H, int Hkv, int D, long long qsb,
-                              long long qss, long long qsh, long long ksb,
-                              long long kss, long long ksh, long long vsb,
-                              long long vss, long long vsh, float scale_log2,
-                              float scale, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  switch (D) {
-    case 24:
-      return launch_bwd<24>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, Hkv,
-                            qs, ks, vs, scale_log2, scale, dtype, st);
-    case 32:
-      return launch_bwd<32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, Hkv,
-                            qs, ks, vs, scale_log2, scale, dtype, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_head_dim<LaunchFwd>(D, q, k, v, out, static_cast<float*>(lse),
+                                      B, S, H, Hkv, qs, ks, vs, scale_log2, dtype,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -41,14 +41,23 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
+constexpr size_t kSmemMax = 232448;   // dynamic shared memory of one block
+
 template <int M>
-constexpr size_t smem_bytes() {
+__host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(bf16) * ((size_t)BM * (M + PAD) + 2 * (size_t)FC * (M + PAD) +
                          (size_t)M * (FC + PAD));
 }
 
+// Above M = 256 the fp32 out accumulator of a warp (M / 2 values a thread)
+// would pass the register file, so the block doubles to eight warps: warp w
+// keeps rows 16 (w mod 4) and the output columns of half w / 4, and both
+// halves recompute their rows' h1 and h3.
 template <int M>
-__global__ void __launch_bounds__(128)
+__host__ __device__ constexpr int fwd_halves() { return M > 256 ? 2 : 1; }
+
+template <int M>
+__global__ void __launch_bounds__(128 * fwd_halves<M>())
 ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                const bf16* __restrict__ w3, const bf16* __restrict__ w2,
                bf16* __restrict__ out, int R, int F) {
@@ -63,7 +72,10 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * BM;
-  const int wr = warp * 16;       // warp's first row within the tile
+  const int wr = (warp & 3) * 16;     // warp's first row within the tile
+  constexpr int NN = M / 8 / fwd_halves<M>();   // output n-tiles of a warp
+  const int n0 = (warp >> 2) * NN;    // its first output n-tile
+  static_assert(smem_bytes<M>() <= kSmemMax, "SwiGLU forward tiles exceed shared memory");
 
   for (int i = threadIdx.x; i < BM * (M / 8); i += blockDim.x) {
     const int r = i / (M / 8), ch = (i % (M / 8)) * 8;
@@ -73,9 +85,9 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     *reinterpret_cast<uint4*>(Xs + r * XS + ch) = val;
   }
 
-  float acc[M / 8][4];
+  float acc[NN][4];
 #pragma unroll
-  for (int n = 0; n < M / 8; ++n)
+  for (int n = 0; n < NN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -125,10 +137,10 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       za[st][3] = pack_bf16(silu(h1[j1][2]) * h3[j1][2], silu(h1[j1][3]) * h3[j1][3]);
     }
 #pragma unroll
-    for (int n = 0; n < M / 8; ++n) {
+    for (int n = 0; n < NN; ++n) {
 #pragma unroll
       for (int st = 0; st < FC / 16; ++st) {
-        const bf16* bp = W2s + (8 * n + g) * WS + st * 16 + 2 * t;
+        const bf16* bp = W2s + (8 * (n0 + n) + g) * WS + st * 16 + 2 * t;
         mma_bf16_16816(acc[n], za[st], ld32(bp), ld32(bp + 8));
       }
     }
@@ -136,8 +148,8 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
   const int r0 = row0 + wr + g, r1 = r0 + 8;
 #pragma unroll
-  for (int n = 0; n < M / 8; ++n) {
-    const int c = 8 * n + 2 * t;
+  for (int n = 0; n < NN; ++n) {
+    const int c = 8 * (n0 + n) + 2 * t;
     if (r0 < R)
       *reinterpret_cast<__nv_bfloat162*>(out + (long long)r0 * M + c) =
           __floats2bfloat162_rn(acc[n][0], acc[n][1]);
@@ -155,7 +167,7 @@ cudaError_t launch(const void* x, const void* w1, const void* w3,
   cudaError_t err = cudaFuncSetAttribute(
       ffn_fwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ffn_fwd_kernel<M><<<(R + BM - 1) / BM, 128, smem, stream>>>(
+  ffn_fwd_kernel<M><<<(R + BM - 1) / BM, 128 * fwd_halves<M>(), smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const bf16*>(w3), static_cast<const bf16*>(w2),
       static_cast<bf16*>(out), R, F);
@@ -179,8 +191,34 @@ cudaError_t launch(const void* x, const void* w1, const void* w3,
 // row-major layout, copied with 16-byte cp.async while the previous tile is
 // being computed (double buffers); a product that needs it transposed loads
 // its fragments with ldmatrix.trans.
+// The row tile and the buffering follow M (BwdTiles): up to M = 256 tiles of
+// 64 rows, double buffered; above it 32 rows, and a single buffer where two
+// would pass the 227 KB a block may hold (M = 512). With 32-row tiles the
+// eight warps are 2 row groups x 4 column groups instead of 4 x 2.
 
 constexpr int BW = 256;  // threads of the backward blocks
+
+template <int M>
+struct BwdTiles {
+  static constexpr int BM = M <= 256 ? 64 : 32;   // rows of a tile
+  static constexpr int RG = BM / 16;              // warps along the rows
+  static constexpr int NQ = 8 / RG;               // warps along F or M
+  static constexpr int FQ = FC / NQ;              // F columns of a warp (phase A)
+  static constexpr int NJ = FQ / 8;               // their n-tiles
+  static constexpr int XS = M + PAD, TS = FC + PAD;
+  static constexpr size_t WCH = 2 * (size_t)FC * XS + (size_t)M * TS;  // one W chunk
+  __host__ __device__ static constexpr size_t dx_bytes(int st) {
+    return sizeof(bf16) * (2 * (size_t)BM * XS + st * WCH + 2 * (size_t)BM * TS);
+  }
+  __host__ __device__ static constexpr size_t dw_bytes(int st) {
+    return sizeof(bf16) * (WCH + st * 2 * (size_t)BM * XS + 3 * (size_t)BM * TS);
+  }
+  static constexpr int DX_ST = dx_bytes(2) <= kSmemMax ? 2 : 1;   // W chunk buffers
+  static constexpr int DW_ST = dw_bytes(2) <= kSmemMax ? 2 : 1;   // x/dout buffers
+  static_assert(dx_bytes(DX_ST) <= kSmemMax && dw_bytes(DW_ST) <= kSmemMax,
+                "SwiGLU backward tiles exceed shared memory");
+  static_assert(M % (16 * NQ) == 0 && M % 128 == 0, "unsupported SwiGLU width");
+};
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -263,13 +301,13 @@ __device__ __forceinline__ void load_w_chunk_async(
   }
 }
 
-// Starts the copy of a 64-row tile of a [R, M] bf16 matrix into T ([r][m]);
-// rows past R become zeros.
+// Starts the copy of a BwdTiles<M>::BM-row tile of a [R, M] bf16 matrix into
+// T ([r][m]); rows past R become zeros.
 template <int M>
 __device__ __forceinline__ void load_rows_async(const bf16* __restrict__ src,
                                                 int R, int row0, bf16* T) {
   constexpr int XS = M + PAD;
-  for (int i = threadIdx.x; i < BM * (M / 8); i += blockDim.x) {
+  for (int i = threadIdx.x; i < BwdTiles<M>::BM * (M / 8); i += blockDim.x) {
     const int r = i / (M / 8), ch = (i % (M / 8)) * 8;
     const bool valid = row0 + r < R;
     cp_async16(T + r * XS + ch, src + (long long)(valid ? row0 + r : 0) * M + ch,
@@ -278,15 +316,15 @@ __device__ __forceinline__ void load_rows_async(const bf16* __restrict__ src,
 }
 
 // h1, h3 and dz of one warp: rows wr .. wr+15 of the tile, F-chunk columns
-// fh .. fh+15 (two n-tiles of 8).
-template <int M>
+// fh .. fh+8NJ-1 (NJ n-tiles of 8).
+template <int M, int NJ = BwdTiles<M>::NJ>
 __device__ __forceinline__ void chunk_products(
     const bf16* Xs, const bf16* Ds, const WChunk<M>& w, int wr, int fh,
-    int lane, float h1[2][4], float h3[2][4], float dz[2][4]) {
+    int lane, float (*h1)[4], float (*h3)[4], float (*dz)[4]) {
   constexpr int XS = M + PAD, TS = FC + PAD;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) h1[j][e] = h3[j][e] = dz[j][e] = 0.f;
 #pragma unroll 4
@@ -297,10 +335,10 @@ __device__ __forceinline__ void chunk_products(
     const bf16* da = Ds + (wr + g) * XS + st * 16 + 2 * t;
     const uint32_t d[4] = {ld32(da), ld32(da + 8 * XS), ld32(da + 8),
                            ld32(da + 8 * XS + 8)};
-    uint32_t b2[4];
+    uint32_t b2[4];   // at NJ = 1 the second n-tile (pad columns) goes unused
     ldsm_b_pair<TS>(b2, w.W2c, st * 16, fh, lane);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int n = (fh + 8 * j + g) * XS + st * 16 + 2 * t;
       mma_bf16_16816(h1[j], a, ld32(w.W1s + n), ld32(w.W1s + n + 8));
       mma_bf16_16816(h3[j], a, ld32(w.W3s + n), ld32(w.W3s + n + 8));
@@ -310,55 +348,58 @@ __device__ __forceinline__ void chunk_products(
 }
 
 template <int M>
-constexpr size_t dx_smem_bytes() {
-  return sizeof(bf16) * (2 * (size_t)BM * (M + PAD) + 2 * (size_t)WChunk<M>::ELEMS +
-                         2 * (size_t)BM * (FC + PAD));
-}
-
-template <int M>
 __global__ void __launch_bounds__(BW)
 ffn_bwd_dx(const bf16* __restrict__ x, const bf16* __restrict__ dout,
            const bf16* __restrict__ w1, const bf16* __restrict__ w3,
            const bf16* __restrict__ w2, bf16* __restrict__ dx, int R, int F) {
+  using Tl = BwdTiles<M>;
+  constexpr int BR = Tl::BM, ST = Tl::DX_ST, NJ = Tl::NJ;
+  constexpr int MW = M / Tl::NQ;           // dx columns of a warp (phase B)
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int XS = M + PAD, TS = FC + PAD;
-  bf16* Xs = reinterpret_cast<bf16*>(smem);           // [BM][XS]
-  bf16* Ds = Xs + BM * XS;                            // [BM][XS]  dout
-  bf16* Wb = Ds + BM * XS;              // [2][WChunk], double buffer
-  bf16* H1 = Wb + 2 * WChunk<M>::ELEMS;               // [BM][TS]  dh1
-  bf16* H3 = H1 + BM * TS;                            // [BM][TS]  dh3
+  bf16* Xs = reinterpret_cast<bf16*>(smem);           // [BR][XS]
+  bf16* Ds = Xs + BR * XS;                            // [BR][XS]  dout
+  bf16* Wb = Ds + BR * XS;                            // [ST][WChunk]
+  bf16* H1 = Wb + ST * WChunk<M>::ELEMS;              // [BR][TS]  dh1
+  bf16* H3 = H1 + BR * TS;                            // [BR][TS]  dh3
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BM;
-  const int wr = (warp & 3) * 16;          // the warp's 16 rows
-  const int fh = (warp >> 2) * 16;         // its F-chunk half (phase A)
-  const int mh = (warp >> 2) * (M / 2);    // its half of dx's columns (phase B)
+  const int row0 = blockIdx.x * BR;
+  const int wr = (warp % Tl::RG) * 16;     // the warp's 16 rows
+  const int fh = (warp / Tl::RG) * Tl::FQ; // its F-chunk columns (phase A)
+  const int mh = (warp / Tl::RG) * MW;     // its dx columns (phase B)
 
   load_rows_async<M>(x, R, row0, Xs);
   load_rows_async<M>(dout, R, row0, Ds);
   load_w_chunk_async<M>(w1, w3, w2, F, 0, WChunk<M>(Wb));
   cp_async_commit();
 
-  float acc[M / 16][4];
+  float acc[MW / 8][4];
 #pragma unroll
-  for (int n = 0; n < M / 16; ++n)
+  for (int n = 0; n < MW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int f0 = 0, buf = 0; f0 < F; f0 += FC, buf ^= 1) {
-    const WChunk<M> w(Wb + buf * WChunk<M>::ELEMS);
-    __syncthreads();   // every warp is done with the other buffer and H1/H3
-    if (f0 + FC < F)
-      load_w_chunk_async<M>(w1, w3, w2, F, f0 + FC,
-                            WChunk<M>(Wb + (buf ^ 1) * WChunk<M>::ELEMS));
-    cp_async_commit();
-    cp_async_wait_prev();
+  for (int f0 = 0, it = 0; f0 < F; f0 += FC, ++it) {
+    const WChunk<M> w(Wb + (it % ST) * WChunk<M>::ELEMS);
+    __syncthreads();   // every warp is done with the buffer to refill and H1/H3
+    if (ST == 2) {
+      if (f0 + FC < F)
+        load_w_chunk_async<M>(w1, w3, w2, F, f0 + FC,
+                              WChunk<M>(Wb + ((it + 1) % ST) * WChunk<M>::ELEMS));
+      cp_async_commit();
+      cp_async_wait_prev();
+    } else {
+      if (f0 > 0) load_w_chunk_async<M>(w1, w3, w2, F, f0, w);
+      cp_async_commit();
+      cp_async_wait_all();
+    }
     __syncthreads();
-    float h1[2][4], h3[2][4], dz[2][4];
+    float h1[NJ][4], h3[NJ][4], dz[NJ][4];
     chunk_products<M>(Xs, Ds, w, wr, fh, lane, h1, h3, dz);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float d1[2], d3[2];
@@ -386,7 +427,7 @@ ffn_bwd_dx(const bf16* __restrict__ x, const bf16* __restrict__ dout,
       const uint32_t a3[4] = {ld32(p3), ld32(p3 + 8 * TS), ld32(p3 + 8),
                               ld32(p3 + 8 * TS + 8)};
 #pragma unroll
-      for (int p = 0; p < M / 32; ++p) {
+      for (int p = 0; p < MW / 16; ++p) {
         uint32_t b1[4], b3[4];
         ldsm_b_pair<XS>(b1, w.W1s, st * 16, mh + 16 * p, lane);
         ldsm_b_pair<XS>(b3, w.W3s, st * 16, mh + 16 * p, lane);
@@ -401,7 +442,7 @@ ffn_bwd_dx(const bf16* __restrict__ x, const bf16* __restrict__ dout,
 
   const int r0 = row0 + wr + g, r1 = r0 + 8;
 #pragma unroll
-  for (int n = 0; n < M / 16; ++n) {
+  for (int n = 0; n < MW / 8; ++n) {
     const int c = mh + 8 * n + 2 * t;
     if (r0 < R)
       *reinterpret_cast<__nv_bfloat162*>(dx + (long long)r0 * M + c) =
@@ -412,12 +453,6 @@ ffn_bwd_dx(const bf16* __restrict__ x, const bf16* __restrict__ dout,
   }
 }
 
-template <int M>
-constexpr size_t dw_smem_bytes() {
-  return sizeof(bf16) * ((size_t)WChunk<M>::ELEMS + 4 * (size_t)BM * (M + PAD) +
-                         3 * (size_t)BM * (FC + PAD));
-}
-
 // part: [splits][3][F * M] fp32 — dW1 [F, M], dW3 [F, M], dW2 [M, F].
 template <int M>
 __global__ void __launch_bounds__(BW)
@@ -425,18 +460,20 @@ ffn_bwd_dw(const bf16* __restrict__ x, const bf16* __restrict__ dout,
            const bf16* __restrict__ w1, const bf16* __restrict__ w3,
            const bf16* __restrict__ w2, float* __restrict__ part, int R, int F,
            int tiles_per_split) {
+  using Tl = BwdTiles<M>;
+  constexpr int BR = Tl::BM, ST = Tl::DW_ST, NJ = Tl::NJ;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int XS = M + PAD, TS = FC + PAD;
   const WChunk<M> w(reinterpret_cast<bf16*>(smem));
-  bf16* XD = w.W1s + WChunk<M>::ELEMS;      // [2][x, dout][BM][XS], double buffer
-  bf16* H1 = XD + 4 * BM * XS;                        // [BM][TS]  dh1
-  bf16* H3 = H1 + BM * TS;                            // [BM][TS]  dh3
-  bf16* Z = H3 + BM * TS;                             // [BM][TS]  z
+  bf16* XD = w.W1s + WChunk<M>::ELEMS;      // [ST][x, dout][BR][XS]
+  bf16* H1 = XD + ST * 2 * BR * XS;                   // [BR][TS]  dh1
+  bf16* H3 = H1 + BR * TS;                            // [BR][TS]  dh3
+  bf16* Z = H3 + BR * TS;                             // [BR][TS]  z
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int f0 = blockIdx.x * FC;
-  const int wr = (warp & 3) * 16, fh = (warp >> 2) * 16;   // phase A
+  const int wr = (warp % Tl::RG) * 16, fh = (warp / Tl::RG) * Tl::FQ;  // phase A
   const int ft = (warp & 1) * 16;                          // dW1/dW3 f rows
   const int mb = (warp >> 1) * (M / 4);                    // dW1/dW3 m cols
   const int mw = warp * (M / 8);                           // dW2 m rows
@@ -453,31 +490,40 @@ ffn_bwd_dw(const bf16* __restrict__ x, const bf16* __restrict__ dout,
 #pragma unroll
       for (int e = 0; e < 4; ++e) a2[mt][n][e] = 0.f;
 
-  const int ntiles = (R + BM - 1) / BM;
+  const int ntiles = (R + BR - 1) / BR;
   const int tile0 = blockIdx.y * tiles_per_split;
   const int tile1 = min(ntiles, tile0 + tiles_per_split);
   load_w_chunk_async<M>(w1, w3, w2, F, f0, w);
   if (tile0 < tile1) {
-    load_rows_async<M>(x, R, tile0 * BM, XD);
-    load_rows_async<M>(dout, R, tile0 * BM, XD + BM * XS);
+    load_rows_async<M>(x, R, tile0 * BR, XD);
+    load_rows_async<M>(dout, R, tile0 * BR, XD + BR * XS);
   }
   cp_async_commit();
-  for (int tile = tile0, buf = 0; tile < tile1; ++tile, buf ^= 1) {
-    const bf16* Xs = XD + 2 * buf * BM * XS;
-    const bf16* Ds = Xs + BM * XS;
-    __syncthreads();   // every warp is done with the other buffer and H1/H3/Z
-    if (tile + 1 < tile1) {
-      bf16* nx = XD + 2 * (buf ^ 1) * BM * XS;
-      load_rows_async<M>(x, R, (tile + 1) * BM, nx);
-      load_rows_async<M>(dout, R, (tile + 1) * BM, nx + BM * XS);
+  for (int tile = tile0, it = 0; tile < tile1; ++tile, ++it) {
+    bf16* Xs = XD + 2 * (it % ST) * BR * XS;
+    bf16* Ds = Xs + BR * XS;
+    __syncthreads();   // every warp is done with the buffer to refill and H1/H3/Z
+    if (ST == 2) {
+      if (tile + 1 < tile1) {
+        bf16* nx = XD + 2 * ((it + 1) % ST) * BR * XS;
+        load_rows_async<M>(x, R, (tile + 1) * BR, nx);
+        load_rows_async<M>(dout, R, (tile + 1) * BR, nx + BR * XS);
+      }
+      cp_async_commit();
+      cp_async_wait_prev();
+    } else {
+      if (tile > tile0) {
+        load_rows_async<M>(x, R, tile * BR, Xs);
+        load_rows_async<M>(dout, R, tile * BR, Ds);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
     }
-    cp_async_commit();
-    cp_async_wait_prev();
     __syncthreads();
-    float h1[2][4], h3[2][4], dz[2][4];
+    float h1[NJ][4], h3[NJ][4], dz[NJ][4];
     chunk_products<M>(Xs, Ds, w, wr, fh, lane, h1, h3, dz);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float d1[2], d3[2], z[2];
@@ -496,11 +542,11 @@ ffn_bwd_dw(const bf16* __restrict__ x, const bf16* __restrict__ dout,
       }
     }
     __syncthreads();
-    // Reduce over the tile's 64 rows (k = r, four k-steps of 16): the A
-    // operands dh1^T, dh3^T and dout^T and the B operands x and z are all
-    // read transposed from their [r][*] tiles.
+    // Reduce over the tile's BR rows (k = r, k-steps of 16): the A operands
+    // dh1^T, dh3^T and dout^T and the B operands x and z are all read
+    // transposed from their [r][*] tiles.
 #pragma unroll
-    for (int st = 0; st < BM / 16; ++st) {
+    for (int st = 0; st < BR / 16; ++st) {
       uint32_t x1[4], x3[4];
       ldsm_a_t<TS>(x1, H1, st * 16, ft, lane);
       ldsm_a_t<TS>(x3, H3, st * 16, ft, lane);
@@ -576,15 +622,16 @@ cudaError_t launch_bwd(const void* x, const void* w1, const void* w3,
   const bf16* w1b = static_cast<const bf16*>(w1);
   const bf16* w3b = static_cast<const bf16*>(w3);
   const bf16* w2b = static_cast<const bf16*>(w2);
-  constexpr size_t smem_dx = dx_smem_bytes<M>();
-  constexpr size_t smem_dw = dw_smem_bytes<M>();
+  using Tl = BwdTiles<M>;
+  constexpr size_t smem_dx = Tl::dx_bytes(Tl::DX_ST);
+  constexpr size_t smem_dw = Tl::dw_bytes(Tl::DW_ST);
   cudaError_t err = cudaFuncSetAttribute(
       ffn_bwd_dx<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dx);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
       ffn_bwd_dw<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dw);
   if (err != cudaSuccess) return err;
-  const int ntiles = (R + BM - 1) / BM;
+  const int ntiles = (R + Tl::BM - 1) / Tl::BM;
   const int tps = (ntiles + splits - 1) / splits;
   ffn_bwd_dx<M><<<ntiles, BW, smem_dx, stream>>>(xb, db, w1b, w3b, w2b,
                                                  static_cast<bf16*>(dx), R, F);
@@ -608,9 +655,26 @@ extern "C" int gaot_fused_ffn_fwd(const void* x, const void* w1, const void* w3,
                                   int F, void* stream) {
   if (R <= 0 || F <= 0 || F % FC) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Built for the UViT hidden size of the configurations the port runs.
-  if (M == 256) return (int)launch<256>(x, w1, w3, w2, out, R, F, s);
-  return (int)cudaErrorInvalidValue;
+  // Built for every width the JAX gate takes up to 512 (M % 128 == 0).
+  switch (M) {
+    case 128: return (int)launch<128>(x, w1, w3, w2, out, R, F, s);
+    case 256: return (int)launch<256>(x, w1, w3, w2, out, R, F, s);
+    case 384: return (int)launch<384>(x, w1, w3, w2, out, R, F, s);
+    case 512: return (int)launch<512>(x, w1, w3, w2, out, R, F, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Rows of the backward's tiles at width M (0 for a width it is not built
+// for): the caller splits the rows of the dW kernel by these tiles.
+extern "C" int gaot_fused_ffn_bwd_row_tile(int M) {
+  switch (M) {
+    case 128: return BwdTiles<128>::BM;
+    case 256: return BwdTiles<256>::BM;
+    case 384: return BwdTiles<384>::BM;
+    case 512: return BwdTiles<512>::BM;
+    default: return 0;
+  }
 }
 
 // dx [R, M] bf16; part: [splits][3 F M] fp32 scratch; dw: [3 F M] fp32 out
@@ -621,7 +685,11 @@ extern "C" int gaot_fused_ffn_bwd(const void* x, const void* w1, const void* w3,
                                   int splits, void* stream) {
   if (R <= 0 || F <= 0 || F % FC || splits <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M == 256)
-    return (int)launch_bwd<256>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
-  return (int)cudaErrorInvalidValue;
+  switch (M) {
+    case 128: return (int)launch_bwd<128>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
+    case 256: return (int)launch_bwd<256>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
+    case 384: return (int)launch_bwd<384>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
+    case 512: return (int)launch_bwd<512>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,9 +1,14 @@
 // AGNO multiply-reduce for Hopper (sm_90a), forward and coefficient gradient:
 //   gaot_mulred_k: out[q, w] = sum_k coef[k, q, w mod C] * gath[k, q, w],
 //   gaot_mulred_b: d_coef[k, q, c] = sum_b gath[k, q, b C + c] * dout[q, b C + c],
-// with W = b * C. Both are memory-bound: every element of gath [K, Q, W] is
-// read once, with 16-byte vector loads, and summed in fp32 registers. The
-// coef rows of a mulred_k block are staged in shared memory in chunks of k.
+// with W = b * C. They replace the TPU kernels multiply_reduce_k and
+// multiply_reduce_b of gaot_tpu/ops/pallas/multiply_reduce.py. Both are
+// bound by device memory: every element of gath [K, Q, W] is read once, with
+// 16-byte vector loads, for 2 flops, and summed in fp32 registers. The coef
+// rows of a mulred_k block are staged in shared memory in chunks of k.
+// mulred_b sizes its blocks by the lane width W (further below), where the
+// TPU kernel folds adjacent queries into one 128-lane row for the same
+// reason: narrow rows alone leave the machine idle.
 // Plain C interface; each entry returns cudaGetLastError() after the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,87 +109,86 @@ cudaError_t launch(const void* gath, const void* coef, void* out, int K,
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // d_coef[k, q, c] = sum_b gath[k, q, b * C + c] * dout[q, b * C + c].
-// One block per query row q. Thread (cv, slice) owns the channel vector
-// c = cv * VEC .. cv * VEC + VEC - 1 and the batch slice b = slice,
-// slice + ns, ...: it streams 16-byte vectors of gath for kKChunk values of
-// k at once (dout's vector is loaded once per b and reused across them) and
-// sums over its b in fp32 registers. The ns slices are then folded in a fixed
-// order through shared memory, so the result is deterministic. The dout row
-// is read from device memory once; later k-chunks find it in L1.
+// Narrow lanes (W = b C of 16 or 64 at the 3D paths) gave a design of one
+// block per query row two or eight threads wide, so the design is per lane
+// width: a row takes tr = tc * ns threads (tc channel vectors of VEC
+// elements, ns slices of b), a block holds rows = 256 / tr contiguous query
+// rows of one k, and k is the fastest grid index, so every block has 256
+// threads and the blocks of one query range, which share its dout rows, run
+// side by side. A thread sums its slice of b (b = slice, slice + ns, ...)
+// for its channel vector in fp32 registers with 16-byte loads of gath and
+// dout. ns = ceil(b / kBPerThread): at b <= 8 ns = 1 and the thread writes
+// its VEC outputs straight from registers, with no shared memory and no
+// barrier; otherwise the ns slices are folded in a fixed order through
+// shared memory, so the result is deterministic with no atomics.
 constexpr int kBThreads = 256;
-constexpr int kKChunk = 4;
+constexpr int kBPerThread = 8;
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kBThreads)
 mulred_b_kernel(const T* __restrict__ gath, const T* __restrict__ dout,
                 T* __restrict__ out, int K, int Q, int C, int W, int tc,
-                int ns) {
-  extern __shared__ float red[];                      // [kKChunk][ns][C]
-  const int q = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int cv0 = tid % tc, slice = tid / tc;
+                int ns, int rows) {
+  extern __shared__ float red[];                      // [rows][ns][C]
+  const int k = blockIdx.x % K;
+  const int q0 = (blockIdx.x / K) * rows;
+  const int tr = tc * ns;
+  const int r = threadIdx.x / tr, lane = threadIdx.x % tr;
+  const int cv0 = lane % tc, slice = lane / tc;
   const int ncv = C / VEC, nb = W / C;
-  const long long plane = (long long)Q * W;
+  const int q = q0 + r;
+  const bool active = r < rows && q < Q;
   const T* drow = dout + (long long)q * W;
-  const T* grow = gath + (long long)q * W;
+  const T* grow = gath + ((long long)k * Q + q) * W;
 
-  for (int k0 = 0; k0 < K; k0 += kKChunk) {
-    const int kn = min(kKChunk, K - k0);
-    if (slice < ns) {
-      for (int cv = cv0; cv < ncv; cv += tc) {
-        float acc[kKChunk][VEC];
+  for (int cv = cv0; active && cv < ncv; cv += tc) {
+    float acc[VEC];
 #pragma unroll
-        for (int kk = 0; kk < kKChunk; ++kk)
+    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+#pragma unroll 4
+    for (int bb = slice; bb < nb; bb += ns) {
+      const int w = bb * C + cv * VEC;
+      const Pack<T, VEC> d = *reinterpret_cast<const Pack<T, VEC>*>(drow + w);
+      const Pack<T, VEC> g = *reinterpret_cast<const Pack<T, VEC>*>(grow + w);
 #pragma unroll
-          for (int j = 0; j < VEC; ++j) acc[kk][j] = 0.f;
-        for (int bb = slice; bb < nb; bb += ns) {
-          const int w = bb * C + cv * VEC;
-          const Pack<T, VEC> d = *reinterpret_cast<const Pack<T, VEC>*>(drow + w);
-#pragma unroll
-          for (int kk = 0; kk < kKChunk; ++kk) {
-            if (kk < kn) {
-              const Pack<T, VEC> g = *reinterpret_cast<const Pack<T, VEC>*>(
-                  grow + (long long)(k0 + kk) * plane + w);
-#pragma unroll
-              for (int j = 0; j < VEC; ++j) acc[kk][j] += to_f(g.v[j]) * to_f(d.v[j]);
-            }
-          }
-        }
-#pragma unroll
-        for (int kk = 0; kk < kKChunk; ++kk)
-          if (kk < kn)
-#pragma unroll
-            for (int j = 0; j < VEC; ++j)
-              red[(kk * ns + slice) * C + cv * VEC + j] = acc[kk][j];
-      }
+      for (int j = 0; j < VEC; ++j) acc[j] += to_f(g.v[j]) * to_f(d.v[j]);
     }
-    __syncthreads();
-    for (int i = tid; i < kn * C; i += blockDim.x) {
-      const int kk = i / C, c = i % C;
-      float s = 0.f;
-      for (int sl = 0; sl < ns; ++sl) s += red[(kk * ns + sl) * C + c];
-      out[((long long)(k0 + kk) * Q + q) * C + c] = from_f<T>(s);
+    if (ns == 1) {
+      Pack<T, VEC> o;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) o.v[j] = from_f<T>(acc[j]);
+      *reinterpret_cast<Pack<T, VEC>*>(out + ((long long)k * Q + q) * C + cv * VEC) = o;
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) red[(r * ns + slice) * C + cv * VEC + j] = acc[j];
     }
-    __syncthreads();
+  }
+  if (ns == 1) return;
+  __syncthreads();
+  const int nrow = min(rows, Q - q0);
+  for (int i = threadIdx.x; i < nrow * C; i += blockDim.x) {
+    const int rr = i / C, c = i % C;
+    float s = 0.f;
+    for (int sl = 0; sl < ns; ++sl) s += red[(rr * ns + sl) * C + c];
+    out[((long long)k * Q + q0 + rr) * C + c] = from_f<T>(s);
   }
 }
 
 template <typename T, int VEC>
 cudaError_t launch_b(const void* gath, const void* dout, void* out, int K,
                      int Q, int C, int W, cudaStream_t stream) {
-  const int ncv = C / VEC;
+  const int ncv = C / VEC, nb = W / C;
   const int tc = ncv < kBThreads ? ncv : kBThreads;
-  int ns = kBThreads / tc;
-  if (ns > W / C) ns = W / C;
-  const size_t smem = sizeof(float) * (size_t)kKChunk * ns * C;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mulred_b_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  mulred_b_kernel<T, VEC><<<Q, tc * ns, smem, stream>>>(
+  int ns = (nb + kBPerThread - 1) / kBPerThread;
+  if (ns > kBThreads / tc) ns = kBThreads / tc;
+  const int rows = kBThreads / (tc * ns);
+  const size_t smem = ns > 1 ? sizeof(float) * (size_t)rows * ns * C : 0;
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const long long blocks = (long long)((Q + rows - 1) / rows) * K;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  mulred_b_kernel<T, VEC><<<(unsigned)blocks, rows * tc * ns, smem, stream>>>(
       static_cast<const T*>(gath), static_cast<const T*>(dout),
-      static_cast<T*>(out), K, Q, C, W, tc, ns);
+      static_cast<T*>(out), K, Q, C, W, tc, ns, rows);
   return cudaGetLastError();
 }
 
@@ -196,7 +200,7 @@ extern "C" int gaot_mulred_b(const void* gath, const void* dout, void* out,
   if (K <= 0 || Q <= 0 || C <= 0 || W <= 0 || W % C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec_ok = aligned16(gath) && aligned16(dout);
+  const bool vec_ok = aligned16(gath) && aligned16(dout) && aligned16(out);
   if (dtype == 1) {
     if (vec_ok && C % 8 == 0)
       return (int)launch_b<__nv_bfloat16, 8>(gath, dout, out, K, Q, C, W, s);

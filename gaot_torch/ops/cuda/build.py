@@ -3,11 +3,14 @@
 Each source has a plain C interface and is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o gaot_torch/_build/kernels/lib<name>.so <name>.cu
+         -Xcompiler -fPIC --split-compile=0 -o gaot_torch/_build/kernels/lib<name>.so <name>.cu
 
-then loaded with ctypes. A library is rebuilt when its source is newer.
-:func:`build_all` starts one ``nvcc`` per source at once. Nothing here runs
-at import time, so the package imports on a host without CUDA.
+then loaded with ctypes. ``--split-compile=0`` runs the device compiler's
+passes on every host core: the flash sources instantiate each kernel for
+sixteen head dims. A library is rebuilt when its source, or a shared header
+(``csrc/*.cuh``), is newer. :func:`build_all` starts one ``nvcc`` per source
+at once. Nothing here runs at import time, so the package imports on a host
+without CUDA.
 """
 from __future__ import annotations
 
@@ -22,10 +25,11 @@ from typing import Dict, Sequence
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build", "kernels")
-KERNELS = ("multiply_reduce", "flash_attention", "fused_ffn")
+KERNELS = ("multiply_reduce", "flash_attention", "flash_attention_bwd", "fused_ffn")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, object] = {}
 ptxas_info: Dict[str, str] = {}
 
 
@@ -42,37 +46,55 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared header."""
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    deps = [src] + [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                    if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(map(os.path.getmtime, deps))
 
 
 def _start(nvcc: str, name: str):
     src, so = _paths(name)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, src]
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+           "-Xptxas", "-v", "-o", tmp, src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp, so
 
 
 def build_all(names: Sequence[str] = KERNELS) -> Dict[str, float]:
-    """Compile every stale kernel library, one nvcc per source in parallel.
+    """Compile every stale kernel library, one nvcc per library in parallel.
 
     Returns the seconds each build took (0.0 for an up-to-date library).
     Raises RuntimeError with the compiler's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     stale = [n for n in names if _stale(n)]
     nvcc = _nvcc() if stale else ""
-    t0 = time.perf_counter()
-    procs = {n: _start(nvcc, n) for n in stale}
     secs = {n: 0.0 for n in names}
-    failed = []
-    for n, (proc, tmp, so) in procs.items():
+    outs = {}
+
+    def run(n):
+        # A thread per nvcc drains its pipe: the ptxas report of a flash
+        # source passes the pipe's buffer.
+        t0 = time.perf_counter()
+        proc, tmp, so = _start(nvcc, n)
         out, _ = proc.communicate()
         secs[n] = time.perf_counter() - t0
+        outs[n] = (proc.returncode, out, tmp, so)
+
+    threads = [threading.Thread(target=run, args=(n,)) for n in stale]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    failed = []
+    for n in stale:
+        rc, out, tmp, so = outs[n]
         ptxas_info[n] = out
-        if proc.returncode != 0:
+        if rc != 0:
             failed.append(f"--- {n}.cu ---\n{out}")
             if os.path.exists(tmp):
                 os.remove(tmp)
@@ -93,6 +115,20 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
         return lib
+
+
+def entry(name: str, fn: str, argtypes: Sequence):
+    """The C entry point ``fn`` of library ``name`` (built first if needed),
+    with its argument types set once: setting them on every call costs the
+    host more than a small kernel takes on the card."""
+    key = (name, fn)
+    f = _entries.get(key)
+    if f is None:
+        f = getattr(load(name), fn)
+        f.restype = ctypes.c_int
+        f.argtypes = list(argtypes)
+        _entries[key] = f
+    return f
 
 
 def check(rc: int, what: str) -> None:

@@ -15,21 +15,31 @@ Bound on the H100: at D=32 the products do 4·B·H·S²·D operations forward an
 tensor cores and the exp2 (one per score, each way) bound them, not memory:
 the [S, S] scores never leave the chip.
 
-Forward design (``gaot_torch/csrc/flash_attention.cu``): one block per
-(batch·q-head, 64-query tile), four warps of 16 query rows. The block
-indexes its kv-head as head // (H / Hkv), so GQA needs no copy of K/V. It
-streams K/V through shared memory in tiles of 64 keys with an online
-softmax: fp32 running max and denominator, exp2 with the logit scale folded
-with log2(e), P cast to V's dtype before the P·V product (as the TPU kernel
-does), and the output normalised once at the end. For training it also
-writes the base-2 row LSE m + log2(l), as ``_attn_kernel_lse`` defines it.
-bf16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulation);
-fp32 runs the same algorithm on the CUDA cores. The TPU kernel keeps all of
-K/V resident instead; in fp32 that is 256 KB per head at S=1024, above a
-block's 227 KB of shared memory, and 3D grids reach S = 32k. Any S is taken
-(the ragged last tile is masked); D must be 24 or 32, the head dims it is
-built for. At D = 24 the bf16 products that contract over D take a k-step
-of 16 and one whose upper 8 columns are zero registers.
+Forward design (``gaot_torch/csrc/flash_attention.cu``), bf16: one block per
+(batch·q-head, 128 queries), two warpgroups of 64 query rows. The block
+indexes its kv-head as head // (H / Hkv), so GQA needs no copy of K/V. K and
+V stream through a ring of three shared-memory stages of 64 keys filled by
+16-byte ``cp.async``, so the next tile's copy overlaps this tile's work, in
+the no-swizzle core-matrix layout of ``wgmma``: K is the K-major B operand
+of S = Q·Kᵀ and V, in its natural [key, D] layout, the transposed B operand
+of P·V (no element-wise transpose). Both products run on the tensor cores
+through ``wgmma`` with A in registers (Q, then P from the S accumulator,
+whose layout is P·V's A fragment); S_j is issued together with the previous
+tile's P·V, whose product runs while the softmax of S_j does. Online
+softmax: fp32 running max and per-thread partial denominators, one FFMA and
+one ``ex2.approx`` per score (exp2(s·c − m·c), c = scale·log2 e), only the
+ragged last tile masked, P rounded to V's dtype before P·V (as the TPU
+kernel does), the output divided by the fp32 denominator once at the end.
+For training it also writes the base-2 row LSE m + log2(l), as
+``_attn_kernel_lse`` defines it. What bounds it is the exp2 of the
+special-function units; the tensor cores come second. fp32 runs the same
+online softmax on the CUDA cores, one thread per query row. The TPU kernel
+keeps all of K/V resident instead; in fp32 that is 256 KB per head at
+S=1024, above a block's 227 KB of shared memory, and 3D grids reach
+S = 32k. Any S is taken (the ragged last tile is
+masked). D may be any multiple of 8 from 8 to 128 (``HEAD_DIMS``); the JAX
+gate also takes multiples of 8 above 128, which raise here. At D % 16 == 8
+the products over D pad the last k-step of 16 with zeros.
 
 Backward design: the TPU kernel holds a head's whole [S, S] row block in
 VMEM; on the card the standard tiled flash backward, which the JAX package
@@ -57,7 +67,9 @@ import torch
 launches = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
             "flash_attention_bwd": 0}
 
-HEAD_DIMS = (24, 32)        # the head dims the kernels are instantiated for
+# The head dims the kernels are instantiated for: every multiple of 8 up to
+# 128 (the JAX gate takes any multiple of 8).
+HEAD_DIMS = tuple(range(8, 129, 8))
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -133,8 +145,8 @@ def _check(q, k, v):
 def _check_kernel_inputs(q, k, v):
     d = q.shape[-1]
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel is built for head dim in "
-                         f"{HEAD_DIMS}, got {d}")
+        raise ValueError(f"flash_attention kernel is built for head dim a "
+                         f"multiple of 8 from 8 to 128, got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or fp32 with equal "
                         f"dtypes, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -154,7 +166,7 @@ def _strides(*ts):
 
 def _forward_kernel(q, k, v, with_lse: bool):
     _check_kernel_inputs(q, k, v)
-    from .build import check, load
+    from .build import check, entry
 
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -162,12 +174,9 @@ def _forward_kernel(q, k, v, with_lse: bool):
            if with_lse else None)
     if b * s * h == 0:
         return out, lse
-    lib = load("flash_attention")
-    fn = lib.gaot_flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_int,
-                                  ctypes.c_void_p]
+    fn = entry("flash_attention", "gaot_flash_fwd",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale_log2 = (1.0 / math.sqrt(d)) * _LOG2E
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -193,7 +202,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv = k.shape[2]
     if lse is None or lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError("the backward kernel needs the forward's fp32 LSE [B, H, S]")
-    from .build import check, load
+    from .build import check, entry
 
     o = o.to(q.dtype).contiguous()
     do = do.to(q.dtype).contiguous()
@@ -204,12 +213,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * s * h == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = load("flash_attention")
-    fn = lib.gaot_flash_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_float,
-                                  ctypes.c_int, ctypes.c_void_p]
+    fn = entry("flash_attention_bwd", "gaot_flash_bwd",
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+               + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(d)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

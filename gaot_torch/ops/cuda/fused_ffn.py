@@ -20,8 +20,11 @@ of one product is the operand layout of the next — and accumulates
 out += z·W2ᵀ in fp32 registers. h1, h3 and z never touch device memory.
 Ragged R is masked (the TPU pads rows instead). The weights are taken in
 torch's Linear layout: w1, w3 [F, M] and w2 [M, F], which are the
-column-major operands ``mma.sync`` wants. bf16 only; M must be 256 (the UViT
-hidden size of the configurations the port runs) and F a multiple of 32.
+column-major operands ``mma.sync`` wants. bf16 only; M may be 128, 256, 384
+or 512 (every width the JAX gate takes up to 512) and F a multiple of 32.
+Above M = 256 a warp's fp32 output accumulator would pass the register
+file, so the block has eight warps, each half of them owning half of the
+output columns and recomputing h1 and h3 for its rows.
 
 Backward design: the TPU kernel carries dW in VMEM across its sequential
 grid; blocks on the card run in no order, so one backward call is three
@@ -35,7 +38,9 @@ fixed order, so the result is deterministic (no float atomics). Every tile
 sits in shared memory in its natural layout, copied with ``cp.async`` into
 double buffers while the previous tile computes; the products that need a
 tile transposed (dz, dx, all three dW) load their fragments with
-``ldmatrix.trans``. Transposing by element-wise shared stores instead put
+``ldmatrix.trans``. The tiles follow M so that each instantiation fits a
+block's 227 KB: 64 rows up to M = 256, 32 rows above, and at M = 512 one
+buffer instead of two. Transposing by element-wise shared stores instead put
 all 32 lanes of a warp on one bank and cost 4× the time. The fp32
 compute path keeps the plain three products, as the JAX package leaves it to
 XLA, and its gradient is autograd's.
@@ -49,7 +54,9 @@ import torch.nn.functional as F
 
 launches = {"fused_ffn_fwd": 0, "fused_ffn_bwd": 0}
 
-M_BUILT = (256,)
+# The widths the kernels are instantiated for: every width the JAX gate takes
+# (M % 128 == 0) up to 512.
+M_BUILT = (128, 256, 384, 512)
 F_CHUNK = 32
 
 
@@ -60,8 +67,8 @@ def supported(r: int, m: int, f: int, dtype) -> int:
     leaves the SwiGLU to XLA's three products (not bf16 or fp32, M or F not
     a multiple of 128, or weights and fp32 dW accumulators above 64 MiB).
     The FFN routes by this rule, so a width it accepts that the kernel was
-    not built for (M not in ``M_BUILT``) still reaches the wrapper and
-    raises on the card."""
+    not built for (M above 512, not in ``M_BUILT``) still reaches the
+    wrapper and raises on the card."""
     if dtype not in (torch.bfloat16, torch.float32) or m % 128 or f % 128:
         return 0
     per_row = f * 4 * 4 + m * 8          # fp32 h1, h3, dz (+ slack) per row
@@ -130,16 +137,14 @@ def _check_kernel_inputs(*ts):
 
 def _forward_kernel(x, w1, w3, w2):
     _check_kernel_inputs(x, w1, w3, w2)
-    from .build import check, load
+    from .build import check, entry
 
     r, m = x.shape
     out = torch.empty_like(x)
     if r == 0:
         return out
-    lib = load("fused_ffn")
-    fn = lib.gaot_fused_ffn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = entry("fused_ffn", "gaot_fused_ffn_fwd",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
             out.data_ptr(), r, m, w1.shape[0], stream)
@@ -166,7 +171,7 @@ def fused_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
         return fused_ffn_bwd_plain(x, w1, w3, w2, dout)
     dout = dout.to(x.dtype).contiguous()
     _check_kernel_inputs(x, w1, w3, w2, dout)
-    from .build import check, load
+    from .build import check, entry
 
     r, m = x.shape
     f = w1.shape[0]
@@ -176,15 +181,14 @@ def fused_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     if r == 0:
         dw.zero_()
         return views
-    tiles = -(-r // 64)
+    row_tile = entry("fused_ffn", "gaot_fused_ffn_bwd_row_tile", [ctypes.c_int])(m)
+    tiles = -(-r // row_tile)
     # Two waves of (F chunk, row split) blocks, one block per SM.
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     splits = max(1, min(tiles, 2 * sms // (f // F_CHUNK)))
     part = torch.empty((splits, 3 * f * m), dtype=torch.float32, device=x.device)
-    lib = load("fused_ffn")
-    fn = lib.gaot_fused_ffn_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = entry("fused_ffn", "gaot_fused_ffn_bwd",
+               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
             dout.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),

@@ -25,11 +25,18 @@ TPU kernel's query folding and 128-lane gate were tiling constraints of the
 TPU, not semantics. The output has gath's dtype.
 
 ``multiply_reduce_b`` is memory-bound the same way: it reads each gathered
-row and each dout row once, whatever K is. One block per query row; each
-thread streams 16-byte vectors of ``gath`` for four values of k at once
-against one vector of ``dout`` and sums its share of b in fp32 registers;
-the shares are folded in a fixed order through shared memory (no atomics).
-The output has dout's dtype, as the TPU kernel declares.
+row once and each dout row once per k (from L2: the blocks of one query
+range run side by side), for 2 flops per element. Its bytes per query row
+are few at narrow lanes (W = 16 on the 3D long path, 64 on the flagship),
+so the design follows the lane width, as the TPU kernel's query folding
+does for its 128 lanes: a row takes tc·ns threads (tc 16-byte channel
+vectors, ns = ceil(b / 8) slices of b), a block holds 256 / (tc·ns)
+contiguous query rows of one k, and k is the grid's fastest index, so every
+block runs 256 threads and small degree buckets still fill the card. Each
+thread sums its slice of b in fp32 registers; with one slice (b ≤ 8) it
+writes its outputs straight from registers, otherwise the slices are folded
+in a fixed order through shared memory (deterministic, no atomics). The
+output has dout's dtype, as the TPU kernel declares.
 """
 from __future__ import annotations
 
@@ -77,16 +84,14 @@ def multiply_reduce_k(coef_km: torch.Tensor, gath_km: torch.Tensor,
         raise ValueError("gath must be contiguous")
     if c and coef_km.stride(2) != 1:
         raise ValueError("coef's channel axis must be contiguous")
-    from .build import check, load
+    from .build import check, entry
 
     out = torch.empty((q, w), dtype=gath_km.dtype, device=gath_km.device)
     if q == 0 or w == 0:
         return out
-    lib = load("multiply_reduce")
-    fn = lib.gaot_mulred_k
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn = entry("multiply_reduce", "gaot_mulred_k",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+               + [ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(gath_km.device).cuda_stream
     rc = fn(gath_km.data_ptr(), coef_km.data_ptr(), out.data_ptr(),
             k, q, c, w, coef_km.stride(0), coef_km.stride(1),
@@ -128,15 +133,13 @@ def multiply_reduce_b(gath_km: torch.Tensor, dout: torch.Tensor,
         raise ValueError("gath and dout must be on the same device")
     if not (gath_km.is_contiguous() and dout.is_contiguous()):
         raise ValueError("gath and dout must be contiguous")
-    from .build import check, load
+    from .build import check, entry
 
     out = torch.empty((k, q, c), dtype=dout.dtype, device=dout.device)
     if out.numel() == 0:
         return out
-    lib = load("multiply_reduce")
-    fn = lib.gaot_mulred_b
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = entry("multiply_reduce", "gaot_mulred_b",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(gath_km.device).cuda_stream
     rc = fn(gath_km.data_ptr(), dout.data_ptr(), out.data_ptr(), k, q, c, w,
             _DTYPES[dout.dtype], stream)

@@ -1,0 +1,286 @@
+#!/usr/bin/env python3
+"""Kernel and step times of several checkouts of the repository, side by
+side in one run on one NVIDIA card.
+
+    python3 kernel_ab.py ROOT [ROOT ...]          # e.g. old . . old
+    python3 kernel_ab.py --build ROOT [ROOT ...]
+
+ROOT is the root of a checkout (its gaot_torch/, chip_smoke.py and config/
+are enough). Each ROOT runs in a process of its own, in the order given, so
+a checkout named twice is measured twice, with the others in between. That
+process imports the gaot_torch of its ROOT, builds its kernels if needed,
+and times, on tensors made from one seed:
+  - multiply_reduce_b at every (K, Q) one training step of each path runs
+    (the shapes chip_smoke.py logs as "reduce shapes"), lanes W = b·C;
+  - the bf16 flash forward, without and with the LSE, at each path's shape;
+  - the PyTorch library call that computes the same function (einsum; SDPA,
+    or its aten entry that also returns the LSE);
+each on three yardsticks:
+  single   median of 20 calls, each timed alone between two CUDA events:
+           the host's time to issue the call, then its device time;
+  batched  20 calls issued back to back between two CUDA events, over their
+           count: the host issues a call while the card runs the one
+           before, so this reads the longer of the two;
+  device   the device time of the kernels the calls ran (torch.profiler),
+           per call.
+Then it drives the fx main path's and the 3D flagship's batch forward and
+training step (bf16, seeded random weights) through the drive of ROOT's own
+chip_smoke.py, without its card-vs-CPU checks, which logs their host-clock
+medians, device busy time and idle share.
+
+--build compiles each ROOT's kernels from nothing, one ROOT after another,
+and reports the seconds each took.
+
+Prints each process's log, then a table of every number by ROOT and run;
+writes them to chiprun_out/kernel_ab.json.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "chiprun_out", "kernel_ab.json")
+
+# path: (b, C, [(K, Q) of each multiply_reduce_b launch of one training step])
+MULRED_B = {"fx": (64, 64, [(5, 1536), (8, 1664), (12, 1024), (24, 128), (8, 8192)]),
+            "3d": (4, 16, [(8, 262144), (8, 32768)]),
+            "long": (1, 16, [(8, 262144), (8, 32768)])}
+# path: (B, S, H = Hkv, D) of its flash calls
+FLASH = {"fx": (64, 1024, 8, 32), "3d": (4, 4096, 8, 24), "long": (1, 32768, 8, 24)}
+ITERS = 20
+
+
+def single_ms(fn):
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ITERS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def batched_ms(fn):
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ITERS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / ITERS
+
+
+def device_ms(fn):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    if us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return us / ITERS / 1e3
+
+
+def yardsticks(fn):
+    return {"single": single_ms(fn), "batched": batched_ms(fn), "device": device_ms(fn)}
+
+
+def kernel_times():
+    """{case: {"kernel" | "library": {yardstick: ms}}} at the paths' shapes;
+    multiply_reduce_b's cases are also summed over a path's shapes."""
+    import torch
+
+    from gaot_torch.ops.cuda import flash_attention as fa
+    from gaot_torch.ops.cuda import multiply_reduce as mr
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    res = {}
+    for path, (b, c, shapes) in MULRED_B.items():
+        total = {}
+        for k, q in shapes:
+            gath = rnd(k, q, b * c).bfloat16()
+            dout = rnd(q, b * c).bfloat16()
+            err = float((mr.multiply_reduce_b(gath, dout, b).float()
+                         - mr.multiply_reduce_b_plain(gath, dout, b).float()).abs().max())
+            g4, d3 = gath.view(k, q, b, c), dout.view(q, b, c)
+            case = {"kernel": yardsticks(lambda: mr.multiply_reduce_b(gath, dout, b)),
+                    "library": yardsticks(lambda: torch.einsum("kqbc,qbc->kqc", g4, d3)),
+                    "max_abs_err": err}
+            res[f"multiply_reduce_b {path} K={k} Q={q} b={b} C={c}"] = case
+            for who in ("kernel", "library"):
+                for y, v in case[who].items():
+                    total.setdefault(who, {}).setdefault(y, 0.0)
+                    total[who][y] += v
+        res[f"multiply_reduce_b {path} (sum of {len(shapes)} shapes)"] = total
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for path, (bb, s, h, d) in FLASH.items():
+        qkv = rnd(bb, s, 3, h, d).bfloat16()          # q, k, v: views of one buffer
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        shape = f"B={bb} S={s} H={h} D={d}"
+        if path != "long":
+            res[f"flash fwd {path} {shape}"] = {
+                "kernel": yardsticks(lambda: fa.flash_attention(q, k, v)),
+                "library": yardsticks(lambda: sdpa(qh, kh, vh))}
+        res[f"flash fwd+LSE {path} {shape}"] = {
+            "kernel": yardsticks(lambda: fa.flash_attention_lse(q, k, v)),
+            "library": yardsticks(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh))}
+        del qkv, q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    return res
+
+
+def drive_paths(root):
+    """The batch forward and training step of the fx main path and the 3D
+    flagship through ROOT's chip_smoke.py (launch counts checked there)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_of_root", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from gaot_torch.core.config import GAOTConfig, load_experiment_config, merge_config
+
+    cs.phase_card()
+    cfg = load_experiment_config(cs.CONFIG)
+    cfg3 = merge_config(GAOTConfig, cs.CONFIG_3D)
+    paths = [
+        cs.Path("fx main path", cfg, *cs._host_graphs(cfg, cs.NUM_NODES, cs.LATENT,
+                                                      "fx main path"),
+                seq=cs.SEQ, check_batch=0, check_dtypes=(), batch=cs.BATCH,
+                steps_per_epoch=cs.STEPS_PER_EPOCH, forward_launches=cs.FORWARD_LAUNCHES,
+                train_launches=cs.TRAIN_LAUNCHES),
+        cs.Path("3D flagship", cfg3, *cs._host_graphs(cfg3, cs.NODES_3D, cs.LATENT_3D,
+                                                      "3D flagship"),
+                seq=cs.SEQ_3D, check_batch=0, check_dtypes=(), batch=cs.BATCH_3D,
+                steps_per_epoch=cs.STEPS_PER_EPOCH_3D,
+                forward_launches=cs.FORWARD_LAUNCHES_3D,
+                train_launches=cs.TRAIN_LAUNCHES_3D)]
+    for path in paths:
+        cs.phase_forward(path)
+        cs.phase_train(path)
+
+
+def child(root, build_only):
+    sys.path.insert(0, root)
+    import torch
+
+    import gaot_torch
+    from gaot_torch.ops.cuda import build
+
+    if not os.path.abspath(gaot_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {gaot_torch.__file__}, not the gaot_torch of {root}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    if build_only:
+        shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    result = {"build_wall_s": time.perf_counter() - t0, "build_s": secs}
+    if not build_only:
+        result["kernels"] = kernel_times()
+    print("RESULT " + json.dumps(result), flush=True)
+    if not build_only:
+        drive_paths(root)
+
+
+TIMES = re.compile(r"(forward_ms|step_ms) median=([\d.]+) min=([\d.]+) max=([\d.]+)")
+PIPE = re.compile(r"pipelined (.*) \(\d+ back to back\): wall_ms=([\d.]+) "
+                  r"device_busy_ms=([\d.]+) idle_share=([\d.]+)")
+
+
+def parse(out):
+    """The child's RESULT line and its paths' timings."""
+    result = None
+    for line in out.splitlines():
+        if line.startswith("RESULT "):
+            result = json.loads(line[len("RESULT "):])
+            continue
+        m = TIMES.search(line)
+        if m:
+            result.setdefault("host", []).append(
+                {"median": float(m[2]), "min": float(m[3]), "max": float(m[4])})
+        m = PIPE.search(line)
+        if m:
+            result["host"][-1].update(what=m[1], wall=float(m[2]), busy=float(m[3]),
+                                      idle=float(m[4]))
+    return result
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--build", action="store_true",
+                    help="only build each ROOT's kernels from nothing, and time it")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    roots = [os.path.abspath(r) for r in args.roots]
+    if args.child:
+        child(roots[0], args.build)
+        return 0
+    runs = []
+    for i, root in enumerate(roots):
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", root]
+        if args.build:
+            cmd.append("--build")
+        print(f"=== run {i}: {root}", flush=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
+        print(proc.stdout, flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-8000:], file=sys.stderr, flush=True)
+            print(f"kernel_ab FAILED: run {i} ({root}) exited {proc.returncode}",
+                  file=sys.stderr)
+            return 1
+        runs.append({"root": root, **parse(proc.stdout)})
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT + (".build" if args.build else ""), "w") as f:
+        json.dump(runs, f, indent=1)
+    print("=== table (ms; one column per run, in order)")
+    for i, r in enumerate(runs):
+        print(f"run {i}: {r['root']}: build wall {r['build_wall_s']:.1f}s "
+              + " ".join(f"{k}={v:.1f}s" for k, v in r["build_s"].items()))
+    if args.build:
+        return 0
+    for case in runs[0]["kernels"]:
+        for who in ("kernel", "library"):
+            for y in ("single", "batched", "device"):
+                vals = " ".join(f"{r['kernels'][case][who][y]:.4f}" for r in runs)
+                print(f"{case} | {who} | {y}: {vals}")
+    for j, h in enumerate(runs[0]["host"]):
+        for key in ("median", "wall", "busy", "idle"):
+            vals = " ".join(f"{r['host'][j][key]:.3f}" for r in runs)
+            print(f"{h['what']} | {key}: {vals}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

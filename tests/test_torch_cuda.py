@@ -1,10 +1,13 @@
 """gaot_torch's CUDA kernels against their plain versions on the card, at the
 shapes the main path does not reach: GQA, ragged sequence and row counts,
 channel counts without 16-byte vectors, coef staged in several k-chunks,
-fp32 attention, head dim 24 at ragged and at the 3D sequence lengths, K = 1
-and an all-masked row of a transpose graph; the gradients of every kernel;
-the SwiGLU width the JAX gate sends to the plain route; and the small fx
-forward and training step against the CPU plain route.
+the narrow lanes of the 3D paths (b = 1 and 4 at C = 16, C = 8) with query
+counts that do not fill a block, fp32 attention, every head dim from 8 to
+128 at ragged lengths and GQA, head dim 24 at the 3D sequence lengths, the
+SwiGLU widths 128 to 512, K = 1 and an all-masked row of a transpose graph;
+the gradients of every kernel; the SwiGLU width the JAX gate sends to the
+plain route; the widths the kernels refuse; and the small fx forward and
+training step against the CPU plain route.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. On the machine with the card
 (which has no JAX, so without the JAX-loading conftest):
@@ -72,7 +75,11 @@ def test_multiply_reduce_k(dtype, k, q, c, b):
 @pytest.mark.parametrize("k,q,c,b", [(3, 37, 12, 5),      # no 16-byte vectors
                                      (1, 16, 64, 64),     # K = 1
                                      (6, 50, 2048, 3),    # wide channels
-                                     (5, 96, 64, 64)])    # the main path's C, b
+                                     (5, 96, 64, 64),     # the main path's C, b
+                                     (5, 1000, 16, 1),    # the long path's lanes
+                                     (5, 333, 16, 4),     # the flagship's lanes
+                                     (5, 77, 8, 4),       # C = 8, a partial block
+                                     (3, 129, 8, 1)])
 def test_multiply_reduce_b(dtype, k, q, c, b):
     from gaot_torch.ops.cuda import multiply_reduce as mr
 
@@ -86,11 +93,13 @@ def test_multiply_reduce_b(dtype, k, q, c, b):
     _close(got, mr.multiply_reduce_b_plain(gath, dout, b), dtype)
 
 
-# GQA and ragged S at both built head dims; head dim 24 (the 3D flagship's)
-# also at S = 4096 (the regime of the TPU's q-tiled backward) and 8192 (its
-# two-kernel long backward). At D = 24 the bf16 products over D take a
-# k-step of 16 and one whose upper half is zero.
-_FLASH_SHAPES = [(b, s, h, hkv, d) for d in (24, 32)
+# GQA and ragged S at every built head dim (8 to 128; the 3D flagship's 24
+# and the fx path's 32 first); head dim 24 also at S = 4096 (the regime of
+# the TPU's q-tiled backward) and 8192 (its two-kernel long backward). At
+# D % 16 == 8 the bf16 products over D take a last k-step of 16 whose upper
+# half is zero.
+_FLASH_DIMS = [24, 32] + [d for d in range(8, 129, 8) if d not in (24, 32)]
+_FLASH_SHAPES = [(b, s, h, hkv, d) for d in _FLASH_DIMS
                  for b, s, h, hkv in ((2, 100, 8, 2), (1, 1, 4, 4), (3, 257, 6, 3))]
 _FLASH_3D = [(2, 4096, 8, 8, 24), (1, 8192, 4, 2, 24)]
 
@@ -113,8 +122,14 @@ def test_flash_attention(dtype, b, s, h, hkv, d):
     _close(got, fa.attention_plain(q, k, v), dtype)
 
 
+# The backward at the head dims besides 24 and 32 skips S = 1: there dQ and
+# dK are zero (the kernel gives exact zeros) and the plain version's bf16
+# rounding alone reaches 1.4e-2 at D = 104, above the bound's atol.
+_FLASH_BWD_SHAPES = [x for x in _FLASH_SHAPES if x[4] in (24, 32) or x[1] > 1]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,hkv,d", _FLASH_SHAPES + [(1, 128, 4, 1, 32)] + _FLASH_3D)
+@pytest.mark.parametrize("b,s,h,hkv,d", _FLASH_BWD_SHAPES + [(1, 128, 4, 1, 32)] + _FLASH_3D)
 def test_flash_attention_backward(dtype, b, s, h, hkv, d):
     """The LSE output and dQ, dK, dV (through autograd) against the plain
     versions. GQA and ragged S. bf16: the kernel normalises p from the LSE
@@ -163,7 +178,9 @@ def test_ffn_width_192_runs_plain_on_the_card():
     assert out.dtype == torch.bfloat16 and torch.isfinite(x.grad.float()).all()
 
 
-@pytest.mark.parametrize("r,m,f", [(200, 256, 96), (64, 256, 1024), (1, 256, 32)])
+@pytest.mark.parametrize("r,m,f", [(200, 256, 96), (64, 256, 1024), (1, 256, 32),
+                                   (200, 128, 96), (130, 384, 128), (200, 512, 96),
+                                   (64, 512, 1024)])
 def test_fused_ffn(r, m, f):
     from gaot_torch.ops.cuda import fused_ffn as ff
 
@@ -177,14 +194,17 @@ def test_fused_ffn(r, m, f):
     _close(got, ff.fused_ffn_plain(x, w1, w3, w2), torch.bfloat16)
 
 
-@pytest.mark.parametrize("r,f", [(200, 96), (1, 32), (4096, 1024), (70, 64)])
-def test_fused_ffn_backward(r, f):
+@pytest.mark.parametrize("r,f,m", [(200, 96, 256), (1, 32, 256), (4096, 1024, 256),
+                                   (70, 64, 256), (200, 96, 128), (1, 32, 128),
+                                   (70, 64, 384), (1000, 256, 384), (200, 96, 512),
+                                   (1, 32, 512), (1000, 256, 512)])
+def test_fused_ffn_backward(r, f, m):
     """dx and dW1, dW3, dW2 (through autograd) against the plain backward,
-    ragged R included. Both round dh1 and dh3 to bf16 from fp32 sums taken
-    in other orders: 2% of each gradient's largest entry."""
+    ragged R included, at every built width (32-row tiles above M = 256, one
+    buffer at 512). Both round dh1 and dh3 to bf16 from fp32 sums taken in
+    other orders: 2% of each gradient's largest entry."""
     from gaot_torch.ops.cuda import fused_ffn as ff
 
-    m = 256
     gen = torch.Generator(device="cuda").manual_seed(3 * r + f)
     x = _rnd(gen, r, m).bfloat16()
     ws = [(_rnd(gen, f, m) / m ** 0.5).bfloat16(),
@@ -261,16 +281,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     from gaot_torch.ops.cuda import fused_ffn as ff
     from gaot_torch.ops.cuda import multiply_reduce as mr
 
-    q = torch.zeros(1, 8, 2, 16, device="cuda")
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)                     # head dim 16
+    q = torch.zeros(1, 8, 2, 136, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)                     # head dim 136
     x = torch.zeros(4, 256, device="cuda")
     w = torch.zeros(64, 256, device="cuda")
     with pytest.raises(TypeError):
         ff.fused_ffn(x, w, w, w.t().contiguous())       # fp32
-    x, w = x[:, :128].bfloat16().contiguous(), w[:, :128].bfloat16().contiguous()
-    with pytest.raises(ValueError):
-        ff.fused_ffn(x, w, w, w.t().contiguous())       # M = 128
+    x = torch.zeros(4, 640, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(64, 640, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="built for M"):
+        ff.fused_ffn(x, w, w, w.t().contiguous())       # M = 640
     q = torch.zeros(1, 8, 2, 32, device="cuda")
     with pytest.raises(ValueError, match="LSE"):
         fa.flash_attention_bwd(q, q, q, q, q)           # no forward LSE
@@ -281,18 +302,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_auto_routes_raise_on_widths_the_kernels_do_not_take():
     """Under "auto" a CUDA tensor goes to the kernel's wrapper whatever its
-    shape, so a head dim or FFN width the kernels were not built for raises
-    instead of running the plain version on the card."""
+    shape, so a head dim or FFN width the JAX gates take and the kernels
+    were not built for (head dim 136, M = 640) raises instead of running
+    the plain version on the card."""
     from gaot_torch.models.transformer import FFN, GroupQueryAttention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    attn = GroupQueryAttention(128, 128, num_heads=8, num_kv_heads=8,
+    attn = GroupQueryAttention(1088, 1088, num_heads=8, num_kv_heads=8,
                                backend="auto", device="cuda")
     with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
-        attn(_rnd(gen, 2, 16, 128))                     # head dim 16
-    ffn = FFN(128, 512, dtype=torch.bfloat16, fused="auto", device="cuda")
+        attn(_rnd(gen, 2, 16, 1088))                    # head dim 136
+    ffn = FFN(640, 512, dtype=torch.bfloat16, fused="auto", device="cuda")
     with torch.no_grad(), pytest.raises(ValueError, match="built for M"):
-        ffn(_rnd(gen, 2, 16, 128).bfloat16())           # M = 128
+        ffn(_rnd(gen, 2, 16, 640).bfloat16())           # M = 640
 
 
 def _small_setup():

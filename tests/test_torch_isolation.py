@@ -1,6 +1,7 @@
-"""gaot_torch stands alone: no module of it (nor chip_smoke.py) imports JAX,
-Flax, Optax or gaot_tpu; it imports with JAX blocked; and its entry points
-ask for the CUDA device unless told otherwise."""
+"""gaot_torch stands alone: no module of it (nor chip_smoke.py, nor
+kernel_ab.py) imports JAX, Flax, Optax or gaot_tpu; it imports with JAX
+blocked; and its entry points ask for the CUDA device unless told
+otherwise."""
 import ast
 import pathlib
 import subprocess
@@ -14,7 +15,8 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "gaot_tpu"}
 
 
 def _sources():
-    return sorted((ROOT / "gaot_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "gaot_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                           ROOT / "kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -129,3 +129,45 @@ def test_wrappers_validate_shapes():
     with pytest.raises(ValueError):
         ff.fused_ffn(torch.zeros(4, 8), torch.zeros(16, 8), torch.zeros(16, 8),
                      torch.zeros(16, 8))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("m", [128, 384, 512])
+def test_fused_ffn_plain_matches_pallas_widths(dtype, m):
+    """The plain SwiGLU forward at the widths the kernel takes besides 256
+    (every width the JAX gate accepts up to 512), ragged R; the tolerances
+    of the module."""
+    from gaot_tpu.ops.pallas.fused_ffn import _ffn_call
+
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    rng = np.random.default_rng(m)
+    r, f = 72, 256
+    x = (rng.normal(size=(r, m)) * 0.5).astype(np.float32)
+    w1 = (rng.normal(size=(m, f)) / np.sqrt(m)).astype(np.float32)
+    w3 = (rng.normal(size=(m, f)) / np.sqrt(m)).astype(np.float32)
+    w2 = (rng.normal(size=(f, m)) / np.sqrt(f)).astype(np.float32)
+    (xj, xt), (w1j, _), (w3j, _), (w2j, _) = (_both(a, jdt, tdt)
+                                             for a in (x, w1, w3, w2))
+    want = _ffn_call(xj, w1j, w3j, w2j, interpret=True)
+    tw = lambda a: torch.from_numpy(np.ascontiguousarray(a.T)).to(tdt)
+    got = ff.fused_ffn(xt, tw(w1), tw(w3), tw(w2))
+    assert got.dtype == tdt and got.shape == (r, m)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+def test_kernel_widths_match_the_jax_gates():
+    """The head dims and SwiGLU widths the kernels are built for are exactly
+    those the JAX package's gates send to its Pallas kernels, up to the
+    stated caps (head dim 128, M = 512): nothing the gates accept below the
+    caps raises on the card."""
+    from gaot_tpu.ops.pallas import flash_attention as jfa
+    from gaot_tpu.ops.pallas import fused_ffn as jff
+
+    assert fa.HEAD_DIMS == tuple(d for d in range(1, 129) if jfa._supported(128, d))
+    assert fa.HEAD_DIMS == tuple(d for d in range(1, 129)
+                                 if jfa._bwd_supported(128, d))
+    assert ff.M_BUILT == tuple(m for m in range(1, 513)
+                               if jff.supported(256, m, 1024, jnp.bfloat16))
+    assert all(ff.supported(256, m, 1024, torch.bfloat16) for m in ff.M_BUILT)
+    # Past the caps the gates still accept widths the kernels refuse.
+    assert jfa._supported(128, 136) and jff.supported(256, 640, 1024, jnp.bfloat16)

@@ -54,9 +54,31 @@ def test_multiply_reduce_b_plain_matches_pallas(dtype, k, q, b, c):
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
 
 
-def _attention_inputs(h, hkv, jdt, tdt, seed):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k,q,b,c", [(5, 64, 1, 16), (5, 40, 4, 16)])
+def test_multiply_reduce_b_plain_matches_pallas_narrow(dtype, k, q, b, c):
+    """The narrow lanes of the 3D paths: at b = 1 the TPU kernel folds 8
+    adjacent queries into one 128-lane row (``_fold_r``); at b = 4, C = 16
+    (W = 64) its gate would leave the reduce to XLA, and its kernel body
+    runs here as it is. Same tolerances as above."""
+    from gaot_tpu.ops.pallas.multiply_reduce import _fold_r, multiply_reduce_b
+
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    assert _fold_r(q, b, b * c) == (8 if b == 1 else 1)
+    rng = np.random.default_rng(q + b)
+    gath = rng.normal(size=(k, q, b * c)).astype(np.float32)
+    dout = rng.normal(size=(q, b * c)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = multiply_reduce_b(jnp.asarray(gath, jdt), jnp.asarray(dout, jdt), b, c)
+    got = mr.multiply_reduce_b(torch.from_numpy(gath).to(tdt),
+                               torch.from_numpy(dout).to(tdt), b)
+    assert got.dtype == tdt and got.shape == (k, q, c)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+def _attention_inputs(h, hkv, jdt, tdt, seed, d=32):
     rng = np.random.default_rng(seed)
-    b, s, d = 2, 128, 32
+    b, s = 2, 128
     arrs = [rng.normal(size=(b, s, n, d)).astype(np.float32)
             for n in (h, hkv, hkv, h)]                        # q, k, v, dO
     return ([jnp.asarray(a, jdt) for a in arrs],
@@ -80,6 +102,26 @@ def test_flash_lse_plain_matches_pallas(dtype, h, hkv):
         out, lse = _flash_forward(_hm(qj), _hm(kj), _hm(vj), 128, with_lse=True)
     got_out, got_lse = fa.flash_attention_lse(qt, kt, vt)
     assert got_lse.dtype == torch.float32 and got_lse.shape == (2, h, 128)
+    np.testing.assert_allclose(_np(got_out), _np(_hm(out)), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(got_lse.reshape(-1, 128).numpy(), np.asarray(lse),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
+def test_flash_lse_plain_matches_pallas_head_dims(dtype, d):
+    """The output and base-2 row LSE of the plain forward against
+    ``_flash_forward(..., with_lse=True)`` at head dims the kernels now take
+    besides 24 and 32 (GQA 4:2); the tolerances of the module, the LSE at
+    1e-5."""
+    from gaot_tpu.ops.pallas.flash_attention import _flash_forward
+
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    (qj, kj, vj, _), (qt, kt, vt, _) = _attention_inputs(4, 2, jdt, tdt, d, d=d)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _flash_forward(_hm(qj), _hm(kj), _hm(vj), 128, with_lse=True)
+    got_out, got_lse = fa.flash_attention_lse(qt, kt, vt)
+    assert got_out.shape == (2, 128, 4, d) and got_lse.shape == (2, 4, 128)
     np.testing.assert_allclose(_np(got_out), _np(_hm(out)), rtol=rtol, atol=atol)
     np.testing.assert_allclose(got_lse.reshape(-1, 128).numpy(), np.asarray(lse),
                                rtol=1e-5, atol=1e-5)
@@ -132,6 +174,30 @@ def test_fused_ffn_backward_plain_matches_pallas(r):
     tx = lambda a: torch.from_numpy(a).bfloat16()
     dx, dw1, dw3, dw2 = ff.fused_ffn_bwd(tx(x), tw(w1), tw(w3), tw(w2), tx(dout))
     assert dx.dtype == torch.bfloat16 and dw1.dtype == torch.float32
+    np.testing.assert_allclose(_np(dx), _np(want[0]), rtol=8e-3, atol=1e-2)
+    for g, w in ((dw1, want[1]), (dw3, want[2]), (dw2, want[3])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w).T, rtol=1e-4,
+                                   atol=2e-3 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("m", [128, 384, 512])
+def test_fused_ffn_backward_plain_matches_pallas_widths(m):
+    """The plain backward at the widths the kernels take besides 256, ragged
+    R, with the tolerances of :func:`test_fused_ffn_backward_plain_matches_pallas`."""
+    from gaot_tpu.ops.pallas.fused_ffn import _ffn_bwd_call
+
+    rng = np.random.default_rng(m + 1)
+    r, f = 72, 256
+    x = (rng.normal(size=(r, m)) * 0.5).astype(np.float32)
+    w1 = (rng.normal(size=(m, f)) / np.sqrt(m)).astype(np.float32)
+    w3 = (rng.normal(size=(m, f)) / np.sqrt(m)).astype(np.float32)
+    w2 = (rng.normal(size=(f, m)) / np.sqrt(f)).astype(np.float32)
+    dout = rng.normal(size=(r, m)).astype(np.float32)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    want = _ffn_bwd_call(bf(x), bf(w1), bf(w3), bf(w2), bf(dout), interpret=True)
+    tw = lambda a: torch.from_numpy(np.ascontiguousarray(a.T)).bfloat16()
+    tx = lambda a: torch.from_numpy(a).bfloat16()
+    dx, dw1, dw3, dw2 = ff.fused_ffn_bwd(tx(x), tw(w1), tw(w3), tw(w2), tx(dout))
     np.testing.assert_allclose(_np(dx), _np(want[0]), rtol=8e-3, atol=1e-2)
     for g, w in ((dw1, want[1]), (dw3, want[2]), (dw2, want[3])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w).T, rtol=1e-4,
