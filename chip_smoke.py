@@ -17,12 +17,15 @@ failure):
      power limit; TF32 off for fp32 products.
   1. build: compiles every hand-written kernel (gaot_torch/csrc/*.cu) with
      one nvcc per source, all at once; logs, from nvcc's -Xptxas -v, the
-     registers, shared memory and spills of the bf16 flash forward and
-     multiply_reduce_b and of every kernel that spills.
+     registers, shared memory and spills of the bf16 flash forward,
+     multiply_reduce_b and the SwiGLU kernels and of every kernel that
+     spills; fails if a bf16 SwiGLU kernel spills.
   1b. widths: the flash forward (with and without the LSE) and backward at
-     every head dim from 8 to 128, and the SwiGLU forward and backward at
-     M = 128, 384 and 512, each against its plain version on the card at a
-     small shape (bf16, and fp32 for attention).
+     every head dim from 8 to 128 and at 136, 256, 1024 (and 8192 at
+     S = 128), bf16 and fp32, and the SwiGLU forward and backward at
+     M = 128, 384, 512, 640, 768, 896, 1024, (4096, F 896) and (128,
+     F 29056) in bf16 and M = 256, 640 in fp32, each against its plain
+     version on the card at a small shape.
   2. per-kernel checks at each path's shapes, forward and backward kernels:
      each kernel against its plain PyTorch version on the card (bf16 and
      fp32), with CUDA-event timings of the kernel, the plain version and one
@@ -197,6 +200,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time per call: the self device time of every kernel that
+    ``iters`` calls ran (torch.profiler), over their count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    if us <= 0:
+        fail("the profiler saw no device time")
+    return us / iters / 1e3
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float, exps: float = 0.0):
     """Least time the card could take: the larger of the bytes over the
     memory rate, the products' operations over their unit's peak rate and
@@ -250,8 +274,12 @@ def phase_card():
 
 
 # The kernels whose ptxas report the build logs, beside that of every kernel
-# that spills: the bf16 flash forward and multiply_reduce_b.
-PTXAS_LOGGED = ("flash_fwd_bf16", "mulred_b_kernel")
+# that spills: the bf16 flash forward, multiply_reduce_b and the SwiGLU
+# kernels; the bf16 SwiGLU kernels (the forward and backward rows fused at
+# M = 128 and 256, the producer and the GEMM that serve every other width)
+# may not spill.
+PTXAS_LOGGED = ("flash_fwd_bf16", "mulred_b_kernel", "ffn_")
+NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_produce")
 
 
 def phase_build():
@@ -273,56 +301,99 @@ def phase_build():
             facts = [ln.split(":", 1)[-1].strip() for ln in entry.splitlines()[1:]
                      if "spill" in ln or "registers" in ln]
             log(f"  ptxas {lib}: {name}: " + "; ".join(facts))
+            if any(k in name for k in NO_SPILL) and re.search(r"[1-9]\d* bytes spill", entry):
+                fail(f"{name} spills registers")
 
 
 def phase_widths(rnd):
-    """The widths the kernels take beyond the paths' own: the flash forward
-    (with and without the LSE) and backward at every head dim, and the
-    SwiGLU forward and backward at M = 128, 384, 512, against their plain
-    versions, at the tolerances of the per-kernel checks."""
+    """The widths the kernels take beyond the paths' own, against their
+    plain versions at the tolerances of the per-kernel checks: the flash
+    forward (with and without the LSE) and backward at every templated head
+    dim and at 136, 256, 1024 and, at S = 128, 8192 (the route with D at
+    run time); the SwiGLU forward and backward at the tuned widths besides
+    256, at widths of the general route (640-1024, M 4096 with F 896, F
+    29056 at M 128), in bf16, and in fp32 at M = 256 and 640."""
     import torch
 
     from gaot_torch.ops.cuda import flash_attention as fa
     from gaot_torch.ops.cuda import fused_ffn as ff
 
+    def flash(b, s, h, hkv, d, dtype):
+        bf16 = dtype == torch.bfloat16
+        name = f"D={d} S={s} {str(dtype)[6:]}"
+        tol = (1e-2, 2e-3) if bf16 else (1e-4, 1e-5)
+        qkv = rnd(b, s, h + 2 * hkv, d).to(dtype)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+        compare(f"widths flash fwd {name}", fa.flash_attention(q, k, v),
+                fa.attention_plain(q, k, v), *tol)
+        out, lse = fa.flash_attention_lse(q, k, v)
+        want_out, want_lse = fa.attention_plain(q, k, v, with_lse=True)
+        compare(f"widths flash fwd+LSE {name} out", out, want_out, *tol)
+        compare(f"widths flash fwd+LSE {name} lse", lse, want_lse, 1e-5, 1e-4)
+        dout = rnd(b, s, h, d).to(dtype)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+        want = fa.attention_bwd_plain(q, k, v, out, dout)
+        for n, g, wt in zip("qkv", got, want):
+            compare_grad(f"widths flash bwd {name} d{n}", g, wt, 3e-2 if bf16 else 1e-4)
+
     b, s, h, hkv = 2, 257, 6, 3          # ragged S, GQA 6:3
-    log(f"widths: flash attention at head dims {fa.HEAD_DIMS[0]}..{fa.HEAD_DIMS[-1]}, "
-        f"B={b} S={s} H={h} Hkv={hkv}:")
-    for d in fa.HEAD_DIMS:
+    wide = (136, 256, 1024)
+    log(f"widths: flash attention at head dims {fa.TEMPLATED_HEAD_DIMS[0]}.."
+        f"{fa.TEMPLATED_HEAD_DIMS[-1]} and {wide}, B={b} S={s} H={h} Hkv={hkv}, "
+        f"and D=8192 at B=1 S=128 H=2 Hkv=1:")
+    for d in fa.TEMPLATED_HEAD_DIMS + wide:
         for dtype in (torch.bfloat16, torch.float32):
-            bf16 = dtype == torch.bfloat16
-            name = f"D={d} {str(dtype)[6:]}"
-            tol = (1e-2, 2e-3) if bf16 else (1e-4, 1e-5)
-            qkv = rnd(b, s, h + 2 * hkv, d).to(dtype)
-            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
-            compare(f"widths flash fwd {name}", fa.flash_attention(q, k, v),
-                    fa.attention_plain(q, k, v), *tol)
-            out, lse = fa.flash_attention_lse(q, k, v)
-            want_out, want_lse = fa.attention_plain(q, k, v, with_lse=True)
-            compare(f"widths flash fwd+LSE {name} out", out, want_out, *tol)
-            compare(f"widths flash fwd+LSE {name} lse", lse, want_lse, 1e-5, 1e-4)
-            dout = rnd(b, s, h, d).to(dtype)
-            got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
-            want = fa.attention_bwd_plain(q, k, v, out, dout)
-            for n, g, wt in zip("qkv", got, want):
-                compare_grad(f"widths flash bwd {name} d{n}", g, wt, 3e-2 if bf16 else 1e-4)
-    r, f = 200, 256
-    log(f"widths: fused SwiGLU at M in {[m for m in ff.M_BUILT if m != 256]}, "
-        f"R={r} F={f} (bf16):")
-    for m in ff.M_BUILT:
-        if m == 256:
-            continue                      # the fx path's width, checked below
-        x = rnd(r, m).bfloat16()
-        w1 = (rnd(f, m) / m ** 0.5).bfloat16()
-        w3 = (rnd(f, m) / m ** 0.5).bfloat16()
-        w2 = (rnd(m, f) / f ** 0.5).bfloat16()
-        compare(f"widths fused_ffn fwd M={m}", ff.fused_ffn(x, w1, w3, w2),
-                ff.fused_ffn_plain(x, w1, w3, w2), 1e-2, 1e-2)
-        dout = rnd(r, m).bfloat16()
+            flash(b, s, h, hkv, d, dtype)
+    for dtype in (torch.bfloat16, torch.float32):
+        flash(1, 128, 2, 1, 8192, dtype)
+    # The route with D at run time, timed at two head dims (bf16, B=1, H=4,
+    # S=4096) beside SDPA and its autograd; its bound counts the work the
+    # function needs, not the scores the route recomputes per 128 columns.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for d in (256, 1024):
+        bb, ss, hh = 1, 4096, 4
+        qkv = rnd(bb, ss, 3, hh, d).bfloat16()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        out, lse = fa.flash_attention_lse(q, k, v)
+        dout = rnd(bb, ss, hh, d).bfloat16()
+        ops, exps = 4.0 * bb * hh * ss * ss * d, float(bb * hh * ss * ss)
+        bnd = bound_ms(4 * bb * ss * hh * d * 2, ops, PEAK_BF16, exps)
+        bnd_b = bound_ms(8 * bb * ss * hh * d * 2, 2.5 * ops, PEAK_BF16, exps)
+        t_f = time_ms(lambda: fa.flash_attention(q, k, v), iters=3, warmup=1)
+        t_b = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse), iters=3,
+                      warmup=1)
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+        o_l = sdpa(*leaves)
+        g_l = dout.transpose(1, 2).contiguous()
+        t_lf = time_ms(lambda: sdpa(*leaves), iters=3, warmup=1)
+        t_lb = time_ms(lambda: torch.autograd.grad(o_l, leaves, g_l, retain_graph=True),
+                       iters=3, warmup=1)
+        log(f"    wide flash D={d} B={bb} S={ss} H={hh} bf16: fwd kernel_ms={t_f:.4f} "
+            f"(SDPA {t_lf:.4f}, bound {bnd[0]:.4f}); bwd kernel_ms={t_b:.4f} "
+            f"(SDPA autograd {t_lb:.4f}, bound {bnd_b[0]:.4f})")
+        del qkv, q, k, v, out, lse, dout, leaves, o_l, g_l
+
+    r = 200
+    cases = [(m, 256, torch.bfloat16) for m in (128, 384, 512, 640, 768, 896, 1024)]
+    cases += [(4096, 896, torch.bfloat16), (128, 29056, torch.bfloat16),
+              (256, 256, torch.float32), (640, 256, torch.float32)]
+    log(f"widths: fused SwiGLU, R={r}, (M, F, dtype) in "
+        f"{[(m, f, str(dt)[6:]) for m, f, dt in cases]}:")
+    for m, f, dtype in cases:
+        bf16 = dtype == torch.bfloat16
+        name = f"M={m} F={f} {str(dtype)[6:]}"
+        x = rnd(r, m).to(dtype)
+        w1 = (rnd(f, m) / m ** 0.5).to(dtype)
+        w3 = (rnd(f, m) / m ** 0.5).to(dtype)
+        w2 = (rnd(m, f) / f ** 0.5).to(dtype)
+        # bf16: one bf16 ulp of the output; fp32: sums in other orders.
+        compare(f"widths fused_ffn fwd {name}", ff.fused_ffn(x, w1, w3, w2),
+                ff.fused_ffn_plain(x, w1, w3, w2), *((1e-2, 1e-2) if bf16 else (1e-4, 1e-5)))
+        dout = rnd(r, m).to(dtype)
         got = ff.fused_ffn_bwd(x, w1, w3, w2, dout)
         want = ff.fused_ffn_bwd_plain(x, w1, w3, w2, dout)
         for n, g, wt in zip(("dx", "dw1", "dw3", "dw2"), got, want):
-            compare_grad(f"widths fused_ffn bwd M={m} {n}", g, wt, 2e-2)
+            compare_grad(f"widths fused_ffn bwd {name} {n}", g, wt, 2e-2 if bf16 else 1e-4)
     torch.cuda.synchronize()
 
 
@@ -560,28 +631,40 @@ def check_flash(rnd, bb, s, h, d, with_eval=True):
 
 
 def check_ffn(rnd):
+    """The SwiGLU forward and backward at the fx shape, bf16: against the
+    plain versions, timed 20 back to back and by profiler device time per
+    call, beside the library's three products (and autograd of them); then
+    the fp32 kernels at the same shape (times logged), and the general
+    route's forward and backward at M = 1024, F = 3584."""
     import torch
 
     from gaot_torch.ops.cuda import fused_ffn as ff
 
     rows = {}
-    log("fused SwiGLU, R=65536 M=256 F=1024 (bf16):")
+    silu = torch.nn.functional.silu
     r, m, f = BATCH * 1024, 256, 1024
+    log(f"fused SwiGLU, R={r} M={m} F={f} (bf16):")
+
+    def weights(m, f, dtype):
+        return ((rnd(f, m) / m ** 0.5).to(dtype), (rnd(f, m) / m ** 0.5).to(dtype),
+                (rnd(m, f) / f ** 0.5).to(dtype))
+
     x = rnd(r, m).bfloat16()
-    w1 = (rnd(f, m) / m ** 0.5).bfloat16()
-    w3 = (rnd(f, m) / m ** 0.5).bfloat16()
-    w2 = (rnd(m, f) / f ** 0.5).bfloat16()
+    w1, w3, w2 = weights(m, f, torch.bfloat16)
     err = compare("fused_ffn fwd bfloat16", ff.fused_ffn(x, w1, w3, w2),
                   ff.fused_ffn_plain(x, w1, w3, w2), 1e-2, 1e-2)
     ops = 6.0 * r * m * f
     bnd = bound_ms((2 * r * m + 3 * m * f) * 2, ops, PEAK_BF16, exps=float(r * f))
-    t_k = time_ms(lambda: ff.fused_ffn(x, w1, w3, w2))
+    kern = lambda: ff.fused_ffn(x, w1, w3, w2)
+    lib = lambda: (silu(x @ w1.t()) * (x @ w3.t())) @ w2.t()
+    t_k, t_l = time_ms(kern), time_ms(lib)
+    d_k, d_l = device_ms(kern), device_ms(lib)
     t_p = time_ms(lambda: ff.fused_ffn_plain(x, w1, w3, w2))
-    silu = torch.nn.functional.silu
-    t_l = time_ms(lambda: (silu(x @ w1.t()) * (x @ w3.t())) @ w2.t())
-    log(f"    fwd: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-        f"bound_ms={bnd[0]:.4f} ({bnd[2]} binds; {ops / t_k / 1e9:.1f} TFLOP/s)")
-    rows["fused_ffn_fwd"] = _row(err, t_k, t_p, t_l, bnd, "one call")
+    log(f"    fwd: kernel_ms={t_k:.4f} (device {d_k:.4f}) plain_ms={t_p:.4f} "
+        f"library_ms={t_l:.4f} (device {d_l:.4f}) bound_ms={bnd[0]:.4f} ({bnd[2]} binds; "
+        f"{ops / t_k / 1e9:.1f} TFLOP/s)")
+    rows["fused_ffn_fwd"] = _row(err, t_k, t_p, t_l, bnd, "one call", device_ms=d_k,
+                                 library_device_ms=d_l)
 
     dout = rnd(r, m).bfloat16()
     got = ff.fused_ffn_bwd(x, w1, w3, w2, dout)
@@ -594,15 +677,44 @@ def check_ffn(rnd):
     ops_b = 16.0 * r * m * f
     bnd_b = bound_ms(3 * r * m * 2 + 3 * m * f * (2 + 4), ops_b, PEAK_BF16,
                      exps=float(r * f))
-    t_kb = time_ms(lambda: ff.fused_ffn_bwd(x, w1, w3, w2, dout))
-    t_pb = time_ms(lambda: ff.fused_ffn_bwd_plain(x, w1, w3, w2, dout), iters=5)
+    kern_b = lambda: ff.fused_ffn_bwd(x, w1, w3, w2, dout)
     leaves = [t.detach().requires_grad_(True) for t in (x, w1, w3, w2)]
     xl, w1l, w3l, w2l = leaves
     out = (silu(xl @ w1l.t()) * (xl @ w3l.t())) @ w2l.t()
-    t_lb = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
-    log(f"    bwd: kernel_ms={t_kb:.4f} plain_ms={t_pb:.4f} library_ms={t_lb:.4f} "
-        f"bound_ms={bnd_b[0]:.4f} ({bnd_b[2]} binds; {ops_b / t_kb / 1e9:.1f} TFLOP/s)")
-    rows["fused_ffn_bwd"] = _row(err_bwd, t_kb, t_pb, t_lb, bnd_b, "one call")
+    lib_b = lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    t_kb, t_lb = time_ms(kern_b), time_ms(lib_b)
+    d_kb, d_lb = device_ms(kern_b), device_ms(lib_b)
+    t_pb = time_ms(lambda: ff.fused_ffn_bwd_plain(x, w1, w3, w2, dout), iters=5)
+    log(f"    bwd: kernel_ms={t_kb:.4f} (device {d_kb:.4f}) plain_ms={t_pb:.4f} "
+        f"library_ms={t_lb:.4f} (device {d_lb:.4f}) bound_ms={bnd_b[0]:.4f} ({bnd_b[2]} "
+        f"binds; {ops_b / t_kb / 1e9:.1f} TFLOP/s)")
+    rows["fused_ffn_bwd"] = _row(err_bwd, t_kb, t_pb, t_lb, bnd_b, "one call",
+                                 device_ms=d_kb, library_device_ms=d_lb)
+    del out, leaves, dout
+
+    # fp32 (exact FMA on the CUDA cores) at the same shape, and the general
+    # route at a width the tuned forward does not take: times logged.
+    x32 = x.float()
+    w32 = [w.float() for w in (w1, w3, w2)]
+    d32 = rnd(r, m)
+    t_f = time_ms(lambda: ff.fused_ffn(x32, *w32), iters=3, warmup=1)
+    t_fb = time_ms(lambda: ff.fused_ffn_bwd(x32, *w32, d32), iters=3, warmup=1)
+    log(f"    fp32: fwd kernel_ms={t_f:.4f} bound_ms="
+        f"{bound_ms(0, ops, PEAK_FP32)[0]:.4f}; bwd kernel_ms={t_fb:.4f} bound_ms="
+        f"{bound_ms(0, ops_b, PEAK_FP32)[0]:.4f}")
+    del x32, w32, d32, x, w1, w3, w2
+    m, f = 1024, 3584
+    x = rnd(r, m).bfloat16()
+    w1, w3, w2 = weights(m, f, torch.bfloat16)
+    dout = rnd(r, m).bfloat16()
+    t_g = time_ms(lambda: ff.fused_ffn(x, w1, w3, w2), iters=5, warmup=1)
+    t_gb = time_ms(lambda: ff.fused_ffn_bwd(x, w1, w3, w2, dout), iters=5, warmup=1)
+    t_gl = time_ms(lambda: (silu(x @ w1.t()) * (x @ w3.t())) @ w2.t(), iters=5, warmup=1)
+    log(f"    general route, R={r} M={m} F={f} bf16: fwd kernel_ms={t_g:.4f} "
+        f"(library {t_gl:.4f}, bound {bound_ms(0, 6.0 * r * m * f, PEAK_BF16)[0]:.4f}); "
+        f"bwd kernel_ms={t_gb:.4f} (bound {bound_ms(0, 16.0 * r * m * f, PEAK_BF16)[0]:.4f})")
+    del x, w1, w3, w2, dout
+    torch.cuda.empty_cache()
     return rows
 
 

@@ -3,8 +3,9 @@
 // with an optional base-2 row log-sum-exp m + log2(l) [B, H, S] for the
 // backward (flash_attention_bwd.cu). Replaces the TPU kernels _attn_kernel
 // and _attn_kernel_lse of gaot_tpu/ops/pallas/flash_attention.py
-// (_flash_forward). Every kernel is a template on the head dim D, built for
-// every multiple of 8 from 8 to 128.
+// (_flash_forward). Every kernel below flash_fwd_wide is a template on the
+// head dim D, built for every multiple of 8 from 8 to 128; head dims above
+// 128 take flash_fwd_wide, with D at run time (flash_common.cuh).
 //
 // bf16 (flash_fwd_bf16). What bounds it: one exp2 per score on the
 // special-function units (16 per clock per SM), then the two products on
@@ -38,157 +39,16 @@
 // fp32 (flash_fwd_f32): one thread per query row on the CUDA cores, looping
 // over D; tiles of 64 keys (32 above D = 64), an online softmax over chunks
 // of 8 keys.
-// Plain C interface; each entry returns cudaGetLastError() after its launch.
+// The wgmma, cp.async and descriptor helpers live in wgmma.cuh, shared with
+// fused_ffn.cu. Plain C interface; each entry returns cudaGetLastError()
+// after its launch.
 #include "flash_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace flash;
-
-// ---- wgmma with A from registers: d[64 x N] (+)= a[64 x 16] . B[16 x N],
-// B in shared memory by descriptor; TB = 1 reads B MN-major (transposed).
-template <int N, int TB>
-struct Wgmma;
-
-template <int TB>
-struct Wgmma<8, TB> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-template <int TB>
-struct Wgmma<16, TB> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-template <int TB>
-struct Wgmma<32, TB> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-template <int TB>
-struct Wgmma<64, TB> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-template <int TB>
-struct Wgmma<128, TB> {
-  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-// Shared-memory matrix descriptor, no swizzle: start address, leading byte
-// offset (between core matrices along K) and stride byte offset (between
-// core matrices along M or N), each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed wgmma groups of this warpgroup still run.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from reading an accumulator before wg_wait, and from
-// reusing the registers of an A operand still in flight.
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-// cp.async writes through the generic proxy, wgmma reads through the async one.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using namespace hopper;
 
 template <int D>
 struct FwdTile {
@@ -493,6 +353,154 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
+// Head dims above 128 (flash_common.cuh): one block per (batch * q-head, 64
+// queries, 128 output columns), 256 threads. Per tile of 64 keys: the scores
+// over the full D, streamed in slices of 64 (each thread 4 queries x 4
+// keys); the online softmax (four threads a row); P rounded to T; then
+// O += P V for the block's 128 columns (each thread 4 queries x 8 columns).
+constexpr int WIDE_FWD_SMEM = (2 * WR * WSP + WR * WSP + 3 * WR) * 4;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ out,
+               float* __restrict__ lse, int S, int H, int Hkv, int D, Strides qs,
+               Strides ks, Strides vs, float scale_log2) {
+  extern __shared__ float wsm[];
+  float* Qs = wsm;                  // [WR][WSP]   (scores phase)
+  float* Ks = Qs + WR * WSP;        // [WR][WSP]
+  float* Vs = wsm;                  // [WR][WOP]   (P V phase, over Qs and Ks)
+  float* Ps = wsm + 2 * WR * WSP;   // [WR][WSP]   scores, then P
+  float* ms = Ps + WR * WSP;        // running max (scaled), per query
+  float* ls = ms + WR;              // running denominator
+  float* as = ls + WR;              // this tile's rescale
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int q0 = blockIdx.y * WR, c0 = blockIdx.z * WO;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+  if (threadIdx.x < WR) {
+    ms[threadIdx.x] = -CUDART_INF_F;
+    ls[threadIdx.x] = 0.f;
+  }
+  float o[4][8];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int w = 0; w < 8; ++w) o[u][w] = 0.f;
+
+  for (int kt = 0; kt < S; kt += WR) {
+    float s[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) s[u][w] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += WS) {
+      __syncthreads();
+      load_rows_f32(Qs, WSP, qb, qs.s, q0, S, d0, D, WS);
+      load_rows_f32(Ks, WSP, kb, ks.s, kt, S, d0, D, WS);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < WS; ++d) {
+        float a[4], c[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          a[u] = Qs[(4 * ty + u) * WSP + d];
+          c[u] = Ks[(4 * tx + u) * WSP + d];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int w = 0; w < 4; ++w) s[u][w] = fmaf(a[u], c[w], s[u][w]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        Ps[(4 * ty + u) * WSP + 4 * tx + w] =
+            kt + 4 * tx + w < S ? s[u][w] * scale_log2 : -CUDART_INF_F;
+    __syncthreads();
+    {   // online softmax: four neighbouring threads per query row
+      const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
+      float* pr = Ps + row * WSP + 16 * part;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, pr[j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mold = ms[row], mnew = fmaxf(mold, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p = exp2f(pr[j] - mnew);
+        sum += p;
+        pr[j] = round_to(p, T());
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      __syncwarp();
+      if (part == 0) {
+        const float alpha = exp2f(mold - mnew);
+        ls[row] = ls[row] * alpha + sum;
+        ms[row] = mnew;
+        as[row] = alpha;
+      }
+    }
+    load_rows_f32(Vs, WOP, vb, vs.s, kt, S, c0, D, WO);
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float al = as[4 * ty + u];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) o[u][w] *= al;
+    }
+#pragma unroll 4
+    for (int j = 0; j < WR; ++j) {
+      float vv[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) vv[w] = Vs[j * WOP + tx + 16 * w];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = Ps[(4 * ty + u) * WSP + j];
+#pragma unroll
+        for (int w = 0; w < 8; ++w) o[u][w] = fmaf(p, vv[w], o[u][w]);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int row = q0 + 4 * ty + u;
+    if (row >= S) continue;
+    const float inv = 1.f / ls[4 * ty + u];
+    T* orow = out + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const int c = c0 + tx + 16 * w;
+      if (c < D) orow[c] = T(o[u][w] * inv);
+    }
+  }
+  if (lse != nullptr && blockIdx.z == 0 && threadIdx.x < WR && q0 + threadIdx.x < S)
+    lse[(long long)bh * S + q0 + threadIdx.x] = ms[threadIdx.x] + log2f(ls[threadIdx.x]);
+}
+
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* out, float* lse,
+                    int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
+                    Strides vs, float scale_log2, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (S + WR - 1) / WR, (D + WO - 1) / WO);
+  flash_fwd_wide<T><<<grid, 256, WIDE_FWD_SMEM, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, S, H, Hkv, D, qs, ks, vs, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 struct LaunchFwd {
   static int run(const void* q, const void* k, const void* v, void* out,
@@ -536,7 +544,14 @@ extern "C" int gaot_flash_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > MAX_D && D % 8 == 0) {
+    float* l = static_cast<float*>(lse);
+    return dtype == 1 ? launch_fwd_wide<bf16>(q, k, v, out, l, B, S, H, Hkv, D, qs, ks, vs,
+                                              scale_log2, st)
+                      : launch_fwd_wide<float>(q, k, v, out, l, B, S, H, Hkv, D, qs, ks,
+                                               vs, scale_log2, st);
+  }
   return dispatch_head_dim<LaunchFwd>(D, q, k, v, out, static_cast<float*>(lse),
-                                      B, S, H, Hkv, qs, ks, vs, scale_log2, dtype,
-                                      static_cast<cudaStream_t>(stream));
+                                      B, S, H, Hkv, qs, ks, vs, scale_log2, dtype, st);
 }

@@ -1,6 +1,7 @@
 // Helpers shared by the flash-attention forward (flash_attention.cu) and
 // backward (flash_attention_bwd.cu): the head-dim template, the strides of
-// q, k and v, and the mma.sync fragments of the backward kernels.
+// q, k and v, the mma.sync fragments of the backward kernels, and the tiles
+// of the route for head dims above 128.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -12,7 +13,7 @@ namespace flash {
 constexpr int BQ = 64;       // queries per block (backward, fp32 forward)
 constexpr int BK = 64;       // keys per streamed tile (backward, fp32 forward)
 constexpr int VPAD = BK + 8; // transposed tile row stride (bf16)
-constexpr int MAX_D = 128;   // the largest head dim the kernels are built for
+constexpr int MAX_D = 128;   // the largest head dim of the templated kernels
 
 template <int D>
 struct Dims {
@@ -75,6 +76,41 @@ __device__ __forceinline__ void mma_over_d(float c[4], const uint32_t a[4],
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+
+// ---- Head dims above 128 (any multiple of 8), D at run time: the wide
+// route of flash_attention.cu (flash_fwd_wide) and flash_attention_bwd.cu
+// (flash_bwd_*_wide), bf16 and fp32, on the CUDA cores. A block owns WR rows
+// (queries, or keys in dK/dV) and one slice of WO columns of its outputs'
+// head dim (a grid dimension); it recomputes the full-D scores (and dP) by
+// streaming both sides through shared memory in head-dim slices of WS, in
+// fp32. The arithmetic is the 8-128 kernels': fp32 scores and softmax,
+// exp2, P (and dS) rounded to the input dtype before their products, the
+// base-2 LSE.
+constexpr int WR = 64;        // rows of a block and of a streamed tile
+constexpr int WS = 64;        // head-dim slice of the score products
+constexpr int WO = 128;       // head-dim slice of a block's outputs
+constexpr int WSP = WS + 1;   // padded rows of the shared tiles
+constexpr int WOP = WO + 1;
+
+// dst[r][c] (row stride ld) = row r0 + r of a [*, S, *, D] tensor (base at
+// its head, row stride rs), columns c0 + c, for c < width; zero past S or D.
+template <typename T>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const T* base,
+                                              long long rs, int r0, int S,
+                                              int c0, int D, int width) {
+  for (int i = threadIdx.x; i < WR * width; i += blockDim.x) {
+    const int r = i / width, c = i % width;
+    const bool ok = r0 + r < S && c0 + c < D;
+    dst[r * ld + c] = ok ? to_f(base[(long long)(r0 + r) * rs + c0 + c]) : 0.f;
+  }
+}
+
+// Rounds to T's precision (P and dS before their products, as the kernels do).
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, bf16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 }  // namespace flash
 

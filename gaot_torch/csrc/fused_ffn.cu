@@ -1,606 +1,914 @@
-// Fused SwiGLU forward and backward for Hopper (sm_90a), bf16:
+// Fused SwiGLU forward and backward for Hopper (sm_90a):
 //   out = (silu(x W1^T) * (x W3^T)) W2^T,
 // x [R, M], W1 and W3 [F, M], W2 [M, F] (torch Linear layouts), out [R, M].
-// One block per 64-row tile of x, four warps of 16 rows. The x tile stays in
-// shared memory while the block walks F in chunks of 32: h1 and h3 come from
-// the tensor cores (mma.sync m16n8k16, fp32 accumulation), z = silu(h1) * h3
-// is rounded to bf16 in registers (the accumulator layout of one product is
-// the operand layout of the next) and out += z W2^T accumulates in fp32
-// registers. h1, h3 and z never reach device memory. Rows past R are masked.
-// The backward follows further below. Plain C interface; each entry returns
+// Replaces the TPU kernels _fwd_kernel (_ffn_call) and _bwd_kernel
+// (_ffn_bwd_call) of gaot_tpu/ops/pallas/fused_ffn.py. What bounds them on
+// the card: the tensor cores (6 R M F operations forward, 16 R M F backward);
+// at the fx shape x, out and the weights move in a fifth of the forward
+// products' time.
+//
+// Every bf16 product runs on wgmma with both operands, or B, read from
+// shared memory through descriptors, in wgmma's swizzled layouts (the
+// no-swizzle layout ran the same products far slower). Tiles
+// stream through rings of shared-memory stages, so the next tile's copy
+// overlaps this tile's products. Each operand is read as it lies in device
+// memory, K-major or MN-major (the descriptor's transpose bit), so no
+// product needs a transposed copy.
+//
+// bf16 forward at M = 128, 256 (ffn_fwd_fused): a block owns 128 rows of x,
+// resident in shared memory, and two warpgroups of 64 rows; it walks F in
+// chunks of FC (64 at M = 128, 32 at 256) through a three-stage ring of the
+// chunk's W1 and W3 rows (the K-major B of h = x W^T as torch lays them out)
+// and W2 columns (the K-major B of out += z W2^T). h1 and h3 come as one
+// product of N = 2 FC; z = silu(h1) h3 is formed in registers in the A
+// fragment layout of the second product, which takes it from registers; the
+// 64 x M fp32 output stays in registers (M / 2 a thread). The previous
+// chunk's second product runs on the tensor cores while this chunk's h is
+// issued. h1, h3 and z never leave the chip. The weights are first packed
+// (ffn_pack_w) into the stages' layout, chunk after chunk, so that one
+// thread fills a stage with one bulk copy, counted on an mbarrier: filling
+// it by 16-byte cp.async from every thread took far longer.
+//
+// bf16 backward at M = 128, 256 (ffn_bwd_rows, then ffn_gemm): the same
+// rows and ring, with dout resident beside x. Per chunk a warpgroup computes
+// h1 | h3 and dz = dout W2c (the W2 tile read MN-major), forms dh1, dh3 and z
+// in registers and accumulates dx += [dh1 dh3] [W1c; W3c] with the W1|W3
+// tile read MN-major: dx stays in registers. It stores dh1 | dh3 and z
+// ([R, 2F] and [R, F], bf16, 16 bytes a lane) for the weight gradients
+// while the next chunk's h and dz products run. Then one GEMM launch
+// computes dW1|dW3 = [dh1 dh3]^T x and dW2 = dout^T z, the reduction over
+// the rows split across blocks into fp32 partials that a last pass sums in a
+// fixed order (no float atomics). Every product is computed once: 16 R M F
+// operations against the 22 of recomputing h1, h3 and dz in two kernels; the
+// price is the intermediates' round trip through device memory (3 x 134 MB
+// written and read back at the fx shape).
+//
+// Every other width the JAX gate takes (M % 128 == 0, F % 128 == 0), where a
+// warpgroup's 64 x M fp32 output or the resident x and dout pass the chip,
+// goes through a producer kernel (ffn_produce: h1 | h3, and dz, over a
+// 128-row x 64-column tile of F, K = M streamed) and the GEMM kernel with
+// runtime shapes (ffn_gemm: 128 x 256 or 128 x 128 tiles, two consumer
+// warpgroups, K in slices of 64 through a four-stage ring filled by 16-byte
+// cp.async):
+//   forward: z to a bf16 scratch, then out = z W2^T;
+//   backward: dh1 | dh3 and z to the scratches, dx = [dh1 dh3] [W1; W3], then
+//     the weight gradients as above.
+//
+// fp32 (exact FMA on the CUDA cores, as the JAX package computes an fp32
+// SwiGLU): the same products by one tiled SIMT GEMM with arbitrary strides
+// (ffn_sgemm) and element-wise passes for z and for dh1, dh3, z.
+//
+// silu(h) = h / (1 + 2^(-h log2 e)) by ex2.approx and rcp.approx (relative
+// error about 2^-21 against the plain version's exact sigmoid, far below the
+// bf16 rounding of z). Plain C interface; each entry returns
 // cudaGetLastError() after its launches.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // rows per block
-constexpr int FC = 32;   // F chunk per step
-constexpr int PAD = 8;   // bf16 row padding: conflict-free fragment loads
-
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kSmemMax = 232448;   // dynamic shared memory of one block
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
-
-constexpr size_t kSmemMax = 232448;   // dynamic shared memory of one block
-
-template <int M>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(bf16) * ((size_t)BM * (M + PAD) + 2 * (size_t)FC * (M + PAD) +
-                         (size_t)M * (FC + PAD));
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return rcp_approx(1.f + ex2(-1.4426950408889634f * x));
 }
 
-// Above M = 256 the fp32 out accumulator of a warp (M / 2 values a thread)
-// would pass the register file, so the block doubles to eight warps: warp w
-// keeps rows 16 (w mod 4) and the output columns of half w / 4, and both
-// halves recompute their rows' h1 and h3.
-template <int M>
-__host__ __device__ constexpr int fwd_halves() { return M > 256 ? 2 : 1; }
+// dh1 = dz h3 silu'(h1), dh3 = dz silu(h1), z = silu(h1) h3 (fp32).
+__device__ __forceinline__ void swiglu_grads(float h1, float h3, float dz,
+                                             float& dh1, float& dh3, float& z) {
+  const float sg = sigmoid_fast(h1);
+  dh1 = dz * h3 * (sg * (1.f + h1 * (1.f - sg)));
+  dh3 = dz * h1 * sg;
+  z = h1 * sg * h3;
+}
 
-template <int M>
-__global__ void __launch_bounds__(128 * fwd_halves<M>())
-ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const bf16* __restrict__ w3, const bf16* __restrict__ w2,
-               bf16* __restrict__ out, int R, int F) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int XS = M + PAD;    // row stride of the x and W1/W3 tiles
-  constexpr int WS = FC + PAD;   // row stride of the W2 tile
-  bf16* Xs = reinterpret_cast<bf16*>(smem);           // [BM][XS]
-  bf16* W1s = Xs + BM * XS;                           // [FC][XS]
-  bf16* W3s = W1s + FC * XS;                          // [FC][XS]
-  bf16* W2s = W3s + FC * XS;                          // [M][WS]
+// ---- shared-memory tiles in wgmma's swizzled layouts. A K-major tile keeps
+// each row's RB bytes of K (RB = 128, 64 or 32) together, rows RB bytes
+// apart, and stores the 16-byte chunk c of row r at chunk
+// c ^ ((r RB / 128) mod RB / 16): the rows that a wgmma reads at one K
+// position fall on distinct banks (the no-swizzle layout puts them on the
+// same ones, which ran the products far slower). An atom of 8
+// rows is 8 RB bytes and sits on an 8 RB-byte boundary. A tile wider than
+// 64 along K is a row of such tiles, 64 of K each. Read MN-major (N or M
+// contiguous), the same bytes are atoms of 8 K-rows x 64 columns.
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BM;
-  const int wr = (warp & 3) * 16;     // warp's first row within the tile
-  constexpr int NN = M / 8 / fwd_halves<M>();   // output n-tiles of a warp
-  const int n0 = (warp >> 2) * NN;    // its first output n-tile
-  static_assert(smem_bytes<M>() <= kSmemMax, "SwiGLU forward tiles exceed shared memory");
+template <int RB>
+__device__ __forceinline__ uint32_t sw_off(int r, int c) {
+  return r * RB + ((c ^ ((r * RB >> 7) & (RB / 16 - 1))) << 4);
+}
 
-  for (int i = threadIdx.x; i < BM * (M / 8); i += blockDim.x) {
-    const int r = i / (M / 8), ch = (i % (M / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < R)
-      val = *reinterpret_cast<const uint4*>(x + (long long)(row0 + r) * M + ch);
-    *reinterpret_cast<uint4*>(Xs + r * XS + ch) = val;
-  }
+// Descriptor of a K-major piece starting at addr (its first row, plus 32
+// bytes per k-step of 16 into the row).
+// The same descriptor serves an MN-major read of a tile of RB-byte rows
+// along its rows (N = RB / 2 columns, one atom wide, K-rows RB bytes apart).
+template <int RB>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr) {
+  constexpr uint64_t type = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // 128, 64, 32-byte swizzle
+  return smem_desc(addr, 16, 8 * RB) | type << 62;
+}
 
-  float acc[NN][4];
-#pragma unroll
-  for (int n = 0; n < NN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+// Descriptor of an MN-major piece of 16 K-rows from K-row k0 (a multiple of
+// 8) and columns from mn0 (a multiple of 64) of a tile whose 64-column
+// blocks lie `block` bytes apart (128-byte rows).
+__device__ __forceinline__ uint64_t desc_mn_sw(uint32_t base, int k0, int mn0, int block) {
+  return smem_desc(base + (mn0 / 64) * block + k0 * 128, block, 1024) | 1ull << 62;
+}
 
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < FC * (M / 8); i += blockDim.x) {
-      const int r = i / (M / 8), ch = (i % (M / 8)) * 8;
-      const long long src = (long long)(f0 + r) * M + ch;
-      *reinterpret_cast<uint4*>(W1s + r * XS + ch) =
-          *reinterpret_cast<const uint4*>(w1 + src);
-      *reinterpret_cast<uint4*>(W3s + r * XS + ch) =
-          *reinterpret_cast<const uint4*>(w3 + src);
-    }
-    for (int i = threadIdx.x; i < M * (FC / 8); i += blockDim.x) {
-      const int r = i / (FC / 8), ch = (i % (FC / 8)) * 8;
-      *reinterpret_cast<uint4*>(W2s + r * WS + ch) =
-          *reinterpret_cast<const uint4*>(w2 + (long long)r * F + f0 + ch);
-    }
-    __syncthreads();
-
-    float h1[FC / 8][4], h3[FC / 8][4];
-#pragma unroll
-    for (int j = 0; j < FC / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) h1[j][e] = h3[j][e] = 0.f;
-#pragma unroll 4
-    for (int st = 0; st < M / 16; ++st) {
-      const bf16* xa = Xs + (wr + g) * XS + st * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(xa), ld32(xa + 8 * XS), ld32(xa + 8),
-                             ld32(xa + 8 * XS + 8)};
-#pragma unroll
-      for (int j = 0; j < FC / 8; ++j) {
-        const bf16* b1p = W1s + (8 * j + g) * XS + st * 16 + 2 * t;
-        const bf16* b3p = W3s + (8 * j + g) * XS + st * 16 + 2 * t;
-        mma_bf16_16816(h1[j], a, ld32(b1p), ld32(b1p + 8));
-        mma_bf16_16816(h3[j], a, ld32(b3p), ld32(b3p + 8));
-      }
-    }
-    // z = silu(h1) * h3 in bf16: n-tiles 2st, 2st+1 form k-step st of z.
-    uint32_t za[FC / 16][4];
-#pragma unroll
-    for (int st = 0; st < FC / 16; ++st) {
-      const int j0 = 2 * st, j1 = 2 * st + 1;
-      za[st][0] = pack_bf16(silu(h1[j0][0]) * h3[j0][0], silu(h1[j0][1]) * h3[j0][1]);
-      za[st][1] = pack_bf16(silu(h1[j0][2]) * h3[j0][2], silu(h1[j0][3]) * h3[j0][3]);
-      za[st][2] = pack_bf16(silu(h1[j1][0]) * h3[j1][0], silu(h1[j1][1]) * h3[j1][1]);
-      za[st][3] = pack_bf16(silu(h1[j1][2]) * h3[j1][2], silu(h1[j1][3]) * h3[j1][3]);
-    }
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-#pragma unroll
-      for (int st = 0; st < FC / 16; ++st) {
-        const bf16* bp = W2s + (8 * (n0 + n) + g) * WS + st * 16 + 2 * t;
-        mma_bf16_16816(acc[n], za[st], ld32(bp), ld32(bp + 8));
-      }
-    }
-  }
-
-  const int r0 = row0 + wr + g, r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < NN; ++n) {
-    const int c = 8 * (n0 + n) + 2 * t;
-    if (r0 < R)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)r0 * M + c) =
-          __floats2bfloat162_rn(acc[n][0], acc[n][1]);
-    if (r1 < R)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)r1 * M + c) =
-          __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+// A K-major slice of ROWS rows x 64 of K into dst: rows below 64 from
+// lo + row * ld, the others from hi + (row - 64) * ld, each row from column
+// k0 on; rows at or past rlim are zero-filled. All threads of the block take
+// part; consecutive threads fill one row's eight chunks.
+template <int ROWS>
+__device__ __forceinline__ void copy_kmajor(uint32_t dst, const bf16* lo,
+                                            const bf16* hi, long long ld,
+                                            int rlim, int k0) {
+  for (int i = threadIdx.x; i < ROWS * 8; i += blockDim.x) {
+    const int row = i >> 3, c = i & 7;
+    const bool ok = row < rlim;
+    const bf16* src = row < 64 ? lo + (long long)row * ld : hi + (long long)(row - 64) * ld;
+    cp_async16(dst + sw_off<128>(row, c), ok ? src + k0 + 8 * c : lo, ok);
   }
 }
 
-template <int M>
-cudaError_t launch(const void* x, const void* w1, const void* w3,
-                   const void* w2, void* out, int R, int F,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<M>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_fwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  ffn_fwd_kernel<M><<<(R + BM - 1) / BM, 128 * fwd_halves<M>(), smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(w3), static_cast<const bf16*>(w2),
-      static_cast<bf16*>(out), R, F);
-  return cudaGetLastError();
+// An MN-major slice of 64 K-rows x NN (MN contiguous) into dst, as NN / 64
+// blocks of 64 columns, 64 x 128 bytes each: K-row k from p + k * ld,
+// columns mn0 on; K-rows at or past klim are zero-filled.
+template <int NN>
+__device__ __forceinline__ void copy_mnmajor(uint32_t dst, const bf16* p,
+                                             long long ld, int klim, int mn0) {
+  constexpr int C = NN / 8;
+  for (int i = threadIdx.x; i < 64 * C; i += blockDim.x) {
+    const int k = i / C, c = i % C;
+    const bool ok = k < klim;
+    cp_async16(dst + (c >> 3) * 8192 + sw_off<128>(k, c & 7),
+               ok ? p + (long long)k * ld + mn0 + 8 * c : p, ok);
+  }
 }
 
+// Descriptors of k-step st of a 64 x 16 A piece or a 16 x N B piece whose
+// first row or column is mn0 (a multiple of 64), in a slice copied as above.
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int mn0, int st) {
+  return desc_sw<128>(base + mn0 * 128 + st * 32);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int mn0, int st) {
+  return desc_mn_sw(base, 16 * st, mn0, 8192);
+}
 
-// ---------------------------------------------------------------------------
-// Backward (the TPU kernel's math; h1, h3 and z are recomputed, never stored):
-//   dz  = dout W2            (dout [R, M], W2 [M, F])
-//   dh1 = dz * h3 * silu'(h1),   dh3 = dz * silu(h1)        (rounded to bf16)
-//   dx  = dh1 W1 + dh3 W3                                   (bf16 out)
-//   dW1 = dh1^T x,  dW3 = dh3^T x,  dW2 = dout^T z           (fp32)
-// The TPU kernel carries dW across its sequential grid; blocks on the card run
-// in no order, so the work is split in three deterministic launches:
-//   ffn_bwd_dx:     one block per 64-row tile walks F in chunks of 32;
-//   ffn_bwd_dw:     one block per (F chunk, row split) sums its rows' dW
-//                   chunk in fp32 registers and writes it to a partial;
-//   ffn_bwd_reduce: sums the row-split partials in a fixed order.
-// Eight warps per block. Every tile sits in shared memory once, in its natural
-// row-major layout, copied with 16-byte cp.async while the previous tile is
-// being computed (double buffers); a product that needs it transposed loads
-// its fragments with ldmatrix.trans.
-// The row tile and the buffering follow M (BwdTiles): up to M = 256 tiles of
-// 64 rows, double buffered; above it 32 rows, and a single buffer where two
-// would pass the 227 KB a block may hold (M = 512). With 32-row tiles the
-// eight warps are 2 row groups x 4 column groups instead of 4 x 2.
+// The dynamic shared memory of a kernel, rounded up to a 1024-byte boundary
+// (the swizzle atoms'); kernels ask for 1024 bytes more than they use.
+__device__ __forceinline__ uint32_t smem_base_1k(const unsigned char* smem) {
+  return (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
+}
 
-constexpr int BW = 256;  // threads of the backward blocks
+// Waits until this thread's cp.async groups but the newest N have landed,
+// makes them visible to wgmma, then a block barrier: every thread's have.
+template <int N>
+__device__ __forceinline__ void ring_landed() {
+  cp_async_wait<N>();
+  fence_proxy_async();
+  __syncthreads();
+}
 
-template <int M>
-struct BwdTiles {
-  static constexpr int BM = M <= 256 ? 64 : 32;   // rows of a tile
-  static constexpr int RG = BM / 16;              // warps along the rows
-  static constexpr int NQ = 8 / RG;               // warps along F or M
-  static constexpr int FQ = FC / NQ;              // F columns of a warp (phase A)
-  static constexpr int NJ = FQ / 8;               // their n-tiles
-  static constexpr int XS = M + PAD, TS = FC + PAD;
-  static constexpr size_t WCH = 2 * (size_t)FC * XS + (size_t)M * TS;  // one W chunk
-  __host__ __device__ static constexpr size_t dx_bytes(int st) {
-    return sizeof(bf16) * (2 * (size_t)BM * XS + st * WCH + 2 * (size_t)BM * TS);
+// The K-slice pipeline shared by the GEMM and producer kernels: NST stages,
+// NST - 2 slices in flight, one barrier per slice. load(kt, stage) issues the
+// cp.async copies of slice kt; mma(stage) issues its wgmmas. Slice kt - 1's
+// wgmmas stay in flight while slice kt's are issued; the copy into a stage
+// starts only after every warpgroup has waited for the wgmmas that read it.
+template <int NST, class Load, class Mma>
+__device__ __forceinline__ void k_pipeline(int nk, uint32_t sbase, int stage_bytes,
+                                           Load load, Mma mma) {
+  constexpr int P = NST - 2;
+  static_assert(P >= 1, "the ring needs at least three stages");
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (i < nk) load(i, sbase + i * stage_bytes);
+    cp_async_commit();
   }
-  __host__ __device__ static constexpr size_t dw_bytes(int st) {
-    return sizeof(bf16) * (WCH + st * 2 * (size_t)BM * XS + 3 * (size_t)BM * TS);
+  for (int kt = 0; kt < nk; ++kt) {
+    ring_landed<P - 1>();
+    if (kt + P < nk) load(kt + P, sbase + ((kt + P) % NST) * stage_bytes);
+    cp_async_commit();
+    wg_fence();
+    mma(sbase + (kt % NST) * stage_bytes);
+    wg_commit();
+    wg_wait<1>();
   }
-  static constexpr int DX_ST = dx_bytes(2) <= kSmemMax ? 2 : 1;   // W chunk buffers
-  static constexpr int DW_ST = dw_bytes(2) <= kSmemMax ? 2 : 1;   // x/dout buffers
-  static_assert(dx_bytes(DX_ST) <= kSmemMax && dw_bytes(DW_ST) <= kSmemMax,
-                "SwiGLU backward tiles exceed shared memory");
-  static_assert(M % (16 * NQ) == 0 && M % 128 == 0, "unsupported SwiGLU width");
+  wg_wait<0>();
+}
+
+// ---- the generic GEMM: C[i, j] = sum_k A[i, k] B[k, j] over one 128 x 128
+// tile of C, K from k_begin to k_end (a multiple of 64 apart, but for the
+// last split). AMN / BMN: the operand is MN-major (A[k * lda + i],
+// B[k * ldb + j]) rather than K-major (A[i * lda + k], B[j * ldb + k]).
+// Epilogue: bf16 C (rows past `rows` dropped) or an fp32 partial of split
+// blockIdx.z.
+constexpr int GT = 128;                   // C tile rows
+constexpr int GNST = 4;                   // stages of the ring
+template <int BN>                         // C tile columns
+struct GemmTile {
+  static constexpr int A = GT * 64 * 2;   // bytes of A's slice in a stage
+  static constexpr int STAGE = A + BN * 64 * 2, SMEM = GNST * STAGE + 1024;
+  static_assert(SMEM <= kSmemMax, "GEMM stages exceed shared memory");
 };
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// 16-byte asynchronous copy global -> shared; valid == false writes zeros.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Waits until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// ldmatrix .x4 .trans: four 8x8 bf16 tiles of a row-major shared array, each
-// delivered transposed into one register of the mma fragment layout. Lanes
-// 8i .. 8i+7 give the row addresses of tile i.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// B operands (k x n) of the n-tiles n0 and n0 + 8 at k-step k0, from a
-// row-major [k][n] shared array of row stride LD: b[0], b[1] for n0 and
-// b[2], b[3] for n0 + 8.
-template <int LD>
-__device__ __forceinline__ void ldsm_b_pair(uint32_t b[4], const bf16* S,
-                                            int k0, int n0, int lane) {
-  ldsm_x4_t(b, S + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
-                   (lane >> 4) * 8);
-}
-
-// A operand (16 x 16) of the rows m0 .. m0 + 15 at k-step k0, from a
-// row-major [k][m] shared array of row stride LD (the operand's transpose).
-template <int LD>
-__device__ __forceinline__ void ldsm_a_t(uint32_t a[4], const bf16* S, int k0,
-                                         int m0, int lane) {
-  ldsm_x4_t(a, S + (k0 + (lane & 7) + (lane >> 4) * 8) * LD + m0 +
-                   ((lane >> 3) & 1) * 8);
-}
-
-// The shared copy of one F chunk: rows f0 .. f0+FC-1 of W1 and W3 ([F, M])
-// as W1s/W3s ([f][m]) and the columns f0 .. f0+FC-1 of W2 ([M, F]) as W2c
-// ([m][f]).
-template <int M>
-struct WChunk {
-  static constexpr int XS = M + PAD, TS = FC + PAD;
-  static constexpr int ELEMS = 2 * FC * XS + M * TS;
-  bf16* W1s;
-  bf16* W3s;
-  bf16* W2c;
-  __device__ explicit WChunk(bf16* base)
-      : W1s(base), W3s(base + FC * XS), W2c(base + 2 * FC * XS) {}
+struct GemmArgs {
+  const bf16* a;
+  long long lda;
+  const bf16* b;
+  long long ldb;
+  void* c;
+  long long ldc, split_stride;
+  int rows, cols, k, k_per_split;
+  const bf16* b_hi = nullptr;   // an MN-major B's K-rows from k_split on
+  int k_split = 1 << 30;
 };
 
-// Starts the copy of chunk f0 into w (cp.async, not yet committed).
-template <int M>
-__device__ __forceinline__ void load_w_chunk_async(
-    const bf16* __restrict__ w1, const bf16* __restrict__ w3,
-    const bf16* __restrict__ w2, int F, int f0, const WChunk<M>& w) {
-  constexpr int XS = WChunk<M>::XS, TS = WChunk<M>::TS;
-  for (int i = threadIdx.x; i < FC * (M / 8); i += blockDim.x) {
-    const int r = i / (M / 8), ch = (i % (M / 8)) * 8;
-    const long long src = (long long)(f0 + r) * M + ch;
-    cp_async16(w.W1s + r * XS + ch, w1 + src, true);
-    cp_async16(w.W3s + r * XS + ch, w3 + src, true);
+// One launch may run two products of the same kind (the weight gradients):
+// blocks below tiles0 (along x) take g0's tiles, the others g1's.
+template <int AMN, int BMN, int F32OUT, int BN>
+__global__ void __launch_bounds__(256) ffn_gemm(GemmArgs g0, GemmArgs g1, int tiles0) {
+  using Tl = GemmTile<BN>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = smem_base_1k(smem);
+  const bool first = (int)blockIdx.x < tiles0;
+  const GemmArgs g = first ? g0 : g1;
+  const int tile = first ? blockIdx.x : blockIdx.x - tiles0;
+  const int i0 = tile / (g.cols / BN) * GT, j0 = tile % (g.cols / BN) * BN;
+  const int kb = blockIdx.z * g.k_per_split;
+  const int ke = min(g.k, kb + g.k_per_split);
+  const int nk = ke > kb ? (ke - kb + 63) / 64 : 0;
+  const int wg = threadIdx.x >> 7;
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  auto load = [&](int kt, uint32_t st) {
+    const int k0 = kb + kt * 64;
+    if constexpr (AMN)
+      copy_mnmajor<GT>(st, g.a + (long long)k0 * g.lda, g.lda, ke - k0, i0);
+    else
+      copy_kmajor<GT>(st, g.a + (long long)i0 * g.lda, g.a + (long long)(i0 + 64) * g.lda,
+                      g.lda, g.rows - i0, k0);
+    if constexpr (BMN)
+      copy_mnmajor<BN>(st + Tl::A,
+                       k0 < g.k_split ? g.b + (long long)k0 * g.ldb
+                                      : g.b_hi + (long long)(k0 - g.k_split) * g.ldb,
+                       g.ldb, ke - k0, j0);
+    else
+      copy_kmajor<BN>(st + Tl::A, g.b + (long long)j0 * g.ldb,
+                      g.b + (long long)(j0 + 64) * g.ldb, g.ldb, BN, k0);
+  };
+  auto mma = [&](uint32_t st) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t da = AMN ? desc_mn(st, 64 * wg, s) : desc_k(st, 64 * wg, s);
+      const uint64_t db = BMN ? desc_mn(st + Tl::A, 0, s) : desc_k(st + Tl::A, 0, s);
+      WgmmaSS<BN, AMN, BMN>::run(acc, da, db, 1);
+    }
+  };
+  k_pipeline<GNST>(nk, sbase, Tl::STAGE, load, mma);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r0 = i0 + 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    const int col = j0 + 8 * n + 2 * (lane & 3);
+    if constexpr (F32OUT) {
+      float* c = static_cast<float*>(g.c) + blockIdx.z * g.split_stride;
+      if (r0 < g.rows)
+        *reinterpret_cast<float2*>(c + (long long)r0 * g.ldc + col) =
+            make_float2(acc[4 * n], acc[4 * n + 1]);
+      if (r1 < g.rows)
+        *reinterpret_cast<float2*>(c + (long long)r1 * g.ldc + col) =
+            make_float2(acc[4 * n + 2], acc[4 * n + 3]);
+    } else {
+      bf16* c = static_cast<bf16*>(g.c);
+      if (r0 < g.rows)
+        *reinterpret_cast<uint32_t*>(c + (long long)r0 * g.ldc + col) =
+            pack_bf16(acc[4 * n], acc[4 * n + 1]);
+      if (r1 < g.rows)
+        *reinterpret_cast<uint32_t*>(c + (long long)r1 * g.ldc + col) =
+            pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+    }
+  }
+}
+
+// ---- the producer: for 128 rows of x and 64 columns f0 .. f0 + 63 of F,
+// h1 and h3 as one product of N = 128 (the B rows are W1's 64 rows, then
+// W3's), K = M streamed in slices of 64. Forward (BWD = 0): z = silu(h1) h3
+// to z [R, F]. Backward: also dz = dout W2 (dout K-major A, W2's columns as
+// MN-major B), then dh1 | dh3 to dh [R, 2F] and z to z [R, F], all bf16.
+template <int BWD>
+struct Produce {
+  static constexpr int STAGE = 2 * GT * 64 * 2 + (BWD ? GT * 64 * 2 + 64 * 64 * 2 : 0);
+  static constexpr int NST = 4;
+  static constexpr int SMEM = NST * STAGE + 1024;
+  static_assert(SMEM <= kSmemMax, "SwiGLU producer stages exceed shared memory");
+};
+
+template <int BWD>
+__global__ void __launch_bounds__(256)
+ffn_produce(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+            const bf16* __restrict__ w1, const bf16* __restrict__ w3,
+            const bf16* __restrict__ w2, bf16* __restrict__ z,
+            bf16* __restrict__ dh, int R, int M, int F) {
+  using P = Produce<BWD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = smem_base_1k(smem);
+  const int f0 = blockIdx.x * 64, i0 = blockIdx.y * GT;
+  const int wg = threadIdx.x >> 7;
+  constexpr int B = GT * 64 * 2, A2 = 2 * B, B2 = 3 * B;   // stage offsets
+
+  float h[64], dz[BWD ? 32 : 1];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) h[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (BWD ? 32 : 1); ++i) dz[i] = 0.f;
+
+  auto load = [&](int kt, uint32_t st) {
+    const int k0 = kt * 64;
+    copy_kmajor<GT>(st, x + (long long)i0 * M, x + (long long)(i0 + 64) * M, M, R - i0, k0);
+    copy_kmajor<GT>(st + B, w1 + (long long)f0 * M, w3 + (long long)f0 * M, M, GT, k0);
+    if constexpr (BWD) {
+      copy_kmajor<GT>(st + A2, dout + (long long)i0 * M, dout + (long long)(i0 + 64) * M,
+                      M, R - i0, k0);
+      copy_mnmajor<64>(st + B2, w2 + (long long)k0 * F, F, 64, f0);
+    }
+  };
+  auto mma = [&](uint32_t st) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      WgmmaSS<GT, 0, 0>::run(h, desc_k(st, 64 * wg, s), desc_k(st + B, 0, s), 1);
+      if constexpr (BWD)
+        WgmmaSS<64, 0, 1>::run(dz, desc_k(st + A2, 64 * wg, s),
+                               desc_mn(st + B2, 0, s), 1);
+    }
+  };
+  k_pipeline<P::NST>(M / 64, sbase, P::STAGE, load, mma);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) reg_fence(h[i]);
+#pragma unroll
+  for (int i = 0; i < (BWD ? 32 : 1); ++i) reg_fence(dz[i]);
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r0 = i0 + 64 * wg + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {       // f = f0 + 8n + 2t (+1); h3 in n-tile n + 8
+    const int f = f0 + 8 * n + 2 * (lane & 3);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r >= R) continue;
+      const int e = 4 * n + 2 * half;
+      if constexpr (BWD) {
+        float d1[2], d3[2], zz[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          swiglu_grads(h[e + u], h[e + 32 + u], dz[e + u], d1[u], d3[u], zz[u]);
+        bf16* row = dh + (long long)r * 2 * F;
+        *reinterpret_cast<uint32_t*>(row + f) = pack_bf16(d1[0], d1[1]);
+        *reinterpret_cast<uint32_t*>(row + F + f) = pack_bf16(d3[0], d3[1]);
+        *reinterpret_cast<uint32_t*>(z + (long long)r * F + f) = pack_bf16(zz[0], zz[1]);
+      } else {
+        const float z0 = h[e] * sigmoid_fast(h[e]) * h[e + 32];
+        const float z1 = h[e + 1] * sigmoid_fast(h[e + 1]) * h[e + 33];
+        *reinterpret_cast<uint32_t*>(z + (long long)r * F + f) = pack_bf16(z0, z1);
+      }
+    }
+  }
+}
+
+// ---- the fused bf16 kernels at M = 128, 256 (see the top of the file): a
+// block of 128 rows (two warpgroups of 64) with its rows of x (and dout)
+// resident, walking F in chunks of FC through a ring of NST stages. A stage
+// holds the chunk's W1 rows, then its W3 rows (M / 64 blocks of 2 FC rows x
+// 128 bytes: one K-major B of N = 2 FC for h1 | h3), then W2's columns
+// (M rows of RB bytes).
+template <int M_, int FC_, int NST_>
+struct ChunkTiles {
+  static constexpr int M = M_, FC = FC_, NST = NST_;
+  static constexpr int BR = 128;                     // rows: two warpgroups of 64
+  static constexpr int NH = 2 * FC;                  // h1 | h3 columns of a chunk
+  static constexpr int RB = FC * 2;                  // bytes of a W2 row (its K)
+  static constexpr int XBYTES = BR * M * 2;          // one resident [BR, M] tile
+  static constexpr int W13 = 2 * FC * M * 2, STAGE = W13 + M * FC * 2;
+  static_assert(NST >= 2 && (FC == 32 || FC == 64) && M % 64 == 0 && M <= 256, "bad tiling");
+};
+
+// Chunk c of the weights as a ring stage holds it: put(off, src) moves the
+// 16 bytes at src to byte off of the stage. All threads of the block take
+// part.
+template <class T, class Put>
+__device__ __forceinline__ void w_chunk(const bf16* w1, const bf16* w3, const bf16* w2,
+                                        int F, int c, Put put) {
+  constexpr int M = T::M, FC = T::FC;
+  const int f0 = c * FC;
+  for (int i = threadIdx.x; i < 2 * FC * (M / 8); i += blockDim.x) {
+    const int n = i / (M / 8), ch = i % (M / 8);
+    const bf16* w = n < FC ? w1 + (long long)(f0 + n) * M : w3 + (long long)(f0 + n - FC) * M;
+    put((ch >> 3) * (2 * FC * 128) + sw_off<128>(n, ch & 7), w + 8 * ch);
   }
   for (int i = threadIdx.x; i < M * (FC / 8); i += blockDim.x) {
-    const int m = i / (FC / 8), ch = (i % (FC / 8)) * 8;
-    cp_async16(w.W2c + m * TS + ch, w2 + (long long)m * F + f0 + ch, true);
+    const int m = i / (FC / 8), ch = i % (FC / 8);
+    put(T::W13 + sw_off<T::RB>(m, ch), w2 + (long long)m * F + f0 + 8 * ch);
   }
 }
 
-// Starts the copy of a BwdTiles<M>::BM-row tile of a [R, M] bf16 matrix into
-// T ([r][m]); rows past R become zeros.
-template <int M>
-__device__ __forceinline__ void load_rows_async(const bf16* __restrict__ src,
-                                                int R, int row0, bf16* T) {
-  constexpr int XS = M + PAD;
-  for (int i = threadIdx.x; i < BwdTiles<M>::BM * (M / 8); i += blockDim.x) {
-    const int r = i / (M / 8), ch = (i % (M / 8)) * 8;
-    const bool valid = row0 + r < R;
-    cp_async16(T + r * XS + ch, src + (long long)(valid ? row0 + r : 0) * M + ch,
-               valid);
+// The weight chunks in their ring-stage layout, chunk blockIdx.x at
+// packed + blockIdx.x STAGE bytes, so that one bulk copy fills a stage.
+template <class T>
+__global__ void __launch_bounds__(256)
+ffn_pack_w(const bf16* __restrict__ w1, const bf16* __restrict__ w3,
+           const bf16* __restrict__ w2, unsigned char* __restrict__ packed, int F) {
+  unsigned char* st = packed + (long long)blockIdx.x * T::STAGE;
+  w_chunk<T>(w1, w3, w2, F, blockIdx.x, [&](int off, const bf16* src) {
+    *reinterpret_cast<uint4*>(st + off) = *reinterpret_cast<const uint4*>(src);
+  });
+}
+
+// mbarriers and the copy engine's bulk copies.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// The one arrival of a phase that completes once `bytes` more have landed.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// bytes (a multiple of 16) from src to dst, counted on bar as they land.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The ring of weight chunks: NST stages from ring on, chunk c in stage
+// c % NST, filled by thread 0 with one bulk copy of its packed image and
+// signalled on that stage's mbarrier (its k-th fill completes phase k).
+template <class T>
+struct BulkRing {
+  uint32_t ring, bar0;
+  const unsigned char* packed;
+
+  __device__ uint32_t stage(int c) const { return ring + (c % T::NST) * T::STAGE; }
+  __device__ void fill(int c) const {
+    const uint32_t bar = bar0 + 8 * (c % T::NST);
+    mbar_expect_tx(bar, T::STAGE);
+    bulk_copy(stage(c), packed + (long long)c * T::STAGE, T::STAGE, bar);
+  }
+  // Thread 0: the barriers, then the first `first` chunks.
+  __device__ void start(int first) const {
+    for (int s = 0; s < T::NST; ++s) mbar_init(bar0 + 8 * s, 1);
+    fence_mbar_init();
+    for (int c = 0; c < first; ++c) fill(c);
+  }
+  __device__ void wait(int c) const { mbar_wait(bar0 + 8 * (c % T::NST), (c / T::NST) & 1); }
+};
+
+// The block's BR rows of a [R, M] tensor into dst (M / 64 blocks of BR rows
+// x 128 bytes), rows at or past R zero-filled.
+template <class T>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* a, int row0, int R) {
+  constexpr int M = T::M;
+  for (int i = threadIdx.x; i < T::BR * (M / 8); i += blockDim.x) {
+    const int r = i / (M / 8), ch = i % (M / 8);
+    const bool ok = row0 + r < R;
+    cp_async16(dst + (ch >> 3) * (T::BR * 128) + sw_off<128>(r, ch & 7),
+               a + (long long)(ok ? row0 + r : 0) * M + 8 * ch, ok);
   }
 }
 
-// h1, h3 and dz of one warp: rows wr .. wr+15 of the tile, F-chunk columns
-// fh .. fh+8NJ-1 (NJ n-tiles of 8).
-template <int M, int NJ = BwdTiles<M>::NJ>
-__device__ __forceinline__ void chunk_products(
-    const bf16* Xs, const bf16* Ds, const WChunk<M>& w, int wr, int fh,
-    int lane, float (*h1)[4], float (*h3)[4], float (*dz)[4]) {
-  constexpr int XS = M + PAD, TS = FC + PAD;
-  const int g = lane >> 2, t = lane & 3;
+template <class T>
+__device__ __forceinline__ void store_rows(bf16* out, const float* o, int r0, int R, int t) {
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h1[j][e] = h3[j][e] = dz[j][e] = 0.f;
-#pragma unroll 4
-  for (int st = 0; st < M / 16; ++st) {
-    const bf16* xa = Xs + (wr + g) * XS + st * 16 + 2 * t;
-    const uint32_t a[4] = {ld32(xa), ld32(xa + 8 * XS), ld32(xa + 8),
-                           ld32(xa + 8 * XS + 8)};
-    const bf16* da = Ds + (wr + g) * XS + st * 16 + 2 * t;
-    const uint32_t d[4] = {ld32(da), ld32(da + 8 * XS), ld32(da + 8),
-                           ld32(da + 8 * XS + 8)};
-    uint32_t b2[4];   // at NJ = 1 the second n-tile (pad columns) goes unused
-    ldsm_b_pair<TS>(b2, w.W2c, st * 16, fh, lane);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = (fh + 8 * j + g) * XS + st * 16 + 2 * t;
-      mma_bf16_16816(h1[j], a, ld32(w.W1s + n), ld32(w.W1s + n + 8));
-      mma_bf16_16816(h3[j], a, ld32(w.W3s + n), ld32(w.W3s + n + 8));
-      mma_bf16_16816(dz[j], d, b2[2 * j], b2[2 * j + 1]);
-    }
-  }
-}
-
-template <int M>
-__global__ void __launch_bounds__(BW)
-ffn_bwd_dx(const bf16* __restrict__ x, const bf16* __restrict__ dout,
-           const bf16* __restrict__ w1, const bf16* __restrict__ w3,
-           const bf16* __restrict__ w2, bf16* __restrict__ dx, int R, int F) {
-  using Tl = BwdTiles<M>;
-  constexpr int BR = Tl::BM, ST = Tl::DX_ST, NJ = Tl::NJ;
-  constexpr int MW = M / Tl::NQ;           // dx columns of a warp (phase B)
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int XS = M + PAD, TS = FC + PAD;
-  bf16* Xs = reinterpret_cast<bf16*>(smem);           // [BR][XS]
-  bf16* Ds = Xs + BR * XS;                            // [BR][XS]  dout
-  bf16* Wb = Ds + BR * XS;                            // [ST][WChunk]
-  bf16* H1 = Wb + ST * WChunk<M>::ELEMS;              // [BR][TS]  dh1
-  bf16* H3 = H1 + BR * TS;                            // [BR][TS]  dh3
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BR;
-  const int wr = (warp % Tl::RG) * 16;     // the warp's 16 rows
-  const int fh = (warp / Tl::RG) * Tl::FQ; // its F-chunk columns (phase A)
-  const int mh = (warp / Tl::RG) * MW;     // its dx columns (phase B)
-
-  load_rows_async<M>(x, R, row0, Xs);
-  load_rows_async<M>(dout, R, row0, Ds);
-  load_w_chunk_async<M>(w1, w3, w2, F, 0, WChunk<M>(Wb));
-  cp_async_commit();
-
-  float acc[MW / 8][4];
-#pragma unroll
-  for (int n = 0; n < MW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int f0 = 0, it = 0; f0 < F; f0 += FC, ++it) {
-    const WChunk<M> w(Wb + (it % ST) * WChunk<M>::ELEMS);
-    __syncthreads();   // every warp is done with the buffer to refill and H1/H3
-    if (ST == 2) {
-      if (f0 + FC < F)
-        load_w_chunk_async<M>(w1, w3, w2, F, f0 + FC,
-                              WChunk<M>(Wb + ((it + 1) % ST) * WChunk<M>::ELEMS));
-      cp_async_commit();
-      cp_async_wait_prev();
-    } else {
-      if (f0 > 0) load_w_chunk_async<M>(w1, w3, w2, F, f0, w);
-      cp_async_commit();
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    float h1[NJ][4], h3[NJ][4], dz[NJ][4];
-    chunk_products<M>(Xs, Ds, w, wr, fh, lane, h1, h3, dz);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float d1[2], d3[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int e = 2 * half + u;
-          const float sg = sigmoid(h1[j][e]);
-          d1[u] = dz[j][e] * h3[j][e] * (sg * (1.f + h1[j][e] * (1.f - sg)));
-          d3[u] = dz[j][e] * h1[j][e] * sg;
-        }
-        const int o = (wr + g + 8 * half) * TS + fh + 8 * j + 2 * t;
-        *reinterpret_cast<uint32_t*>(H1 + o) = pack_bf16(d1[0], d1[1]);
-        *reinterpret_cast<uint32_t*>(H3 + o) = pack_bf16(d3[0], d3[1]);
-      }
-    }
-    __syncthreads();
-    // dx[wr.., mh..] += dh1 W1c + dh3 W3c over the chunk's 32 values of f;
-    // W1c and W3c are the B operands [f][m], read transposed.
-#pragma unroll
-    for (int st = 0; st < FC / 16; ++st) {
-      const bf16* p1 = H1 + (wr + g) * TS + st * 16 + 2 * t;
-      const bf16* p3 = H3 + (wr + g) * TS + st * 16 + 2 * t;
-      const uint32_t a1[4] = {ld32(p1), ld32(p1 + 8 * TS), ld32(p1 + 8),
-                              ld32(p1 + 8 * TS + 8)};
-      const uint32_t a3[4] = {ld32(p3), ld32(p3 + 8 * TS), ld32(p3 + 8),
-                              ld32(p3 + 8 * TS + 8)};
-#pragma unroll
-      for (int p = 0; p < MW / 16; ++p) {
-        uint32_t b1[4], b3[4];
-        ldsm_b_pair<XS>(b1, w.W1s, st * 16, mh + 16 * p, lane);
-        ldsm_b_pair<XS>(b3, w.W3s, st * 16, mh + 16 * p, lane);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16_16816(acc[2 * p + j], a1, b1[2 * j], b1[2 * j + 1]);
-          mma_bf16_16816(acc[2 * p + j], a3, b3[2 * j], b3[2 * j + 1]);
-        }
-      }
-    }
-  }
-
-  const int r0 = row0 + wr + g, r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < MW / 8; ++n) {
-    const int c = mh + 8 * n + 2 * t;
+  for (int n = 0; n < T::M / 8; ++n) {
+    const int col = 8 * n + 2 * t;
     if (r0 < R)
-      *reinterpret_cast<__nv_bfloat162*>(dx + (long long)r0 * M + c) =
-          __floats2bfloat162_rn(acc[n][0], acc[n][1]);
-    if (r1 < R)
-      *reinterpret_cast<__nv_bfloat162*>(dx + (long long)r1 * M + c) =
-          __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+      *reinterpret_cast<uint32_t*>(out + (long long)r0 * T::M + col) = pack_bf16(o[4 * n], o[4 * n + 1]);
+    if (r0 + 8 < R)
+      *reinterpret_cast<uint32_t*>(out + (long long)(r0 + 8) * T::M + col) =
+          pack_bf16(o[4 * n + 2], o[4 * n + 3]);
   }
 }
 
-// part: [splits][3][F * M] fp32 — dW1 [F, M], dW3 [F, M], dW2 [M, F].
-template <int M>
-__global__ void __launch_bounds__(BW)
-ffn_bwd_dw(const bf16* __restrict__ x, const bf16* __restrict__ dout,
-           const bf16* __restrict__ w1, const bf16* __restrict__ w3,
-           const bf16* __restrict__ w2, float* __restrict__ part, int R, int F,
-           int tiles_per_split) {
-  using Tl = BwdTiles<M>;
-  constexpr int BR = Tl::BM, ST = Tl::DW_ST, NJ = Tl::NJ;
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int XS = M + PAD, TS = FC + PAD;
-  const WChunk<M> w(reinterpret_cast<bf16*>(smem));
-  bf16* XD = w.W1s + WChunk<M>::ELEMS;      // [ST][x, dout][BR][XS]
-  bf16* H1 = XD + ST * 2 * BR * XS;                   // [BR][TS]  dh1
-  bf16* H3 = H1 + BR * TS;                            // [BR][TS]  dh3
-  bf16* Z = H3 + BR * TS;                             // [BR][TS]  z
+// The fused forward: a ring of NST >= 3 stages, NST - 2 chunks in flight.
+template <int M_, int FC_, int NST_>
+struct FusedFwd : ChunkTiles<M_, FC_, NST_> {
+  using B = ChunkTiles<M_, FC_, NST_>;
+  static constexpr int SMEM = B::XBYTES + NST_ * B::STAGE + 1024;
+  static_assert(SMEM <= kSmemMax, "SwiGLU forward tiles exceed shared memory");
+  static_assert(NST_ >= 3, "the forward's ring needs three stages");
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// out[64 x M] += z . W2c^T for k-step kk, in pieces of N = 128 (or 64).
+template <class T, int C0 = 0>
+__device__ __forceinline__ void out_pieces(float* o, const uint32_t a[4], uint32_t w2c, int kk) {
+  if constexpr (C0 < T::M) {
+    constexpr int N = T::M - C0 >= 128 ? 128 : 64;
+    Wgmma<N, 0>::run(o + C0 / 2, a, desc_sw<T::RB>(w2c + C0 * T::RB + kk * 32), 1);
+    out_pieces<T, C0 + N>(o, a, w2c, kk);
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(256)
+ffn_fwd_fused(const bf16* __restrict__ x, const unsigned char* __restrict__ packed,
+              bf16* __restrict__ out, int R, int F) {
+  constexpr int M = T::M, FC = T::FC, NH = T::NH, KS = FC / 16;
+  constexpr int P = T::NST - 2;         // chunks in flight
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t landed[T::NST];
+  const uint32_t xs = smem_base_1k(smem);   // x: M / 64 blocks of BR rows x 128 bytes
+  const BulkRing<T> w{xs + T::XBYTES,
+                      static_cast<uint32_t>(__cvta_generic_to_shared(landed)), packed};
+  const int row0 = blockIdx.x * T::BR;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int f0 = blockIdx.x * FC;
-  const int wr = (warp % Tl::RG) * 16, fh = (warp / Tl::RG) * Tl::FQ;  // phase A
-  const int ft = (warp & 1) * 16;                          // dW1/dW3 f rows
-  const int mb = (warp >> 1) * (M / 4);                    // dW1/dW3 m cols
-  const int mw = warp * (M / 8);                           // dW2 m rows
+  const int nc = F / FC;
 
-  float a1[M / 32][4], a3[M / 32][4], a2[M / 128][4][4];
-#pragma unroll
-  for (int n = 0; n < M / 32; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a1[n][e] = a3[n][e] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < M / 128; ++mt)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a2[mt][n][e] = 0.f;
-
-  const int ntiles = (R + BR - 1) / BR;
-  const int tile0 = blockIdx.y * tiles_per_split;
-  const int tile1 = min(ntiles, tile0 + tiles_per_split);
-  load_w_chunk_async<M>(w1, w3, w2, F, f0, w);
-  if (tile0 < tile1) {
-    load_rows_async<M>(x, R, tile0 * BR, XD);
-    load_rows_async<M>(dout, R, tile0 * BR, XD + BR * XS);
-  }
+  if (threadIdx.x == 0) w.start(P < nc ? P : nc);
+  load_rows<T>(xs, x, row0, R);
   cp_async_commit();
-  for (int tile = tile0, it = 0; tile < tile1; ++tile, ++it) {
-    bf16* Xs = XD + 2 * (it % ST) * BR * XS;
-    bf16* Ds = Xs + BR * XS;
-    __syncthreads();   // every warp is done with the buffer to refill and H1/H3/Z
-    if (ST == 2) {
-      if (tile + 1 < tile1) {
-        bf16* nx = XD + 2 * ((it + 1) % ST) * BR * XS;
-        load_rows_async<M>(x, R, (tile + 1) * BR, nx);
-        load_rows_async<M>(dout, R, (tile + 1) * BR, nx + BR * XS);
-      }
-      cp_async_commit();
-      cp_async_wait_prev();
-    } else {
-      if (tile > tile0) {
-        load_rows_async<M>(x, R, tile * BR, Xs);
-        load_rows_async<M>(dout, R, tile * BR, Ds);
-      }
-      cp_async_commit();
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    float h1[NJ][4], h3[NJ][4], dz[NJ][4];
-    chunk_products<M>(Xs, Ds, w, wr, fh, lane, h1, h3, dz);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float d1[2], d3[2], z[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int e = 2 * half + u;
-          const float sg = sigmoid(h1[j][e]);
-          d1[u] = dz[j][e] * h3[j][e] * (sg * (1.f + h1[j][e] * (1.f - sg)));
-          d3[u] = dz[j][e] * h1[j][e] * sg;
-          z[u] = h1[j][e] * sg * h3[j][e];
-        }
-        const int o = (wr + g + 8 * half) * TS + fh + 8 * j + 2 * t;
-        *reinterpret_cast<uint32_t*>(H1 + o) = pack_bf16(d1[0], d1[1]);
-        *reinterpret_cast<uint32_t*>(H3 + o) = pack_bf16(d3[0], d3[1]);
-        *reinterpret_cast<uint32_t*>(Z + o) = pack_bf16(z[0], z[1]);
-      }
-    }
-    __syncthreads();
-    // Reduce over the tile's BR rows (k = r, k-steps of 16): the A operands
-    // dh1^T, dh3^T and dout^T and the B operands x and z are all read
-    // transposed from their [r][*] tiles.
-#pragma unroll
-    for (int st = 0; st < BR / 16; ++st) {
-      uint32_t x1[4], x3[4];
-      ldsm_a_t<TS>(x1, H1, st * 16, ft, lane);
-      ldsm_a_t<TS>(x3, H3, st * 16, ft, lane);
-#pragma unroll
-      for (int p = 0; p < M / 64; ++p) {
-        uint32_t bx[4];
-        ldsm_b_pair<XS>(bx, Xs, st * 16, mb + 16 * p, lane);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16_16816(a1[2 * p + j], x1, bx[2 * j], bx[2 * j + 1]);
-          mma_bf16_16816(a3[2 * p + j], x3, bx[2 * j], bx[2 * j + 1]);
-        }
-      }
-      uint32_t bz[2][4];
-      ldsm_b_pair<TS>(bz[0], Z, st * 16, 0, lane);
-      ldsm_b_pair<TS>(bz[1], Z, st * 16, 16, lane);
-#pragma unroll
-      for (int mt = 0; mt < M / 128; ++mt) {
-        uint32_t ad[4];
-        ldsm_a_t<XS>(ad, Ds, st * 16, mw + 16 * mt, lane);
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          mma_bf16_16816(a2[mt][n], ad, bz[n >> 1][2 * (n & 1)],
-                         bz[n >> 1][2 * (n & 1) + 1]);
-      }
-    }
-  }
-  cp_async_wait_all();   // a split with no rows still has the W chunk in flight
+  ring_landed<0>();   // x has landed; the barriers are initialised
 
-  const long long fm = (long long)F * M;
-  float* p1 = part + (long long)blockIdx.y * 3 * fm;
-  float* p3 = p1 + fm;
-  float* p2 = p3 + fm;
+  float o[M / 2];
 #pragma unroll
-  for (int n = 0; n < M / 32; ++n) {
-    const int m = mb + 8 * n + 2 * t;
-    const long long o0 = (long long)(f0 + ft + g) * M + m, o1 = o0 + 8LL * M;
-    *reinterpret_cast<float2*>(p1 + o0) = make_float2(a1[n][0], a1[n][1]);
-    *reinterpret_cast<float2*>(p1 + o1) = make_float2(a1[n][2], a1[n][3]);
-    *reinterpret_cast<float2*>(p3 + o0) = make_float2(a3[n][0], a3[n][1]);
-    *reinterpret_cast<float2*>(p3 + o1) = make_float2(a3[n][2], a3[n][3]);
+  for (int i = 0; i < M / 2; ++i) o[i] = 0.f;
+  uint32_t za[KS][4];                   // z of the previous chunk
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) za[kk][e] = 0u;
+
+  for (int c = 0; c < nc; ++c) {
+    const uint32_t st = w.stage(c);
+    if (c > 0) __syncthreads();   // every warpgroup is done with chunk c - 2's stage
+    if (threadIdx.x == 0 && c + P < nc) w.fill(c + P);
+    w.wait(c);
+
+    float h[NH / 2];
+    wg_fence();
+#pragma unroll 4
+    for (int s = 0; s < M / 16; ++s)
+      WgmmaSS<NH, 0, 0>::run(
+          h, desc_sw<128>(xs + (s >> 2) * (T::BR * 128) + wg * 64 * 128 + (s & 3) * 32),
+          desc_sw<128>(st + (s >> 2) * (2 * FC * 128) + (s & 3) * 32), s > 0);
+    wg_commit();
+    wg_wait<0>();      // h has landed, and the previous chunk's out product
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) reg_fence(h[i]);
+#pragma unroll
+    for (int i = 0; i < M / 2; ++i) reg_fence(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reg_fence(za[kk][e]);
+
+    // z = silu(h1) h3: n-tile j of h1 and n-tile j + FC / 8 of h3 hold the
+    // same (row, f); n-tiles 2kk and 2kk + 1 are k-step kk of z.
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;
+        za[kk][e] = pack_bf16(h[i] * sigmoid_fast(h[i]) * h[i + FC / 2],
+                              h[i + 1] * sigmoid_fast(h[i + 1]) * h[i + 1 + FC / 2]);
+      }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) out_pieces<T>(o, za[kk], st + T::W13, kk);
+    wg_commit();
   }
+  wg_wait<0>();
 #pragma unroll
-  for (int mt = 0; mt < M / 128; ++mt)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int m = mw + 16 * mt + g;
-      const long long o0 = (long long)m * F + f0 + 8 * n + 2 * t;
-      const long long o1 = o0 + 8LL * F;
-      *reinterpret_cast<float2*>(p2 + o0) = make_float2(a2[mt][n][0], a2[mt][n][1]);
-      *reinterpret_cast<float2*>(p2 + o1) = make_float2(a2[mt][n][2], a2[mt][n][3]);
-    }
+  for (int i = 0; i < M / 2; ++i) reg_fence(o[i]);
+  store_rows<T>(out, o, row0 + wg * 64 + 16 * warp + g, R, t);
 }
 
+// The fused instantiations. At M = 384 and 512 a warpgroup's 64 x M fp32
+// output passes its registers; owning half the columns each, with z shared
+// through shared memory in 16-column chunks, ran slower than the general
+// route (PERF.md), which those widths take.
+using Fwd128 = FusedFwd<128, 64, 3>;
+using Fwd256 = FusedFwd<256, 32, 3>;
+
+// ---- the fused bf16 backward rows at M = 128, 256 (ffn_bwd_rows): x and
+// dout resident, the forward's chunks. Per chunk a warpgroup computes
+// h1|h3 = x [W1c; W3c]^T and dz = dout W2c (W2c read MN-major from the same
+// tile the forward reads K-major), forms dh1, dh3 and z in registers, writes
+// them to the [R, 2F] and [R, F] scratches for the weight gradients, and
+// accumulates dx += [dh1 dh3] [W1c; W3c] with [dh1 dh3] as register A and
+// the W1|W3 tile read MN-major: dx never leaves registers (M / 2 a thread).
+//
+// The ring is refilled at the top of a chunk, NST - 2 chunks ahead (one at
+// M = 256, where two stages fit beside x and dout). With NST >= 3, chunk c's
+// dx product runs on the tensor cores while chunk c + 1's h and dz products
+// are issued; with two stages the next copy overwrites its stage, so each
+// chunk ends by waiting for it (loading chunk c + 1 after a second barrier
+// in mid-chunk instead ran slower at M = 256). The stores of chunk c's dh1,
+// dh3 and z read its A registers, so they follow the wait for that dx
+// product (wgmma's A registers may not be touched before the wait that
+// covers it) and run under chunk c + 1's h and dz products.
+template <int M_, int FC_, int NST_>
+struct BwdRows : ChunkTiles<M_, FC_, NST_> {
+  using B = ChunkTiles<M_, FC_, NST_>;
+  static constexpr int SMEM = 2 * B::XBYTES + NST_ * B::STAGE + 1024;
+  static_assert(SMEM <= kSmemMax, "SwiGLU backward tiles exceed shared memory");
+};
+
+// a[j]: this lane's 4 bytes (columns 2t, 2t + 1) of n-tile j of a row held
+// by a quad of lanes t = 0..3. Returns the 16 bytes of n-tile t: the pieces
+// of lanes 0..3 of it, gathered by four xor-shuffles.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t a[4], int t) {
+  uint32_t b[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = t ^ r;   // the n-tile lane t ^ r wants from this lane
+    const uint32_t send = j == 0 ? a[0] : j == 1 ? a[1] : j == 2 ? a[2] : a[3];
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, send, r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) b[k] = k == j ? got : b[k];
+  }
+  return make_uint4(b[0], b[1], b[2], b[3]);
+}
+
+// dx[64 x M] += a . W13c for k-step kk, in pieces of N = 128 (or 64).
+template <class T, int C0 = 0>
+__device__ __forceinline__ void dx_pieces(float* o, const uint32_t a[4], uint32_t w13, int kk) {
+  if constexpr (C0 < T::M) {
+    constexpr int N = T::M - C0 >= 128 ? 128 : 64;
+    Wgmma<N, 1>::run(o + C0 / 2, a, desc_mn_sw(w13, 16 * kk, C0, 2 * T::FC * 128), 1);
+    dx_pieces<T, C0 + N>(o, a, w13, kk);
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(256)
+ffn_bwd_rows(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+             const unsigned char* __restrict__ packed, bf16* __restrict__ dx,
+             bf16* __restrict__ dh, bf16* __restrict__ z, int R, int F) {
+  constexpr int M = T::M, FC = T::FC, NH = T::NH, KS = NH / 16, RB = T::RB;
+  constexpr int NST = T::NST, P = NST > 2 ? NST - 2 : 1;   // P: chunks in flight
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t landed[NST];
+  const uint32_t xs = smem_base_1k(smem);
+  const uint32_t ds = xs + T::XBYTES;
+  const BulkRing<T> w{ds + T::XBYTES,
+                      static_cast<uint32_t>(__cvta_generic_to_shared(landed)), packed};
+  const int row0 = blockIdx.x * T::BR;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nc = F / FC;
+
+  if (threadIdx.x == 0) w.start(P < nc ? P : nc);
+  load_rows<T>(xs, x, row0, R);
+  load_rows<T>(ds, dout, row0, R);
+  cp_async_commit();
+  ring_landed<0>();   // x and dout have landed; the barriers are initialised
+
+  float o[M / 2];                       // dx
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) o[i] = 0.f;
+  uint32_t da[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) da[kk][e] = 0u;
+  const int r0 = row0 + wg * 64 + 16 * warp + g;
+
+  // The stores of chunk cc's dh1, dh3 (its A fragments: n-tile n of row
+  // half h is da[n / 2][2 (n % 2) + h]) and z, 16 bytes a lane: within each
+  // quad of lanes (one row, 8 columns of each n-tile), lane t gathers n-tile
+  // 4q + t of its rows.
+  float zf[FC / 2];
+  auto store = [&](int cc) {
+    const int f0 = cc * FC;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+#pragma unroll
+      for (int q = 0; q < FC / 32; ++q) {
+        uint32_t p1[4], p3[4], pz[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n1 = 4 * q + j, n3 = n1 + FC / 8, e = 4 * n1 + 2 * half;
+          p1[j] = da[n1 / 2][2 * (n1 % 2) + half];
+          p3[j] = da[n3 / 2][2 * (n3 % 2) + half];
+          pz[j] = pack_bf16(zf[e], zf[e + 1]);
+        }
+        const uint4 v1 = quad_transpose(p1, t), v3 = quad_transpose(p3, t),
+                    vz = quad_transpose(pz, t);
+        if (r < R) {
+          const int f = f0 + 32 * q + 8 * t;
+          bf16* row = dh + (long long)r * 2 * F;
+          *reinterpret_cast<uint4*>(row + f) = v1;
+          *reinterpret_cast<uint4*>(row + F + f) = v3;
+          *reinterpret_cast<uint4*>(z + (long long)r * F + f) = vz;
+        }
+      }
+    }
+  };
+  auto fence_dx = [&]() {
+#pragma unroll
+    for (int i = 0; i < M / 2; ++i) reg_fence(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reg_fence(da[kk][e]);
+  };
+
+  for (int c = 0; c < nc; ++c) {
+    const uint32_t st = w.stage(c);
+    if (c > 0) __syncthreads();   // no warpgroup reads the stage refilled next
+    if (threadIdx.x == 0 && c + P < nc) w.fill(c + P);
+    w.wait(c);
+
+    float h[NH / 2], dz[FC / 2];
+    wg_fence();
+#pragma unroll 4
+    for (int s = 0; s < M / 16; ++s) {
+      const uint32_t xo = (s >> 2) * (T::BR * 128) + wg * 64 * 128 + (s & 3) * 32;
+      WgmmaSS<NH, 0, 0>::run(h, desc_sw<128>(xs + xo),
+                             desc_sw<128>(st + (s >> 2) * (2 * FC * 128) + (s & 3) * 32), s > 0);
+      WgmmaSS<FC, 0, 1>::run(dz, desc_sw<128>(ds + xo), desc_sw<RB>(st + T::W13 + 16 * s * RB),
+                             s > 0);
+    }
+    wg_commit();
+    if constexpr (NST > 2) {
+      wg_wait<1>();    // the previous chunk's dx product, whose A registers store reads
+      fence_dx();
+    }                  // (with two stages, the end of that chunk waited for it)
+    if (c > 0) store(c - 1);
+    wg_wait<0>();      // h and dz have landed
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) reg_fence(h[i]);
+#pragma unroll
+    for (int i = 0; i < FC / 2; ++i) reg_fence(dz[i]);
+    if constexpr (NST == 2) fence_dx();
+
+    // n-tile j of h1, j + FC / 8 of h3 and j of dz hold the same (row, f).
+    float d13[NH / 2];
+#pragma unroll
+    for (int i = 0; i < FC / 2; ++i)
+      swiglu_grads(h[i], h[i + FC / 2], dz[i], d13[i], d13[i + FC / 2], zf[i]);
+    // dx += [dh1 dh3] [W1c; W3c]: n-tiles 2kk, 2kk + 1 are k-step kk of A,
+    // rounded to bf16 as the stored dh1 and dh3 are.
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        da[kk][e] = pack_bf16(d13[8 * kk + 2 * e], d13[8 * kk + 2 * e + 1]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) dx_pieces<T>(o, da[kk], st, kk);
+    wg_commit();
+    if constexpr (NST == 2) wg_wait<0>();   // the next copy overwrites this stage
+  }
+  wg_wait<0>();
+  fence_dx();
+  if (nc > 0) store(nc - 1);
+  store_rows<T>(dx, o, r0, R, t);
+}
+
+using Bwd128 = BwdRows<128, 32, 4>;
+using Bwd256 = BwdRows<256, 32, 2>;
+
+// ---- fp32: exact FMA on the CUDA cores.
+// C[i, j] = sum_k A(i, k) B(k, j) with A(i, k) = a[i sai + k sak] and
+// B(k, j) = b[k sbk + j sbn] (b_hi[(k - k_split) sbk + j sbn] from k_split
+// on), over one 64 x 64 tile of C and the K range of split blockIdx.z; C (or
+// the split's partial) at c + split * split_stride.
+struct SgemmArgs {
+  const float* a;
+  long long sai, sak;
+  const float* b;
+  long long sbk, sbn;
+  float* c;
+  long long ldc, split_stride;
+  int rows, cols, k, k_per_split;
+  const float* b_hi = nullptr;
+  int k_split = 1 << 30;
+};
+
+__global__ void __launch_bounds__(256) ffn_sgemm(SgemmArgs g) {
+  __shared__ float As[16][64 + 4];   // [k][i]
+  __shared__ float Bs[16][64 + 4];   // [k][j]
+  const int i0 = blockIdx.y * 64, j0 = blockIdx.x * 64;
+  const int kb = blockIdx.z * g.k_per_split;
+  const int ke = min(g.k, kb + g.k_per_split);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+
+  for (int k0 = kb; k0 < ke; k0 += 16) {
+    // Consecutive threads walk the operand's contiguous dimension.
+    for (int e = threadIdx.x; e < 1024; e += 256) {
+      const int ai = g.sak == 1 ? e >> 4 : e & 63, ak = g.sak == 1 ? e & 15 : e >> 6;
+      const int i = i0 + ai, k = k0 + ak;
+      As[ak][ai] = i < g.rows && k < ke ? g.a[(long long)i * g.sai + (long long)k * g.sak] : 0.f;
+      const int bj = g.sbk == 1 ? e >> 4 : e & 63, bk = g.sbk == 1 ? e & 15 : e >> 6;
+      const int j = j0 + bj, kk = k0 + bk;
+      const float* bp = kk < g.k_split ? g.b + (long long)kk * g.sbk
+                                       : g.b_hi + (long long)(kk - g.k_split) * g.sbk;
+      Bs[bk][bj] = j < g.cols && kk < ke ? bp[(long long)j * g.sbn] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = As[kk][4 * ty + u];
+        b[u] = Bs[kk][4 * tx + u];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
+    }
+    __syncthreads();
+  }
+  float* c = g.c + blockIdx.z * g.split_stride;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = i0 + 4 * ty + u;
+    if (i >= g.rows) continue;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int j = j0 + 4 * tx + v;
+      if (j < g.cols) c[(long long)i * g.ldc + j] = acc[u][v];
+    }
+  }
+}
+
+__device__ __forceinline__ float sigmoid_exact(float x) { return 1.f / (1.f + expf(-x)); }
+
+// z[r, f] = silu(h1) h3 from h = [h1 h3] ([R, 2F]).
+__global__ void ffn_swiglu_f32(const float* __restrict__ h, float* __restrict__ z,
+                               long long n, int F) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / F;
+    const int f = (int)(i % F);
+    const float h1 = h[r * 2 * F + f], h3 = h[r * 2 * F + F + f];
+    z[i] = h1 * sigmoid_exact(h1) * h3;
+  }
+}
+
+// In place: h = [h1 h3] becomes [dh1 dh3], dz becomes z.
+__global__ void ffn_swiglu_bwd_f32(float* __restrict__ h, float* __restrict__ dz,
+                                   long long n, int F) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / F;
+    const int f = (int)(i % F);
+    float* row = h + r * 2 * F;
+    const float h1 = row[f], h3 = row[F + f], d = dz[i];
+    const float sg = sigmoid_exact(h1);
+    row[f] = d * h3 * (sg * (1.f + h1 * (1.f - sg)));
+    row[F + f] = d * h1 * sg;
+    dz[i] = h1 * sg * h3;
+  }
+}
+
+// out[i] = sum over the splits of part[split][i], in split order.
 __global__ void ffn_bwd_reduce(const float* __restrict__ part,
                                float* __restrict__ out, long long n,
                                int splits) {
@@ -612,84 +920,204 @@ __global__ void ffn_bwd_reduce(const float* __restrict__ part,
   }
 }
 
-template <int M>
-cudaError_t launch_bwd(const void* x, const void* w1, const void* w3,
-                       const void* w2, const void* dout, void* dx, void* part,
-                       void* dw, int R, int F, int splits,
-                       cudaStream_t stream) {
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* db = static_cast<const bf16*>(dout);
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  const bf16* w3b = static_cast<const bf16*>(w3);
-  const bf16* w2b = static_cast<const bf16*>(w2);
-  using Tl = BwdTiles<M>;
-  constexpr size_t smem_dx = Tl::dx_bytes(Tl::DX_ST);
-  constexpr size_t smem_dw = Tl::dw_bytes(Tl::DW_ST);
+// ---- launches
+int grid_1d(long long n) { return (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096); }
+
+int k_per_split(int k, int splits, int step) {
+  const int per = (k + splits - 1) / splits;
+  return (per + step - 1) / step * step;
+}
+
+template <int AMN, int BMN, int F32OUT, int BN>
+cudaError_t gemm_bn(GemmArgs g0, GemmArgs g1, int splits, cudaStream_t s) {
+  constexpr int smem = GemmTile<BN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dx<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dx);
+      ffn_gemm<AMN, BMN, F32OUT, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      ffn_bwd_dw<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dw);
-  if (err != cudaSuccess) return err;
-  const int ntiles = (R + Tl::BM - 1) / Tl::BM;
-  const int tps = (ntiles + splits - 1) / splits;
-  ffn_bwd_dx<M><<<ntiles, BW, smem_dx, stream>>>(xb, db, w1b, w3b, w2b,
-                                                 static_cast<bf16*>(dx), R, F);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ffn_bwd_dw<M><<<dim3(F / FC, splits), BW, smem_dw, stream>>>(
-      xb, db, w1b, w3b, w2b, static_cast<float*>(part), R, F, tps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long n = 3LL * F * M;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  ffn_bwd_reduce<<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
-                                             static_cast<float*>(dw), n, splits);
+  g0.k_per_split = k_per_split(g0.k, splits, 64);
+  g1.k_per_split = k_per_split(g1.k, splits, 64);
+  auto tiles = [](const GemmArgs& g) { return (g.rows + GT - 1) / GT * (g.cols / BN); };
+  const int t0 = tiles(g0);
+  ffn_gemm<AMN, BMN, F32OUT, BN><<<dim3(t0 + tiles(g1), 1, splits), 256, smem, s>>>(g0, g1, t0);
   return cudaGetLastError();
 }
 
+// One product, or two in one launch (g1.rows > 0), C tiles of 256 columns
+// where every product's columns allow it, else 128.
+template <int AMN, int BMN, int F32OUT>
+cudaError_t gemm(GemmArgs g0, int splits, cudaStream_t s, GemmArgs g1 = GemmArgs{}) {
+  const bool wide = g0.cols % 256 == 0 && g1.cols % 256 == 0;
+  return wide ? gemm_bn<AMN, BMN, F32OUT, 256>(g0, g1, splits, s)
+              : gemm_bn<AMN, BMN, F32OUT, 128>(g0, g1, splits, s);
+}
+
+cudaError_t sgemm(SgemmArgs g, int splits, cudaStream_t s) {
+  g.k_per_split = k_per_split(g.k, splits, 16);
+  ffn_sgemm<<<dim3((g.cols + 63) / 64, (g.rows + 63) / 64, splits), 256, 0, s>>>(g);
+  return cudaGetLastError();
+}
+
+template <int BWD>
+cudaError_t produce(const bf16* x, const bf16* dout, const bf16* w1, const bf16* w3,
+                    const bf16* w2, bf16* z, bf16* dh, int R, int M, int F, cudaStream_t s) {
+  using P = Produce<BWD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_produce<BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (err != cudaSuccess) return err;
+  ffn_produce<BWD><<<dim3(F / 64, (R + GT - 1) / GT), 256, P::SMEM, s>>>(
+      x, dout, w1, w3, w2, z, dh, R, M, F);
+  return cudaGetLastError();
+}
+
+// packed: the weights' chunk images, 3 F M bf16.
+template <class T>
+cudaError_t bwd_rows(const bf16* x, const bf16* dout, const bf16* w1, const bf16* w3,
+                     const bf16* w2, unsigned char* packed, bf16* dx, bf16* dh, bf16* z,
+                     int R, int F, cudaStream_t s) {
+  ffn_pack_w<T><<<F / T::FC, 256, 0, s>>>(w1, w3, w2, packed, F);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ffn_bwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::SMEM);
+  if (err != cudaSuccess) return err;
+  ffn_bwd_rows<T><<<(R + T::BR - 1) / T::BR, 256, T::SMEM, s>>>(x, dout, packed, dx, dh, z,
+                                                                 R, F);
+  return cudaGetLastError();
+}
+
+// packed: the weights' chunk images, 3 F M bf16.
+template <class T>
+cudaError_t fwd_fused(const bf16* x, const bf16* w1, const bf16* w3, const bf16* w2,
+                      unsigned char* packed, bf16* out, int R, int F, cudaStream_t s) {
+  ffn_pack_w<T><<<F / T::FC, 256, 0, s>>>(w1, w3, w2, packed, F);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ffn_fwd_fused<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::SMEM);
+  if (err != cudaSuccess) return err;
+  ffn_fwd_fused<T><<<(R + T::BR - 1) / T::BR, 256, T::SMEM, s>>>(x, packed, out, R, F);
+  return cudaGetLastError();
+}
+
+#define RETURN_IF(e)                          \
+  do {                                        \
+    cudaError_t e_ = (e);                     \
+    if (e_ != cudaSuccess) return (int)e_;    \
+  } while (0)
+
+bool fused(int M) { return M == 128 || M == 256; }
+
 }  // namespace
 
+// Scratch the forward (bwd = 0) or backward needs, in bytes: the bf16
+// fused forward keeps the packed weights (3 F M), the general one z [R, F];
+// the bf16 backward dh1|dh3 [R, 2F] and z [R, F], then at the fused widths
+// the packed weights; fp32 h1|h3 [R, 2F] and z or dz [R, F].
+extern "C" long long gaot_fused_ffn_scratch_bytes(int R, int M, int F, int dtype, int bwd) {
+  const long long rf = (long long)R * F, packed = fused(M) ? 3LL * F * M * 2 : 0;
+  if (dtype == 0) return 3 * rf * 4;
+  if (bwd) return 3 * rf * 2 + packed;
+  return fused(M) ? packed : rf * 2;
+}
+
+// Row splits of the weight-gradient products: about two waves of blocks
+// (one block an SM) over their tiles, each split at least 512 rows.
+extern "C" int gaot_fused_ffn_bwd_splits(int R, int M, int F, int dtype, int sms) {
+  int tiles;
+  if (dtype == 0) {
+    tiles = 3 * (F / 64) * (M / 64);
+  } else {
+    const int bn = M % 256 == 0 ? 256 : 128;
+    tiles = 3 * (F / GT) * (M / bn);
+  }
+  const int splits = (2 * sms + tiles / 2) / tiles;
+  const int most = (R + 511) / 512;
+  return splits < 1 ? 1 : splits > most ? (most < 1 ? 1 : most) : splits;
+}
+
+// x [R, M], w1 and w3 [F, M], w2 [M, F], out [R, M], all contiguous of
+// dtype (0 fp32, 1 bf16); scratch as gaot_fused_ffn_scratch_bytes says.
+// M and F multiples of 128 (the JAX gate).
 extern "C" int gaot_fused_ffn_fwd(const void* x, const void* w1, const void* w3,
-                                  const void* w2, void* out, int R, int M,
-                                  int F, void* stream) {
-  if (R <= 0 || F <= 0 || F % FC) return (int)cudaErrorInvalidValue;
+                                  const void* w2, void* out, void* scratch, int R,
+                                  int M, int F, int dtype, void* stream) {
+  if (R <= 0 || M <= 0 || F <= 0 || M % 128 || F % 128 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Built for every width the JAX gate takes up to 512 (M % 128 == 0).
-  switch (M) {
-    case 128: return (int)launch<128>(x, w1, w3, w2, out, R, F, s);
-    case 256: return (int)launch<256>(x, w1, w3, w2, out, R, F, s);
-    case 384: return (int)launch<384>(x, w1, w3, w2, out, R, F, s);
-    case 512: return (int)launch<512>(x, w1, w3, w2, out, R, F, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const bf16 *xb = static_cast<const bf16*>(x), *w1b = static_cast<const bf16*>(w1),
+               *w3b = static_cast<const bf16*>(w3), *w2b = static_cast<const bf16*>(w2);
+    bf16* ob = static_cast<bf16*>(out);
+    unsigned char* packed = static_cast<unsigned char*>(scratch);
+    if (M == 128) return (int)fwd_fused<Fwd128>(xb, w1b, w3b, w2b, packed, ob, R, F, s);
+    if (M == 256) return (int)fwd_fused<Fwd256>(xb, w1b, w3b, w2b, packed, ob, R, F, s);
+    bf16* z = static_cast<bf16*>(scratch);
+    RETURN_IF(produce<0>(xb, nullptr, w1b, w3b, nullptr, z, nullptr, R, M, F, s));
+    return (int)gemm<0, 0, 0>({z, F, w2b, F, ob, M, 0, R, M, F, 0}, 1, s);
   }
+  const float *xf = static_cast<const float*>(x), *w1f = static_cast<const float*>(w1),
+              *w3f = static_cast<const float*>(w3), *w2f = static_cast<const float*>(w2);
+  float* h = static_cast<float*>(scratch);
+  float* z = h + (long long)R * 2 * F;
+  RETURN_IF(sgemm({xf, M, 1, w1f, 1, M, h, 2LL * F, 0, R, F, M, 0}, 1, s));
+  RETURN_IF(sgemm({xf, M, 1, w3f, 1, M, h + F, 2LL * F, 0, R, F, M, 0}, 1, s));
+  const long long n = (long long)R * F;
+  ffn_swiglu_f32<<<grid_1d(n), 256, 0, s>>>(h, z, n, F);
+  RETURN_IF(cudaGetLastError());
+  return (int)sgemm({z, F, 1, w2f, 1, F, static_cast<float*>(out), M, 0, R, M, F, 0}, 1, s);
 }
 
-// Rows of the backward's tiles at width M (0 for a width it is not built
-// for): the caller splits the rows of the dW kernel by these tiles.
-extern "C" int gaot_fused_ffn_bwd_row_tile(int M) {
-  switch (M) {
-    case 128: return BwdTiles<128>::BM;
-    case 256: return BwdTiles<256>::BM;
-    case 384: return BwdTiles<384>::BM;
-    case 512: return BwdTiles<512>::BM;
-    default: return 0;
-  }
-}
-
-// dx [R, M] bf16; part: [splits][3 F M] fp32 scratch; dw: [3 F M] fp32 out
-// (dW1 [F, M], dW3 [F, M], dW2 [M, F] back to back).
+// dout and dx [R, M]; part: [splits][3 F M] fp32 scratch; dw: [3 F M] fp32
+// out (dW1 [F, M], dW3 [F, M], dW2 [M, F] back to back).
 extern "C" int gaot_fused_ffn_bwd(const void* x, const void* w1, const void* w3,
-                                  const void* w2, const void* dout, void* dx,
-                                  void* part, void* dw, int R, int M, int F,
-                                  int splits, void* stream) {
-  if (R <= 0 || F <= 0 || F % FC || splits <= 0) return (int)cudaErrorInvalidValue;
+                                  const void* w2, const void* dout,
+                                  void* dx, void* scratch, void* part, void* dw,
+                                  int R, int M, int F, int splits, int dtype,
+                                  void* stream) {
+  if (R <= 0 || M <= 0 || F <= 0 || M % 128 || F % 128 || splits <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 128: return (int)launch_bwd<128>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
-    case 256: return (int)launch_bwd<256>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
-    case 384: return (int)launch_bwd<384>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
-    case 512: return (int)launch_bwd<512>(x, w1, w3, w2, dout, dx, part, dw, R, F, splits, s);
-    default: return (int)cudaErrorInvalidValue;
+  const long long fm = (long long)F * M;
+  float* pf = static_cast<float*>(part);
+  if (dtype == 1) {
+    const bf16 *xb = static_cast<const bf16*>(x), *db = static_cast<const bf16*>(dout);
+    bf16* dh = static_cast<bf16*>(scratch);          // [R, 2F]
+    bf16* z = dh + (long long)R * 2 * F;             // [R, F]
+    const bf16 *w1b = static_cast<const bf16*>(w1), *w3b = static_cast<const bf16*>(w3),
+               *w2b = static_cast<const bf16*>(w2);
+    bf16* dxb = static_cast<bf16*>(dx);
+    unsigned char* packed = reinterpret_cast<unsigned char*>(z + (long long)R * F);
+    if (M == 128) {
+      RETURN_IF(bwd_rows<Bwd128>(xb, db, w1b, w3b, w2b, packed, dxb, dh, z, R, F, s));
+    } else if (M == 256) {
+      RETURN_IF(bwd_rows<Bwd256>(xb, db, w1b, w3b, w2b, packed, dxb, dh, z, R, F, s));
+    } else {
+      RETURN_IF(produce<1>(xb, db, w1b, w3b, w2b, z, dh, R, M, F, s));
+      // dx = [dh1 dh3] [W1; W3]: B's K-rows from W1, then from W3.
+      RETURN_IF((gemm<0, 1, 0>({dh, 2LL * F, w1b, M, dx, M, 0, R, M, 2 * F, 0, w3b, F}, 1, s)));
+    }
+    // dW1|dW3 = [dh1 dh3]^T x and dW2 = dout^T z, in one launch.
+    RETURN_IF((gemm<1, 1, 1>({dh, 2LL * F, xb, M, pf, M, 3 * fm, 2 * F, M, R, 0}, splits, s,
+                             {db, M, z, F, pf + 2 * fm, F, 3 * fm, M, F, R, 0})));
+  } else {
+    const float *xf = static_cast<const float*>(x), *df = static_cast<const float*>(dout);
+    const float *w1f = static_cast<const float*>(w1), *w3f = static_cast<const float*>(w3),
+                *w2f = static_cast<const float*>(w2);
+    float* h = static_cast<float*>(scratch);         // [R, 2F]: h1|h3, then dh1|dh3
+    float* dz = h + (long long)R * 2 * F;            // [R, F]: dz, then z
+    RETURN_IF(sgemm({xf, M, 1, w1f, 1, M, h, 2LL * F, 0, R, F, M, 0}, 1, s));
+    RETURN_IF(sgemm({xf, M, 1, w3f, 1, M, h + F, 2LL * F, 0, R, F, M, 0}, 1, s));
+    RETURN_IF(sgemm({df, M, 1, w2f, F, 1, dz, F, 0, R, F, M, 0}, 1, s));
+    const long long n = (long long)R * F;
+    ffn_swiglu_bwd_f32<<<grid_1d(n), 256, 0, s>>>(h, dz, n, F);
+    RETURN_IF(cudaGetLastError());
+    RETURN_IF(sgemm({h, 2LL * F, 1, w1f, M, 1, static_cast<float*>(dx), M, 0, R, M, 2 * F, 0,
+                     w3f, F}, 1, s));
+    RETURN_IF(sgemm({h, 1, 2LL * F, xf, M, 1, pf, M, 3 * fm, 2 * F, M, R, 0}, splits, s));
+    RETURN_IF(sgemm({df, 1, M, dz, F, 1, pf + 2 * fm, F, 3 * fm, M, F, R, 0}, splits, s));
   }
+  const long long n = 3 * fm;
+  ffn_bwd_reduce<<<grid_1d(n), 256, 0, s>>>(pf, static_cast<float*>(dw), n, splits);
+  return (int)cudaGetLastError();
 }

@@ -81,9 +81,8 @@ class GroupQueryAttention(nn.Module):
         if use_rope:
             q, k = apply_rope(q), apply_rope(k)
         # "auto"/"pallas": the flash kernel's wrapper, which launches the
-        # kernel on a CUDA tensor (and raises on a head dim it was not built
-        # for) and runs the plain version on a CPU tensor; "xla": the plain
-        # version.
+        # kernel on a CUDA tensor (every head dim the JAX gates take) and
+        # runs the plain version on a CPU tensor; "xla": the plain version.
         if self.backend == "xla":
             record_route("attn", "plain")
             out = flash.attention_plain(q, k, v)
@@ -112,10 +111,10 @@ class FFN(nn.Module):
         """The JAX package's routing: the fused SwiGLU kernel's wrapper
         serves bf16 compute under "auto" and every dtype under "on", but
         only at the shapes the JAX gate accepts
-        (:func:`~gaot_torch.ops.cuda.fused_ffn.supported`); on a CUDA
-        tensor the wrapper launches the kernel or raises on a width it was
-        not built for. Everything else, and "off", takes the plain
-        three-product path, as the JAX package leaves it to XLA."""
+        (:func:`~gaot_torch.ops.cuda.fused_ffn.supported`), where on a
+        CUDA tensor the wrapper launches the kernels, bf16 or fp32.
+        Everything else, and "off", takes the plain three-product path, as
+        the JAX package leaves it to XLA."""
         if self.fused == "off":
             return False
         if self.fused != "on" and not (self.dtype == torch.bfloat16

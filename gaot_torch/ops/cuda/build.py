@@ -117,15 +117,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str, fn: str, argtypes: Sequence):
+def entry(name: str, fn: str, argtypes: Sequence, restype=ctypes.c_int):
     """The C entry point ``fn`` of library ``name`` (built first if needed),
-    with its argument types set once: setting them on every call costs the
-    host more than a small kernel takes on the card."""
+    with its argument and result types set once: setting them on every call
+    costs the host more than a small kernel takes on the card."""
     key = (name, fn)
     f = _entries.get(key)
     if f is None:
         f = getattr(load(name), fn)
-        f.restype = ctypes.c_int
+        f.restype = restype
         f.argtypes = list(argtypes)
         _entries[key] = f
     return f

@@ -37,9 +37,15 @@ online softmax on the CUDA cores, one thread per query row. The TPU kernel
 keeps all of K/V resident instead; in fp32 that is 256 KB per head at
 S=1024, above a block's 227 KB of shared memory, and 3D grids reach
 S = 32k. Any S is taken (the ragged last tile is
-masked). D may be any multiple of 8 from 8 to 128 (``HEAD_DIMS``); the JAX
-gate also takes multiples of 8 above 128, which raise here. At D % 16 == 8
-the products over D pad the last k-step of 16 with zeros.
+masked). D may be any multiple of 8 (``supports_head_dim``), as the JAX
+gates take it: the kernels above are templates built for every D from 8 to
+128 (``TEMPLATED_HEAD_DIMS``; at D % 16 == 8 the products over D pad the
+last k-step of 16 with zeros); above 128 a route with D at run time takes
+over, forward and backward, bf16 and fp32, on the CUDA cores: a block owns
+64 rows and one slice of 128 columns of its outputs' head dim (a grid
+dimension) and recomputes the full-D scores, and dP, by streaming both sides
+through shared memory in head-dim slices of 64, with the arithmetic of the
+templated kernels. It is right first and slow at large D (PERF.md).
 
 Backward design: the TPU kernel holds a head's whole [S, S] row block in
 VMEM; on the card the standard tiled flash backward, which the JAX package
@@ -67,9 +73,9 @@ import torch
 launches = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
             "flash_attention_bwd": 0}
 
-# The head dims the kernels are instantiated for: every multiple of 8 up to
-# 128 (the JAX gate takes any multiple of 8).
-HEAD_DIMS = tuple(range(8, 129, 8))
+# The head dims of the templated kernels; every other multiple of 8 (above
+# 128) takes the route with D at run time.
+TEMPLATED_HEAD_DIMS = tuple(range(8, 129, 8))
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -134,6 +140,14 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             fold(dv_part).to(vt).contiguous())
 
 
+def supports_head_dim(d: int) -> bool:
+    """The head dims the kernels take: every multiple of 8, with no upper
+    cap. At S = 128 this is the JAX package's ``_supported`` and
+    ``_bwd_supported`` (S % 128 == 0, D % 8 == 0, S·D ≤ 2²⁰) for every D up
+    to 8192; the kernels take any S."""
+    return d >= 8 and d % 8 == 0
+
+
 def _check(q, k, v):
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -144,9 +158,9 @@ def _check(q, k, v):
 
 def _check_kernel_inputs(q, k, v):
     d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel is built for head dim a "
-                         f"multiple of 8 from 8 to 128, got {d}")
+    if not supports_head_dim(d):
+        raise ValueError(f"flash_attention kernels take a head dim that is a "
+                         f"multiple of 8, got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or fp32 with equal "
                         f"dtypes, got {q.dtype}, {k.dtype}, {v.dtype}")

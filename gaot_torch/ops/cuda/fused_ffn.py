@@ -6,44 +6,42 @@ feed-forward in bf16 compute: forward and backward once per layer on the fx
 main path (R = B·S = 65536 rows, M = 256, F = 1024).
 
 Bound on the H100: the tensor cores. The forward's three products do
-6·R·M·F operations and the backward's (h1 and h3 recomputed, dz, dW1, dW3,
-dW2, dx) 16·R·M·F, while the kernels move only x, dout, dx and the weights;
-left to library products, each [R, F] intermediate would make a round trip
-through device memory.
+6·R·M·F operations and the backward's (h1, h3, dz, dx, dW1, dW3, dW2)
+16·R·M·F; at the fx shape x, out and the weights move in a fifth of the
+forward products' time.
 
-Forward design (``gaot_torch/csrc/fused_ffn.cu``): one block per 64-row
-tile of x, four warps of 16 rows. The x tile stays in shared memory; the
-block walks F in chunks of 32: each chunk computes h1 and h3 for its rows on
-the tensor cores (``mma.sync`` m16n8k16, bf16 operands, fp32 accumulation),
-forms z = silu(h1)·h3 rounded to bf16 in registers — the accumulator layout
-of one product is the operand layout of the next — and accumulates
-out += z·W2ᵀ in fp32 registers. h1, h3 and z never touch device memory.
-Ragged R is masked (the TPU pads rows instead). The weights are taken in
-torch's Linear layout: w1, w3 [F, M] and w2 [M, F], which are the
-column-major operands ``mma.sync`` wants. bf16 only; M may be 128, 256, 384
-or 512 (every width the JAX gate takes up to 512) and F a multiple of 32.
-Above M = 256 a warp's fp32 output accumulator would pass the register
-file, so the block has eight warps, each half of them owning half of the
-output columns and recomputing h1 and h3 for its rows.
+Design (``gaot_torch/csrc/fused_ffn.cu``; its head comment has the detail),
+every bf16 product on ``wgmma`` with operands read from shared memory, in
+its swizzled layouts, as they lie in device memory (K-major or MN-major), so
+no transposed copy:
 
-Backward design: the TPU kernel carries dW in VMEM across its sequential
-grid; blocks on the card run in no order, so one backward call is three
-launches of one entry point. A dx kernel (one block per 64-row tile) walks F
-in chunks, recomputes h1, h3 and dz = dout·W2 for the chunk, rounds
-dh1 = dz⊙h3⊙silu′(h1) and dh3 = dz⊙silu(h1) to bf16 and accumulates
-dx += dh1·W1c + dh3·W3c. A dW kernel (one block per F chunk and row split)
-recomputes the same chunk and sums dW1c, dW3c and dW2[:, c] over its rows in
-fp32 registers into a per-split partial; a third pass sums the partials in a
-fixed order, so the result is deterministic (no float atomics). Every tile
-sits in shared memory in its natural layout, copied with ``cp.async`` into
-double buffers while the previous tile computes; the products that need a
-tile transposed (dz, dx, all three dW) load their fragments with
-``ldmatrix.trans``. The tiles follow M so that each instantiation fits a
-block's 227 KB: 64 rows up to M = 256, 32 rows above, and at M = 512 one
-buffer instead of two. Transposing by element-wise shared stores instead put
-all 32 lanes of a warp on one bank and cost 4× the time. The fp32
-compute path keeps the plain three products, as the JAX package leaves it to
-XLA, and its gradient is autograd's.
+- Forward at M = 128 and 256 (bf16): one fused kernel. A block's 128 rows
+  of x stay in shared memory, the W1/W3 rows and W2 columns of each F chunk
+  stream through a three-stage ring, each stage filled by one bulk copy of
+  the chunk's image (the weights packed into the stages' layout by a first
+  kernel into the scratch); two warpgroups own 64
+  rows each, with the whole 64 × M fp32 output in registers and
+  z = silu(h1)·h3 formed in registers as the A fragment of z·W2ᵀ.
+- Backward at M = 128 and 256 (bf16): a row kernel of the same shape, with
+  dout resident beside x and the same packed ring, computes h1, h3 and
+  dz = dout·W2 once per chunk,
+  stores dh1 | dh3 ([R, 2F]) and z ([R, F]) in bf16 and accumulates
+  dx = [dh1 dh3]·[W1; W3] in registers; one GEMM launch then gives
+  dW1 | dW3 = [dh1 dh3]ᵀ·x and dW2 = doutᵀ·z, split over the rows into fp32
+  partials summed in a fixed order (deterministic, no float atomics).
+  16·R·M·F operations, no recompute; the intermediates make one round trip
+  through device memory.
+- Every other width the JAX gate takes (M % 128 == 0, F % 128 == 0; at 384
+  and above a warpgroup's fp32 output passes its registers): a producer
+  kernel writes z (forward) or dh1 | dh3 and z (backward) to a scratch, and
+  a GEMM kernel with runtime shapes does the rest (z·W2ᵀ; dx; the weight
+  gradients as above).
+- fp32 (every M): the same products by a tiled fp32 GEMM on the CUDA
+  cores (exact FMA, no TF32) and element-wise passes, as the Pallas
+  kernel computes in x.dtype.
+
+The TPU kernel pads R to its row tile; here ragged R is masked. The
+weights are taken in torch's Linear layout: w1, w3 [F, M] and w2 [M, F].
 """
 from __future__ import annotations
 
@@ -53,11 +51,7 @@ import torch
 import torch.nn.functional as F
 
 launches = {"fused_ffn_fwd": 0, "fused_ffn_bwd": 0}
-
-# The widths the kernels are instantiated for: every width the JAX gate takes
-# (M % 128 == 0) up to 512.
-M_BUILT = (128, 256, 384, 512)
-F_CHUNK = 32
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def supported(r: int, m: int, f: int, dtype) -> int:
@@ -66,9 +60,8 @@ def supported(r: int, m: int, f: int, dtype) -> int:
     tile for R rows of width M and FFN width F, or 0 where the JAX package
     leaves the SwiGLU to XLA's three products (not bf16 or fp32, M or F not
     a multiple of 128, or weights and fp32 dW accumulators above 64 MiB).
-    The FFN routes by this rule, so a width it accepts that the kernel was
-    not built for (M above 512, not in ``M_BUILT``) still reaches the
-    wrapper and raises on the card."""
+    The FFN routes by this rule, and the kernels take every shape it
+    accepts, in both dtypes."""
     if dtype not in (torch.bfloat16, torch.float32) or m % 128 or f % 128:
         return 0
     per_row = f * 4 * 4 + m * 8          # fp32 h1, h3, dz (+ slack) per row
@@ -123,16 +116,27 @@ def _check(x, w1, w3, w2):
 
 def _check_kernel_inputs(*ts):
     x = ts[0]
-    m, f = x.shape[1], ts[1].shape[0]
-    if any(t.dtype != torch.bfloat16 for t in ts):
-        raise TypeError(f"fused_ffn kernel takes bf16 only, got {x.dtype}")
-    if m not in M_BUILT or f % F_CHUNK:
-        raise ValueError(f"fused_ffn kernel is built for M in {M_BUILT} and "
-                         f"F % {F_CHUNK} == 0, got M={m}, F={f}")
+    (r, m), f = x.shape, ts[1].shape[0]
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ts):
+        raise TypeError(f"fused_ffn kernels take bf16 or fp32 with equal dtypes, "
+                        f"got {[t.dtype for t in ts]}")
+    if not supported(max(r, 1), m, f, x.dtype):
+        raise ValueError(f"fused_ffn kernels take the shapes the JAX gate takes "
+                         f"(M and F multiples of 128, weights within 64 MiB), "
+                         f"got M={m}, F={f}")
     if any(t.device != x.device for t in ts):
         raise ValueError("x and the weights must be on the same device")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("fused_ffn takes contiguous, 16-byte aligned tensors")
+
+
+def _scratch(r, m, f, dtype, bwd, device):
+    from .build import entry
+
+    fn = entry("fused_ffn", "gaot_fused_ffn_scratch_bytes", [ctypes.c_int] * 5,
+               ctypes.c_longlong)
+    n = fn(r, m, f, _DTYPES[dtype], int(bwd))
+    return torch.empty(max(n, 16), dtype=torch.uint8, device=device)
 
 
 def _forward_kernel(x, w1, w3, w2):
@@ -140,14 +144,16 @@ def _forward_kernel(x, w1, w3, w2):
     from .build import check, entry
 
     r, m = x.shape
+    f = w1.shape[0]
     out = torch.empty_like(x)
     if r == 0:
         return out
+    scratch = _scratch(r, m, f, x.dtype, False, x.device)
     fn = entry("fused_ffn", "gaot_fused_ffn_fwd",
-               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-            out.data_ptr(), r, m, w1.shape[0], stream)
+            out.data_ptr(), scratch.data_ptr(), r, m, f, _DTYPES[x.dtype], stream)
     check(rc, "fused_ffn")
     launches["fused_ffn_fwd"] += 1
     return out
@@ -163,7 +169,8 @@ def fused_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                   w2: torch.Tensor, dout: torch.Tensor):
     """(dx in x.dtype, dw1, dw3, dw2 in fp32) of the fused SwiGLU. CPU
     tensors take the plain backward; CUDA tensors launch the backward
-    kernels (dx, per-split dW partials, their fixed-order sum)."""
+    kernels (producer, dx, the row-split dW partials, their fixed-order
+    sum)."""
     _check(x, w1, w3, w2)
     if dout.shape != x.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match x {tuple(x.shape)}")
@@ -181,18 +188,18 @@ def fused_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     if r == 0:
         dw.zero_()
         return views
-    row_tile = entry("fused_ffn", "gaot_fused_ffn_bwd_row_tile", [ctypes.c_int])(m)
-    tiles = -(-r // row_tile)
-    # Two waves of (F chunk, row split) blocks, one block per SM.
+    dt = _DTYPES[x.dtype]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = max(1, min(tiles, 2 * sms // (f // F_CHUNK)))
+    splits = entry("fused_ffn", "gaot_fused_ffn_bwd_splits",
+                   [ctypes.c_int] * 5)(r, m, f, dt, sms)
     part = torch.empty((splits, 3 * f * m), dtype=torch.float32, device=x.device)
+    scratch = _scratch(r, m, f, x.dtype, True, x.device)
     fn = entry("fused_ffn", "gaot_fused_ffn_bwd",
-               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-            dout.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
-            r, m, f, splits, stream)
+            dout.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+            part.data_ptr(), dw.data_ptr(), r, m, f, splits, dt, stream)
     check(rc, "fused_ffn_bwd")
     launches["fused_ffn_bwd"] += 1
     return views

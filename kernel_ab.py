@@ -4,6 +4,7 @@ side in one run on one NVIDIA card.
 
     python3 kernel_ab.py ROOT [ROOT ...]          # e.g. old . . old
     python3 kernel_ab.py --build ROOT [ROOT ...]
+    python3 kernel_ab.py --only fused_ffn --kernels-only ROOT [ROOT ...]
 
 ROOT is the root of a checkout (its gaot_torch/, chip_smoke.py and config/
 are enough). Each ROOT runs in a process of its own, in the order given, so
@@ -13,8 +14,12 @@ and times, on tensors made from one seed:
   - multiply_reduce_b at every (K, Q) one training step of each path runs
     (the shapes chip_smoke.py logs as "reduce shapes"), lanes W = b·C;
   - the bf16 flash forward, without and with the LSE, at each path's shape;
+  - the bf16 SwiGLU forward and backward at the fx shape (R = 65536,
+    M = 256, F = 1024) and at the other fused width (M = 128, F = 512),
+    with their largest error against the plain versions;
   - the PyTorch library call that computes the same function (einsum; SDPA,
-    or its aten entry that also returns the LSE);
+    or its aten entry that also returns the LSE; the SwiGLU's three
+    products, and autograd of them);
 each on three yardsticks:
   single   median of 20 calls, each timed alone between two CUDA events:
            the host's time to issue the call, then its device time;
@@ -27,6 +32,9 @@ Then it drives the fx main path's and the 3D flagship's batch forward and
 training step (bf16, seeded random weights) through the drive of ROOT's own
 chip_smoke.py, without its card-vs-CPU checks, which logs their host-clock
 medians, device busy time and idle share.
+
+--only KERNEL times that kernel's cases alone; --kernels-only skips the
+paths' drive.
 
 --build compiles each ROOT's kernels from nothing, one ROOT after another,
 and reports the seconds each took.
@@ -54,6 +62,8 @@ MULRED_B = {"fx": (64, 64, [(5, 1536), (8, 1664), (12, 1024), (24, 128), (8, 819
             "long": (1, 16, [(8, 262144), (8, 32768)])}
 # path: (B, S, H = Hkv, D) of its flash calls
 FLASH = {"fx": (64, 1024, 8, 32), "3d": (4, 4096, 8, 24), "long": (1, 32768, 8, 24)}
+# (R, M, F) of the fx path's SwiGLU calls, and of the other fused width
+SWIGLU = {"fx": (65536, 256, 1024), "M128": (65536, 128, 512)}
 ITERS = 20
 
 
@@ -114,9 +124,10 @@ def yardsticks(fn):
     return {"single": single_ms(fn), "batched": batched_ms(fn), "device": device_ms(fn)}
 
 
-def kernel_times():
+def kernel_times(only=None):
     """{case: {"kernel" | "library": {yardstick: ms}}} at the paths' shapes;
-    multiply_reduce_b's cases are also summed over a path's shapes."""
+    multiply_reduce_b's cases are also summed over a path's shapes. With
+    `only`, the cases of that kernel alone."""
     import torch
 
     from gaot_torch.ops.cuda import flash_attention as fa
@@ -125,7 +136,7 @@ def kernel_times():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     res = {}
-    for path, (b, c, shapes) in MULRED_B.items():
+    for path, (b, c, shapes) in MULRED_B.items() if only in (None, "multiply_reduce_b") else ():
         total = {}
         for k, q in shapes:
             gath = rnd(k, q, b * c).bfloat16()
@@ -143,7 +154,7 @@ def kernel_times():
                     total[who][y] += v
         res[f"multiply_reduce_b {path} (sum of {len(shapes)} shapes)"] = total
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for path, (bb, s, h, d) in FLASH.items():
+    for path, (bb, s, h, d) in FLASH.items() if only in (None, "flash") else ():
         qkv = rnd(bb, s, 3, h, d).bfloat16()          # q, k, v: views of one buffer
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -157,6 +168,35 @@ def kernel_times():
             "library": yardsticks(
                 lambda: torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh))}
         del qkv, q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    from gaot_torch.ops.cuda import fused_ffn as ff
+
+    silu = torch.nn.functional.silu
+    for what, (r, m, f) in SWIGLU.items() if only in (None, "fused_ffn") else ():
+        shape = f"{what} R={r} M={m} F={f}"
+        x, dout = rnd(r, m).bfloat16(), rnd(r, m).bfloat16()
+        w1, w3 = (rnd(f, m) / m ** 0.5).bfloat16(), (rnd(f, m) / m ** 0.5).bfloat16()
+        w2 = (rnd(m, f) / f ** 0.5).bfloat16()
+        err = float((ff.fused_ffn(x, w1, w3, w2).float()
+                     - ff.fused_ffn_plain(x, w1, w3, w2).float()).abs().max())
+        res[f"fused_ffn fwd {shape}"] = {
+            "kernel": yardsticks(lambda: ff.fused_ffn(x, w1, w3, w2)),
+            "library": yardsticks(lambda: (silu(x @ w1.t()) * (x @ w3.t())) @ w2.t()),
+            "max_abs_err": err}
+        # dx, dW1, dW3, dW2: the largest error over their largest value
+        got = ff.fused_ffn_bwd(x, w1, w3, w2, dout)
+        want = ff.fused_ffn_bwd_plain(x, w1, w3, w2, dout)
+        err = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                  for g, w in zip(got, want))
+        del got, want
+        leaves = [t.detach().requires_grad_(True) for t in (x, w1, w3, w2)]
+        out = (silu(leaves[0] @ leaves[1].t()) * (leaves[0] @ leaves[2].t())) @ leaves[3].t()
+        res[f"fused_ffn bwd {shape}"] = {
+            "kernel": yardsticks(lambda: ff.fused_ffn_bwd(x, w1, w3, w2, dout)),
+            "library": yardsticks(lambda: torch.autograd.grad(out, leaves, dout,
+                                                              retain_graph=True)),
+            "max_rel_err": err}
+        del x, dout, w1, w3, w2, leaves, out
         torch.cuda.empty_cache()
     return res
 
@@ -190,7 +230,7 @@ def drive_paths(root):
         cs.phase_train(path)
 
 
-def child(root, build_only):
+def child(root, build_only, only, kernels_only):
     sys.path.insert(0, root)
     import torch
 
@@ -207,9 +247,9 @@ def child(root, build_only):
     secs = build.build_all()
     result = {"build_wall_s": time.perf_counter() - t0, "build_s": secs}
     if not build_only:
-        result["kernels"] = kernel_times()
+        result["kernels"] = kernel_times(only)
     print("RESULT " + json.dumps(result), flush=True)
-    if not build_only:
+    if not (build_only or kernels_only):
         drive_paths(root)
 
 
@@ -241,17 +281,25 @@ def main():
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--build", action="store_true",
                     help="only build each ROOT's kernels from nothing, and time it")
+    ap.add_argument("--only", choices=("multiply_reduce_b", "flash", "fused_ffn"),
+                    help="time this kernel's cases alone")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time the kernels, without driving the paths")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     if args.child:
-        child(roots[0], args.build)
+        child(roots[0], args.build, args.only, args.kernels_only)
         return 0
     runs = []
     for i, root in enumerate(roots):
         cmd = [sys.executable, os.path.abspath(__file__), "--child", root]
         if args.build:
             cmd.append("--build")
+        if args.only:
+            cmd += ["--only", args.only]
+        if args.kernels_only:
+            cmd.append("--kernels-only")
         print(f"=== run {i}: {root}", flush=True)
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         print(proc.stdout, flush=True)
@@ -275,7 +323,11 @@ def main():
             for y in ("single", "batched", "device"):
                 vals = " ".join(f"{r['kernels'][case][who][y]:.4f}" for r in runs)
                 print(f"{case} | {who} | {y}: {vals}")
-    for j, h in enumerate(runs[0]["host"]):
+        for key in ("max_abs_err", "max_rel_err"):
+            if key in runs[0]["kernels"][case]:
+                vals = " ".join(f"{r['kernels'][case][key]:.3g}" for r in runs)
+                print(f"{case} | {key}: {vals}")
+    for j, h in enumerate(runs[0].get("host", [])):
         for key in ("median", "wall", "busy", "idle"):
             vals = " ".join(f"{r['host'][j][key]:.3f}" for r in runs)
             print(f"{h['what']} | {key}: {vals}")

@@ -344,13 +344,13 @@ def test_ffn_routes_by_the_jax_gate(m):
 @pytest.mark.parametrize("d", [16, 24, 32, 40, 12, 136])
 def test_flash_kernel_takes_head_dims_24_and_32(d):
     """The kernel wrapper's shape rule, which runs before any launch: head
-    dims 24 (the 3D flagship's), 32 and every other multiple of 8 up to 128
-    pass; others (12, 136) raise."""
+    dims 24 (the 3D flagship's), 32 and every other multiple of 8 pass,
+    136 included (the route with D at run time); others (12) raise."""
     from gaot_torch.ops.cuda import flash_attention as fa
 
     qkv = torch.zeros(2, 16, 3, 4, d, dtype=torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    if d % 8 == 0 and d <= 128:
+    if d % 8 == 0:
         fa._check_kernel_inputs(q, k, v)
     else:
         with pytest.raises(ValueError, match="head dim"):

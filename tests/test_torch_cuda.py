@@ -3,11 +3,12 @@ shapes the main path does not reach: GQA, ragged sequence and row counts,
 channel counts without 16-byte vectors, coef staged in several k-chunks,
 the narrow lanes of the 3D paths (b = 1 and 4 at C = 16, C = 8) with query
 counts that do not fill a block, fp32 attention, every head dim from 8 to
-128 at ragged lengths and GQA, head dim 24 at the 3D sequence lengths, the
-SwiGLU widths 128 to 512, K = 1 and an all-masked row of a transpose graph;
-the gradients of every kernel; the SwiGLU width the JAX gate sends to the
-plain route; the widths the kernels refuse; and the small fx forward and
-training step against the CPU plain route.
+128 and two above (136, 256) at ragged lengths and GQA, head dim 24 at the
+3D sequence lengths, the SwiGLU widths 128 to 1024 in bf16 and fp32, K = 1
+and an all-masked row of a transpose graph; the gradients of every kernel;
+the SwiGLU width the JAX gate sends to the plain route; the models' auto
+routes at widths above the templated kernels; what the wrappers refuse; and
+the small fx forward and training step against the CPU plain route.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. On the machine with the card
 (which has no JAX, so without the JAX-loading conftest):
@@ -93,12 +94,12 @@ def test_multiply_reduce_b(dtype, k, q, c, b):
     _close(got, mr.multiply_reduce_b_plain(gath, dout, b), dtype)
 
 
-# GQA and ragged S at every built head dim (8 to 128; the 3D flagship's 24
-# and the fx path's 32 first); head dim 24 also at S = 4096 (the regime of
-# the TPU's q-tiled backward) and 8192 (its two-kernel long backward). At
-# D % 16 == 8 the bf16 products over D take a last k-step of 16 whose upper
-# half is zero.
-_FLASH_DIMS = [24, 32] + [d for d in range(8, 129, 8) if d not in (24, 32)]
+# GQA and ragged S at every templated head dim (8 to 128; the 3D flagship's
+# 24 and the fx path's 32 first) and two of the route with D at run time
+# (136, 256); head dim 24 also at S = 4096 (the regime of the TPU's q-tiled
+# backward) and 8192 (its two-kernel long backward). At D % 16 == 8 the bf16
+# products over D take a last k-step of 16 whose upper half is zero.
+_FLASH_DIMS = [24, 32] + [d for d in range(8, 129, 8) if d not in (24, 32)] + [136, 256]
 _FLASH_SHAPES = [(b, s, h, hkv, d) for d in _FLASH_DIMS
                  for b, s, h, hkv in ((2, 100, 8, 2), (1, 1, 4, 4), (3, 257, 6, 3))]
 _FLASH_3D = [(2, 4096, 8, 8, 24), (1, 8192, 4, 2, 24)]
@@ -178,47 +179,59 @@ def test_ffn_width_192_runs_plain_on_the_card():
     assert out.dtype == torch.bfloat16 and torch.isfinite(x.grad.float()).all()
 
 
-@pytest.mark.parametrize("r,m,f", [(200, 256, 96), (64, 256, 1024), (1, 256, 32),
-                                   (200, 128, 96), (130, 384, 128), (200, 512, 96),
-                                   (64, 512, 1024)])
-def test_fused_ffn(r, m, f):
+# (R, M, F): ragged R at every tuned width (128-512) and at widths of the
+# general route (640-1024); F the multiples of 128 the JAX gate takes.
+_FFN_SHAPES = [(200, 256, 128), (64, 256, 1024), (1, 256, 128), (200, 128, 256),
+               (130, 384, 128), (200, 512, 128), (64, 512, 1024), (200, 640, 256),
+               (70, 768, 128), (130, 896, 256), (100, 1024, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,m,f", _FFN_SHAPES)
+def test_fused_ffn(dtype, r, m, f):
     from gaot_torch.ops.cuda import fused_ffn as ff
 
     gen = torch.Generator(device="cuda").manual_seed(r + f)
-    x = _rnd(gen, r, m).bfloat16()
-    w1 = (_rnd(gen, f, m) / m ** 0.5).bfloat16()
-    w3 = (_rnd(gen, f, m) / m ** 0.5).bfloat16()
-    w2 = (_rnd(gen, m, f) / f ** 0.5).bfloat16()
+    x = _rnd(gen, r, m).to(dtype)
+    w1 = (_rnd(gen, f, m) / m ** 0.5).to(dtype)
+    w3 = (_rnd(gen, f, m) / m ** 0.5).to(dtype)
+    w2 = (_rnd(gen, m, f) / f ** 0.5).to(dtype)
+    n0 = ff.launches["fused_ffn_fwd"]
     got = ff.fused_ffn(x, w1, w3, w2)
     torch.cuda.synchronize()
-    _close(got, ff.fused_ffn_plain(x, w1, w3, w2), torch.bfloat16)
+    assert ff.launches["fused_ffn_fwd"] == n0 + 1
+    _close(got, ff.fused_ffn_plain(x, w1, w3, w2), dtype)
 
 
-@pytest.mark.parametrize("r,f,m", [(200, 96, 256), (1, 32, 256), (4096, 1024, 256),
-                                   (70, 64, 256), (200, 96, 128), (1, 32, 128),
-                                   (70, 64, 384), (1000, 256, 384), (200, 96, 512),
-                                   (1, 32, 512), (1000, 256, 512)])
-def test_fused_ffn_backward(r, f, m):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,f,m", [(200, 128, 256), (1, 128, 256), (4096, 1024, 256),
+                                   (70, 256, 256), (200, 128, 128), (1, 128, 128),
+                                   (4096, 1024, 128),
+                                   (70, 128, 384), (1000, 256, 384), (200, 128, 512),
+                                   (1, 128, 512), (1000, 256, 512), (300, 256, 640),
+                                   (130, 128, 1024)])
+def test_fused_ffn_backward(dtype, r, f, m):
     """dx and dW1, dW3, dW2 (through autograd) against the plain backward,
-    ragged R included, at every built width (32-row tiles above M = 256, one
-    buffer at 512). Both round dh1 and dh3 to bf16 from fp32 sums taken in
-    other orders: 2% of each gradient's largest entry."""
+    ragged R included, at tuned and general widths. bf16: both round dh1 and
+    dh3 to bf16 from fp32 sums taken in other orders, 2% of each gradient's
+    largest entry; fp32: sums over the rows in other orders, 1e-4."""
     from gaot_torch.ops.cuda import fused_ffn as ff
 
     gen = torch.Generator(device="cuda").manual_seed(3 * r + f)
-    x = _rnd(gen, r, m).bfloat16()
-    ws = [(_rnd(gen, f, m) / m ** 0.5).bfloat16(),
-          (_rnd(gen, f, m) / m ** 0.5).bfloat16(),
-          (_rnd(gen, m, f) / f ** 0.5).bfloat16()]
-    dout = _rnd(gen, r, m).bfloat16()
+    x = _rnd(gen, r, m).to(dtype)
+    ws = [(_rnd(gen, f, m) / m ** 0.5).to(dtype),
+          (_rnd(gen, f, m) / m ** 0.5).to(dtype),
+          (_rnd(gen, m, f) / f ** 0.5).to(dtype)]
+    dout = _rnd(gen, r, m).to(dtype)
     leaves = [t.clone().requires_grad_(True) for t in [x] + ws]
     n0 = ff.launches["fused_ffn_bwd"]
     ff.fused_ffn(*leaves).backward(dout)
     torch.cuda.synchronize()
     assert ff.launches["fused_ffn_bwd"] == n0 + 1
     want = ff.fused_ffn_bwd_plain(x, *ws, dout)
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for leaf, w in zip(leaves, want):
-        _close_scaled(leaf.grad, w.to(leaf.dtype), 2e-2, torch.bfloat16)
+        _close_scaled(leaf.grad, w.to(leaf.dtype), rel, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -277,44 +290,69 @@ def test_gather_apply_grads_card_vs_cpu(dtype):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """What the kernels do not take raises: a head dim that is not a
+    multiple of 8, the backward without the forward's LSE, mixed dtypes, an
+    FFN width F the JAX gate refuses (F % 128) and mismatched shapes."""
     from gaot_torch.ops.cuda import flash_attention as fa
     from gaot_torch.ops.cuda import fused_ffn as ff
     from gaot_torch.ops.cuda import multiply_reduce as mr
 
-    q = torch.zeros(1, 8, 2, 136, device="cuda")
+    q = torch.zeros(1, 8, 2, 36, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q, q, q)                     # head dim 136
-    x = torch.zeros(4, 256, device="cuda")
-    w = torch.zeros(64, 256, device="cuda")
-    with pytest.raises(TypeError):
-        ff.fused_ffn(x, w, w, w.t().contiguous())       # fp32
-    x = torch.zeros(4, 640, device="cuda", dtype=torch.bfloat16)
-    w = torch.zeros(64, 640, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="built for M"):
-        ff.fused_ffn(x, w, w, w.t().contiguous())       # M = 640
+        fa.flash_attention(q, q, q)                     # head dim 36
     q = torch.zeros(1, 8, 2, 32, device="cuda")
     with pytest.raises(ValueError, match="LSE"):
         fa.flash_attention_bwd(q, q, q, q, q)           # no forward LSE
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.bfloat16(), q)          # mixed dtypes
+    x = torch.zeros(4, 256, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(96, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="JAX gate"):
+        ff.fused_ffn(x, w, w, w.t().contiguous())       # F = 96
+    w = torch.zeros(128, 256, device="cuda")
+    with pytest.raises(TypeError):
+        ff.fused_ffn(x, w, w, w.t().contiguous())       # bf16 x, fp32 weights
+    with pytest.raises(ValueError, match="shape"):
+        ff.fused_ffn(x, w.bfloat16(), w.bfloat16(), w.bfloat16())   # w2 not [M, F]
     g = torch.zeros(2, 4, 8, device="cuda")
     with pytest.raises(TypeError):
         mr.multiply_reduce_b(g, g[0].bfloat16(), 2)     # mixed dtypes
 
 
 def test_auto_routes_raise_on_widths_the_kernels_do_not_take():
-    """Under "auto" a CUDA tensor goes to the kernel's wrapper whatever its
-    shape, so a head dim or FFN width the JAX gates take and the kernels
-    were not built for (head dim 136, M = 640) raises instead of running
-    the plain version on the card."""
+    """The models' routes reach the kernels at every width the JAX gates
+    take, and nothing raises there: attention at head dim 136 (the route
+    with D at run time), the SwiGLU at M = 640 in bf16 under "auto" (the
+    general route) and in fp32 under "on" (the fp32 kernels), each forward
+    and backward launching its kernels and matching the plain version."""
     from gaot_torch.models.transformer import FFN, GroupQueryAttention
+    from gaot_torch.ops.cuda import flash_attention as fa
+    from gaot_torch.ops.cuda import fused_ffn as ff
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = GroupQueryAttention(1088, 1088, num_heads=8, num_kv_heads=8,
                                backend="auto", device="cuda")
-    with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
-        attn(_rnd(gen, 2, 16, 1088))                    # head dim 136
-    ffn = FFN(640, 512, dtype=torch.bfloat16, fused="auto", device="cuda")
-    with torch.no_grad(), pytest.raises(ValueError, match="built for M"):
-        ffn(_rnd(gen, 2, 16, 640).bfloat16())           # M = 640
+    x = _rnd(gen, 2, 16, 1088)
+    n0 = dict(fa.launches)
+    with torch.no_grad():
+        got = attn(x)                                   # head dim 136
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention_fwd"] == n0["flash_attention_fwd"] + 1
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    cases = [(640, 512, torch.bfloat16, "auto"), (256, 512, torch.float32, "on")]
+    for m, f, dtype, mode in cases:
+        ffn = FFN(m, f, dtype=dtype, fused=mode, device="cuda")
+        x = _rnd(gen, 2, 16, m).to(dtype).requires_grad_(True)
+        n0 = dict(ff.launches)
+        out = ffn(x)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert ff.launches["fused_ffn_fwd"] == n0["fused_ffn_fwd"] + 1, (m, dtype)
+        assert ff.launches["fused_ffn_bwd"] == n0["fused_ffn_bwd"] + 1, (m, dtype)
+        ws = [lin.weight.to(dtype) for lin in (ffn.w1, ffn.w3, ffn.w2)]
+        xd = x.detach().reshape(-1, m)
+        _close(out.detach().reshape(-1, m), ff.fused_ffn_plain(xd, *ws), dtype)
+        assert torch.isfinite(x.grad.float()).all()
 
 
 def _small_setup():

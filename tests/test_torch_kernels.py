@@ -132,11 +132,11 @@ def test_wrappers_validate_shapes():
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("m", [128, 384, 512])
+@pytest.mark.parametrize("m", [128, 384, 512, 640, 1024])
 def test_fused_ffn_plain_matches_pallas_widths(dtype, m):
-    """The plain SwiGLU forward at the widths the kernel takes besides 256
-    (every width the JAX gate accepts up to 512), ragged R; the tolerances
-    of the module."""
+    """The plain SwiGLU forward at widths the kernels take besides 256: the
+    tuned 128, 384 and 512 and two of the general route's (640, 1024),
+    ragged R; the tolerances of the module."""
     from gaot_tpu.ops.pallas.fused_ffn import _ffn_call
 
     jdt, tdt, rtol, atol = DTYPES[dtype]
@@ -155,19 +155,31 @@ def test_fused_ffn_plain_matches_pallas_widths(dtype, m):
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
 
 
-def test_kernel_widths_match_the_jax_gates():
-    """The head dims and SwiGLU widths the kernels are built for are exactly
-    those the JAX package's gates send to its Pallas kernels, up to the
-    stated caps (head dim 128, M = 512): nothing the gates accept below the
-    caps raises on the card."""
+# (M, F) pairs around the JAX gate's weight budget (18·M·F ≤ 64 MiB): the
+# widths 640-896 at F = 4M, and narrower F that take M to 1024, 4096, or F
+# to 29056 at M = 128.
+_GATE_MF = [(m, f) for m in range(64, 4161, 64)
+            for f in (64, 128, 256, 896, 1024, 2048, 3584, 3712, 4096, 29056, 29184)]
+
+
+@pytest.mark.parametrize("what", ["flash", "bfloat16", "float32"])
+def test_kernel_widths_match_the_jax_gates(what):
+    """The port's predicates equal the JAX package's gates, with no cap:
+    every head dim the flash gates take at S = 128 (8 to 1024), and every
+    (R, M, F) the SwiGLU gate takes, in both dtypes; the kernels take all
+    of them."""
     from gaot_tpu.ops.pallas import flash_attention as jfa
     from gaot_tpu.ops.pallas import fused_ffn as jff
 
-    assert fa.HEAD_DIMS == tuple(d for d in range(1, 129) if jfa._supported(128, d))
-    assert fa.HEAD_DIMS == tuple(d for d in range(1, 129)
-                                 if jfa._bwd_supported(128, d))
-    assert ff.M_BUILT == tuple(m for m in range(1, 513)
-                               if jff.supported(256, m, 1024, jnp.bfloat16))
-    assert all(ff.supported(256, m, 1024, torch.bfloat16) for m in ff.M_BUILT)
-    # Past the caps the gates still accept widths the kernels refuse.
-    assert jfa._supported(128, 136) and jff.supported(256, 640, 1024, jnp.bfloat16)
+    if what == "flash":
+        for d in range(1, 1025):
+            assert fa.supports_head_dim(d) == jfa._supported(128, d), d
+            assert fa.supports_head_dim(d) == jfa._bwd_supported(128, d), d
+        assert fa.supports_head_dim(8192) and jfa._supported(128, 8192)
+        return
+    jdt, tdt = DTYPES[what][:2]
+    for r in (1, 256, 65536):
+        for m, f in _GATE_MF:
+            assert ff.supported(r, m, f, tdt) == jff.supported(r, m, f, jdt), (r, m, f)
+    for m, f in ((1024, 3584), (4096, 896), (128, 29056), (640, 2560)):
+        assert ff.supported(256, m, f, tdt) > 0, (m, f)

@@ -108,12 +108,12 @@ def test_flash_lse_plain_matches_pallas(dtype, h, hkv):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("d", [8, 16, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 64, 128, 136, 256])
 def test_flash_lse_plain_matches_pallas_head_dims(dtype, d):
     """The output and base-2 row LSE of the plain forward against
-    ``_flash_forward(..., with_lse=True)`` at head dims the kernels now take
-    besides 24 and 32 (GQA 4:2); the tolerances of the module, the LSE at
-    1e-5."""
+    ``_flash_forward(..., with_lse=True)`` at head dims besides 24 and 32,
+    those of the templated kernels and, above 128, of the route with D at
+    run time (GQA 4:2); the tolerances of the module, the LSE at 1e-5."""
     from gaot_tpu.ops.pallas.flash_attention import _flash_forward
 
     jdt, tdt, rtol, atol = DTYPES[dtype]
@@ -138,6 +138,28 @@ def test_flash_backward_plain_matches_pallas(dtype, h, hkv):
 
     jdt, tdt, rtol, atol = DTYPES[dtype]
     (qj, kj, vj, doj), (qt, kt, vt, dot) = _attention_inputs(h, hkv, jdt, tdt, 3 * h + hkv)
+    with pltpu.force_tpu_interpret_mode():
+        out = _flash_forward(_hm(qj), _hm(kj), _hm(vj), 128)
+        want = _flash_backward(_hm(qj), _hm(kj), _hm(vj), out, _hm(doj))
+    ot = torch.from_numpy(np.array(_np(_hm(out)))).to(tdt)
+    got = fa.flash_attention_bwd(qt, kt, vt, ot, dot)
+    for name, g, w, t in zip("qkv", got, want, (qt, kt, vt)):
+        assert g.dtype == tdt and g.shape == t.shape, name
+        scale = 2 if (dtype == "bfloat16" and name != "q") else 1
+        np.testing.assert_allclose(_np(g), _np(_hm(w)), rtol=scale * rtol,
+                                   atol=scale * atol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", [136, 256])
+def test_flash_backward_plain_matches_pallas_head_dims(dtype, d):
+    """dQ, dK, dV of the plain backward against ``_flash_backward`` at
+    S = 128 at head dims above 128 (the route with D at run time), GQA 4:2,
+    with the tolerances of :func:`test_flash_backward_plain_matches_pallas`."""
+    from gaot_tpu.ops.pallas.flash_attention import _flash_backward, _flash_forward
+
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    (qj, kj, vj, doj), (qt, kt, vt, dot) = _attention_inputs(4, 2, jdt, tdt, d, d=d)
     with pltpu.force_tpu_interpret_mode():
         out = _flash_forward(_hm(qj), _hm(kj), _hm(vj), 128)
         want = _flash_backward(_hm(qj), _hm(kj), _hm(vj), out, _hm(doj))
@@ -180,12 +202,19 @@ def test_fused_ffn_backward_plain_matches_pallas(r):
                                    atol=2e-3 * float(np.abs(w).max()))
 
 
-@pytest.mark.parametrize("m", [128, 384, 512])
-def test_fused_ffn_backward_plain_matches_pallas_widths(m):
-    """The plain backward at the widths the kernels take besides 256, ragged
-    R, with the tolerances of :func:`test_fused_ffn_backward_plain_matches_pallas`."""
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("m", [128, 384, 512, 640, 1024])
+def test_fused_ffn_backward_plain_matches_pallas_widths(dtype, m):
+    """The plain backward at widths besides 256 (the tuned 128, 384, 512 and
+    the general route's 640, 1024), ragged R, in both dtypes: bf16 with the
+    tolerances of :func:`test_fused_ffn_backward_plain_matches_pallas`;
+    fp32, where nothing is rounded to bf16, dx at the module's fp32
+    tolerances and the weight gradients at rtol 1e-4 plus 1e-5 of their
+    largest entry (fp32 sums over the rows in another order)."""
     from gaot_tpu.ops.pallas.fused_ffn import _ffn_bwd_call
 
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    bf = dtype == "bfloat16"
     rng = np.random.default_rng(m + 1)
     r, f = 72, 256
     x = (rng.normal(size=(r, m)) * 0.5).astype(np.float32)
@@ -193,12 +222,13 @@ def test_fused_ffn_backward_plain_matches_pallas_widths(m):
     w3 = (rng.normal(size=(m, f)) / np.sqrt(m)).astype(np.float32)
     w2 = (rng.normal(size=(f, m)) / np.sqrt(f)).astype(np.float32)
     dout = rng.normal(size=(r, m)).astype(np.float32)
-    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
-    want = _ffn_bwd_call(bf(x), bf(w1), bf(w3), bf(w2), bf(dout), interpret=True)
-    tw = lambda a: torch.from_numpy(np.ascontiguousarray(a.T)).bfloat16()
-    tx = lambda a: torch.from_numpy(a).bfloat16()
+    jx = lambda a: jnp.asarray(a, jdt)
+    want = _ffn_bwd_call(jx(x), jx(w1), jx(w3), jx(w2), jx(dout), interpret=True)
+    tw = lambda a: torch.from_numpy(np.ascontiguousarray(a.T)).to(tdt)
+    tx = lambda a: torch.from_numpy(a).to(tdt)
     dx, dw1, dw3, dw2 = ff.fused_ffn_bwd(tx(x), tw(w1), tw(w3), tw(w2), tx(dout))
-    np.testing.assert_allclose(_np(dx), _np(want[0]), rtol=8e-3, atol=1e-2)
+    assert dx.dtype == tdt and dw1.dtype == torch.float32
+    np.testing.assert_allclose(_np(dx), _np(want[0]), rtol=rtol, atol=atol)
     for g, w in ((dw1, want[1]), (dw3, want[2]), (dw2, want[3])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w).T, rtol=1e-4,
-                                   atol=2e-3 * float(np.abs(w).max()))
+                                   atol=(2e-3 if bf else 1e-5) * float(np.abs(w).max()))
