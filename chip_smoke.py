@@ -17,8 +17,8 @@ failure):
      power limit; TF32 off for fp32 products.
   1. build: compiles every hand-written kernel (gaot_torch/csrc/*.cu) with
      one nvcc per source, all at once; logs, from nvcc's -Xptxas -v, the
-     registers, shared memory and spills of the bf16 flash forward,
-     multiply_reduce_b and the SwiGLU kernels and of every kernel that
+     registers, shared memory and spills of the bf16 flash forward and
+     backward, multiply_reduce_b and the SwiGLU kernels and of every kernel that
      spills; fails if a bf16 SwiGLU kernel spills.
   1b. widths: the flash forward (with and without the LSE) and backward at
      every head dim from 8 to 128 and at 136, 256, 1024 (and 8192 at
@@ -34,7 +34,8 @@ failure):
      is checked once per TPU regime it replaces, at the S its path runs:
      1024 (monolithic), 4096 (q-tiled) and 32768 (the two-kernel long
      backward, which serves S > 4096; plain versions one head at a time),
-     and at S = 8192 besides.
+     and at S = 8192 besides; two backward calls on the same inputs must
+     give the same bits.
   3. the forward of the main path and of the flagship at full width with
      seeded random weights: at a small batch the kernel route on the card
      against the plain route on the CPU (fp32 and bf16; the flagship's fp32
@@ -274,11 +275,12 @@ def phase_card():
 
 
 # The kernels whose ptxas report the build logs, beside that of every kernel
-# that spills: the bf16 flash forward, multiply_reduce_b and the SwiGLU
-# kernels; the bf16 SwiGLU kernels (the forward and backward rows fused at
+# that spills: the bf16 flash forward and backward, multiply_reduce_b and the
+# SwiGLU kernels; the bf16 SwiGLU kernels (the forward and backward rows fused at
 # M = 128 and 256, the producer and the GEMM that serve every other width)
 # may not spill.
-PTXAS_LOGGED = ("flash_fwd_bf16", "mulred_b_kernel", "ffn_")
+PTXAS_LOGGED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+                "mulred_b_kernel", "ffn_")
 NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_produce")
 
 
@@ -293,6 +295,8 @@ def phase_build():
     # registers and static shared memory (the bf16 flash kernels and the
     # SwiGLU kernels take theirs dynamically).
     for lib, out in build.ptxas_info.items():
+        if "C7515" in out:   # ptxas inserted waits between a kernel's wgmmas
+            log(f"  ptxas {lib}: {out.count('C7515')} kernels with serialised wgmma (C7515)")
         for entry in out.split("Compiling entry function ")[1:]:
             name = entry.split("'")[1]
             if not (any(k in name for k in PTXAS_LOGGED)
@@ -600,6 +604,12 @@ def check_flash(rnd, bb, s, h, d, with_eval=True):
 
         dout = rnd(bb, s, h, d).to(dtype)
         got = fa.flash_attention_bwd(q, k_, v, out, dout, lse)
+        # No float atomics: a second call gives the same bits.
+        same = all(torch.equal(a, b_) for a, b_ in
+                   zip(got, fa.flash_attention_bwd(q, k_, v, out, dout, lse)))
+        log(f"  flash bwd {name}: two calls bitwise identical: {same}")
+        if not same:
+            fail(f"flash bwd {name}: two calls on the same inputs differ")
         want = plain_bwd(q, k_, v, out, dout)
         # bf16: the kernel normalises p from the LSE where the plain version
         # folds the TPU kernel's per-row scales, so bf16 rounds at other

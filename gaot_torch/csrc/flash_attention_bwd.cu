@@ -4,18 +4,71 @@
 // S <= 1024 and at S <= 4096, _flash_backward_long beyond). Every kernel
 // but the *_wide ones is a template on the head dim D, instantiated for
 // every multiple of 8 from 8 to 128 (flash_common.cuh); head dims above 128
-// take the *_wide kernels, with D at run time. The products that contract
-// over D take ceil(D / 16) k-steps of mma.sync m16n8k16 whose fragment
-// columns at or past D are zero registers; the products whose N dimension is
-// D take D / 8 n-tiles. Above D = 64 the fp32 kernels stream tiles of 32 rows, so that
-// their shared memory stays static, and the bf16 kernels take theirs
-// dynamically. Plain C interface; the entry returns cudaGetLastError() after
-// its launches.
+// take the *_wide kernels, with D at run time. Plain C interface; the entry
+// returns cudaGetLastError() after its launches.
+//
+// The arithmetic (the kv-tiled flash backward):
+//   p = exp2(s * scale_log2 - lse)     normalised probabilities
+//   delta = rowsum(dO * O)             fp32, once per row
+//   dS = p * (dP - delta),  dP = dO V^T
+//   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = p^T dO
+// Two deterministic kernels, no float atomics: dQ with one block per
+// (batch * q-head, query block) looping over the key tiles; dK/dV with one
+// block per (batch * kv-head, key block) looping over the group's q-heads
+// and every query tile, so the GQA group sum stays in fp32 registers. In
+// bf16 p and dS are rounded to bf16 before their products, as the TPU
+// kernels do. The recompute of S, dP and p in both kernels is the price of
+// the determinism.
+//
+// bf16 (flash_bwd_dq_bf16, then flash_bwd_dkv_bf16). What bounds it on the
+// card: 14 B H S^2 D operations on the tensor cores (S and dP in both
+// kernels, dQ, dK, dV) and two exp2 per score on the special-function
+// units, against a few bytes per score; at D = 24 and 32 it is latency:
+// each 64-row tile is a short chain of products, exp2 and dS arithmetic, and
+// only more warps in flight hide it (one block an SM ran far slower than
+// two). The design:
+// - Two warpgroups a block, each owning 64 rows of the block's resident side
+//   (queries in dQ, keys in dK/dV), which stays in shared memory for the
+//   whole block; up to D = 32 two blocks share an SM (registers capped at
+//   128 a thread). The other side streams through a ring of NST stages of U
+//   64-row sub-tiles (two stages of four up to D = 32: one barrier per 256
+//   rows), filled by 16-byte cp.async (LSE and delta by 4-byte ones), the
+//   next stages' copies issued right after the barrier that opens a stage,
+//   so they run under its products. Rows past S are zero-filled, which makes
+//   their terms vanish with no mask: a zero K/V row adds dS * 0 to dQ, and a
+//   zero Q/dO row with LSE = delta = 0 gives p = 1, dS = 0 and adds p * 0 to
+//   dV; sub-tiles wholly past S are skipped.
+// - Every product is a wgmma over tiles in wgmma's swizzled layouts (rows of
+//   the head dim padded to DP = 16, 32, 64 or 128 with zero 16-byte chunks,
+//   swizzled over min(2 DP, 128) bytes; DP = 128 as two 64-column blocks).
+//   Each tile serves twice with no transposed copy: K-major (K = head dim)
+//   as an operand of the products over D, and through the descriptor's
+//   transpose bit MN-major (K = rows, N = head dim) as B of the products
+//   whose N is D.
+//   dK/dV: S^T = K Q^T and dP^T = V dO^T with K and V (resident) as the A
+//   and Q and dO (streamed) as the K-major B of m64 x nBQT; then dV += P^T dO
+//   and dK += dS^T Q with P^T and dS^T from the accumulators as register A
+//   fragments and dO and Q as MN-major B of N = D (DP where wgmma has no
+//   such N).
+//   dQ: S = Q K^T and dP = dO V^T (Q and dO resident, K and V streamed),
+//   then dQ += dS K with dS from registers and K as MN-major B.
+// - Per sub-tile the exp2 of S runs while dP is on the tensor cores; the
+//   products whose N is D are waited for before the next sub-tile, as ptxas
+//   serialises the wgmmas of a pipeline stage that spans a loop's back edge.
+// - delta is computed by the dQ kernel, four threads a row, from O and dO,
+//   and written for the dK/dV kernel, which runs after it: no launch of its
+//   own.
+// fp32 (flash_bwd_delta, flash_bwd_dq_f32, flash_bwd_dkv_f32): one thread
+// per query row (dQ) or per key row (dK/dV) on the CUDA cores, the other
+// side streamed through shared memory in tiles of F32Tile<D>::ROWS rows
+// (32 above D = 64, so that their shared memory stays static).
 #include "flash_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 // Rows of the streamed tiles of the fp32 kernels.
 template <int D>
@@ -24,19 +77,145 @@ struct F32Tile {
 };
 
 // ---------------------------------------------------------------------------
-// Backward from the forward's base-2 row LSE (the kv-tiled flash backward):
-//   p = exp2(s * scale_log2 - lse)     normalised probabilities
-//   delta = rowsum(dO * O)             flash_bwd_delta, fp32, once
-//   dS = p * (dO V^T - delta)
-//   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = p^T dO
-// Two deterministic kernels, no atomics: dQ with one block per
-// (batch * q-head, 64-query tile) looping over the key tiles; dK/dV with one
-// block per (batch * kv-head, 64-key tile) looping over the group's q-heads
-// and every query tile, so the GQA group sum stays in fp32 registers. In bf16
-// p and dS are rounded to bf16 before their products, as the TPU kernels do.
+// bf16 on wgmma. A tile of R rows of the head dim, padded to DP, in wgmma's
+// swizzled layout: row r's 16-byte chunk c (of DP / 8) sits in column block
+// c / CPR, at r * SW + ((c mod CPR) ^ ((r SW / 128) mod CPR)) * 16 within
+// it; the blocks lie R * SW bytes apart. Read K-major, 8-row groups lie
+// 8 SW apart; read MN-major, the same bytes are atoms of 8 rows (K) x SW / 2
+// columns (N), 8-row groups 8 SW apart, column blocks R SW apart.
+template <int D>
+struct BwdTile {
+  static constexpr int DP = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  static constexpr int SW = DP >= 64 ? 128 : 2 * DP;    // swizzle span, bytes
+  static constexpr int CPR = SW / 16;                   // chunks of a swizzled row
+  static constexpr uint64_t TYPE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int KSTEPS = (D + 15) / 16;          // k-steps over D
+  // N of the products whose N is the head dim: D itself at D = 8 and 24
+  // (the first columns of the swizzled atom; at D = 24 faster than N = 32),
+  // DP otherwise.
+  static constexpr int NDP = D % 16 == 8 && D < 32 ? D : DP;
+  static constexpr int WGS = 2;                         // warpgroups a block
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int ROWS = 64 * WGS;                 // resident rows a block
+  static constexpr int RES = ROWS * 2 * DP;             // bytes of a resident tile
+  // Two blocks an SM up to DP = 32 (registers capped at 128 a thread).
+  static constexpr int MINB = DP <= 32 ? 2 : 1;
+  // Streamed rows of a sub-tile: the dK/dV kernel's queries (its S^T is
+  // 64 x BQT; at DP = 128 the dK and dV accumulators take 128 registers a
+  // thread), and the dQ kernel's keys. A stage of the ring holds U
+  // sub-tiles, taken one after the other between two barriers: up to
+  // DP = 32 four sub-tiles in two stages (a barrier per 256 rows, and two
+  // blocks an SM still fit), above it one in four.
+  static constexpr int BQT = DP > 64 ? 32 : 64;
+  static constexpr int BKT = 64;
+  static constexpr int U = DP > 32 ? 1 : 4;
+  static constexpr int NST = DP > 32 ? 4 : 2;           // stages of the ring
+  static constexpr int P = NST - 1;                     // stages copied ahead
+  // A stage: the two streamed tiles of U sub-tiles, then (dK/dV) LSE and
+  // delta, rounded up to the 1024-byte boundary of the swizzle atoms.
+  static constexpr int QROWS = U * BQT, KROWS = U * BKT;
+  static constexpr int QSTAGE = (2 * QROWS * 2 * DP + 2 * QROWS * 4 + 1023) / 1024 * 1024;
+  static constexpr int KSTAGE = 2 * KROWS * 2 * DP;
+  static constexpr int DKV_SMEM = 2 * RES + NST * QSTAGE + 1024;
+  static constexpr int DQ_SMEM = 2 * RES + NST * KSTAGE + 1024;
+  static_assert(D % 8 == 0 && D >= 8 && D <= MAX_D, "head dim must be a multiple of 8 from 8 to 128");
+  static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "backward stages exceed shared memory");
+
+  static __device__ __forceinline__ uint32_t off(int R, int r, int c) {
+    return (c / CPR) * R * SW + r * SW + (((c % CPR) ^ ((r * SW >> 7) & (CPR - 1))) << 4);
+  }
+  // K-major piece of a tile of R rows: rows row0 .. row0 + 63 (A) or
+  // row0 .. row0 + N - 1 (B), the 16 columns of k-step st.
+  static __device__ __forceinline__ uint64_t kdesc(uint32_t tile, int R, int row0, int st) {
+    const int byte = 32 * st;
+    return smem_desc(tile + byte / SW * R * SW + row0 * SW + byte % SW, 16, 8 * SW) | TYPE << 62;
+  }
+  // MN-major piece of a tile of R rows: rows (K) k0 .. k0 + 15, its
+  // columns (N) from 0.
+  static __device__ __forceinline__ uint64_t mndesc(uint32_t tile, int R, int k0) {
+    return smem_desc(tile + k0 * SW, R * SW, 8 * SW) | TYPE << 62;
+  }
+};
+
+// The dynamic shared memory rounded up to a 1024-byte boundary (the swizzle
+// atoms'); the kernels ask for 1024 bytes more than they use.
+__device__ __forceinline__ uint32_t smem_base_1k(const unsigned char* smem) {
+  return (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
+}
+
+// cp.async of rows r0 .. r0 + R - 1 of a [*, D] operand (row stride rs) into
+// a tile; rows past S and the pad chunks past D are zero-filled.
+template <int D, int R>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* base, long long rs,
+                                          int r0, int S) {
+  using T = BwdTile<D>;
+  constexpr int C = T::DP / 8;
+  for (int i = threadIdx.x; i < R * C; i += T::THREADS) {
+    const int r = i / C, c = i % C;
+    const bool ok = r0 + r < S && c < D / 8;
+    cp_async16(dst + T::off(R, r, c), ok ? base + (long long)(r0 + r) * rs + 8 * c : base, ok);
+  }
+}
+
+// The two products over D of one sub-tile, each committed as a group of its
+// own: s = A1 B1^T and dp = A2 B2^T, A this warpgroup's 64 rows of the
+// resident tiles a1, a2, B the N streamed rows from brow of tiles b1, b2 of
+// R rows.
+template <int D, int R, int N>
+__device__ __forceinline__ void mma_over_d(float* s, float* dp, uint32_t a1, uint32_t a2,
+                                           uint32_t b1, uint32_t b2, int arow, int brow) {
+  using T = BwdTile<D>;
+  wg_fence();
+#pragma unroll
+  for (int st = 0; st < T::KSTEPS; ++st)
+    WgmmaSS<N, 0, 0>::run(s, T::kdesc(a1, T::ROWS, arow, st), T::kdesc(b1, R, brow, st), st > 0);
+  wg_commit();
+#pragma unroll
+  for (int st = 0; st < T::KSTEPS; ++st)
+    WgmmaSS<N, 0, 0>::run(dp, T::kdesc(a2, T::ROWS, arow, st), T::kdesc(b2, R, brow, st), st > 0);
+  wg_commit();
+}
+
+// acc += A . B for KS k-steps of a product whose N is the head dim (NDP):
+// A from registers, B the MN-major rows k0 .. k0 + 16 KS - 1 of a tile of
+// R rows.
+template <int D, int R, int KS>
+__device__ __forceinline__ void mma_n_dp(float* acc, const uint32_t (*a)[4], uint32_t tile,
+                                         int k0) {
+  using T = BwdTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    Wgmma<T::NDP, 1>::run(acc, a[kk], T::mndesc(tile, R, k0 + 16 * kk), 1);
+}
+
+// The accumulator of a 64 x N product, rounded to bf16, as the register A
+// fragments of the N / 16 k-steps of a product that contracts over its N.
+template <int N>
+__device__ __forceinline__ void to_a_frags(uint32_t (*a)[4], const float* acc) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(acc[8 * kk], acc[8 * kk + 1]);
+    a[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+    a[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+    a[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(a[kk][e]);
+}
 
 // delta[b, h, s] = sum_d dout[b, s, h, d] * o[b, s, h, d]; rows in [B, S, H]
-// order, dout and o contiguous.
+// order, dout and o contiguous (the fp32 route).
 template <typename T, int D>
 __global__ void flash_bwd_delta(const T* __restrict__ dout,
                                 const T* __restrict__ o,
@@ -56,272 +235,254 @@ __global__ void flash_bwd_delta(const T* __restrict__ dout,
   delta[(b * H + h) * S + s] = acc;
 }
 
-// Dynamic shared memory of the bf16 backward kernels, in bytes (above the
-// 48 KB of static shared memory from D = 104 on).
+// dQ, and delta for the dK/dV kernel: one block per (batch * q-head, ROWS
+// queries); the blocks of one head are neighbours in the grid, so its K and
+// V come from device memory once and from L2 after.
 template <int D>
-struct DqSmem {
-  static constexpr int KV = BK * Dims<D>::KPAD * 2;
-  static constexpr int V = KV, KT = 2 * KV, BYTES = KT + D * VPAD * 2;
-};
-template <int D>
-struct DkvSmem {
-  static constexpr int QD = BQ * Dims<D>::KPAD * 2, T = D * VPAD * 2;
-  static constexpr int DS = QD, QT = 2 * QD, DT = QT + T, LS = DT + T,
-                       BYTES = LS + 2 * BQ * 4;
-};
-
-template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(BwdTile<D>::THREADS, BwdTile<D>::MINB)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dq, int S, int H, int Hkv, Strides qs,
-                  Strides ks, Strides vs, float scale_log2, float scale) {
-  using Dm = Dims<D>;
-  using Sm = DqSmem<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto Ks = reinterpret_cast<bf16 (*)[Dm::KPAD]>(smem);                  // [BK][KPAD]
-  auto Vs = reinterpret_cast<bf16 (*)[Dm::KPAD]>(smem + Sm::V);          // [BK][KPAD]
-  auto Kt = reinterpret_cast<bf16 (*)[VPAD]>(smem + Sm::KT);             // [D][VPAD]
+                  const bf16* __restrict__ o, const float* __restrict__ lse,
+                  float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
+                  int Hkv, Strides qs, Strides ks, Strides vs, float scale_log2,
+                  float scale) {
+  using T = BwdTile<D>;
+  constexpr int BKT = T::BKT, KROWS = T::KROWS, NST = T::NST, P = T::P;
+  constexpr int NS = BKT / 2, NO = T::NDP / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t qres = smem_base_1k(smem), dres = qres + T::RES;
+  const uint32_t ring = dres + T::RES;
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nqb = (S + T::ROWS - 1) / T::ROWS;
+  const int bh = blockIdx.x / nqb, q0 = blockIdx.x % nqb * T::ROWS;
+  const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.y * BQ + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const long long drs = (long long)H * D;     // row stride of dout
-
-  const bf16* qb = q + b * qs.b + h * qs.h;
+  const long long drs = (long long)H * D;      // row stride of dout and o
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
   const bf16* db = dout + ((long long)b * S * H + h) * D;
+  const bf16* ob = o + ((long long)b * S * H + h) * D;
+  const int nstages = (S + KROWS - 1) / KROWS;
 
-  // Q and dO fragments of this warp's 16 rows (A operands of S and dP).
-  uint32_t qa[Dm::KSTEPS][4], da[Dm::KSTEPS][4];
+  copy_rows<D, T::ROWS>(qres, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  copy_rows<D, T::ROWS>(dres, db, drs, q0, S);
+  auto load = [&](int j) {
+    const uint32_t st = ring + (j % NST) * T::KSTAGE;
+    copy_rows<D, KROWS>(st, kb, ks.s, j * KROWS, S);
+    copy_rows<D, KROWS>(st + KROWS * 2 * T::DP, vb, vs.s, j * KROWS, S);
+  };
 #pragma unroll
-  for (int st = 0; st < Dm::KSTEPS; ++st) {
-    load_a<D>(qa[st], qb + (long long)r0 * qs.s, qb + (long long)r1 * qs.s,
-              r0 < S, r1 < S, st, t);
-    load_a<D>(da[st], db + r0 * drs, db + r1 * drs, r0 < S, r1 < S, st, t);
-  }
-  const float* lrow = lse + (long long)bh * S;
-  const float* drow = delta + (long long)bh * S;
-  const float lse0 = r0 < S ? lrow[r0] : 0.f, lse1 = r1 < S ? lrow[r1] : 0.f;
-  const float dl0 = r0 < S ? drow[r0] : 0.f, dl1 = r1 < S ? drow[r1] : 0.f;
-
-  float acc[Dm::NT][4];
-#pragma unroll
-  for (int n = 0; n < Dm::NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = 0; kt < S; kt += BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * (D / 8); i += blockDim.x) {
-      const int key = i / (D / 8), ch = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (kt + key < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + (kt + key) * ks.s + ch);
-        vv = *reinterpret_cast<const uint4*>(vb + (kt + key) * vs.s + ch);
-      }
-      *reinterpret_cast<uint4*>(&Ks[key][ch]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[key][ch]) = vv;
-      const bf16* ke = reinterpret_cast<const bf16*>(&kv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Kt[ch + j][key] = ke[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for 16 rows x 64 keys.
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int st = 0; st < Dm::KSTEPS; ++st) {
-        mma_over_d<D>(s[j], qa[st], &Ks[8 * j + g][st * 16 + 2 * t], st);
-        mma_over_d<D>(dp[j], da[st], &Vs[8 * j + g][st * 16 + 2 * t], st);
-      }
-    }
-    // dS = p (dP - delta), in place of S.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + 8 * j + 2 * t + (e & 1);
-        const bool lo = e < 2;
-        const float p = key < S ? exp2f(s[j][e] * scale_log2 - (lo ? lse0 : lse1)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (lo ? dl0 : dl1));
-      }
-    }
-    // dQ += dS (bf16) K: n-tiles 2st, 2st+1 of dS are the A fragment of k-step st.
-#pragma unroll
-    for (int st = 0; st < 4; ++st) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * st][0], s[2 * st][1]);
-      pa[1] = pack_bf16(s[2 * st][2], s[2 * st][3]);
-      pa[2] = pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]);
-      pa[3] = pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3]);
-#pragma unroll
-      for (int n = 0; n < Dm::NT; ++n) {
-        const bf16* kr = &Kt[8 * n + g][st * 16 + 2 * t];
-        mma_bf16_16816(acc[n], pa, ld32(kr), ld32(kr + 8));
-      }
-    }
+  for (int i = 0; i < P; ++i) {
+    if (i < nstages) load(i);
+    cp_async_commit();   // the resident tiles join stage 0's group
   }
 
+  // This thread's rows r0, r0 + 8: their LSE, and delta = rowsum(dO O) from
+  // device memory, the row's four threads taking every fourth 8-column chunk.
+  const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+  float dl[2], ls[2];
 #pragma unroll
-  for (int n = 0; n < Dm::NT; ++n) {
+  for (int i = 0; i < 2; ++i) {
+    const int r = i ? r1 : r0;
+    float acc = 0.f;
+    if (r < S) {
+      for (int c = t; c < D / 8; c += 4) {
+        const uint4 a = *reinterpret_cast<const uint4*>(db + r * drs + 8 * c);
+        const uint4 e = *reinterpret_cast<const uint4*>(ob + r * drs + 8 * c);
+        const bf16* ap = reinterpret_cast<const bf16*>(&a);
+        const bf16* ep = reinterpret_cast<const bf16*>(&e);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc += __bfloat162float(ap[x]) * __bfloat162float(ep[x]);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[i] = acc;
+    ls[i] = r < S ? lse[(long long)bh * S + r] : 0.f;
+    if (t == 0 && r < S) delta[(long long)bh * S + r] = acc;
+  }
+
+  float dqa[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dqa[i] = 0.f;
+  uint32_t da[BKT / 16][4];
+
+  for (int j = 0; j < nstages; ++j) {
+    const uint32_t st = ring + (j % NST) * T::KSTAGE, vt = st + KROWS * 2 * T::DP;
+    cp_async_wait<P - 1>();
+    fence_proxy_async();
+    // Stage j is in shared memory, and both warpgroups are done with stage
+    // j - 1, the one the next copy overwrites.
+    __syncthreads();
+    if (j + P < nstages) load(j + P);
+    cp_async_commit();
+
+#pragma unroll
+    for (int u = 0; u < T::U; ++u) {
+      if (u > 0 && j * KROWS + u * BKT >= S) break;   // keys past S add nothing
+      float s[NS], dp[NS];
+      mma_over_d<D, KROWS, BKT>(s, dp, qres, dres, st, vt, 64 * wg, u * BKT);
+      wg_wait<1>();   // S has landed
+      fence_all<NS>(s);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = ex2(fmaf(s[i], scale_log2, -ls[(i >> 1) & 1]));
+      wg_wait<0>();   // dP has landed
+      fence_all<NS>(dp);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+      to_a_frags<BKT>(da, dp);
+      fence_all<NO>(dqa);
+      wg_fence();
+      mma_n_dp<D, KROWS, BKT / 16>(dqa, da, st, u * BKT);   // dQ += dS K
+      wg_commit();
+      // No product stays in flight into the next sub-tile: ptxas serialises
+      // the wgmmas of a pipeline stage that spans the loop's back edge, and
+      // the registers of a second one do not fit.
+      wg_wait<0>();
+      fence_all<BKT / 16>(da);
+    }
+  }
+  fence_all<NO>(dqa);
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * t;
     if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * S + r0) * H + h) * D + c) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
+      *reinterpret_cast<uint32_t*>(dq + (((long long)b * S + r0) * H + h) * D + c) =
+          pack_bf16(dqa[4 * n] * scale, dqa[4 * n + 1] * scale);
     if (r1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (((long long)b * S + r1) * H + h) * D + c) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+      *reinterpret_cast<uint32_t*>(dq + (((long long)b * S + r1) * H + h) * D + c) =
+          pack_bf16(dqa[4 * n + 2] * scale, dqa[4 * n + 3] * scale);
   }
 }
 
+// dK and dV: one block per (batch * kv-head, ROWS keys), looping over the
+// group's q-heads and every stage of QROWS queries; the blocks of one
+// kv-head are neighbours in the grid. Runs after flash_bwd_dq_bf16, which
+// writes delta.
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(BwdTile<D>::THREADS, BwdTile<D>::MINB)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-                   int Hkv, Strides qs, Strides ks, Strides vs,
-                   float scale_log2, float scale) {
-  using Dm = Dims<D>;
-  using Sm = DkvSmem<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto Qs = reinterpret_cast<bf16 (*)[Dm::KPAD]>(smem);                  // [query][d]
-  auto Ds = reinterpret_cast<bf16 (*)[Dm::KPAD]>(smem + Sm::DS);         // dO [query][d]
-  auto Qt = reinterpret_cast<bf16 (*)[VPAD]>(smem + Sm::QT);             // [d][query]
-  auto Dt = reinterpret_cast<bf16 (*)[VPAD]>(smem + Sm::DT);             // dO [d][query]
-  float* Ls = reinterpret_cast<float*>(smem + Sm::LS);
-  float* Dl = Ls + BQ;
+                   int Hkv, Strides qs, Strides ks, Strides vs, float scale_log2,
+                   float scale) {
+  using T = BwdTile<D>;
+  constexpr int BQT = T::BQT, QROWS = T::QROWS, NST = T::NST, P = T::P;
+  constexpr int NS = BQT / 2, NO = T::NDP / 2;
+  constexpr int TILE = QROWS * 2 * T::DP;        // bytes of a streamed tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t kres = smem_base_1k(smem), vres = kres + T::RES;
+  const uint32_t ring = vres + T::RES;
+  // The generic address of the ring, for the LSE and delta reads.
+  const unsigned char* gring =
+      smem + (ring - static_cast<uint32_t>(__cvta_generic_to_shared(smem)));
 
-  const int bkv = blockIdx.x;
-  const int b = bkv / Hkv, hk = bkv % Hkv;
-  const int group = H / Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nkb = (S + T::ROWS - 1) / T::ROWS;
+  const int bkv = blockIdx.x / nkb, k0 = blockIdx.x % nkb * T::ROWS;
+  const int b = bkv / Hkv, hk = bkv % Hkv, group = H / Hkv;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.y * BK + warp * 16 + g;  // key rows
-  const int r1 = r0 + 8;
   const long long drs = (long long)H * D;
+  const int nqs = (S + QROWS - 1) / QROWS, nstages = group * nqs;
 
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  // K and V fragments of this warp's 16 keys (A operands of S^T and dP^T).
-  uint32_t ka[Dm::KSTEPS][4], va[Dm::KSTEPS][4];
+  copy_rows<D, T::ROWS>(kres, k + b * ks.b + hk * ks.h, ks.s, k0, S);
+  copy_rows<D, T::ROWS>(vres, v + b * vs.b + hk * vs.h, vs.s, k0, S);
+  // Stage j: q-head hk * group + j / nqs, queries (j mod nqs) * QROWS on;
+  // its LSE and delta after the two tiles (zero past S).
+  auto load = [&](int j) {
+    const int h = hk * group + j / nqs, qt = j % nqs * QROWS;
+    const uint32_t st = ring + (j % NST) * T::QSTAGE;
+    copy_rows<D, QROWS>(st, q + b * qs.b + h * qs.h, qs.s, qt, S);
+    copy_rows<D, QROWS>(st + TILE, dout + ((long long)b * S * H + h) * D, drs, qt, S);
+    const long long row = ((long long)b * H + h) * S;
+    for (int i = threadIdx.x; i < 2 * QROWS; i += T::THREADS) {
+      const int c = i % QROWS;
+      const bool ok = qt + c < S;
+      cp_async4(st + 2 * TILE + 4 * i, (i < QROWS ? lse : delta) + row + (ok ? qt + c : 0), ok);
+    }
+  };
 #pragma unroll
-  for (int st = 0; st < Dm::KSTEPS; ++st) {
-    load_a<D>(ka[st], kb + (long long)r0 * ks.s, kb + (long long)r1 * ks.s,
-              r0 < S, r1 < S, st, t);
-    load_a<D>(va[st], vb + (long long)r0 * vs.s, vb + (long long)r1 * vs.s,
-              r0 < S, r1 < S, st, t);
+  for (int i = 0; i < P; ++i) {
+    if (i < nstages) load(i);
+    cp_async_commit();   // the resident tiles join stage 0's group
   }
-  float dka[Dm::NT][4], dva[Dm::NT][4];
-#pragma unroll
-  for (int n = 0; n < Dm::NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* db = dout + ((long long)b * S * H + h) * D;
-    const float* lrow = lse + ((long long)b * H + h) * S;
-    const float* drow = delta + ((long long)b * H + h) * S;
-    for (int qt = 0; qt < S; qt += BQ) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < BQ * (D / 8); i += blockDim.x) {
-        const int row = i / (D / 8), ch = (i % (D / 8)) * 8;
-        uint4 qv = make_uint4(0, 0, 0, 0), dv8 = make_uint4(0, 0, 0, 0);
-        if (qt + row < S) {
-          qv = *reinterpret_cast<const uint4*>(qb + (qt + row) * qs.s + ch);
-          dv8 = *reinterpret_cast<const uint4*>(db + (qt + row) * drs + ch);
-        }
-        *reinterpret_cast<uint4*>(&Qs[row][ch]) = qv;
-        *reinterpret_cast<uint4*>(&Ds[row][ch]) = dv8;
-        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
-        const bf16* de = reinterpret_cast<const bf16*>(&dv8);
+  float dka[NO], dva[NO];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          Qt[ch + j][row] = qe[j];
-          Dt[ch + j][row] = de[j];
-        }
-      }
-      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        const bool ok = qt + i < S;
-        Ls[i] = ok ? lrow[qt + i] : CUDART_INF_F;   // exp2(-inf) = 0
-        Dl[i] = ok ? drow[qt + i] : 0.f;
-      }
-      __syncthreads();
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.f;
+  uint32_t pa[BQT / 16][4], sa[BQT / 16][4];
 
-      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 64 queries.
-      float s[8][4], dp[8][4];
+  for (int j = 0; j < nstages; ++j) {
+    const uint32_t st = ring + (j % NST) * T::QSTAGE;
+    const float* lq = reinterpret_cast<const float*>(gring + (j % NST) * T::QSTAGE + 2 * TILE);
+    cp_async_wait<P - 1>();
+    fence_proxy_async();
+    // Stage j is in shared memory, and both warpgroups are done with stage
+    // j - 1, the one the next copy overwrites.
+    __syncthreads();
+    if (j + P < nstages) load(j + P);
+    cp_async_commit();
+
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int u = 0; u < T::U; ++u) {
+      if (u > 0 && j % nqs * QROWS + u * BQT >= S) break;   // queries past S add nothing
+      float s[NS], dp[NS];
+      mma_over_d<D, QROWS, BQT>(s, dp, kres, vres, st, st + TILE, 64 * wg, u * BQT);
+      wg_wait<1>();   // S^T has landed
+      fence_all<NS>(s);
+      // Column 8n + 2t + e of S^T is query u BQT + 8n + 2t + e of the stage.
+      const float* lu = lq + u * BQT + 2 * t;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-        for (int st = 0; st < Dm::KSTEPS; ++st) {
-          mma_over_d<D>(s[j], ka[st], &Qs[8 * j + g][st * 16 + 2 * t], st);
-          mma_over_d<D>(dp[j], va[st], &Ds[8 * j + g][st * 16 + 2 * t], st);
-        }
+      for (int n = 0; n < BQT / 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lu + 8 * n);
+        s[4 * n] = ex2(fmaf(s[4 * n], scale_log2, -l2.x));
+        s[4 * n + 1] = ex2(fmaf(s[4 * n + 1], scale_log2, -l2.y));
+        s[4 * n + 2] = ex2(fmaf(s[4 * n + 2], scale_log2, -l2.x));
+        s[4 * n + 3] = ex2(fmaf(s[4 * n + 3], scale_log2, -l2.y));
       }
+      wg_wait<0>();   // dP^T has landed
+      fence_all<NS>(dp);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1);
-          const float p = exp2f(s[j][e] * scale_log2 - Ls[col]);
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - Dl[col]);
-        }
+      for (int n = 0; n < BQT / 8; ++n) {
+        const float2 d2 = *reinterpret_cast<const float2*>(lu + QROWS + 8 * n);
+        dp[4 * n] = s[4 * n] * (dp[4 * n] - d2.x);
+        dp[4 * n + 1] = s[4 * n + 1] * (dp[4 * n + 1] - d2.y);
+        dp[4 * n + 2] = s[4 * n + 2] * (dp[4 * n + 2] - d2.x);
+        dp[4 * n + 3] = s[4 * n + 3] * (dp[4 * n + 3] - d2.y);
       }
-      // dV += P^T (bf16) dO and dK += dS^T (bf16) Q over this query tile.
-#pragma unroll
-      for (int st = 0; st < 4; ++st) {
-        uint32_t pa[4], sa[4];
-        pa[0] = pack_bf16(s[2 * st][0], s[2 * st][1]);
-        pa[1] = pack_bf16(s[2 * st][2], s[2 * st][3]);
-        pa[2] = pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]);
-        pa[3] = pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3]);
-        sa[0] = pack_bf16(dp[2 * st][0], dp[2 * st][1]);
-        sa[1] = pack_bf16(dp[2 * st][2], dp[2 * st][3]);
-        sa[2] = pack_bf16(dp[2 * st + 1][0], dp[2 * st + 1][1]);
-        sa[3] = pack_bf16(dp[2 * st + 1][2], dp[2 * st + 1][3]);
-#pragma unroll
-        for (int n = 0; n < Dm::NT; ++n) {
-          const bf16* dr = &Dt[8 * n + g][st * 16 + 2 * t];
-          mma_bf16_16816(dva[n], pa, ld32(dr), ld32(dr + 8));
-          const bf16* qr = &Qt[8 * n + g][st * 16 + 2 * t];
-          mma_bf16_16816(dka[n], sa, ld32(qr), ld32(qr + 8));
-        }
-      }
+      to_a_frags<BQT>(pa, s);
+      to_a_frags<BQT>(sa, dp);
+      fence_all<NO>(dva);
+      fence_all<NO>(dka);
+      wg_fence();
+      mma_n_dp<D, QROWS, BQT / 16>(dva, pa, st + TILE, u * BQT);   // dV += P^T dO
+      mma_n_dp<D, QROWS, BQT / 16>(dka, sa, st, u * BQT);          // dK += dS^T Q
+      wg_commit();
+      // No product stays in flight into the next sub-tile (see the dQ kernel).
+      wg_wait<0>();
+      fence_all<BQT / 16>(pa);
+      fence_all<BQT / 16>(sa);
     }
   }
+  fence_all<NO>(dka);
+  fence_all<NO>(dva);
 
+  const int r0 = k0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
 #pragma unroll
-  for (int n = 0; n < Dm::NT; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * t;
     if (r0 < S) {
       const long long o = (((long long)b * S + r0) * Hkv + hk) * D + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(dka[4 * n] * scale, dka[4 * n + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dva[4 * n], dva[4 * n + 1]);
     }
     if (r1 < S) {
       const long long o = (((long long)b * S + r1) * Hkv + hk) * D + c;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16(dka[4 * n + 2] * scale, dka[4 * n + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dva[4 * n + 2], dva[4 * n + 3]);
     }
   }
 }
@@ -477,34 +638,30 @@ int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
                void* dv, int B, int S, int H, int Hkv, Strides qs, Strides ks,
                Strides vs, float scale_log2, float scale, int dtype,
                cudaStream_t st) {
-  const long long rows = (long long)B * S * H;
-  const int dblocks = (int)((rows + 255) / 256);
-  const dim3 gq(B * H, (S + BQ - 1) / BQ), gk(B * Hkv, (S + BK - 1) / BK);
   if (dtype == 1) {
+    using T = BwdTile<D>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem<D>::BYTES);
+        flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::DQ_SMEM);
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DkvSmem<D>::BYTES);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::DKV_SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_delta<bf16, D><<<dblocks, 256, 0, st>>>(
-        static_cast<const bf16*>(dout), static_cast<const bf16*>(o), dl, S, H, rows);
+    const long long blk = (S + T::ROWS - 1) / T::ROWS;
+    if ((long long)B * H * blk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+               *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+    flash_bwd_dq_bf16<D><<<(unsigned)(B * H * blk), T::THREADS, T::DQ_SMEM, st>>>(
+        qb, kb, vb, db, static_cast<const bf16*>(o), l, dl, static_cast<bf16*>(dq), S, H,
+        Hkv, qs, ks, vs, scale_log2, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16<D><<<gq, 128, DqSmem<D>::BYTES, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_bf16<D><<<gk, 128, DkvSmem<D>::BYTES, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv, qs, ks, vs,
-        scale_log2, scale);
+    flash_bwd_dkv_bf16<D><<<(unsigned)(B * Hkv * blk), T::THREADS, T::DKV_SMEM, st>>>(
+        qb, kb, vb, db, l, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv,
+        qs, ks, vs, scale_log2, scale);
   } else {
-    flash_bwd_delta<float, D><<<dblocks, 256, 0, st>>>(
+    const long long rows = (long long)B * S * H;
+    const dim3 gq(B * H, (S + BQ - 1) / BQ), gk(B * Hkv, (S + BK - 1) / BK);
+    flash_bwd_delta<float, D><<<(int)((rows + 255) / 256), 256, 0, st>>>(
         static_cast<const float*>(dout), static_cast<const float*>(o), dl, S, H, rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -1,7 +1,7 @@
 // Helpers shared by the flash-attention forward (flash_attention.cu) and
-// backward (flash_attention_bwd.cu): the head-dim template, the strides of
-// q, k and v, the mma.sync fragments of the backward kernels, and the tiles
-// of the route for head dims above 128.
+// backward (flash_attention_bwd.cu): the head-dim limits, the strides of
+// q, k and v, the register A fragments of the forward's Q, and the tiles of
+// the route for head dims above 128.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -10,37 +10,15 @@
 
 namespace flash {
 
-constexpr int BQ = 64;       // queries per block (backward, fp32 forward)
-constexpr int BK = 64;       // keys per streamed tile (backward, fp32 forward)
-constexpr int VPAD = BK + 8; // transposed tile row stride (bf16)
+constexpr int BQ = 64;       // queries per block (fp32 forward and backward)
+constexpr int BK = 64;       // keys per block (fp32 backward)
 constexpr int MAX_D = 128;   // the largest head dim of the templated kernels
-
-template <int D>
-struct Dims {
-  static constexpr int KSTEPS = (D + 15) / 16;  // k-steps of 16 over D
-  static constexpr int NT = D / 8;              // n-tiles of 8 over D
-  // Row stride (bf16) of a tile whose fragments are read along D: an odd
-  // number of 16-byte chunks puts the 8 rows of a fragment load on distinct
-  // banks (D = 24: 24, D = 32: 40).
-  static constexpr int KPAD = (D / 8) % 2 ? D : D + 8;
-  static_assert(D % 8 == 0 && D >= 8 && D <= MAX_D,
-                "head dim must be a multiple of 8 from 8 to 128");
-};
 
 using bf16 = __nv_bfloat16;
 
 struct Strides {
   long long b, s, h;
 };
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -63,15 +41,6 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const bf16* p0,
   a[1] = ok1 && lo ? ld32(p1 + c) : 0u;
   a[2] = ok0 && hi ? ld32(p0 + c + 8) : 0u;
   a[3] = ok1 && hi ? ld32(p1 + c + 8) : 0u;
-}
-
-// c += A . B for k-step st of a product contracting over D; kr points at
-// column st * 16 + 2t of the B row in shared memory.
-template <int D>
-__device__ __forceinline__ void mma_over_d(float c[4], const uint32_t a[4],
-                                           const bf16* kr, int st) {
-  const uint32_t b1 = st * 16 + 8 < D ? ld32(kr + 8) : 0u;
-  mma_bf16_16816(c, a, ld32(kr), b1);
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels that run
-// their products on wgmma (flash_attention.cu, fused_ffn.cu): the wgmma
-// issue with A from registers (Wgmma) or from shared memory (WgmmaSS), the
-// shared-memory matrix descriptor of the no-swizzle core-matrix layout, the
-// wgmma fences and waits, 16-byte cp.async with its groups, the proxy fence
-// between them, and ex2.approx.
+// their products on wgmma (flash_attention.cu, flash_attention_bwd.cu,
+// fused_ffn.cu): the wgmma issue with A from registers (Wgmma) or from
+// shared memory (WgmmaSS), the shared-memory matrix descriptor of the
+// no-swizzle core-matrix layout, the wgmma fences and waits, 16- and 4-byte
+// cp.async with its groups, the proxy fence between them, and ex2.approx.
 //
 // The no-swizzle core-matrix layout: a core matrix is 8 rows of 16 bytes,
 // contiguous (128 bytes). A K-major tile (K contiguous in each row) keeps the
@@ -50,6 +50,22 @@ struct Wgmma<16, TB> {
         "%0, %1, %2, %3, %4, %5, %6, %7}, "
         "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct Wgmma<24, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t a[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1, %18;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
           "n"(TB));
   }
@@ -147,6 +163,11 @@ __device__ __forceinline__ void reg_fence(uint32_t& r) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4-byte cp.async through L1 (.cg takes 16 bytes only); zero-fills where !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -24,9 +24,12 @@ def _kernel_coord_dim(config: MAGNOConfig) -> int:
 
 
 class _MAGNOBase(nn.Module):
-    """Shared multiscale AGNO + geometric-embedding machinery."""
+    """Shared multiscale AGNO + geometric-embedding machinery. f_channels is
+    the width of the features the AGNO is fed (the encoder's lifted width),
+    which the nonlinear kernel MLP takes beside the coordinates, as the
+    Flax Dense infers it from its input."""
 
-    def __init__(self, in_channels: int, out_channels: int, config: MAGNOConfig,
+    def __init__(self, f_channels: int, config: MAGNOConfig,
                  agno_out_channels: int, dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
@@ -36,7 +39,7 @@ class _MAGNOBase(nn.Module):
         kdim = _kernel_coord_dim(cfg)
         kernel_in = kdim * 2
         if cfg.transform_type in ("nonlinear", "nonlinear_kernelonly"):
-            kernel_in += in_channels
+            kernel_in += f_channels
         mlp_sizes = [cfg.hidden_size] * cfg.mlp_layers + [agno_out_channels]
         self.agno = AGNO(kernel_in, mlp_sizes, transform_type=cfg.transform_type,
                          use_attn=cfg.use_attention,
@@ -113,8 +116,8 @@ class MAGNOEncoder(_MAGNOBase):
     def __init__(self, in_channels: int, out_channels: int, config: MAGNOConfig,
                  agno_out_channels: int, lifting_layers: int = 1,
                  dtype: Optional[torch.dtype] = None, device=None):
-        super().__init__(in_channels, out_channels, config, agno_out_channels,
-                         dtype=dtype, device=device)
+        super().__init__(out_channels, config, agno_out_channels, dtype=dtype,
+                         device=device)
         self.lifting = ChannelMLP(in_channels, out_channels,
                                   hidden_channels=config.hidden_size,
                                   n_layers=lifting_layers, dtype=dtype,
@@ -138,8 +141,8 @@ class MAGNODecoder(_MAGNOBase):
     def __init__(self, in_channels: int, out_channels: int, config: MAGNOConfig,
                  agno_out_channels: int, projection_layers: int = 1,
                  dtype: Optional[torch.dtype] = None, device=None):
-        super().__init__(in_channels, out_channels, config, agno_out_channels,
-                         dtype=dtype, device=device)
+        super().__init__(in_channels, config, agno_out_channels, dtype=dtype,
+                         device=device)
         self.projection = ChannelMLP(agno_out_channels, out_channels,
                                      hidden_channels=config.hidden_size,
                                      n_layers=projection_layers, dtype=dtype,

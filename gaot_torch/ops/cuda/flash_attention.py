@@ -47,19 +47,31 @@ dimension) and recomputes the full-D scores, and dP, by streaming both sides
 through shared memory in head-dim slices of 64, with the arithmetic of the
 templated kernels. It is right first and slow at large D (PERF.md).
 
-Backward design: the TPU kernel holds a head's whole [S, S] row block in
-VMEM; on the card the standard tiled flash backward, which the JAX package
-itself runs for long S (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), normalises
-each tile from the saved LSE: δ = rowsum(dO∘O) once in fp32, then a dQ
-kernel (one block per batch·q-head and 64-query tile, looping over the key
-tiles) and a dK/dV kernel (one block per batch·kv-head and 64-key tile,
-looping over the group's q-heads and every query tile, so the GQA group sum
-stays in fp32 registers). No float atomics; P and dS are rounded to V's and
-Q's dtype before their products, as ``_bwd_core`` does. Its arithmetic is
-``_flash_backward_long``'s (p from the LSE, the scale applied at the end of
-dQ and dK); the plain backward keeps ``_bwd_core``'s. In bf16 the two stay
-within half of the CPU tests' bound (rtol 8e-3, atol 1e-2) at S = 384, so
-one plain backward serves every regime.
+Backward design (``gaot_torch/csrc/flash_attention_bwd.cu``): the TPU kernel
+holds a head's whole [S, S] row block in VMEM; on the card the tiled flash
+backward, which the JAX package itself runs for long S (``_bwd_dq_kernel``,
+``_bwd_dkv_kernel``), normalises each tile from the saved LSE. Two kernels,
+deterministic with no float atomics: a dQ kernel (one block per batch·q-head
+and 128 queries, looping over the key tiles), which also computes
+δ = rowsum(dO∘O) in fp32 for its rows, then a dK/dV kernel (one block per
+batch·kv-head and 128 keys, looping over the group's q-heads and every query
+tile, so the GQA group sum stays in fp32 registers). In bf16 every product
+runs on ``wgmma``: two warpgroups a block own 64 rows each of the resident
+side (Q and dO, or K and V), and two blocks share an SM up to D = 32; the
+other side streams through a ``cp.async`` ring (two stages of four 64-row
+sub-tiles up to D = 32) whose next copies run under this stage's products;
+every tile sits in ``wgmma``'s swizzled layout (the head dim padded to 16,
+32, 64 or 128), read K-major by the products over D (S = Q·Kᵀ, dP = dO·Vᵀ
+and their transposes) and, through the descriptor's transpose bit,
+MN-major by the products whose N is D (dQ += dS·K, dV += Pᵀ·dO,
+dK += dSᵀ·Q), whose A operands P and dS come from the accumulators as
+register fragments: no operand is transposed element by element. P and dS
+are rounded to V's and Q's dtype before their products, as ``_bwd_core``
+does. Its arithmetic is ``_flash_backward_long``'s (p from the LSE, the
+scale applied at the end of dQ and dK); the plain backward keeps
+``_bwd_core``'s. In bf16 the two stay within half of the CPU tests' bound
+(rtol 8e-3, atol 1e-2) at S = 384, so one plain backward serves every
+regime. fp32 runs δ, dQ and dK/dV kernels on the CUDA cores.
 """
 from __future__ import annotations
 

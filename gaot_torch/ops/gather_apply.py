@@ -88,6 +88,38 @@ def gather_multiply_reduce_nbc(coef: torch.Tensor, f: torch.Tensor,
                                           tmask)
 
 
+class _GatherMultiplyReduce(torch.autograd.Function):
+    """After the batched branch of ``gather_multiply_reduce`` (``_fwd`` /
+    ``_bwd``) with a per-sample coef [B, Q, K, C] (the nonlinear
+    transforms). Plain PyTorch, as the JAX package leaves this branch to
+    XLA; the backward gathers through the transpose graph and never
+    scatters."""
+
+    @staticmethod
+    def forward(ctx, coef, f, indices, edge_pos, tquery, tmask):
+        ctx.save_for_backward(coef, f, indices, edge_pos, tquery, tmask)
+        return _forward(coef, f, indices)
+
+    @staticmethod
+    def backward(ctx, dout):
+        coef, f, indices, edge_pos, tquery, tmask = ctx.saved_tensors
+        b, _, _, c = coef.shape
+        d_coef = dout[:, :, None, :] * f[:, indices, :]           # [B, Q, K, C]
+        cg = coef.reshape(b, -1, c)[:, edge_pos, :]               # [B, N, Kt, C]
+        dg = dout[:, tquery, :]                                   # [B, N, Kt, C]
+        d_f = torch.where(tmask[None, :, :, None], cg * dg, 0).sum(-2)
+        return (d_coef.to(coef.dtype), d_f.to(f.dtype), None, None, None, None)
+
+
+def gather_multiply_reduce(coef: torch.Tensor, f: torch.Tensor,
+                           indices: torch.Tensor, edge_pos: torch.Tensor,
+                           tquery: torch.Tensor,
+                           tmask: torch.Tensor) -> torch.Tensor:
+    """coef [B, Q, K, C] per sample; f [B, N, C]; indices [Q, K]; the
+    transpose graph (edge_pos, tquery, tmask) [N, Kt]. Returns [B, Q, C]."""
+    return _GatherMultiplyReduce.apply(coef, f, indices, edge_pos, tquery, tmask)
+
+
 class _BucketedGatherMultiplyReduce(torch.autograd.Function):
     """After ``bucketed_gather_multiply_reduce`` (``_bucketed_fwd`` /
     ``_bucketed_bwd`` and the fx branch of ``_bucketed_df``). The per-bucket
@@ -203,7 +235,8 @@ def apply_graph_transform(coef: torch.Tensor, f: torch.Tensor, graph,
                           tgraph=None) -> torch.Tensor:
     """No transpose graph → the plain path (autograd's backward); f
     [B, N, C] with shared coef [Q, K, C] → the node-leading bulk-gather
-    route with the transpose-graph backward. Returns [B, Q, C]."""
+    route with the transpose-graph backward; f [B, N, C] with a per-sample
+    coef [B, Q, K, C] → :func:`gather_multiply_reduce`. Returns [B, Q, C]."""
     if tgraph is None:
         return _forward(coef, f, graph.indices)
     if f.dim() == 3 and coef.dim() == 3:
@@ -211,4 +244,7 @@ def apply_graph_transform(coef: torch.Tensor, f: torch.Tensor, graph,
                                          graph.indices, tgraph.edge_pos,
                                          tgraph.query, tgraph.mask)
         return out.transpose(0, 1)
+    if f.dim() == 3 and coef.dim() == 4:
+        return gather_multiply_reduce(coef, f, graph.indices, tgraph.edge_pos,
+                                      tgraph.query, tgraph.mask)
     raise NotImplementedError("the vx-flattened transpose-graph route is not ported")

@@ -13,13 +13,16 @@ process imports the gaot_torch of its ROOT, builds its kernels if needed,
 and times, on tensors made from one seed:
   - multiply_reduce_b at every (K, Q) one training step of each path runs
     (the shapes chip_smoke.py logs as "reduce shapes"), lanes W = b·C;
-  - the bf16 flash forward, without and with the LSE, at each path's shape;
+  - the bf16 flash forward, without and with the LSE, and the backward
+    (dQ, dK, dV from the forward's output and LSE) at each path's shape,
+    the backward with its largest error against the plain version where
+    that fits the card (not at S = 32768);
   - the bf16 SwiGLU forward and backward at the fx shape (R = 65536,
     M = 256, F = 1024) and at the other fused width (M = 128, F = 512),
     with their largest error against the plain versions;
   - the PyTorch library call that computes the same function (einsum; SDPA,
-    or its aten entry that also returns the LSE; the SwiGLU's three
-    products, and autograd of them);
+    or its aten entry that also returns the LSE, and SDPA's autograd; the
+    SwiGLU's three products, and autograd of them);
 each on three yardsticks:
   single   median of 20 calls, each timed alone between two CUDA events:
            the host's time to issue the call, then its device time;
@@ -167,7 +170,24 @@ def kernel_times(only=None):
             "kernel": yardsticks(lambda: fa.flash_attention_lse(q, k, v)),
             "library": yardsticks(
                 lambda: torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh))}
-        del qkv, q, k, v, qh, kh, vh
+        out, lse = fa.flash_attention_lse(q, k, v)
+        dout = rnd(bb, s, h, d).bfloat16()
+        case = {"kernel": yardsticks(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse))}
+        leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+        o_l, g_l = sdpa(*leaves), dout.transpose(1, 2).contiguous()
+        case["library"] = yardsticks(
+            lambda: torch.autograd.grad(o_l, leaves, g_l, retain_graph=True))
+        del leaves, o_l, g_l
+        if 4 * bb * h * s * s <= 2 ** 33:   # the plain version's fp32 [B, H, S, S]
+            # dQ, dK, dV: the largest error over their largest value
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+            want = fa.attention_bwd_plain(q, k, v, out, dout)
+            case["max_rel_err"] = max(
+                float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                for g, w in zip(got, want))
+            del got, want
+        res[f"flash bwd {path} {shape}"] = case
+        del qkv, q, k, v, qh, kh, vh, out, lse, dout
         torch.cuda.empty_cache()
     from gaot_torch.ops.cuda import fused_ffn as ff
 
@@ -325,7 +345,8 @@ def main():
                 print(f"{case} | {who} | {y}: {vals}")
         for key in ("max_abs_err", "max_rel_err"):
             if key in runs[0]["kernels"][case]:
-                vals = " ".join(f"{r['kernels'][case][key]:.3g}" for r in runs)
+                vals = " ".join(f"{r['kernels'][case].get(key, float('nan')):.3g}"
+                                for r in runs)
                 print(f"{case} | {key}: {vals}")
     for j, h in enumerate(runs[0].get("host", [])):
         for key in ("median", "wall", "busy", "idle"):

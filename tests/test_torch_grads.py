@@ -59,6 +59,32 @@ def test_gather_multiply_reduce_nbc_matches_vjp(graphs):
     _close(fl.grad, d_f)
 
 
+def test_gather_multiply_reduce_matches_vjp(graphs):
+    """The batched branch of gather_multiply_reduce (f [B, N, C]) with a
+    per-sample coef [B, Q, K, C] (the nonlinear transforms) and the
+    transpose-graph backward."""
+    from gaot_torch.ops.gather_apply import gather_multiply_reduce
+    from gaot_tpu.ops.gather_apply import gather_multiply_reduce as jgmr
+
+    (_, jdec, _, jdec_t), (_, tdec, _, tdec_t) = graphs
+    jg, jt, tg, tt = jdec[0], jdec_t[0], tdec[0], tdec_t[0]
+    q, k = tg.indices.shape
+    n = tt.mask.shape[0]
+    rng = np.random.default_rng(15)
+    coef = rng.normal(size=(tp.BATCH, q, k, C)).astype(np.float32)
+    f = rng.normal(size=(tp.BATCH, n, C)).astype(np.float32)
+    ct = rng.normal(size=(tp.BATCH, q, C)).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b: jgmr(a, b, jg.indices, jt.edge_pos, jt.query,
+                                         jt.mask), jnp.asarray(coef), jnp.asarray(f))
+    d_coef, d_f = vjp(jnp.asarray(ct))
+    cl, fl = _leaf(coef), _leaf(f)
+    got = gather_multiply_reduce(cl, fl, tg.indices, tt.edge_pos, tt.query, tt.mask)
+    _close(got, out)
+    got.backward(torch.from_numpy(ct))
+    _close(cl.grad, d_coef)
+    _close(fl.grad, d_f)
+
+
 def test_bucketed_gather_multiply_reduce_matches_vjp(graphs):
     """Grouped fx transpose graph: d_coef of every bucket and d_f."""
     from gaot_torch.ops.gather_apply import bucketed_gather_multiply_reduce
