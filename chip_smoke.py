@@ -18,8 +18,8 @@ failure):
   1. build: compiles every hand-written kernel (gaot_torch/csrc/*.cu) with
      one nvcc per source, all at once; logs, from nvcc's -Xptxas -v, the
      registers, shared memory and spills of the bf16 flash forward and
-     backward, multiply_reduce_b and the SwiGLU kernels and of every kernel that
-     spills; fails if a bf16 SwiGLU kernel spills.
+     backward, the multiply-reduces and the SwiGLU kernels and of every kernel
+     that spills; fails if a bf16 SwiGLU kernel spills.
   1b. widths: the flash forward (with and without the LSE) and backward at
      every head dim from 8 to 128 and at 136, 256, 1024 (and 8192 at
      S = 128), bf16 and fp32, and the SwiGLU forward and backward at
@@ -30,7 +30,12 @@ failure):
      each kernel against its plain PyTorch version on the card (bf16 and
      fp32), with CUDA-event timings of the kernel, the plain version and one
      PyTorch library call computing the same function (a yardstick only),
-     and the least time the card could take (bound_ms). The flash backward
+     and the least time the card could take (bound_ms). The multiply-reduces,
+     which read their neighbour rows by index, run on each path's own graphs
+     (every degree bucket, in-degree group and transpose graph of a step),
+     timed also beside the parent's pair (the row gather, then the
+     pre-gathered kernel) and the library pair (index_select, then einsum);
+     two calls of each must give the same bits. The flash backward
      is checked once per TPU regime it replaces, at the S its path runs:
      1024 (monolithic), 4096 (q-tiled) and 32768 (the two-kernel long
      backward, which serves S > 4096; plain versions one head at a time),
@@ -50,7 +55,8 @@ failure):
      path's batch in bf16 with the launch counters read around one step, a
      few more steps on one batch, the step timing and its torch.profiler
      breakdown; the long-sequence path's step is driven the same way,
-     without the check.
+     without the check. No forward or step profile may hold PyTorch's row
+     gather (vectorized_gather_kernel).
   5. prints one JSON line listing every kernel of the three paths.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -275,12 +281,12 @@ def phase_card():
 
 
 # The kernels whose ptxas report the build logs, beside that of every kernel
-# that spills: the bf16 flash forward and backward, multiply_reduce_b and the
-# SwiGLU kernels; the bf16 SwiGLU kernels (the forward and backward rows fused at
+# that spills: the bf16 flash forward and backward, the multiply-reduces and
+# the SwiGLU kernels; the bf16 SwiGLU kernels (the forward and backward rows fused at
 # M = 128 and 256, the producer and the GEMM that serve every other width)
 # may not spill.
 PTXAS_LOGGED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
-                "mulred_b_kernel", "ffn_")
+                "mulred_k_kernel", "mulred_b_kernel", "ffn_")
 NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_produce")
 
 
@@ -437,85 +443,165 @@ def _row(err, ms, plain_ms, lib_ms, bound, per, dtype="bf16", **extra):
                 bound_ms=bound[0], bound_by=bound[1], per=per, dtype=dtype, **extra)
 
 
-def check_multiply_reduce(rnd, b, c, shapes, df_shapes, what):
-    """multiply_reduce_k at the forward's and d_f's (K, Q) shapes,
-    multiply_reduce_b at the forward's gathered shapes, lanes W = b·C."""
+def _pair_ms(fn_k, fn_parent, fn_lib, fn_plain):
+    """The four times of one call: the kernel, the parent's pair (a row
+    gather, then the pre-gathered kernel), the library pair (index_select,
+    then einsum) and the plain version."""
+    return {key: time_ms(fn) for key, fn in (("ms", fn_k), ("parent_pair_ms", fn_parent),
+                                             ("library_ms", fn_lib), ("plain_ms", fn_plain))}
+
+
+def _distinct_rows(idx, mask=None) -> int:
+    import torch
+
+    return int(torch.unique(idx if mask is None else idx[mask]).numel())
+
+
+def check_multiply_reduce(rnd, b, c, cases, what):
+    """The index-reading multiply_reduce_k (the forward over each graph the
+    step reduces, d_f over each transpose graph or in-degree group) and
+    multiply_reduce_b (d_coef of each forward) on the path's real graphs
+    and indices, lanes W = b·C, against their plain versions (bf16 and
+    fp32); two calls of each must give the same bits. In bf16, each is
+    timed beside the parent's pair (the row gather, then the pre-gathered
+    kernel), the library pair (index_select, then einsum) and the plain
+    version; the bound counts the bytes the fused function must move:
+    coefficients (valid edges × C for d_f), indices of the slots read and
+    masks, the output, and each distinct source row once."""
     import torch
 
     from gaot_torch.ops.cuda import multiply_reduce as mr
 
     w = b * c
-    rows = {}
-    agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "ops": 0.0, "err": 0.0}
-    for title, kq in (("forward", shapes), ("d_f over the transpose graphs", df_shapes)):
-        log(f"multiply_reduce_k ({what}, {title}), W = {b}·{c}:")
-        for dtype in (torch.bfloat16, torch.float32):
-            for k, q in kq:
-                coef = rnd(q, k, c).to(dtype).transpose(0, 1)      # K-major view
-                gath = rnd(k, q, w).to(dtype)
-                # fp32: K-term sums in another order, whose rounding grows
-                # with K (the encoder transpose graph of the flagship has
-                # K = 160; the fx main path's K <= 24).
-                tol = ((8e-3, 1e-2) if dtype == torch.bfloat16
-                       else (1e-5, 1e-5 * max(1.0, k / 16)))
-                err = compare(f"mulred_k {str(dtype)[6:]} K={k} Q={q}",
-                              mr.multiply_reduce_k(coef, gath, b),
-                              mr.multiply_reduce_k_plain(coef, gath, b), *tol)
-                if dtype != torch.bfloat16:
-                    continue
-                nbytes = (k * q * w + k * q * c + q * w) * gath.element_size()
-                ops = 2.0 * k * q * w
-                bnd = bound_ms(nbytes, ops, PEAK_FP32)[0]
-                t_k = time_ms(lambda: mr.multiply_reduce_k(coef, gath, b))
-                t_p = time_ms(lambda: mr.multiply_reduce_k_plain(coef, gath, b))
-                g4 = gath.view(k, q, b, c)
-                t_l = time_ms(lambda: torch.einsum("kqc,kqbc->qbc", coef, g4))
-                log(f"    K={k} Q={q}: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-                    f"library_ms={t_l:.4f} bound_ms={bnd:.4f} "
-                    f"({nbytes / t_k / 1e6:.0f} GB/s)")
-                for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
-                                 ("bytes", nbytes), ("ops", ops)):
-                    agg[key] += val
-                agg["err"] = max(agg["err"], err)
-    rows["multiply_reduce_k"] = _row(
-        agg["err"], agg["ms"], agg["plain_ms"], agg["library_ms"],
-        bound_ms(agg["bytes"], agg["ops"], PEAK_FP32),
-        f"sum of the {len(shapes) + len(df_shapes)} shapes of one training step "
-        f"(the forward runs the first {len(shapes)})")
+    keys = ("ms", "parent_pair_ms", "library_ms", "plain_ms", "bytes", "ops", "err")
+    agg = {name: dict.fromkeys(keys, 0.0) for name in ("multiply_reduce_k",
+                                                        "multiply_reduce_b")}
 
-    log(f"multiply_reduce_b ({what}, d_coef of the forward's gathered rows), "
-        f"W = {b}·{c}:")
-    agg = dict.fromkeys(agg, 0.0)
+    def record(name, label, err, times=None, nbytes=0.0, ops=0.0):
+        a = agg[name]
+        a["err"] = max(a["err"], err)
+        if times is None:
+            return
+        for key, val in times.items():
+            a[key] += val
+        a["bytes"] += nbytes
+        a["ops"] += ops
+        bnd = bound_ms(nbytes, ops, PEAK_FP32)[0]
+        log(f"    {label}: kernel_ms={times['ms']:.4f} parent_pair_ms="
+            f"{times['parent_pair_ms']:.4f} library_ms={times['library_ms']:.4f} "
+            f"plain_ms={times['plain_ms']:.4f} bound_ms={bnd:.4f} "
+            f"({nbytes / times['ms'] / 1e6:.0f} GB/s)")
+
+    def same_bits(label, fn):
+        if not torch.equal(fn(), fn()):
+            fail(f"{label}: two calls on the same inputs differ")
+
+    log(f"multiply_reduce_k / multiply_reduce_b ({what}), W = {b}·{c}, on the "
+        f"path's graphs:")
     for dtype in (torch.bfloat16, torch.float32):
-        for k, q in shapes:
-            gath = rnd(k, q, w).to(dtype)
+        bf16 = dtype == torch.bfloat16
+        size = 2 if bf16 else 4
+        dt = str(dtype)[6:]
+        for case in cases["forward"]:
+            idx, n_src = case["idx"], case["n_src"]
+            q, k = idx.shape
+            src, coef = rnd(n_src, w).to(dtype), rnd(q, k, c).to(dtype)
             dout = rnd(q, w).to(dtype)
+            label = f"{case['name']} [{q}, {k}] {dt}"
+            # fp32: K-term sums in another order, whose rounding grows with K.
+            tol = (8e-3, 1e-2) if bf16 else (1e-5, 1e-5 * max(1.0, k / 16))
+            kern = lambda: mr.gather_multiply_reduce_k(src, idx, coef, b)
+            err = compare(f"mulred_k fwd {label}", kern(),
+                          mr.gather_multiply_reduce_k_plain(src, idx, coef, b), *tol)
+            same_bits(f"mulred_k fwd {label}", kern)
+            kern_b = lambda: mr.gather_multiply_reduce_b(src, idx, dout, b)
             # fp32: b-term sums in another order.
-            tol = (8e-3, 1e-2) if dtype == torch.bfloat16 else (2e-5, 5e-5)
-            err = compare(f"mulred_b {str(dtype)[6:]} K={k} Q={q}",
-                          mr.multiply_reduce_b(gath, dout, b),
-                          mr.multiply_reduce_b_plain(gath, dout, b), *tol)
-            if dtype != torch.bfloat16:
+            tol_b = (8e-3, 1e-2) if bf16 else (2e-5, 5e-5)
+            err_b = compare(f"mulred_b {label}", kern_b(),
+                            mr.gather_multiply_reduce_b_plain(src, idx, dout, b), *tol_b)
+            same_bits(f"mulred_b {label}", kern_b)
+            if not bf16:
+                record("multiply_reduce_k", label, err)
+                record("multiply_reduce_b", label, err_b)
                 continue
-            nbytes = (k * q * w + q * w + k * q * c) * gath.element_size()
-            ops = 2.0 * k * q * w
-            bnd = bound_ms(nbytes, ops, PEAK_FP32)[0]
-            t_k = time_ms(lambda: mr.multiply_reduce_b(gath, dout, b))
-            t_p = time_ms(lambda: mr.multiply_reduce_b_plain(gath, dout, b))
-            g4, d3 = gath.view(k, q, b, c), dout.view(q, b, c)
-            t_l = time_ms(lambda: torch.einsum("kqbc,qbc->kqc", g4, d3))
-            log(f"    K={k} Q={q}: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-                f"library_ms={t_l:.4f} bound_ms={bnd:.4f} "
-                f"({nbytes / t_k / 1e6:.0f} GB/s)")
-            for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
-                             ("bytes", nbytes), ("ops", ops)):
-                agg[key] += val
-            agg["err"] = max(agg["err"], err)
-    rows["multiply_reduce_b"] = _row(
-        agg["err"], agg["ms"], agg["plain_ms"], agg["library_ms"],
-        bound_ms(agg["bytes"], agg["ops"], PEAK_FP32),
-        f"sum of the {len(shapes)} shapes of one training step")
+            idx_t = idx.t().reshape(-1)
+            coef_km, c4 = coef.transpose(0, 1), coef
+            gath_km = lambda: src.index_select(0, idx_t).view(k, q, w)
+            rows = lambda: src.index_select(0, idx.reshape(-1)).view(q, k, b, c)
+            d3 = dout.view(q, b, c)
+            nrows = _distinct_rows(idx)
+            times = _pair_ms(kern, lambda: mr.multiply_reduce_k(coef_km, gath_km(), b),
+                             lambda: torch.einsum("qkc,qkbc->qbc", c4, rows()),
+                             lambda: mr.gather_multiply_reduce_k_plain(src, idx, coef, b))
+            record("multiply_reduce_k", f"fwd {label}", err, times,
+                   (q * k * c + q * w + nrows * w) * size + q * k * 8, 2.0 * q * k * w)
+            times = _pair_ms(kern_b, lambda: mr.multiply_reduce_b(gath_km(), dout, b),
+                             lambda: torch.einsum("qkbc,qbc->qkc", rows(), d3),
+                             lambda: mr.gather_multiply_reduce_b_plain(src, idx, dout, b))
+            record("multiply_reduce_b", f"d_coef {label}", err_b, times,
+                   (q * w + q * k * c + nrows * w) * size + q * k * 8, 2.0 * q * k * w)
+        for case in cases["d_f"]:
+            tq, ep, tm, row_map = case["query"], case["edge_pos"], case["mask"], case["row_map"]
+            q, k = tq.shape
+            n_out = case["n_out"]
+            dout2 = rnd(case["n_dout"], w).to(dtype)
+            table = rnd(case["n_edges"], c).to(dtype)
+            out = torch.zeros(n_out, w, dtype=dtype, device="cuda")
+            kw = dict(coef_idx=ep, mask=tm)
+            if row_map is not None:
+                kw.update(row_map=row_map, out=out)
+            label = f"{case['name']} [{q}, {k}] {dt}"
+            tol = (8e-3, 1e-2) if bf16 else (1e-5, 1e-5 * max(1.0, k / 16))
+            kern = lambda: mr.gather_multiply_reduce_k(dout2, tq, table, b, **kw)
+            got = kern()
+            want = mr.gather_multiply_reduce_k_plain(dout2, tq, table, b, coef_idx=ep,
+                                                     mask=tm)
+            if row_map is not None:
+                got = got[row_map]
+            err = compare(f"mulred_k d_f {label}", got, want, *tol)
+            same_bits(f"mulred_k d_f {label}", lambda: kern().clone())
+            if not bf16:
+                record("multiply_reduce_k", label, err)
+                continue
+            tm_km = tm.t()[..., None]
+            ep_t, tq_t = ep.t().reshape(-1), tq.t().reshape(-1)
+
+            def parent():
+                cg = torch.where(tm_km, table.index_select(0, ep_t).view(k, q, c), 0)
+                return mr.multiply_reduce_k(cg, dout2.index_select(0, tq_t).view(k, q, w), b)
+
+            def library():
+                cf = torch.where(tm[..., None],
+                                 table.index_select(0, ep.reshape(-1)).view(q, k, c), 0)
+                rows = dout2.index_select(0, tq.reshape(-1)).view(q, k, b, c)
+                return torch.einsum("qkc,qkbc->qbc", cf, rows)
+
+            valid = int(tm.sum())
+            nbytes = ((valid * c + q * w + _distinct_rows(tq, tm) * w) * size
+                      + valid * 16 + q * k + (q * 8 if row_map is not None else 0))
+            times = _pair_ms(kern, parent, library,
+                             lambda: mr.gather_multiply_reduce_k_plain(
+                                 dout2, tq, table, b, coef_idx=ep, mask=tm))
+            record("multiply_reduce_k",
+                   f"d_f {label} (valid slots {valid / (q * k):.2f})", err, times,
+                   nbytes, 2.0 * valid * w)
+        torch.cuda.empty_cache()
+    nf, nd = len(cases["forward"]), len(cases["d_f"])
+    rows = {}
+    for name, per in (("multiply_reduce_k",
+                       f"sum of the {nf + nd} calls of one training step (the "
+                       f"forward runs the first {nf}); parent_pair_ms: the row "
+                       f"gathers and the pre-gathered kernel"),
+                      ("multiply_reduce_b",
+                       f"sum of the {nf} calls of one training step; "
+                       f"parent_pair_ms: the row gather and the pre-gathered kernel")):
+        a = agg[name]
+        rows[name] = _row(a["err"], a["ms"], a["plain_ms"], a["library_ms"],
+                          bound_ms(a["bytes"], a["ops"], PEAK_FP32), per,
+                          parent_pair_ms=a["parent_pair_ms"])
+        log(f"  {name} ({what}), all calls: kernel_ms={a['ms']:.4f} "
+            f"parent_pair_ms={a['parent_pair_ms']:.4f} library_ms={a['library_ms']:.4f} "
+            f"plain_ms={a['plain_ms']:.4f} bound_ms={rows[name]['bound_ms']:.4f}")
     return rows
 
 
@@ -728,36 +814,56 @@ def check_ffn(rnd):
     return rows
 
 
-def _reduce_shapes(path: Path, what: str):
-    """The (K, Q) shapes multiply_reduce_k runs at in one training step of
-    ``path`` (forward, then d_f), as the port lays out its graphs."""
-    from gaot_torch.ops.padding import (TransposeGraph, bucketize_graph,
-                                        degree_group_tgraph, transpose_graph)
+def _reduce_cases(path: Path, what: str):
+    """The calls multiply_reduce_k makes in one training step of ``path``,
+    on the graphs the model is given (``prepare_fx_device_graphs``, on the
+    card): "forward", each graph or degree bucket reduced (idx [Q, K] into
+    n_src source rows; multiply_reduce_b runs on the same), and "d_f",
+    each flat transpose graph or in-degree group (query, edge_pos, mask
+    [N, Kt]; n_dout rows of dout, n_edges coefficient rows, n_out output
+    rows; a group writes its rows through row_map)."""
+    from gaot_torch.data.graph_builder import prepare_fx_device_graphs
+    from gaot_torch.ops.gather_apply import grouped_row_nodes
+    from gaot_torch.ops.padding import BucketedGraph
 
     n, nq = path.coords.shape[0], path.lat.shape[0]
-    shapes, df_shapes, desc = [], [], []
-    for g, src, side in ((path.enc[0], n, "encoder"), (path.dec[0], nq, "decoder")):
-        bg = bucketize_graph(g, src)
-        if bg is None:                  # dense, with a flat transpose graph
-            shapes.append((g.indices.shape[1], g.indices.shape[0]))
-            t = transpose_graph(g, src)
-            df_shapes.append((t.mask.shape[1], t.mask.shape[0]))
-            desc.append(f"{side} dense {tuple(g.indices.shape)}, transpose "
-                        f"{tuple(t.mask.shape)} (mean in-degree "
-                        f"{float(t.mask.sum(1).mean()):.1f})")
+    enc, dec, enc_t, dec_t = prepare_fx_device_graphs(
+        path.enc, path.dec, n, nq, path.cfg.model.args.magno, device="cuda")
+    cases = {"forward": [], "d_f": []}
+    desc = []
+    for side, g, t, n_src in (("encoder", enc[0], enc_t and enc_t[0], n),
+                              ("decoder", dec[0], dec_t and dec_t[0], nq)):
+        if isinstance(g, BucketedGraph):
+            rows = sum(bk.indices.shape[0] for bk in g.buckets)
+            cases["forward"] += [dict(name=f"{side} bucket", idx=bk.indices, n_src=n_src)
+                                 for bk in g.buckets]
+            perm = grouped_row_nodes(g.tgraph)
+            off = 0
+            for gr in g.tgraph.groups:
+                r = gr.mask.shape[1]
+                cases["d_f"].append(dict(
+                    name=f"{side} in-degree group", query=gr.query[0],
+                    edge_pos=gr.edge_pos[0], mask=gr.mask[0], row_map=perm[off:off + r],
+                    n_out=n_src, n_dout=rows,
+                    n_edges=sum(bk.indices.numel() for bk in g.buckets)))
+                off += r
+            desc.append(f"{side} buckets {[tuple(bk.indices.shape) for bk in g.buckets]}, "
+                        f"in-degree groups {[tuple(gr.mask.shape[1:]) for gr in g.tgraph.groups]}")
             continue
-        shapes += [(b.indices.shape[1], b.indices.shape[0]) for b in bg.buckets]
-        t = bg.tgraph
-        groups = degree_group_tgraph(TransposeGraph(t.edge_pos[None], t.query[None],
-                                                    t.mask[None])).groups
-        df_shapes += [(gr.mask.shape[2], gr.mask.shape[1]) for gr in groups]
-        desc.append(f"{side} buckets (K, Q) {shapes[-len(bg.buckets):]}, "
-                    f"in-degree groups (K, N) {df_shapes[-len(groups):]}")
-    log(f"{what} reduce shapes: " + "; ".join(desc))
+        q = g.indices.shape[0]
+        cases["forward"].append(dict(name=f"{side} dense", idx=g.indices, n_src=n_src))
+        cases["d_f"].append(dict(name=f"{side} transpose", query=t.query,
+                                 edge_pos=t.edge_pos, mask=t.mask, row_map=None,
+                                 n_out=n_src, n_dout=q, n_edges=g.indices.numel()))
+        desc.append(f"{side} dense {tuple(g.indices.shape)}, transpose "
+                    f"{tuple(t.mask.shape)} (mean in-degree "
+                    f"{float(t.mask.sum(1).float().mean()):.1f})")
+    log(f"{what} reduce graphs: " + "; ".join(desc))
     want = path.train_launches["multiply_reduce_k"]
-    if len(shapes) + len(df_shapes) != want:
-        fail(f"{what}: expected {want} multiply-reduce shapes, got {shapes} and {df_shapes}")
-    return shapes, df_shapes
+    got = len(cases["forward"]) + len(cases["d_f"])
+    if got != want:
+        fail(f"{what}: expected {want} multiply-reduce calls, the graphs give {got}")
+    return cases
 
 
 def _model_and_graphs(path: Path, dtype, device):
@@ -1069,6 +1175,14 @@ def profile_step(run, what: str, steps: int = 10, top: int = 20):
     for e in events[:top]:
         log(f"    {e.self_device_time_total / 1e3 / steps:9.4f} ms "
             f"{e.count / steps:6.1f} calls  {e.key[:100]}")
+    # The AGNO apply reads its rows by index: PyTorch's row gather (the
+    # index_select of a leading axis) must not run on any path.
+    gathers = [e for e in events if "vectorized_gather_kernel" in e.key]
+    log(f"  row gathers (vectorized_gather_kernel) per step: "
+        f"{sum(e.count for e in gathers) / steps:.1f} calls, "
+        f"{sum(e.self_device_time_total for e in gathers) / 1e3 / steps:.4f} ms")
+    if gathers:
+        fail(f"the {what} still runs PyTorch's row gather")
 
 
 def _entries(rows, names, launches, path: str, suffix: str = ""):
@@ -1116,8 +1230,8 @@ def main() -> int:
     cfg_long.model.args.transformer.patch_size = PATCH_LONG
     long_path = flagship._replace(name="3D long", cfg=cfg_long, seq=SEQ_LONG,
                                   check_batch=0, batch=BATCH_LONG)
-    shapes, df_shapes = _reduce_shapes(main_path, "fx main path")
-    shapes3, df_shapes3 = _reduce_shapes(flagship, "3D flagship")
+    cases = _reduce_cases(main_path, "fx main path")
+    cases3 = _reduce_cases(flagship, "3D flagship")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -1127,13 +1241,11 @@ def main() -> int:
     d3 = tcfg3.hidden_size // h3
     c3 = cfg3.model.args.magno.lifting_channels
     checks = {
-        "main": {**check_multiply_reduce(rnd, BATCH, 64, shapes, df_shapes, "fx main path"),
+        "main": {**check_multiply_reduce(rnd, BATCH, 64, cases, "fx main path"),
                  **check_flash(rnd, BATCH, SEQ, 8, 32), **check_ffn(rnd)},
-        "3d": {**check_multiply_reduce(rnd, BATCH_3D, c3, shapes3, df_shapes3,
-                                       "3D flagship"),
+        "3d": {**check_multiply_reduce(rnd, BATCH_3D, c3, cases3, "3D flagship"),
                **check_flash(rnd, BATCH_3D, SEQ_3D, h3, d3)},
-        "long": {**check_multiply_reduce(rnd, BATCH_LONG, c3, shapes3, df_shapes3,
-                                         "3D long"),
+        "long": {**check_multiply_reduce(rnd, BATCH_LONG, c3, cases3, "3D long"),
                  **check_flash(rnd, BATCH_LONG, SEQ_LONG, h3, d3, with_eval=False)},
     }
     # The long backward's regime at a length where the plain versions hold

@@ -2,29 +2,23 @@
 
 Computes  out[b, q, c] = Σ_k coef[q, k, c] · f[b, idx[q, k], c]
 (padded edges already carry coef == 0), the counterpart of the fx routes of
-``gaot_tpu/ops/gather_apply.py``. The neighbour rows are gathered K-major
-as whole [B·C] rows of the node-leading features (``bulk_gather``, an
-``index_select``), then reduced over k by the multiply-reduce kernel
-(``ops/cuda/multiply_reduce.py``).
+``gaot_tpu/ops/gather_apply.py``. The node-leading features are read as
+whole [B·C] rows by index inside the multiply-reduce kernel
+(``ops/cuda/multiply_reduce.py``); no gathered copy of them is made.
 
 The gradients are ``torch.autograd.Function``s whose backward gathers and
-never scatters, as the JAX package's custom VJPs do: d_coef reduces the
-gathered rows the forward saved against dout (``multiply_reduce_b``), and
-d_f gathers the per-edge coefficients and the dout rows through the
-transpose graph and reduces them with ``multiply_reduce_k``.
+never scatters, as the JAX package's custom VJPs do: d_coef reduces the rows
+of f, read by the forward's indices, against dout
+(``gather_multiply_reduce_b``), and d_f reduces the dout rows and the
+per-edge coefficients, both read through the transpose graph, with
+``gather_multiply_reduce_k`` (masked slots read nothing).
 """
 from __future__ import annotations
 
 import torch
 
-from .cuda.multiply_reduce import multiply_reduce_b, multiply_reduce_k
+from .cuda.multiply_reduce import gather_multiply_reduce_b, gather_multiply_reduce_k
 from .padding import GroupedTransposeGraph
-
-
-def bulk_gather(f2d: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """Leading-axis row gather: f2d [N, W], indices [...] → [..., W]."""
-    rows = f2d.index_select(0, indices.reshape(-1))
-    return rows.view(*indices.shape, f2d.shape[-1])
 
 
 def _forward(coef: torch.Tensor, f: torch.Tensor,
@@ -38,40 +32,41 @@ def _forward(coef: torch.Tensor, f: torch.Tensor,
 
 def _transpose_df(coef_flat: torch.Tensor, dout2: torch.Tensor,
                   edge_pos: torch.Tensor, tquery: torch.Tensor,
-                  tmask: torch.Tensor, b: int) -> torch.Tensor:
+                  tmask: torch.Tensor, b: int, **out) -> torch.Tensor:
     """d_f rows of one transpose graph [N, Kt]: Σ_j coef_flat[edge_pos[n, j]]
-    · dout2[tquery[n, j]] over the unmasked j. Returns [N, b·C]."""
-    cg = torch.where(tmask.t()[..., None], bulk_gather(coef_flat, edge_pos.t()),
-                     0)                                           # [Kt, N, C]
-    dg = bulk_gather(dout2, tquery.t())                           # [Kt, N, W]
-    return multiply_reduce_k(cg, dg, b)
+    · dout2[tquery[n, j]] over the unmasked j. Returns [N, b·C], or writes
+    them into ``out`` at ``row_map``."""
+    return gather_multiply_reduce_k(dout2, tquery, coef_flat, b, coef_idx=edge_pos,
+                                    mask=tmask, **out)
 
 
 class _GatherMultiplyReduceNBC(torch.autograd.Function):
-    """After ``gather_multiply_reduce_nbc`` (``_nbc_fwd`` / ``_nbc_bwd``)."""
+    """After ``gather_multiply_reduce_nbc`` (``_nbc_fwd`` / ``_nbc_bwd``).
+    The forward saves f, the coefficients and the graph, not gathered rows:
+    d_coef reads the rows of f by index again."""
 
     @staticmethod
     def forward(ctx, coef, f, indices, edge_pos, tquery, tmask):
         q, k, c = coef.shape
         n, b, _ = f.shape
-        gath = bulk_gather(f.reshape(n, b * c), indices.t())       # [K, Q, W]
-        ctx.save_for_backward(coef, gath, edge_pos, tquery, tmask)
-        return multiply_reduce_k(coef.transpose(0, 1), gath, b).view(q, b, c)
+        ctx.save_for_backward(coef, f, indices, edge_pos, tquery, tmask)
+        return gather_multiply_reduce_k(f.reshape(n, b * c), indices, coef,
+                                        b).view(q, b, c)
 
     @staticmethod
     def backward(ctx, dout):
-        coef, gath, edge_pos, tquery, tmask = ctx.saved_tensors
+        coef, f, indices, edge_pos, tquery, tmask = ctx.saved_tensors
         q, _, c = coef.shape
-        b = dout.shape[1]
-        f_dtype = gath.dtype
+        n, b, _ = f.shape
         # The cotangent often arrives in fp32; both gradients go back in the
-        # feature/parameter dtypes, so it is gathered in the feature dtype.
-        dout2 = dout.to(f_dtype).reshape(q, b * c).contiguous()
+        # feature/parameter dtypes, so it is read in the feature dtype.
+        dout2 = dout.to(f.dtype).reshape(q, b * c).contiguous()
         d_coef = d_f = None
         if ctx.needs_input_grad[0]:
-            d_coef = multiply_reduce_b(gath, dout2, b).transpose(0, 1).to(coef.dtype)
+            d_coef = gather_multiply_reduce_b(f.reshape(n, b * c), indices, dout2,
+                                              b).to(coef.dtype)
         if ctx.needs_input_grad[1]:
-            d_f = _transpose_df(coef.reshape(-1, c).to(f_dtype), dout2, edge_pos,
+            d_f = _transpose_df(coef.reshape(-1, c).to(f.dtype), dout2, edge_pos,
                                 tquery, tmask, b)
             d_f = d_f.view(tmask.shape[0], b, c)
         return d_coef, d_f, None, None, None, None
@@ -123,7 +118,9 @@ def gather_multiply_reduce(coef: torch.Tensor, f: torch.Tensor,
 class _BucketedGatherMultiplyReduce(torch.autograd.Function):
     """After ``bucketed_gather_multiply_reduce`` (``_bucketed_fwd`` /
     ``_bucketed_bwd`` and the fx branch of ``_bucketed_df``). The per-bucket
-    coefs come last, one tensor argument each, so each gets its gradient."""
+    coefs come last, one tensor argument each, so each gets its gradient.
+    Each bucket's reduce writes its rows straight into the one output; the
+    forward saves f, the coefficients and the indices."""
 
     @staticmethod
     def forward(ctx, f, indices, tgraph, *coefs):
@@ -133,55 +130,64 @@ class _BucketedGatherMultiplyReduce(torch.autograd.Function):
                 "(magno.use_transpose_backward)")
         n, b, c = f.shape
         f2d = f.reshape(n, b * c)
-        outs, gaths = [], []
+        out = f2d.new_empty((sum(cf.shape[0] for cf in coefs), b * c))
+        off = 0
         for coef, idx in zip(coefs, indices):
-            gath = bulk_gather(f2d, idx.t())                       # [Kb, Qb, W]
-            gaths.append(gath)
-            outs.append(multiply_reduce_k(coef.transpose(0, 1), gath, b))
-        ctx.save_for_backward(*coefs, *gaths)
-        ctx.tgraph, ctx.n = tgraph, n
-        return torch.cat(outs, 0).view(-1, b, c)
+            qb = coef.shape[0]
+            gather_multiply_reduce_k(f2d, idx, coef, b, out=out[off:off + qb])
+            off += qb
+        ctx.save_for_backward(f, *coefs, *indices)
+        ctx.tgraph = tgraph
+        return out.view(-1, b, c)
 
     @staticmethod
     def backward(ctx, dout):
-        saved = ctx.saved_tensors
+        f, *saved = ctx.saved_tensors
         nb = len(saved) // 2
-        coefs, gaths = saved[:nb], saved[nb:]
-        c = coefs[0].shape[-1]
-        b = dout.shape[1]
-        f_dtype = gaths[0].dtype
-        dout2 = dout.to(f_dtype).reshape(-1, b * c).contiguous()
+        coefs, indices = saved[:nb], saved[nb:]
+        n, b, c = f.shape
+        f2d = f.reshape(n, b * c)
+        dout2 = dout.to(f.dtype).reshape(-1, b * c).contiguous()
         d_coefs, off = [], 0
-        for i, (coef, gath) in enumerate(zip(coefs, gaths)):
+        for i, (coef, idx) in enumerate(zip(coefs, indices)):
             qb = coef.shape[0]
             d_coefs.append(
-                multiply_reduce_b(gath, dout2[off:off + qb], b)
-                .transpose(0, 1).to(coef.dtype)
-                if ctx.needs_input_grad[3 + i] else None)
+                gather_multiply_reduce_b(f2d, idx, dout2[off:off + qb], b)
+                .to(coef.dtype) if ctx.needs_input_grad[3 + i] else None)
             off += qb
         d_f = None
         if ctx.needs_input_grad[0]:
-            coef_flat = torch.cat([cf.reshape(-1, c) for cf in coefs]).to(f_dtype)
-            d_f = _bucketed_df(coef_flat, dout2, ctx.tgraph, b).view(ctx.n, b, c)
+            coef_flat = torch.cat([cf.reshape(-1, c) for cf in coefs]).to(f.dtype)
+            d_f = _bucketed_df(coef_flat, dout2, ctx.tgraph, b).view(n, b, c)
         return (d_f, None, None, *d_coefs)
+
+
+def grouped_row_nodes(tgraph: GroupedTransposeGraph) -> torch.Tensor:
+    """The node of each row of the concatenated in-degree groups (of the
+    first sample): the inverse of ``inv_perm[0]``."""
+    inv = tgraph.inv_perm[0]
+    perm = torch.empty_like(inv)
+    perm[inv] = torch.arange(inv.shape[0], dtype=inv.dtype, device=inv.device)
+    return perm
 
 
 def _bucketed_df(coef_flat: torch.Tensor, dout2: torch.Tensor, tgraph,
                  b: int) -> torch.Tensor:
     """d_f [N, b·C] over the combined transpose graph of the buckets: one
-    pass per in-degree group, then the rows back to node order (grouped), or
-    one pass over the flat transpose graph."""
+    pass per in-degree group, each writing its rows straight to node order
+    (grouped), or one pass over the flat transpose graph."""
     if not isinstance(tgraph, GroupedTransposeGraph):
         return _transpose_df(coef_flat, dout2, tgraph.edge_pos, tgraph.query,
                              tgraph.mask, b)
-    es, rows = coef_flat.shape[0], dout2.shape[0]
-    parts = []
+    perm = grouped_row_nodes(tgraph)
+    out = dout2.new_empty((perm.shape[0], dout2.shape[1]))
+    off = 0
     for g in tgraph.groups:
-        # Padded slots are clipped into range and masked: on the card an
-        # out-of-range index is a device fault, not a zero.
-        parts.append(_transpose_df(coef_flat, dout2, g.edge_pos[0].clamp(0, es - 1),
-                                   g.query[0].clamp(0, rows - 1), g.mask[0], b))
-    return torch.cat(parts, 0).index_select(0, tgraph.inv_perm[0])
+        rows = g.mask.shape[1]
+        _transpose_df(coef_flat, dout2, g.edge_pos[0], g.query[0], g.mask[0], b,
+                      row_map=perm[off:off + rows], out=out)
+        off += rows
+    return out
 
 
 def bucketed_gather_multiply_reduce(coefs, f: torch.Tensor, indices,

@@ -5,6 +5,7 @@ side in one run on one NVIDIA card.
     python3 kernel_ab.py ROOT [ROOT ...]          # e.g. old . . old
     python3 kernel_ab.py --build ROOT [ROOT ...]
     python3 kernel_ab.py --only fused_ffn --kernels-only ROOT [ROOT ...]
+    python3 kernel_ab.py --only agno --kernels-only ROOT [ROOT ...]
 
 ROOT is the root of a checkout (its gaot_torch/, chip_smoke.py and config/
 are enough). Each ROOT runs in a process of its own, in the order given, so
@@ -20,6 +21,12 @@ and times, on tensors made from one seed:
   - the bf16 SwiGLU forward and backward at the fx shape (R = 65536,
     M = 256, F = 1024) and at the other fused width (M = 128, F = 512),
     with their largest error against the plain versions;
+  - the AGNO apply, forward and forward + backward (d_coef, d_f), of each
+    path's encoder and decoder graph at its batch and channels, on the
+    graphs the model is given (``bucketed_gather_multiply_reduce`` for the
+    fx main path's bucketed encoder, ``gather_multiply_reduce_nbc``
+    otherwise): the public functions, so every checkout times its own
+    route through them;
   - the PyTorch library call that computes the same function (einsum; SDPA,
     or its aten entry that also returns the LSE, and SDPA's autograd; the
     SwiGLU's three products, and autograd of them);
@@ -221,13 +228,81 @@ def kernel_times(only=None):
     return res
 
 
-def drive_paths(root):
-    """The batch forward and training step of the fx main path and the 3D
-    flagship through ROOT's chip_smoke.py (launch counts checked there)."""
+def _load_chip_smoke(root):
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_of_root", os.path.join(root, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def agno_times(root):
+    """{case: {"kernel": {yardstick: ms}}}: the AGNO apply of each path's
+    two graphs, forward and forward + backward (d_coef and d_f), on the
+    graphs the model is given (bf16, B and C of the path): the fx main
+    path's bucketed encoder (``bucketed_gather_multiply_reduce``) and dense
+    decoder, the 3D flagship's and the long path's dense encoder and
+    decoder (``gather_multiply_reduce_nbc``)."""
+    import torch
+
+    from gaot_torch.core.config import GAOTConfig, load_experiment_config, merge_config
+    from gaot_torch.data.graph_builder import prepare_fx_device_graphs
+    from gaot_torch.ops import gather_apply as ga
+    from gaot_torch.ops.padding import BucketedGraph
+
+    cs = _load_chip_smoke(root)
+    cfg = load_experiment_config(cs.CONFIG)
+    cfg3 = merge_config(GAOTConfig, cs.CONFIG_3D)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").bfloat16()
+    res = {}
+    graphs3 = None
+    for path, c, bb in (("fx", cfg, cs.BATCH), ("3d", cfg3, cs.BATCH_3D),
+                        ("long", cfg3, cs.BATCH_LONG)):
+        magno = c.model.args.magno
+        if path == "fx":
+            coords, lat, enc, dec = cs._host_graphs(c, cs.NUM_NODES, cs.LATENT, path)
+        elif graphs3 is None:
+            graphs3 = cs._host_graphs(c, cs.NODES_3D, cs.LATENT_3D, path)
+        if path != "fx":
+            coords, lat, enc, dec = graphs3
+        n, nq, ch = coords.shape[0], lat.shape[0], magno.lifting_channels
+        e, d, et, dt = prepare_fx_device_graphs(enc, dec, n, nq, magno, device="cuda")
+        for side, g, t, n_src in (("encoder", e[0], et and et[0], n),
+                                  ("decoder", d[0], dt and dt[0], nq)):
+            f = rnd(n_src, bb, ch).requires_grad_(True)
+            if isinstance(g, BucketedGraph):
+                coefs = [rnd(*bk.indices.shape, ch).requires_grad_(True)
+                         for bk in g.buckets]
+                idx = [bk.indices for bk in g.buckets]
+                fwd = lambda: ga.bucketed_gather_multiply_reduce(coefs, f, idx, g.tgraph)
+                leaves = coefs + [f]
+                shape = f"buckets {[tuple(i.shape) for i in idx]}"
+            else:
+                coef = rnd(*g.indices.shape, ch).requires_grad_(True)
+                fwd = lambda: ga.gather_multiply_reduce_nbc(coef, f, g.indices, t.edge_pos,
+                                                            t.query, t.mask)
+                leaves = [coef, f]
+                shape = f"{tuple(g.indices.shape)}, transpose {tuple(t.mask.shape)}"
+            dout = rnd(*fwd().shape)
+
+            def step():
+                return torch.autograd.grad(fwd(), leaves, dout)
+
+            with torch.no_grad():
+                res[f"agno fwd {path} {side} {shape} B={bb} C={ch}"] = {
+                    "kernel": yardsticks(fwd)}
+            res[f"agno fwd+bwd {path} {side} {shape} B={bb} C={ch}"] = {
+                "kernel": yardsticks(step)}
+            del f, leaves, dout
+            torch.cuda.empty_cache()
+    return res
+
+
+def drive_paths(root):
+    """The batch forward and training step of the fx main path and the 3D
+    flagship through ROOT's chip_smoke.py (launch counts checked there)."""
+    cs = _load_chip_smoke(root)
     from gaot_torch.core.config import GAOTConfig, load_experiment_config, merge_config
 
     cs.phase_card()
@@ -268,6 +343,8 @@ def child(root, build_only, only, kernels_only):
     result = {"build_wall_s": time.perf_counter() - t0, "build_s": secs}
     if not build_only:
         result["kernels"] = kernel_times(only)
+        if only in (None, "agno"):
+            result["kernels"].update(agno_times(root))
     print("RESULT " + json.dumps(result), flush=True)
     if not (build_only or kernels_only):
         drive_paths(root)
@@ -301,7 +378,7 @@ def main():
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--build", action="store_true",
                     help="only build each ROOT's kernels from nothing, and time it")
-    ap.add_argument("--only", choices=("multiply_reduce_b", "flash", "fused_ffn"),
+    ap.add_argument("--only", choices=("multiply_reduce_b", "flash", "fused_ffn", "agno"),
                     help="time this kernel's cases alone")
     ap.add_argument("--kernels-only", action="store_true",
                     help="time the kernels, without driving the paths")
@@ -340,6 +417,8 @@ def main():
         return 0
     for case in runs[0]["kernels"]:
         for who in ("kernel", "library"):
+            if who not in runs[0]["kernels"][case]:
+                continue
             for y in ("single", "batched", "device"):
                 vals = " ".join(f"{r['kernels'][case][who][y]:.4f}" for r in runs)
                 print(f"{case} | {who} | {y}: {vals}")

@@ -1,6 +1,8 @@
 """gaot_torch's CUDA kernels against their plain versions on the card, at the
 shapes the main path does not reach: GQA, ragged sequence and row counts,
 channel counts without 16-byte vectors, coef staged in several k-chunks,
+the index-reading reduces at every path's lanes with masked slots, K = 0,
+int32 indices and an output row map (and two calls bitwise identical),
 the narrow lanes of the 3D paths (b = 1 and 4 at C = 16, C = 8) with query
 counts that do not fill a block, fp32 attention, every head dim from 8 to
 128 and two above (136, 256) at ragged lengths and GQA, head dim 24 at the
@@ -94,6 +96,100 @@ def test_multiply_reduce_b(dtype, k, q, c, b):
     torch.cuda.synchronize()
     assert mr.launches["multiply_reduce_b"] == n0 + 1
     _close(got, mr.multiply_reduce_b_plain(gath, dout, b), dtype)
+
+
+# (K, Q, b, C, index dtype, form) of the index-reading reduce: the paths'
+# lane widths W = 16 (long), 64 (flagship) and 4096 (fx), the flagship's
+# transpose fan-in K = 160 with most slots masked (its slots split into 4
+# slices at W = 64 and 16 at W = 16, the last block of rows partial), no
+# 16-byte vectors (C = 6), K = 0, int32 indices. "fwd": coefficients per edge, every slot;
+# "strided": the same with coefficients in a K-major view; "df": a table
+# read by a second index, left-packed masks with all-masked rows, and an
+# output row map into a larger output.
+_GATHER_K = [(8, 1000, 1, 16, torch.int64, "fwd"), (8, 333, 4, 16, torch.int32, "df"),
+             (24, 60, 64, 64, torch.int64, "df"), (160, 70, 4, 16, torch.int64, "df"),
+             (160, 50, 1, 16, torch.int32, "df"), (40, 33, 2, 8, torch.int64, "fwd"),
+             (5, 37, 5, 6, torch.int32, "fwd"), (7, 41, 5, 6, torch.int64, "df"),
+             (0, 16, 2, 8, torch.int64, "df"), (9, 130, 3, 64, torch.int64, "strided")]
+
+
+def _gather_k_inputs(gen, dtype, k, q, b, c, itype, form, n=300):
+    """src, idx, coef and the keyword arguments of one gathering call."""
+    src = _rnd(gen, n, b * c).to(dtype)
+    idx = torch.randint(0, n, (q, k), generator=gen, device="cuda").to(itype)
+    kw = {}
+    if form == "df":
+        deg = torch.randint(0, k + 1, (q, 1), generator=gen, device="cuda")
+        deg[::7] = 0                                    # rows with no valid slot
+        kw["mask"] = torch.arange(k, device="cuda")[None] < deg
+        idx = torch.where(kw["mask"], idx, -1)          # masked: never read
+        coef = _rnd(gen, 5 * max(q * k, 1), c).to(dtype)
+        kw["coef_idx"] = torch.randint(0, coef.shape[0], (q, k), generator=gen,
+                                       device="cuda").to(itype)
+        kw["row_map"] = torch.randperm(q + 9, generator=gen, device="cuda")[:q].to(itype)
+        kw["out"] = torch.zeros(q + 9, b * c, dtype=dtype, device="cuda")
+    elif form == "strided":
+        coef = _rnd(gen, k, q, c).to(dtype).transpose(0, 1)
+    else:
+        coef = _rnd(gen, q, k, c).to(dtype)
+    return src, idx, coef, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,q,b,c,itype,form", _GATHER_K)
+def test_gather_multiply_reduce_k(dtype, k, q, b, c, itype, form):
+    from gaot_torch.ops.cuda import multiply_reduce as mr
+
+    gen = torch.Generator(device="cuda").manual_seed(k + q)
+    src, idx, coef, kw = _gather_k_inputs(gen, dtype, k, q, b, c, itype, form)
+    plain_kw = {key: (v.clone() if key == "out" else v) for key, v in kw.items()}
+    n0 = mr.launches["multiply_reduce_k"]
+    got = mr.gather_multiply_reduce_k(src, idx, coef, b, **kw)
+    torch.cuda.synchronize()
+    assert mr.launches["multiply_reduce_k"] == n0 + 1
+    want = mr.gather_multiply_reduce_k_plain(src, idx, coef, b, **plain_kw)
+    _close(got, want, dtype)
+    if form == "df":                                    # rows with no valid slot
+        assert not got[kw["row_map"][::7].long()].any()
+
+
+_GATHER_B = [(8, 1000, 1, 16, torch.int64), (8, 333, 4, 16, torch.int32),
+             (5, 96, 64, 64, torch.int64), (3, 37, 5, 6, torch.int32),
+             (1, 16, 64, 64, torch.int64), (6, 50, 3, 2048, torch.int64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,q,b,c,itype", _GATHER_B)
+def test_gather_multiply_reduce_b(dtype, k, q, b, c, itype):
+    """The index-reading d_coef at the paths' lanes (W = 16, 64, 4096), no
+    16-byte vectors (C = 6), K = 1, wide channels, int32 indices."""
+    from gaot_torch.ops.cuda import multiply_reduce as mr
+
+    gen = torch.Generator(device="cuda").manual_seed(k * q)
+    src = _rnd(gen, 200, b * c).to(dtype)
+    idx = torch.randint(0, 200, (q, k), generator=gen, device="cuda").to(itype)
+    dout = _rnd(gen, q, b * c).to(dtype)
+    n0 = mr.launches["multiply_reduce_b"]
+    got = mr.gather_multiply_reduce_b(src, idx, dout, b)
+    torch.cuda.synchronize()
+    assert mr.launches["multiply_reduce_b"] == n0 + 1
+    _close(got, mr.gather_multiply_reduce_b_plain(src, idx, dout, b), dtype)
+
+
+def test_gather_multiply_reduce_is_deterministic():
+    """Two calls of each index-reading kernel on the same inputs give the
+    same bits (the flagship's lanes and transpose fan-in, bf16)."""
+    from gaot_torch.ops.cuda import multiply_reduce as mr
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    src, idx, coef, kw = _gather_k_inputs(gen, torch.bfloat16, 160, 2000, 4, 16,
+                                          torch.int64, "df", n=5000)
+    first = mr.gather_multiply_reduce_k(src, idx, coef, 4, **kw).clone()
+    assert torch.equal(first, mr.gather_multiply_reduce_k(src, idx, coef, 4, **kw))
+    idx = torch.randint(0, 5000, (2000, 8), generator=gen, device="cuda")
+    dout = _rnd(gen, 2000, 64).bfloat16()
+    assert torch.equal(mr.gather_multiply_reduce_b(src, idx, dout, 4),
+                       mr.gather_multiply_reduce_b(src, idx, dout, 4))
 
 
 # GQA and ragged S at every templated head dim (8 to 128; the 3D flagship's

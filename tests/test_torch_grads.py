@@ -59,6 +59,40 @@ def test_gather_multiply_reduce_nbc_matches_vjp(graphs):
     _close(fl.grad, d_f)
 
 
+def test_gather_multiply_reduce_nbc_padded_transpose_matches_vjp():
+    """A heavily padded flat transpose graph, as the flagship's encoder has
+    ([32768, 160] at a mean in-degree of 64): one hub source takes 24 edges,
+    so Kt = 24 is three times the mean in-degree and most d_f slots are
+    masked padding; the forward graph has left-packed padded slots too."""
+    from gaot_torch.ops.gather_apply import gather_multiply_reduce_nbc
+    from gaot_torch.ops.padding import PaddedGraph, transpose_graph
+    from gaot_tpu.ops.gather_apply import gather_multiply_reduce_nbc as jgmr
+
+    rng = np.random.default_rng(16)
+    n, q, k = 48, 96, 4
+    idx = rng.integers(1, n, size=(q, k)).astype(np.int32)
+    idx[:24, 0] = 0                                  # the hub
+    mask = np.arange(k)[None] < rng.integers(2, k + 1, size=(q, 1))
+    idx = np.where(mask, idx, 0)
+    tg = transpose_graph(PaddedGraph(idx, mask), n)
+    mean_deg = float(tg.mask.sum(1).mean())
+    assert tg.kt == 24 and tg.kt >= 2.5 * mean_deg, (tg.kt, mean_deg)
+    coef = (rng.normal(size=(q, k, C)) * mask[..., None]).astype(np.float32)
+    f = rng.normal(size=(n, tp.BATCH, C)).astype(np.float32)
+    ct = rng.normal(size=(q, tp.BATCH, C)).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b: jgmr(a, b, idx, tg.edge_pos, tg.query, tg.mask),
+                       jnp.asarray(coef), jnp.asarray(f))
+    d_coef, d_f = vjp(jnp.asarray(ct))
+    cl, fl = _leaf(coef), _leaf(f)
+    lt = lambda a: torch.from_numpy(a.astype(np.int64) if a.dtype != np.bool_ else a)
+    got = gather_multiply_reduce_nbc(cl, fl, lt(idx), lt(tg.edge_pos), lt(tg.query),
+                                     lt(tg.mask))
+    _close(got, out)
+    got.backward(torch.from_numpy(ct))
+    _close(cl.grad, d_coef)
+    _close(fl.grad, d_f)
+
+
 def test_gather_multiply_reduce_matches_vjp(graphs):
     """The batched branch of gather_multiply_reduce (f [B, N, C]) with a
     per-sample coef [B, Q, K, C] (the nonlinear transforms) and the

@@ -63,6 +63,63 @@ def test_multiply_reduce_k_plain_matches_pallas(dtype, k, q, b, c):
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
 
 
+# (K, Q, b, C, coefficient form, masked slots and an output row map): the
+# forward's form (coefficients per edge, every slot), and d_f's (a table
+# read by a second index, masked slots, an all-masked row, rows written
+# through a row map into a larger output) at the fx lanes and at the long
+# path's narrow ones (b = 1, C = 16: the TPU kernel folds 8 queries).
+_GATHER_K = [(5, 24, 4, 64, "per edge", False), (12, 16, 2, 64, "table", True),
+             (8, 64, 1, 16, "table", True)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k,q,b,c,form,masked", _GATHER_K)
+def test_gather_multiply_reduce_k_plain_matches_pallas(dtype, k, q, b, c, form, masked):
+    """The plain version of the index-reading reduce against the Pallas
+    multiply_reduce_k on the rows it gathers (K-major, masked coefficients
+    zeroed, as ``_nbc_bwd`` feeds it). Same tolerances."""
+    from gaot_tpu.ops.pallas.multiply_reduce import multiply_reduce_k, supported
+
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    assert supported(q, b, c, 2)
+    rng = np.random.default_rng(k * q + b)
+    n, w = 40, b * c
+    src = rng.normal(size=(n, w)).astype(np.float32)
+    idx = rng.integers(0, n, size=(q, k))
+    mask = np.ones((q, k), bool)
+    if masked:
+        mask = np.arange(k)[None] < rng.integers(0, k + 1, size=(q, 1))
+        mask[3] = False                                 # a row with no edge
+        idx = np.where(mask, idx, n + 7)                # out of range, never read
+    if form == "table":
+        table = rng.normal(size=(3 * q * k, c)).astype(np.float32)
+        cidx = rng.integers(0, table.shape[0], size=(q, k))
+        coef_qk = table[cidx]
+    else:
+        coef_qk = rng.normal(size=(q, k, c)).astype(np.float32)
+    gath = np.transpose(src[np.where(mask, idx, 0)], (1, 0, 2))          # [K, Q, W]
+    coef_km = np.transpose(np.where(mask[..., None], coef_qk, 0), (1, 0, 2))
+    with pltpu.force_tpu_interpret_mode():
+        want = multiply_reduce_k(jnp.asarray(coef_km, jdt), jnp.asarray(gath, jdt), b)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    kw = {}
+    if form == "table":
+        coef, kw["coef_idx"] = t(table).to(tdt), t(cidx)
+    else:
+        coef = t(coef_qk).to(tdt)
+    if masked:
+        row_map = rng.permutation(q + 5)[:q]
+        kw.update(mask=t(mask), row_map=t(row_map), out=torch.zeros(q + 5, w, dtype=tdt))
+    got = mr.gather_multiply_reduce_k(t(src).to(tdt), t(idx), coef, b, **kw)
+    assert got.dtype == tdt
+    if masked:
+        assert got is kw["out"] and not got[row_map[3]].any()
+        assert not got[np.setdiff1d(np.arange(q + 5), row_map)].any()
+        got = got[row_map]
+    assert got.shape == (q, w)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
 def test_flash_plain_matches_pallas_forward(dtype, h, hkv):
@@ -123,6 +180,14 @@ def test_fused_ffn_plain_matches_pallas(dtype, r):
 def test_wrappers_validate_shapes():
     with pytest.raises(ValueError):
         mr.multiply_reduce_k(torch.zeros(2, 3, 4), torch.zeros(2, 3, 10), 2)
+    idx = torch.zeros(3, 2, dtype=torch.long)
+    with pytest.raises(ValueError):               # coef not [Q, K, C]
+        mr.gather_multiply_reduce_k(torch.zeros(5, 8), idx, torch.zeros(2, 3, 4), 2)
+    with pytest.raises(ValueError):               # a row map needs an output
+        mr.gather_multiply_reduce_k(torch.zeros(5, 8), idx, torch.zeros(3, 2, 4), 2,
+                                    row_map=torch.arange(3))
+    with pytest.raises(ValueError):               # dout not [Q, W]
+        mr.gather_multiply_reduce_b(torch.zeros(5, 8), idx, torch.zeros(2, 8), 2)
     with pytest.raises(ValueError):
         fa.flash_attention(torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 2, 32),
                            torch.zeros(1, 8, 2, 32))

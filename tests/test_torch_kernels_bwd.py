@@ -76,6 +76,33 @@ def test_multiply_reduce_b_plain_matches_pallas_narrow(dtype, k, q, b, c):
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k,q,b,c", [(5, 24, 4, 64), (8, 64, 1, 16), (8, 40, 4, 16)])
+def test_gather_multiply_reduce_b_plain_matches_pallas(dtype, k, q, b, c):
+    """The plain version of the index-reading d_coef against the Pallas
+    multiply_reduce_b on the rows it gathers (K-major), at the fx lanes and
+    the 3D paths' narrow ones (b = 1 folds 8 queries on the TPU; at W = 64
+    the kernel body runs as it is); random indices into n source rows, with
+    repeats. The result is in the coefficient's [Q, K, C] layout. Same
+    tolerances as above."""
+    from gaot_tpu.ops.pallas.multiply_reduce import multiply_reduce_b
+
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    rng = np.random.default_rng(k + q * b)
+    n = 30
+    src = rng.normal(size=(n, b * c)).astype(np.float32)
+    idx = rng.integers(0, n, size=(q, k))
+    dout = rng.normal(size=(q, b * c)).astype(np.float32)
+    gath = np.ascontiguousarray(np.transpose(src[idx], (1, 0, 2)))       # [K, Q, W]
+    with pltpu.force_tpu_interpret_mode():
+        want = multiply_reduce_b(jnp.asarray(gath, jdt), jnp.asarray(dout, jdt), b, c)
+    got = mr.gather_multiply_reduce_b(torch.from_numpy(src).to(tdt), torch.from_numpy(idx),
+                                      torch.from_numpy(dout).to(tdt), b)
+    assert got.dtype == tdt and got.shape == (q, k, c)
+    np.testing.assert_allclose(_np(got), np.transpose(_np(want), (1, 0, 2)),
+                               rtol=rtol, atol=atol)
+
+
 def _attention_inputs(h, hkv, jdt, tdt, seed, d=32):
     rng = np.random.default_rng(seed)
     b, s = 2, 128
