@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Three paths run through the port's entry points:
+Three paths run through the port's entry points, and the fx recipe trains
+through the port's CLI:
   - the fx main path: the Poisson-Gauss recipe (8192 nodes, 64x64 latent
     grid, config/examples/time_indep/poisson_gauss.json), batch 64;
   - the 3D flagship of scripts/train_demo.py::run_3d: 32768 nodes in
@@ -57,7 +58,23 @@ failure):
      breakdown; the long-sequence path's step is driven the same way,
      without the check. No forward or step profile may hold PyTorch's row
      gather (vectorized_gather_kernel).
-  5. prints one JSON line listing every kernel of the three paths.
+  5. the trainer: the fx recipe (the example config read from disk, its
+     sizes, paths and, for run A, compute dtype changed) trained through the
+     port's CLI on synthetic Poisson-Gauss-shaped data written from seed 0
+     (tests/synthetic.py's layout, 8192 nodes), train/val/test 512 / 64 /
+     128 samples, 6 epochs, validation every 2. Run A (bf16) through
+     gaot_torch.cli.main in this process, under a device-only profiler: its
+     launch counts must equal the training step's table times the training
+     steps plus the forward's times the evaluation batches, its routes the
+     kernels, its loss must fall, its metric be finite, its checkpoint, loss
+     record and CSV row exist, and PyTorch's row gather run only for the
+     loader's batch selects (two a batch), none in the model. Run B resumes run A's
+     checkpoint through `python -m gaot_torch.cli -c` in a subprocess: the
+     checkpoint's update count goes from 48 to 96 and its first loss is
+     below run A's. Run C is the example's fp32: its loss falls and no
+     SwiGLU kernel launches.
+  6. prints one JSON line listing every kernel of the three paths (the fx
+     main path's launches are those of the trainer's run A).
 The last line is {"ok": true, "device": {...}}.
 """
 import copy
@@ -273,11 +290,13 @@ def phase_card():
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])     # name, power limit
+    card = smi.stdout.strip().splitlines()[0]   # name, power limit
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return card
 
 
 # The kernels whose ptxas report the build logs, beside that of every kernel
@@ -1100,7 +1119,7 @@ def phase_train(path: Path):
                  f"plain route")
         del res, g_c, g_p, gc, gp
     if not path.batch:
-        return None
+        return None, None
 
     model, graphs = _model_and_graphs(path, torch.bfloat16, "cuda")
     opt, sched = make_optimizer(ocfg, model.parameters(), path.steps_per_epoch)
@@ -1132,12 +1151,13 @@ def phase_train(path: Path):
     if not all(map(math.isfinite, losses)):
         fail(f"{path.name} batch-{path.batch} training step: non-finite loss")
     peak = torch.cuda.max_memory_allocated()
-    log(f"  step_ms {fmt_times(host_times(run, 10), path.batch)} "
+    times = host_times(run, 10)
+    log(f"  step_ms {fmt_times(times, path.batch)} "
         f"max_memory_allocated={peak / 2**30:.3f} GiB")
     profile_step(run, f"{path.name} training step")
     del model, graphs, opt
     torch.cuda.empty_cache()
-    return launches
+    return launches, statistics.median(times)
 
 
 def profile_step(run, what: str, steps: int = 10, top: int = 20):
@@ -1185,6 +1205,270 @@ def profile_step(run, what: str, steps: int = 10, top: int = 20):
         fail(f"the {what} still runs PyTorch's row gather")
 
 
+# The trainer phase: the fx recipe trained through the CLI on synthetic
+# Poisson-Gauss-shaped data (tests/synthetic.py's layout) at the recipe's
+# 8192 nodes and full width, cut to these split sizes and epochs
+# (the example: 2048 / 128 / 256 samples, 1000 epochs).
+TRAINER_SIZES = {"train_size": 512, "val_size": 64, "test_size": 128}
+TRAINER_EPOCHS = 6
+
+
+def _trainer_config(folder: str, name: str, ckpt_of: str = None, **setup) -> tuple:
+    """The example config, read from disk, with the trainer phase's sizes,
+    the data and every output path in ``folder`` (run ``name``'s own; the
+    checkpoint that of run ``ckpt_of`` where given) and ``setup`` merged in.
+    Returns (the written config's path, the config)."""
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw["setup"].update(setup)
+    raw["dataset"].update(TRAINER_SIZES, base_path=folder)
+    raw["optimizer"]["args"]["epoch"] = TRAINER_EPOCHS
+    out = lambda run, f: os.path.join(folder, run, f)
+    raw["path"] = {"ckpt_path": out(ckpt_of or name, "ckpt"),
+                   "loss_path": out(name, "loss.png"),
+                   "result_path": out(name, "result.png"),
+                   "database_path": out(name, "db.csv")}
+    path = os.path.join(folder, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f, indent=1)
+    return path, raw
+
+
+def _trainer_launches(raw: dict, bf16: bool) -> tuple:
+    """The launches a fit of ``raw`` must make: the training step's table
+    times the training steps, plus the forward's times the evaluation
+    batches (a validation every eval_every_eps epochs, then test()); no
+    SwiGLU launch in fp32 (the fused kernel serves bf16 under "auto").
+    Returns (launches, steps, evaluation batches)."""
+    ds, args = raw["dataset"], raw["optimizer"]["args"]
+    batches = lambda n: math.ceil(n / min(ds["batch_size"], n))
+    steps = args["epoch"] * batches(ds["train_size"])
+    evals = (args["epoch"] // args["eval_every_eps"] * batches(ds["val_size"])
+             + batches(ds["test_size"]))
+    want = {}
+    for table, n in ((TRAIN_LAUNCHES, steps), (FORWARD_LAUNCHES, evals)):
+        for k, v in table.items():
+            if bf16 or not k.startswith("fused_ffn"):
+                want[k] = want.get(k, 0) + v * n
+    return want, steps, evals
+
+
+def _cli_in_process(cfg_path: str, what: str, profile: bool = False):
+    """``gaot_torch.cli.main(["-c", cfg_path])`` in this process, its
+    output captured and logged, the launch counters and routes reset before
+    and read after. Returns (launches, the printed routes, seconds, the
+    profiler or None, the output)."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from gaot_torch import cli
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.utils.routing import reset_routes
+
+    buf = io.StringIO()
+    prof = torch_profile(activities=[ProfilerActivity.CUDA]) if profile else None
+    torch.cuda.synchronize()
+    reset_routes()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), (prof or contextlib.nullcontext()):
+            rc = cli.main(["-c", cfg_path])
+            torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"  [{what}] {line}")
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if rc != 0:
+        fail(f"trainer {what}: gaot_torch.cli.main returned {rc}")
+    routes = [ln for ln in buf.getvalue().splitlines()
+              if ln.startswith("[gaot_torch] kernel routes:")]
+    if len(routes) != 1:
+        fail(f"trainer {what}: expected one kernel-routes line, got {len(routes)}")
+    return launches, dict(kv.split("=", 1) for kv in routes[0].split(": ", 1)[1].split()
+                          if "=" in kv), secs, prof, buf.getvalue()
+
+
+def _steady_rate(output: str, train_size: int) -> tuple:
+    """From a fit's printed evaluations ("epoch E/N ... at T s"): the
+    seconds to the first evaluation, and the samples/s from it to the last
+    (the later epochs and their validations, without the first epoch's
+    warm-up)."""
+    marks = [(int(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"^epoch (\d+)/\d+ .* at ([0-9.]+) s$", output, re.M)]
+    if len(marks) < 2:
+        fail(f"expected two or more evaluation lines, got {len(marks)}")
+    (e0, t0), (e1, t1) = marks[0], marks[-1]
+    return t0, (e1 - e0) * train_size / (t1 - t0)
+
+
+def _run_record(raw: dict) -> tuple:
+    """(the loss record, the last CSV row) a run wrote."""
+    import csv
+
+    import numpy as np
+
+    paths = raw["path"]
+    rec = np.load(paths["loss_path"][:-4] + ".npz")
+    with open(paths["database_path"], newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 1:
+        fail(f"{paths['database_path']}: {len(rows)} rows, expected 1")
+    return {k: rec[k] for k in rec.files}, rows[0]
+
+
+def _ckpt_step(raw: dict) -> int:
+    import torch
+
+    from gaot_torch.train.checkpoint import checkpoint_file
+
+    return torch.load(checkpoint_file(raw["path"]["ckpt_path"]), map_location="cpu",
+                      weights_only=True)["step"]
+
+
+def _check_run(what: str, raw: dict, launches: dict, routes: dict, want: dict,
+               ffn_route: str) -> tuple:
+    """A fit's checks: the launch counts, the routes, a falling loss, a
+    finite metric, its files. Returns (the loss record, the CSV row)."""
+    from gaot_torch.train.checkpoint import checkpoint_file
+
+    _expect_launches(f"trainer {what}", launches, want)
+    agno = routes.get("agno", "").split("+")
+    if not all(r.endswith(":cuda") for r in agno) or routes.get("attn") != "cuda" \
+            or routes.get("ffn") != ffn_route:
+        fail(f"trainer {what}: routes {routes}; expected agno on the kernels, "
+             f"attn=cuda, ffn={ffn_route}")
+    rec, row = _run_record(raw)
+    losses = rec["losses"]
+    err = float(row["relative error (direct)"])
+    sps = float(row["samples_per_sec"])
+    log(f"trainer {what}: train losses {' '.join(f'{v:.5f}' for v in losses)}; "
+        f"val losses {' '.join(f'{v:.5f}' for v in rec['val_losses'])}; "
+        f"relative error (direct) {err:.5f}; training time "
+        f"{float(row['training time']):.3f} s; samples_per_sec {sps:.1f}; "
+        f"nparams {row['nparams']}")
+    if not losses[-1] < losses[0]:
+        fail(f"trainer {what}: the train loss did not fall ({losses})")
+    if not (math.isfinite(err) and sps > 0):
+        fail(f"trainer {what}: relative error {err}, samples_per_sec {sps}")
+    if not os.path.exists(checkpoint_file(raw["path"]["ckpt_path"])):
+        fail(f"trainer {what}: no checkpoint")
+    return rec, row
+
+
+def phase_trainer(card: str, step_ms: float):
+    """Phase 5: the fx recipe trained through the CLI (module docstring)."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from synthetic import make_static_fx_dataset
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gaot_trainer_") as folder:
+        with open(CONFIG) as f:
+            name = json.load(f)["dataset"]["name"]
+        n = sum(TRAINER_SIZES.values())
+        make_static_fx_dataset(os.path.join(folder, f"{name}.npz"), num_samples=n,
+                               num_nodes=NUM_NODES, seed=0)
+        log(f"trainer data: {n} samples x {NUM_NODES} nodes (seed 0), splits "
+            f"{TRAINER_SIZES}, {TRAINER_EPOCHS} epochs")
+
+        # Run A: bf16, in this process, under a device-only profiler.
+        cfg_a, raw_a = _trainer_config(folder, "run_a", compute_dtype="bfloat16")
+        want_a, steps, evals = _trainer_launches(raw_a, bf16=True)
+        torch.cuda.reset_peak_memory_stats()
+        launches_a, routes_a, secs_a, prof, out_a = _cli_in_process(
+            cfg_a, "run A bf16", profile=True)
+        peak_a = torch.cuda.max_memory_allocated()
+        log(f"trainer run A: {steps} training steps, {evals} evaluation batches; "
+            f"launches {launches_a}; routes {routes_a}; {secs_a:.1f} s in the CLI")
+        rec_a, row_a = _check_run("run A bf16", raw_a, launches_a, routes_a, want_a,
+                                  "cuda")
+        if _ckpt_step(raw_a) != steps:
+            fail(f"trainer run A: the checkpoint's step is {_ckpt_step(raw_a)}, "
+                 f"expected {steps}")
+        t_prof = time.perf_counter()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        busy_s = sum(e.self_device_time_total for e in events) / 1e6
+        # PyTorch's row gather runs only where the loader selects a batch's
+        # samples from the split buffers on the device (index_select: one
+        # for u, one for c, per batch); the model runs none.
+        gathers = [e for e in events if "vectorized_gather_kernel" in e.key]
+        n_gathers = sum(e.count for e in gathers)
+        loader_gathers = 2 * (steps + evals)
+        train_s = float(row_a["training time"])
+        log(f"trainer run A device profile (the whole CLI run, read in "
+            f"{time.perf_counter() - t_prof:.1f} s): device busy {busy_s:.3f} s of "
+            f"{secs_a:.3f} s, kernels {sum(e.count for e in events)}; row gathers "
+            f"(vectorized_gather_kernel) {n_gathers} in "
+            f"{sum(e.self_device_time_total for e in gathers) / 1e3:.3f} ms, the "
+            f"loader's batch selects {loader_gathers}, the model's "
+            f"{n_gathers - loader_gathers}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  "
+                f"{e.key[:90]}")
+        if n_gathers != loader_gathers:
+            fail("trainer run A: the model runs PyTorch's row gather "
+                 "(vectorized_gather_kernel) beside the loader's batch selects")
+        sps_a = float(row_a["samples_per_sec"])
+        first_a, steady_a = _steady_rate(out_a, TRAINER_SIZES["train_size"])
+        log(f"trainer run A bf16 ({card}): training time {train_s:.3f} s, "
+            f"samples_per_sec {sps_a:.1f} (under the device profiler; "
+            f"{first_a:.3f} s to the first evaluation, {steady_a:.1f} samples/s "
+            f"after it), max_memory_allocated {peak_a / 2**30:.3f} GiB; the bare "
+            f"training step of phase 4 (fx, batch {BATCH}): median {step_ms:.3f} ms "
+            f"= {BATCH / step_ms * 1e3:.1f} samples/s")
+
+        # Run B: resume from run A's checkpoint, through the real command line.
+        cfg_b, raw_b = _trainer_config(folder, "run_b", ckpt_of="run_a",
+                                       compute_dtype="bfloat16", ckpt=True)
+        before = _ckpt_step(raw_b)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gaot_torch.cli", "-c", cfg_b],
+                              cwd=HERE, capture_output=True, text=True, timeout=600)
+        for line in (proc.stdout + proc.stderr).splitlines()[-40:]:
+            log(f"  [run B] {line}")
+        if proc.returncode != 0:
+            fail(f"trainer run B: python -m gaot_torch.cli exited {proc.returncode}")
+        after = _ckpt_step(raw_b)
+        rec_b, row_b = _run_record(raw_b)
+        first_b, steady_b = _steady_rate(proc.stdout, TRAINER_SIZES["train_size"])
+        log(f"trainer run B bf16 ({card}; resume, subprocess, "
+            f"{time.perf_counter() - t0:.1f} s): checkpoint step {before} -> {after}; "
+            f"train losses {' '.join(f'{v:.5f}' for v in rec_b['losses'])}; "
+            f"samples_per_sec {float(row_b['samples_per_sec']):.1f} (no profiler; "
+            f"{first_b:.3f} s to the first evaluation, {steady_b:.1f} samples/s after "
+            f"it), training time {float(row_b['training time']):.3f} s")
+        if (before, after) != (steps, 2 * steps):
+            fail(f"trainer run B: checkpoint step {before} -> {after}, expected "
+                 f"{steps} -> {2 * steps}")
+        if not rec_b["losses"][0] < rec_a["losses"][0]:
+            fail("trainer run B: its first train loss is not below run A's first")
+        if not math.isfinite(float(row_b["relative error (direct)"])):
+            fail("trainer run B: non-finite relative error")
+
+        # Run C: the example as it stands (fp32 compute).
+        cfg_c, raw_c = _trainer_config(folder, "run_c")
+        want_c, _, _ = _trainer_launches(raw_c, bf16=False)
+        launches_c, routes_c, secs_c, _, out_c = _cli_in_process(cfg_c, "run C fp32")
+        first_c, steady_c = _steady_rate(out_c, TRAINER_SIZES["train_size"])
+        log(f"trainer run C fp32 ({card}): launches {launches_c}; routes {routes_c}; "
+            f"{secs_c:.1f} s in the CLI; {first_c:.3f} s to the first evaluation, "
+            f"{steady_c:.1f} samples/s after it")
+        _check_run("run C fp32", raw_c, launches_c, routes_c, want_c, "plain")
+    log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches_a
+
+
 def _entries(rows, names, launches, path: str, suffix: str = ""):
     """Kernel-line entries for ``rows`` (check key -> row), named by
     ``names`` (check key -> kernel name in SOURCES) plus ``suffix`` and
@@ -1206,7 +1490,7 @@ def main() -> int:
 
     from gaot_torch.core.config import GAOTConfig, load_experiment_config, merge_config
 
-    phase_card()
+    card = phase_card()
     phase_build()
 
     cfg = load_experiment_config(CONFIG)
@@ -1254,18 +1538,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     fwd = phase_forward(main_path)
-    train = phase_train(main_path)
+    train, step_ms = phase_train(main_path)
     fwd3 = phase_forward(flagship)
-    train3 = phase_train(flagship)
+    train3, _ = phase_train(flagship)
     phase_forward(aniso)
     phase_train(aniso)
-    train_long = phase_train(long_path)
+    train_long, _ = phase_train(long_path)
+    trained = phase_trainer(card, step_ms)
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
                       bwd="flash_attention_bwd")
-    main_counts = {k: train[v] if v in TRAIN_LAUNCHES else fwd["launches"][v]
-                   for k, v in main_names.items() if k in checks["main"]}
+    # The main path's launches are those of the trainer's run A, through
+    # the CLI (its step and forward per call: phase 4's and phase 3's).
+    main_counts = {k: trained[main_names[k]] for k in checks["main"]}
     names3 = dict(main_names, bwd="flash_attention_bwd_tiled")
     count = lambda run, keys: {k: run[main_names[k]] for k in keys}
     counts3 = count(train3, ("multiply_reduce_k", "multiply_reduce_b", "fwd_lse", "bwd"))

@@ -226,13 +226,17 @@ class TransformerConfig:
     use_long_range_skip: bool = True        # UViT long-range skips
     ffn_multiplier: int = 4
     attn_config: AttentionConfig = field(default_factory=AttentionConfig)
-    attn_backend: str = "auto"              # ['auto', 'xla', 'pallas'];
-                                            # GAOT_ATTN_BACKEND overrides
-    fused_ffn: str = "auto"                 # fused SwiGLU Pallas kernel
-                                            # (ops/pallas/fused_ffn.py):
-                                            # 'auto' (bf16 on the card), 'on',
-                                            # 'off'. GAOT_FUSED_FFN=0/1
-                                            # overrides.
+    attn_backend: str = "auto"              # ['auto', 'xla', 'pallas']:
+                                            # 'auto' and 'pallas' take the flash
+                                            # kernel's wrapper
+                                            # (ops/cuda/flash_attention.py),
+                                            # 'xla' the plain attention
+    fused_ffn: str = "auto"                 # the fused SwiGLU kernel's wrapper
+                                            # (ops/cuda/fused_ffn.py) at the
+                                            # widths the JAX gate takes:
+                                            # 'auto' (bf16 compute), 'on' (any
+                                            # dtype), 'off' (the plain three
+                                            # products)
 
     def __post_init__(self):
         if self.fused_ffn not in ("auto", "on", "off"):
@@ -253,7 +257,7 @@ class SetUpConfig:
 
     seed: int = 42
     device: str = "auto"                # 'auto' | 'cuda' | 'cpu'
-    dtype: str = "float32"              # parameter/compute dtype
+    dtype: str = "float32"              # parameters (the port keeps them fp32)
     compute_dtype: str = "float32"      # activation dtype inside matmuls ('bfloat16' to
                                         # run on the tensor cores; params stay in `dtype`)
     trainer_name: str = "static"        # ['static', 'sequential']
@@ -261,20 +265,22 @@ class SetUpConfig:
     test: bool = False
     ckpt: bool = False
 
-    # Distributed / parallelism settings (read by the multi-device trainer;
-    # single-device runs ignore them).
+    # Distributed / parallelism settings: multi-device training is not
+    # ported (ROADMAP item 13); the trainer refuses distributed,
+    # data_parallel > 1, model_parallel > 1 and spatial_parallel.
     distributed: bool = False           # multi-host initialisation
     data_parallel: int = -1             # -1: use all visible devices on the 'data' axis
     model_parallel: int = 1             # 'model' axis size (tensor parallel transformer)
     spatial_parallel: bool = False      # shard latent tokens / query points over 'model'
     #   (sequence parallelism for GAOT-3D-scale grids; see parallel/spatial.py)
-    epoch_scan: str = "auto"            # whole-epoch lax.scan training: 'auto' enables it
-    #   when the run is long enough to amortize the extra scan compile
-    #   (~2 min); 'always' / 'never' override (base_trainer.fit)
+    epoch_scan: str = "auto"            # the JAX package's whole-epoch scan; the
+    #   port issues its steps one by one whatever it says (kept so both
+    #   packages read the same configs)
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
-    profile_dir: Optional[str] = None   # if set, capture a profiler trace here
+    profile_dir: Optional[str] = None   # if set, fit runs under torch.profiler and
+    #   writes a Chrome trace (trace.json) here
 
     def __post_init__(self):
         if self.trainer_name not in ("static", "sequential"):
@@ -315,15 +321,15 @@ class DatasetConfig:
     test_size: int = 256
     coord_scaling: str = "per_dim_scaling"  # ['global_scaling', 'per_dim_scaling']
     batch_size: int = 64
-    # Keep split arrays (incl. vx graphs) resident on the accelerator and
-    # gather batches on device (the reference ships every
-    # batch host->device, src/trainer/static_trainer.py:167-170). Falls back
-    # to host batches above loader.DEVICE_DATA_BYTE_LIMIT.
+    # Put the split arrays on the device once and gather each batch there
+    # by index (the reference ships every batch host->device,
+    # src/trainer/static_trainer.py:167-170). Above
+    # data/loader.py::DEVICE_DATA_BYTE_LIMIT, and when false, batches are
+    # assembled on the host and copied from pinned memory.
     device_data: bool = True
     # On-disk npz cache for precomputed vx graphs (reference
-    # CachedGraphBuilder, src/datasets/graph_builder.py:177-285). None
-    # disables caching; the key covers dataset name, coord scaling, search
-    # params, and split sizes, so stale entries are never reused.
+    # CachedGraphBuilder, src/datasets/graph_builder.py:177-285); read by
+    # the vx trainer, which is not ported (ROADMAP item 10).
     graph_cache_dir: Optional[str] = None
     num_workers: int = 0                # kept for config-compat; loading is in-process
     shuffle: bool = True

@@ -133,7 +133,10 @@ class AGNO(nn.Module):
             scale = _edge_scale(attention, weights, indices, mask)[..., None]
             coef = kernel * (scale if kernel.dim() == scale.dim()
                              else scale[None]).to(kernel.dtype)
-            record_route("agno", "tgraph")
+            # The shared coefficient runs the multiply-reduce kernels on the
+            # card; a per-sample one (nonlinear transforms) runs plain.
+            record_route("agno", "tgraph:" + ("cuda" if f_y.is_cuda and coef.dim() == 3
+                                              else "plain"))
             return apply_graph_transform(coef, f_y, graph, tgraph)
 
         out = kernel
@@ -182,7 +185,8 @@ class AGNO(nn.Module):
                     and f_y.dim() in (2, 3))
         if combined and f_y.dim() == 2:
             raise NotImplementedError("the vx-flattened bucketed route is not ported")
-        record_route("agno", "bucketed" if combined else "bucketed-plain")
+        record_route("agno", ("bucketed:cuda" if f_y.is_cuda else "bucketed:plain")
+                     if combined else "bucketed-plain")
         parts, offset = [], 0
         for graph in bg.buckets:
             nb = graph.indices.shape[-2]

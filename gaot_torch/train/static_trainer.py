@@ -1,15 +1,25 @@
-"""Training and evaluation steps of the static (time-independent) trainer,
-fx mode.
+"""Trainer for static (time-independent) problems, fx mode.
 
-Counterpart of ``masked_mse`` and the jitted ``train_fn`` and ``eval_fn`` of
-``gaot_tpu/train/static_trainer.py``. The trainer class, the data loader,
-checkpoints and the CLI are not ported yet.
+Counterpart of ``gaot_tpu/train/static_trainer.py``: ``masked_mse``, the
+training and evaluation steps (its jitted ``train_fn`` and ``eval_fn``) and
+the :class:`StaticTrainer`, whose every batch shares one point cloud and one
+graph pair per scale. vx data (a mesh per sample) is ROADMAP item 10.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import os
+from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..data.data_processor import DataProcessor
+from ..data.graph_builder import GraphBuilder, prepare_fx_device_graphs
+from ..data.loader import make_static_fx_loader
+from ..models import GAOT
+from ..utils.metrics import compute_batch_errors, compute_final_metric
+from ..utils.plotting import plot_estimates, pyplot
+from .base_trainer import BaseTrainer
 
 
 class FxGraphs(NamedTuple):
@@ -75,3 +85,159 @@ def eval_step(model, graphs: FxGraphs, coord: torch.Tensor, pndata: torch.Tensor
     """One evaluation batch: (prediction [B, N, Cout], masked MSE)."""
     pred = _forward(model, graphs, coord, pndata)
     return pred, masked_mse(pred, target, sample_mask, node_mask)
+
+
+class StaticTrainer(BaseTrainer):
+    """The fx static trainer (reference src/trainer/static_trainer.py:16-366)."""
+
+    def __init__(self, config, datarow: Optional[Dict] = None):
+        self.data_processor: Optional[DataProcessor] = None
+        self.coord_dim: Optional[int] = None
+        self.coord: Optional[torch.Tensor] = None    # [N, d] model coordinates
+        self.graphs: Optional[FxGraphs] = None
+        super().__init__(config, datarow)
+
+    # ------------------------------------------------------------------
+    def init_dataset(self, dataset_config):
+        self.data_processor = DataProcessor(dataset_config, self.metadata,
+                                            dtype=np.float32,
+                                            seed=self.setup_config.seed)
+        splits, is_vx = self.data_processor.load_and_process_data()
+        if is_vx:
+            raise NotImplementedError(
+                f"{dataset_config.metaname} has a mesh per sample (vx): the vx "
+                "trainer is not ported (ROADMAP item 10)")
+
+        # The latent grid fits the coordinate scaler (over the metadata
+        # domain) before the nodes are scaled.
+        latent = self.data_processor.generate_latent_queries(
+            tuple(self.model_config.latent_tokens_size))
+        self.coord_dim = splits["train"]["x"].shape[-1]
+        c_sample = splits["train"]["c"]
+        if c_sample is None:
+            raise ValueError(
+                "Static training requires condition features 'c' as model input")
+        self.num_input_channels = c_sample.shape[-1]
+        self.num_output_channels = splits["train"]["u"].shape[-1]
+
+        magno = self.model_config.args.magno
+        coord = self.data_processor.coord_scaler(splits["train"]["x"])
+        enc, dec = GraphBuilder.from_magno_config(magno).build_fx_graphs(
+            coord, latent, magno.radius, magno.scales)
+        self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
+        self.graphs = FxGraphs(torch.from_numpy(latent).to(self.device),
+                               *prepare_fx_device_graphs(
+                                   enc, dec, coord.shape[0], latent.shape[0],
+                                   magno, device=self.device))
+        cfg = dataset_config
+        loaders = {
+            name: make_static_fx_loader(
+                splits[name]["c"], splits[name]["u"], cfg.batch_size,
+                shuffle=(cfg.shuffle and name == "train"),
+                seed=self.setup_config.seed, device_data=cfg.device_data,
+                device=self.device)
+            for name in ["train", "val", "test"]
+        }
+        self.train_loader = loaders["train"]
+        self.val_loader = loaders["val"]
+        self.test_loader = loaders["test"]
+
+    def init_model(self, model_config):
+        model_config.args.magno.coord_dim = self.coord_dim
+        self.model = GAOT(self.num_input_channels, self.num_output_channels,
+                          model_config, dtype=self.compute_dtype,
+                          device=self.device,
+                          generator=torch.Generator().manual_seed(
+                              self.setup_config.seed))
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch) -> torch.Tensor:
+        batch = self.place_batch(batch)
+        loss = train_step(self.model, self.optimizer, self.schedule, self.step,
+                          self.graphs, self.coord, batch["c"], batch["u"],
+                          self.sample_mask(batch))
+        self.step += 1
+        return loss
+
+    def _eval(self, batch):
+        """(prediction, masked MSE) of one batch, in evaluation mode."""
+        self.model.eval()
+        batch = self.place_batch(batch)
+        return eval_step(self.model, self.graphs, self.coord, batch["c"],
+                         batch["u"], self.sample_mask(batch))
+
+    def validate(self, loader) -> float:
+        if loader is None:
+            return 0.0
+        # Batch losses stay on the device; one read at the end.
+        losses = [self._eval(batch)[1] for batch in loader]
+        if not losses:
+            return 0.0
+        return float(torch.stack(losses).mean())
+
+    # ------------------------------------------------------------------
+    def test(self):
+        """Relative-L1 metric over the test split + result plot
+        (reference static_trainer.py:267-320)."""
+        dp = self.data_processor
+        u_mean, u_std = dp.u_mean, dp.u_std
+        all_errors = []
+        last = None
+        for batch in self.test_loader:
+            pred, _ = self._eval(batch)
+            pred = pred.float().cpu().numpy().astype(np.float64)
+            target = np.asarray(torch.as_tensor(batch["u"]).cpu(), dtype=np.float64)
+            keep = batch["sample_mask"]
+            pred_denorm = pred[keep] * u_std + u_mean
+            target_denorm = target[keep] * u_std + u_mean
+            # The reference hands 3-D [B, N, V] tensors to
+            # compute_batch_errors, whose [1, 1, 1, -1] statistics broadcast
+            # them to [1, B, N, V]: each test batch pools into one rel-L1
+            # scalar (the batch folded into the "time" axis), and the median
+            # is taken over batches. Kept as the JAX package keeps it.
+            errs = compute_batch_errors(target_denorm[None], pred_denorm[None],
+                                        self.metadata)
+            all_errors.append(errs)
+            # The example plot takes the last KEPT sample (the final batch is
+            # padded with wrap-around samples whose mask is False).
+            last = (batch, pred_denorm, target_denorm,
+                    int(np.flatnonzero(keep)[-1]))
+        self.last_test_errors = np.concatenate(all_errors, axis=0)
+        final_metric = compute_final_metric(self.last_test_errors)
+        self.datarow["relative error (direct)"] = final_metric
+        print(f"Relative error: {final_metric}")
+        self._plot_test_example(last)
+        return final_metric
+
+    def _plot_test_example(self, last):
+        if last is None:
+            return
+        if pyplot() is None:
+            print("matplotlib is not installed: no result plot")
+            return
+        batch, pred_denorm, target_denorm, bidx = last
+        dp = self.data_processor
+        try:
+            coords = dp.coord_scaler.inverse_transform(self.coord.cpu().numpy())
+            c = batch.get("c")
+            if c is not None and dp.c_mean is not None:
+                c_denorm = np.asarray(torch.as_tensor(c[bidx]).cpu()) * dp.c_std + dp.c_mean
+            else:
+                c_denorm = None
+            fig = plot_estimates(
+                u_inp=c_denorm,
+                u_gtr=target_denorm[-1],
+                u_prd=pred_denorm[-1],
+                x_inp=coords,
+                names=self.metadata.names.get("c"),
+                symmetric=self.metadata.signed["u"],
+                domain=self.metadata.domain_x,
+            )
+            os.makedirs(os.path.dirname(self.path_config.result_path) or ".",
+                        exist_ok=True)
+            fig.savefig(self.path_config.result_path, dpi=200,
+                        bbox_inches="tight", pad_inches=0.1)
+            pyplot().close(fig)
+            print(f"Plot saved to {self.path_config.result_path}")
+        except Exception as e:  # plotting must never fail a run
+            print(f"Warning: could not create result plot: {e}")

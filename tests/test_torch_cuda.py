@@ -12,7 +12,8 @@ the SwiGLU width the JAX gate sends to the plain route; the models' auto
 routes at widths above the templated kernels; what the wrappers refuse; and
 the small fx forward and training step against the CPU plain route; the
 flash backward at the edges of its tiles, and two of its bf16 calls bitwise
-identical.
+identical; the fx StaticTrainer's fit on the card against the CPU, with the
+splits on the card and on the host.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. On the machine with the card
 (which has no JAX, so without the JAX-loading conftest):
@@ -576,3 +577,57 @@ def test_small_train_step_card_vs_cpu(dtype):
     else:
         np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=5e-2)
         assert float((got - want).norm() / want.norm()) <= 5e-2
+
+
+@pytest.mark.parametrize("device_data", [True, False])
+def test_static_trainer_card_vs_cpu(tmp_path, device_data):
+    """The fx StaticTrainer's fit (fp32) on the card against the same fit on
+    the CPU: the loss records and the relative error within 1e-3 relative;
+    the card's steps launch the kernels. With ``device_data`` the split
+    buffers live on the card; without it, batches are copied from pinned
+    memory on the prefetch thread."""
+    import json
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synthetic import make_static_fx_dataset
+
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train import StaticTrainer
+
+    make_static_fx_dataset(str(tmp_path / "toy.npz"))
+    model = {"latent_tokens_size": [8, 8],
+             "args": {"magno": {"radius": 0.25, "hidden_size": 8, "mlp_layers": 1,
+                                "lifting_channels": 8},
+                      "transformer": {"patch_size": 2, "hidden_size": 16,
+                                      "num_layers": 2,
+                                      "attn_config": {"num_heads": 2,
+                                                      "num_kv_heads": 2}}}}
+    records, errors = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        cfg = {"setup": {"seed": 0, "device": dev}, "model": model,
+               "dataset": {"name": "toy", "metaname": "elliptic_pdes/Poisson-Gauss",
+                           "base_path": str(tmp_path), "train_size": 8,
+                           "val_size": 2, "test_size": 2, "batch_size": 4,
+                           "device_data": device_data},
+               "optimizer": {"args": {"epoch": 4, "eval_every_eps": 2}},
+               "path": {"ckpt_path": str(out / "ckpt"), "loss_path": str(out / "loss.png"),
+                        "result_path": str(out / "result.png"),
+                        "database_path": str(out / "db.csv")}}
+        trainer = StaticTrainer(json.loads(json.dumps(cfg)))
+        batch = next(iter(trainer.train_loader))
+        assert isinstance(batch["u"], torch.Tensor) is device_data
+        kernels.reset_launches()
+        trainer.fit(verbose=False)
+        counts = kernels.launch_counts()
+        if dev == "cuda":
+            assert counts["multiply_reduce_b"] > 0 and counts["flash_attention_bwd"] == 2 * 8
+        else:
+            assert not any(counts.values())
+        records[dev] = np.load(out / "loss.npz")
+        errors[dev] = trainer.datarow["relative error (direct)"]
+    for k in ("losses", "val_losses"):
+        np.testing.assert_allclose(records["cuda"][k], records["cpu"][k], rtol=1e-3)
+    np.testing.assert_allclose(errors["cuda"], errors["cpu"], rtol=1e-3)

@@ -1,7 +1,8 @@
 """gaot_torch stands alone: no module of it (nor chip_smoke.py, nor
 kernel_ab.py) imports JAX, Flax, Optax or gaot_tpu; it imports with JAX
-blocked; and its entry points ask for the CUDA device unless told
-otherwise."""
+blocked, and imports and trains through its CLI with the host libraries
+the card's machine lacks (matplotlib, pandas, h5py) blocked too; and its
+entry points ask for the CUDA device unless told otherwise."""
 import ast
 import pathlib
 import subprocess
@@ -49,6 +50,45 @@ def test_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def test_trains_without_host_libraries(tmp_path):
+    """With JAX, matplotlib, pandas and h5py blocked, every module imports
+    and a tiny CPU config trains through ``gaot_torch.cli.main``, writing
+    its loss record and its CSV row (and no PNG)."""
+    import json
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from synthetic import make_static_fx_dataset
+    from test_train_e2e import TINY_MODEL, TINY_OPT
+
+    make_static_fx_dataset(str(tmp_path / "toy.npz"))
+    cfg = {"setup": {"seed": 0, "device": "cpu"}, "model": TINY_MODEL,
+           "dataset": {"name": "toy", "metaname": "elliptic_pdes/Poisson-Gauss",
+                       "base_path": str(tmp_path), "train_size": 8,
+                       "val_size": 2, "test_size": 2, "batch_size": 4},
+           "optimizer": {**TINY_OPT, "args": {**TINY_OPT["args"], "epoch": 2}},
+           "path": {"ckpt_path": "out/ckpt", "loss_path": "out/loss.png",
+                    "result_path": "out/result.png", "database_path": "out/db.csv"}}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'gaot_tpu', 'matplotlib',\n"
+        "          'pandas', 'h5py'):\n"
+        "    sys.modules[m] = None\n"
+        "import pkgutil, importlib, gaot_torch\n"
+        "for m in pkgutil.walk_packages(gaot_torch.__path__, 'gaot_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from gaot_torch.cli import main\n"
+        f"sys.exit(main(['-c', {str(tmp_path / 'cfg.json')!r}]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no result plot" in out.stdout
+    assert (tmp_path / "out" / "loss.npz").exists()
+    assert (tmp_path / "out" / "db.csv").exists()
+    assert (tmp_path / "out" / "ckpt.pt").exists()
+    assert not (tmp_path / "out" / "loss.png").exists()
 
 
 def test_entry_points_default_to_cuda():
