@@ -3,14 +3,18 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Three paths run through the port's entry points, and the fx recipe trains
-through the port's CLI:
+Four paths run through the port's entry points, and the fx and elasticity
+recipes train through the port's CLI:
   - the fx main path: the Poisson-Gauss recipe (8192 nodes, 64x64 latent
     grid, config/examples/time_indep/poisson_gauss.json), batch 64;
   - the 3D flagship of scripts/train_demo.py::run_3d: 32768 nodes in
     [-1, 1]^3, a 64^3 latent grid, kNN graphs (k = 8), a UViT at patch 4
     (S = 4096 tokens) with 8 heads of dim 24, batch 4;
-  - the long-sequence path: the same model at patch 2 (S = 32768), batch 1.
+  - the long-sequence path: the same model at patch 2 (S = 32768), batch 1;
+  - the vx flagship of bench.py::build_vx_workload: a mesh per sample, 16
+    samples of 8192 nodes each in [-1, 1]^2, the 64x64 grid, degree-bucketed
+    encoder and decoder with in-degree-grouped transpose graphs, the fx
+    path's UViT, batch 16.
 
 Phases (any failure exits nonzero; no phase carries on past its own
 failure):
@@ -36,13 +40,16 @@ failure):
      (every degree bucket, in-degree group and transpose graph of a step),
      timed also beside the parent's pair (the row gather, then the
      pre-gathered kernel) and the library pair (index_select, then einsum);
-     two calls of each must give the same bits. The flash backward
+     two calls of each must give the same bits (on the vx path, b = 1 and
+     C = 64, on the batch's graphs flattened over its samples: every
+     degree bucket, masked, the reorder of the bucketed rows to query order
+     and its gradient, and every in-degree group). The flash backward
      is checked once per TPU regime it replaces, at the S its path runs:
      1024 (monolithic), 4096 (q-tiled) and 32768 (the two-kernel long
      backward, which serves S > 4096; plain versions one head at a time),
      and at S = 8192 besides; two backward calls on the same inputs must
      give the same bits.
-  3. the forward of the main path and of the flagship at full width with
+  3. the forward of the main path, the flagship and the vx flagship at full width with
      seeded random weights: at a small batch the kernel route on the card
      against the plain route on the CPU (fp32 and bf16; the flagship's fp32
      also on an anisotropic lattice), then the path's batch in bf16 with
@@ -73,8 +80,22 @@ failure):
      checkpoint's update count goes from 48 to 96 and its first loss is
      below run A's. Run C is the example's fp32: its loss falls and no
      SwiGLU kernel launches.
-  6. prints one JSON line listing every kernel of the three paths (the fx
-     main path's launches are those of the trainer's run A).
+  5b. the vx trainer: the elasticity recipe (config/examples/time_indep/
+     elasticity.json read from disk, a mesh per sample) trained through
+     gaot_torch.cli.main on synthetic data at the Elasticity layout
+     (tests/torch_synthetic.py: 972 points a sample, one c and one u
+     channel, seed 0), batch 32, train/val/test 256 / 32 / 64 samples, 6
+     epochs, in the example's own fp32 (no SwiGLU launch), under a
+     device-only profiler: its launches must equal
+     the step's and forward's tables (derived from the graphs the trainer
+     builds) times its steps and evaluation batches, its routes the
+     kernels, its loss fall, its metric be finite, its checkpoint, loss
+     record and CSV row exist, and PyTorch's row gather run only for the
+     loader's batch selects (one per buffer on the card a batch), none in
+     the model.
+  6. prints one JSON line listing every kernel of the four paths (the fx
+     main path's launches are those of the trainer's run A; the vx
+     entries' those of the vx flagship's training step and forward).
 The last line is {"ok": true, "device": {...}}.
 """
 import copy
@@ -105,10 +126,15 @@ NUM_NODES, LATENT, BATCH, SEQ = 8192, (64, 64), 64, 1024
 STEPS_PER_EPOCH = 2048 // BATCH     # the config's train_size / batch_size
 
 # Launches of each kernel in one batch-64 forward (evaluation) and in one
-# training step.
-FORWARD_LAUNCHES = {"multiply_reduce_k": 5, "flash_attention_fwd": 3,
+# training step. The encoder graph is bucketed (4 degree buckets, 4
+# in-degree groups), the decoder dense with a flat transpose graph: the
+# forward reduces once per bucket and once for the dense graph, and once
+# more to put the bucketed rows back in query order (6); the step adds d_f
+# per in-degree group and for the transpose graph (5) and that reorder's
+# gradient (1); d_coef once per bucket and for the dense graph (5).
+FORWARD_LAUNCHES = {"multiply_reduce_k": 6, "flash_attention_fwd": 3,
                     "fused_ffn_fwd": 3}
-TRAIN_LAUNCHES = {"multiply_reduce_k": 10, "multiply_reduce_b": 5,
+TRAIN_LAUNCHES = {"multiply_reduce_k": 12, "multiply_reduce_b": 5,
                   "flash_attention_fwd_lse": 3, "flash_attention_bwd": 3,
                   "fused_ffn_fwd": 3, "fused_ffn_bwd": 3}
 
@@ -155,6 +181,27 @@ PATCH_LONG, BATCH_LONG, SEQ_LONG = 2, 1, 32768
 # are not.
 AXIS_SCALE_3D = (1.0, 0.85, 0.7)
 
+# The vx flagship of bench.py::build_vx_workload (bench.py:168-298): 16
+# samples a batch, 8192 nodes a sample in [-1, 1]^2 with its own
+# coordinates (Morton-ordered), the 64x64 latent grid, radius 0.033,
+# degree-bucketed encoder and decoder with in-degree-grouped transpose
+# graphs, MAGNO hidden 64 with 3 MLP layers and lifting 64, the UViT of the
+# fx path (3 layers, hidden 256, 8 heads of dim 32, patch 2: S = 1024,
+# SwiGLU 1024), bf16, AdamW with 'mix'. One batch of samples is built.
+VX_NODES, VX_BATCH, VX_CHECK_BATCH = 8192, 16, 2
+CONFIG_VX = {
+    "model": {
+        "latent_tokens_size": list(LATENT),
+        "args": {
+            "magno": {"coord_dim": 2, "radius": 0.033, "hidden_size": 64,
+                      "mlp_layers": 3, "lifting_channels": 64},
+            "transformer": {"patch_size": 2, "hidden_size": 256, "num_layers": 3},
+        },
+    },
+    "optimizer": {"name": "adamw",
+                  "args": {"lr": 8e-4, "weight_decay": 1e-5, "epoch": 1000}},
+}
+
 SOURCES = {   # kernel: (source, the TPU kernel's pallas_call it replaces)
     "multiply_reduce_k": ("gaot_torch/csrc/multiply_reduce.cu",
                           "gaot_tpu/ops/pallas/multiply_reduce.py:105"),
@@ -193,6 +240,7 @@ class Path(NamedTuple):
     steps_per_epoch: int
     forward_launches: dict
     train_launches: dict
+    vx: object = None           # vx: the split's host buffers (a mesh per sample)
 
 
 def fail(msg: str) -> None:
@@ -457,6 +505,62 @@ def _host_graphs(cfg, num_nodes, latent, what, axis_scale=None):
     return coords, lat, enc, dec
 
 
+def _host_graphs_vx(cfg, what):
+    """The vx flagship's split: VX_BATCH samples of VX_NODES seeded nodes
+    uniform in [-1, 1]^2, each its own, the latent lattice, and the split's
+    graphs from the port's builder as the trainer builds them (Morton
+    order, shared degree buckets, in-degree-grouped transpose graphs); logs
+    the build time and the layout. Returns (coords [S, N_pad, 2], lattice,
+    encoder, decoder, the split's buffers)."""
+    import numpy as np
+
+    from gaot_torch.data.graph_builder import GraphBuilder, vx_graph_buffers
+
+    magno = cfg.model.args.magno
+    x = np.random.default_rng(0).uniform(-1, 1, (VX_BATCH, VX_NODES, 2)).astype(np.float32)
+    lat = _lattice(LATENT)
+    builder = GraphBuilder.from_magno_config(magno)
+    t0 = time.perf_counter()
+    split = builder.build_all_vx_graphs(
+        {"test": {"x": x}}, lat, magno.radius, magno.scales, build_train=False,
+        with_transpose=True, bucketing=True)["test"]
+    bufs = vx_graph_buffers(split)
+    bufs.pop("node_perm")
+
+    def fmt(g):
+        if hasattr(g, "bucket_ks"):
+            return " ".join(f"{r}x{k}" for r, k in zip(g.bucket_rows, g.bucket_ks))
+        return f"dense K={g.indices.shape[-1]}"
+    log(f"{what} graphs: {VX_BATCH} samples x {VX_NODES} nodes (N_pad "
+        f"{split.coords.shape[1]}), search={builder.search_method} host_build_s="
+        f"{time.perf_counter() - t0:.2f}; encoder buckets {fmt(split.encoder[0])}; "
+        f"decoder buckets {fmt(split.decoder[0])}")
+    return split.coords, lat, split.encoder, split.decoder, bufs
+
+
+def _vx_tables(graphs, layers: int, ffn: bool) -> tuple:
+    """The launches of one vx forward and one training step, from a batch's
+    graphs (FxGraphs; per scale and side a FlatGraph with its in-degree
+    grouped transpose graph): the forward reduces once per bucket and,
+    where the rows were bucketed, once more to put them back in query
+    order; the step adds d_f once per in-degree group, that reorder's
+    gradient, and d_coef once per bucket. One flash call per UViT layer;
+    the SwiGLU where ``ffn``."""
+    fwd_k = step_k = step_b = 0
+    for g in graphs.encoder + graphs.decoder:
+        nb, perm = len(g.buckets), int(g.perm is not None)
+        fwd_k += nb + perm
+        step_k += nb + len(g.tgraph.groups) + 2 * perm
+        step_b += nb
+    fwd = {"multiply_reduce_k": fwd_k, "flash_attention_fwd": layers}
+    train = {"multiply_reduce_k": step_k, "multiply_reduce_b": step_b,
+             "flash_attention_fwd_lse": layers, "flash_attention_bwd": layers}
+    if ffn:
+        fwd["fused_ffn_fwd"] = layers
+        train.update(fused_ffn_fwd=layers, fused_ffn_bwd=layers)
+    return fwd, train
+
+
 def _row(err, ms, plain_ms, lib_ms, bound, per, dtype="bf16", **extra):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound[0], bound_by=bound[1], per=per, dtype=dtype, **extra)
@@ -484,9 +588,12 @@ def check_multiply_reduce(rnd, b, c, cases, what):
     fp32); two calls of each must give the same bits. In bf16, each is
     timed beside the parent's pair (the row gather, then the pre-gathered
     kernel), the library pair (index_select, then einsum) and the plain
-    version; the bound counts the bytes the fused function must move:
-    coefficients (valid edges × C for d_f), indices of the slots read and
-    masks, the output, and each distinct source row once."""
+    version; the bound counts the bytes the fused function must move and
+    the products it makes, over the slots it reads (a masked slot loads
+    nothing): coefficients (valid slots × C; C for a coefficient of one
+    broadcast over every slot, as the row reorders take it), indices of
+    those slots and the masks, the output, and each distinct source row
+    once. multiply_reduce_b reads every slot."""
     import torch
 
     from gaot_torch.ops.cuda import multiply_reduce as mr
@@ -523,42 +630,63 @@ def check_multiply_reduce(rnd, b, c, cases, what):
         dt = str(dtype)[6:]
         for case in cases["forward"]:
             idx, n_src = case["idx"], case["n_src"]
+            # vx: masked slots load nothing. The row reorders have no d_coef
+            # and take a coefficient of one, broadcast, as the model does
+            # (gaot_torch/ops/gather_apply.py::_take_rows).
+            mask, d_coef = case.get("mask"), case.get("d_coef", True)
             q, k = idx.shape
-            src, coef = rnd(n_src, w).to(dtype), rnd(q, k, c).to(dtype)
-            dout = rnd(q, w).to(dtype)
+            src, dout = rnd(n_src, w).to(dtype), rnd(q, w).to(dtype)
+            coef = (src.new_ones(c).expand(q, k, c) if case.get("ones")
+                    else rnd(q, k, c).to(dtype))
             label = f"{case['name']} [{q}, {k}] {dt}"
             # fp32: K-term sums in another order, whose rounding grows with K.
             tol = (8e-3, 1e-2) if bf16 else (1e-5, 1e-5 * max(1.0, k / 16))
-            kern = lambda: mr.gather_multiply_reduce_k(src, idx, coef, b)
+            kern = lambda: mr.gather_multiply_reduce_k(src, idx, coef, b, mask=mask)
             err = compare(f"mulred_k fwd {label}", kern(),
-                          mr.gather_multiply_reduce_k_plain(src, idx, coef, b), *tol)
+                          mr.gather_multiply_reduce_k_plain(src, idx, coef, b,
+                                                            mask=mask), *tol)
             same_bits(f"mulred_k fwd {label}", kern)
-            kern_b = lambda: mr.gather_multiply_reduce_b(src, idx, dout, b)
-            # fp32: b-term sums in another order.
-            tol_b = (8e-3, 1e-2) if bf16 else (2e-5, 5e-5)
-            err_b = compare(f"mulred_b {label}", kern_b(),
-                            mr.gather_multiply_reduce_b_plain(src, idx, dout, b), *tol_b)
-            same_bits(f"mulred_b {label}", kern_b)
+            if d_coef:
+                kern_b = lambda: mr.gather_multiply_reduce_b(src, idx, dout, b)
+                # fp32: b-term sums in another order.
+                tol_b = (8e-3, 1e-2) if bf16 else (2e-5, 5e-5)
+                err_b = compare(f"mulred_b {label}", kern_b(),
+                                mr.gather_multiply_reduce_b_plain(src, idx, dout, b),
+                                *tol_b)
+                same_bits(f"mulred_b {label}", kern_b)
             if not bf16:
                 record("multiply_reduce_k", label, err)
-                record("multiply_reduce_b", label, err_b)
+                if d_coef:
+                    record("multiply_reduce_b", label, err_b)
                 continue
             idx_t = idx.t().reshape(-1)
-            coef_km, c4 = coef.transpose(0, 1), coef
+            # The parent's pre-gathered kernel takes a dense coefficient.
+            c4 = coef.contiguous()
+            coef_km = c4.transpose(0, 1)
             gath_km = lambda: src.index_select(0, idx_t).view(k, q, w)
             rows = lambda: src.index_select(0, idx.reshape(-1)).view(q, k, b, c)
             d3 = dout.view(q, b, c)
-            nrows = _distinct_rows(idx)
+            isz = idx.element_size()
+            # The kernel reads the mask, then the index, the coefficient and
+            # the row of each valid slot only.
+            valid = int(mask.sum()) if mask is not None else q * k
+            nbytes = (((c if case.get("ones") else valid * c) + q * w
+                       + _distinct_rows(idx, mask) * w) * size
+                      + valid * isz + (q * k if mask is not None else 0))
             times = _pair_ms(kern, lambda: mr.multiply_reduce_k(coef_km, gath_km(), b),
                              lambda: torch.einsum("qkc,qkbc->qbc", c4, rows()),
-                             lambda: mr.gather_multiply_reduce_k_plain(src, idx, coef, b))
-            record("multiply_reduce_k", f"fwd {label}", err, times,
-                   (q * k * c + q * w + nrows * w) * size + q * k * 8, 2.0 * q * k * w)
+                             lambda: mr.gather_multiply_reduce_k_plain(src, idx, coef, b,
+                                                                       mask=mask))
+            record("multiply_reduce_k", f"fwd {label}", err, times, nbytes,
+                   2.0 * valid * w)
+            if not d_coef:
+                continue
             times = _pair_ms(kern_b, lambda: mr.multiply_reduce_b(gath_km(), dout, b),
                              lambda: torch.einsum("qkbc,qbc->qkc", rows(), d3),
                              lambda: mr.gather_multiply_reduce_b_plain(src, idx, dout, b))
             record("multiply_reduce_b", f"d_coef {label}", err_b, times,
-                   (q * w + q * k * c + nrows * w) * size + q * k * 8, 2.0 * q * k * w)
+                   (q * w + q * k * c + _distinct_rows(idx) * w) * size + q * k * isz,
+                   2.0 * q * k * w)
         for case in cases["d_f"]:
             tq, ep, tm, row_map = case["query"], case["edge_pos"], case["mask"], case["row_map"]
             q, k = tq.shape
@@ -596,8 +724,9 @@ def check_multiply_reduce(rnd, b, c, cases, what):
                 return torch.einsum("qkc,qkbc->qbc", cf, rows)
 
             valid = int(tm.sum())
+            isz = tq.element_size()
             nbytes = ((valid * c + q * w + _distinct_rows(tq, tm) * w) * size
-                      + valid * 16 + q * k + (q * 8 if row_map is not None else 0))
+                      + valid * 2 * isz + q * k + (q * isz if row_map is not None else 0))
             times = _pair_ms(kern, parent, library,
                              lambda: mr.gather_multiply_reduce_k_plain(
                                  dout2, tq, table, b, coef_idx=ep, mask=tm))
@@ -606,13 +735,14 @@ def check_multiply_reduce(rnd, b, c, cases, what):
                    nbytes, 2.0 * valid * w)
         torch.cuda.empty_cache()
     nf, nd = len(cases["forward"]), len(cases["d_f"])
+    nb = sum(case.get("d_coef", True) for case in cases["forward"])
     rows = {}
     for name, per in (("multiply_reduce_k",
                        f"sum of the {nf + nd} calls of one training step (the "
-                       f"forward runs the first {nf}); parent_pair_ms: the row "
-                       f"gathers and the pre-gathered kernel"),
+                       f"forward runs {cases.get('forward_calls', nf)}); "
+                       f"parent_pair_ms: the row gathers and the pre-gathered kernel"),
                       ("multiply_reduce_b",
-                       f"sum of the {nf} calls of one training step; "
+                       f"sum of the {nb} calls of one training step; "
                        f"parent_pair_ms: the row gather and the pre-gathered kernel")):
         a = agg[name]
         rows[name] = _row(a["err"], a["ms"], a["plain_ms"], a["library_ms"],
@@ -745,19 +875,20 @@ def check_flash(rnd, bb, s, h, d, with_eval=True):
     return rows
 
 
-def check_ffn(rnd):
-    """The SwiGLU forward and backward at the fx shape, bf16: against the
-    plain versions, timed 20 back to back and by profiler device time per
-    call, beside the library's three products (and autograd of them); then
-    the fp32 kernels at the same shape (times logged), and the general
-    route's forward and backward at M = 1024, F = 3584."""
+def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True):
+    """The SwiGLU forward and backward at R tokens (the fx shape by
+    default), M = 256, F = 1024, bf16: against the plain versions, timed 20
+    back to back and by profiler device time per call, beside the library's
+    three products (and autograd of them); then, with ``extras``, the fp32
+    kernels at the same shape (times logged), and the general route's
+    forward and backward at M = 1024, F = 3584."""
     import torch
 
     from gaot_torch.ops.cuda import fused_ffn as ff
 
     rows = {}
     silu = torch.nn.functional.silu
-    r, m, f = BATCH * 1024, 256, 1024
+    m, f = 256, 1024
     log(f"fused SwiGLU, R={r} M={m} F={f} (bf16):")
 
     def weights(m, f, dtype):
@@ -806,6 +937,10 @@ def check_ffn(rnd):
     rows["fused_ffn_bwd"] = _row(err_bwd, t_kb, t_pb, t_lb, bnd_b, "one call",
                                  device_ms=d_kb, library_device_ms=d_lb)
     del out, leaves, dout
+    if not extras:
+        del x, w1, w3, w2
+        torch.cuda.empty_cache()
+        return rows
 
     # fp32 (exact FMA on the CUDA cores) at the same shape, and the general
     # route at a width the tuned forward does not take: times logged.
@@ -837,12 +972,14 @@ def _reduce_cases(path: Path, what: str):
     """The calls multiply_reduce_k makes in one training step of ``path``,
     on the graphs the model is given (``prepare_fx_device_graphs``, on the
     card): "forward", each graph or degree bucket reduced (idx [Q, K] into
-    n_src source rows; multiply_reduce_b runs on the same), and "d_f",
-    each flat transpose graph or in-degree group (query, edge_pos, mask
-    [N, Kt]; n_dout rows of dout, n_edges coefficient rows, n_out output
-    rows; a group writes its rows through row_map)."""
+    n_src source rows; multiply_reduce_b runs on the same) and the reorder
+    of bucketed rows to query order with its gradient (a coefficient of
+    one; no d_coef), and "d_f", each flat transpose graph or in-degree
+    group (query, edge_pos, mask [N, Kt]; n_dout rows of dout, n_edges
+    coefficient rows, n_out output rows; a group writes its rows through
+    row_map), as ``gaot_torch/ops/gather_apply.py::df_calls`` makes them."""
     from gaot_torch.data.graph_builder import prepare_fx_device_graphs
-    from gaot_torch.ops.gather_apply import grouped_row_nodes
+    from gaot_torch.ops.gather_apply import FlatGraph, df_calls
     from gaot_torch.ops.padding import BucketedGraph
 
     n, nq = path.coords.shape[0], path.lat.shape[0]
@@ -856,16 +993,19 @@ def _reduce_cases(path: Path, what: str):
             rows = sum(bk.indices.shape[0] for bk in g.buckets)
             cases["forward"] += [dict(name=f"{side} bucket", idx=bk.indices, n_src=n_src)
                                  for bk in g.buckets]
-            perm = grouped_row_nodes(g.tgraph)
-            off = 0
-            for gr in g.tgraph.groups:
-                r = gr.mask.shape[1]
+            edges = sum(bk.indices.numel() for bk in g.buckets)
+            fg = FlatGraph(g.buckets, (None,) * len(g.buckets), rows, None, None, None,
+                           g.tgraph, 1)
+            for tq, ep, tm, rm in df_calls(fg, edges):
                 cases["d_f"].append(dict(
-                    name=f"{side} in-degree group", query=gr.query[0],
-                    edge_pos=gr.edge_pos[0], mask=gr.mask[0], row_map=perm[off:off + r],
-                    n_out=n_src, n_dout=rows,
-                    n_edges=sum(bk.indices.numel() for bk in g.buckets)))
-                off += r
+                    name=f"{side} in-degree group", query=tq, edge_pos=ep, mask=tm,
+                    row_map=rm, n_out=n_src, n_dout=rows, n_edges=edges))
+            cases["forward"] += [
+                dict(name=f"{side} rows to query order", idx=g.inv_perm[:, None],
+                     n_src=rows, d_coef=False, ones=True),
+                dict(name=f"{side} rows to query order, gradient", idx=g.perm[:, None],
+                     mask=g.row_valid[:, None], n_src=g.inv_perm.shape[0], d_coef=False,
+                     ones=True)]
             desc.append(f"{side} buckets {[tuple(bk.indices.shape) for bk in g.buckets]}, "
                         f"in-degree groups {[tuple(gr.mask.shape[1:]) for gr in g.tgraph.groups]}")
             continue
@@ -885,31 +1025,92 @@ def _reduce_cases(path: Path, what: str):
     return cases
 
 
-def _model_and_graphs(path: Path, dtype, device):
+def _vx_reduce_cases(path: Path, what: str, device="cuda"):
+    """The multiply-reduce calls of one vx training step at the path's
+    batch, on its graphs flattened over the batch as the model takes them
+    (``vx_flat_graphs``; b = 1, sample s's ids offset by its slot):
+    "forward", each degree bucket (masked) and the reorder of bucketed
+    rows to query order with its gradient (masked by the valid rows; a
+    coefficient of one; no d_coef); "d_f", each in-degree group
+    (``df_calls``)."""
+    from gaot_torch.ops.gather_apply import df_calls
+
+    graphs, _, _ = _graph_args(path, path.batch, device)
+    b, n, nq = path.batch, path.coords.shape[1], path.lat.shape[0]
+    cases = {"forward": [], "d_f": [], "forward_calls": 0}
+    desc = []
+    for side, vg, n_src, n_q in (("encoder", graphs.encoder[0], n, nq),
+                                 ("decoder", graphs.decoder[0], nq, n)):
+        cases["forward"] += [dict(name=f"{side} bucket", idx=bk.indices, mask=bk.mask,
+                                  n_src=b * n_src) for bk in vg.buckets]
+        edges = sum(bk.indices.numel() for bk in vg.buckets)
+        for tq, ep, tm, rm in df_calls(vg, edges // b):
+            cases["d_f"].append(dict(name=f"{side} in-degree group", query=tq,
+                                     edge_pos=ep, mask=tm, row_map=rm, n_out=b * n_src,
+                                     n_dout=b * vg.rows, n_edges=edges))
+        cases["forward_calls"] += len(vg.buckets)
+        if vg.perm is not None:
+            cases["forward"] += [
+                dict(name=f"{side} rows to query order", idx=vg.inv_perm[:, None],
+                     n_src=b * vg.rows, d_coef=False, ones=True),
+                dict(name=f"{side} rows to query order, gradient", idx=vg.perm[:, None],
+                     mask=vg.row_valid[:, None], n_src=b * n_q, d_coef=False, ones=True)]
+            cases["forward_calls"] += 1
+        desc.append(f"{side} buckets {[tuple(bk.indices.shape) for bk in vg.buckets]}, "
+                    f"in-degree groups {[tuple(c[0].shape) for c in df_calls(vg, 1)]}")
+    log(f"{what} reduce graphs (batch {b}, flattened): " + "; ".join(desc))
+    want = path.train_launches["multiply_reduce_k"]
+    got = len(cases["forward"]) + len(cases["d_f"])
+    if got != want:
+        fail(f"{what}: expected {want} multiply-reduce calls, the graphs give {got}")
+    return cases
+
+
+def _graph_args(path: Path, b: int, device):
+    """The model's graph arguments for a batch of ``b`` samples, its
+    coordinates and its node mask: fx, the shared graphs on ``device``, the
+    nodes and None; vx, the first ``b`` samples' buffers on ``device`` as
+    the loader gives them, their coordinates and node mask."""
     import torch
 
-    from gaot_torch.data.graph_builder import prepare_fx_device_graphs
-    from gaot_torch.models import GAOT
+    from gaot_torch.data.graph_builder import (
+        prepare_fx_device_graphs,
+        vx_flat_graphs,
+        vx_layout,
+    )
     from gaot_torch.train.static_trainer import FxGraphs
 
-    cfg = path.cfg.model
+    lat = torch.from_numpy(path.lat).to(device)
+    if path.vx is not None:
+        batch = {k: v[:b] for k, v in path.vx.items()}
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in {**batch, **vx_layout(batch, b)}.items()}
+        graphs = FxGraphs(lat, *vx_flat_graphs(batch, len(path.enc)))
+        return graphs, batch["x"], batch["node_mask"]
     e, d, et, dt = prepare_fx_device_graphs(path.enc, path.dec, path.coords.shape[0],
-                                            path.lat.shape[0], cfg.args.magno,
+                                            path.lat.shape[0], path.cfg.model.args.magno,
                                             device=device)
-    graphs = FxGraphs(torch.from_numpy(path.lat).to(device), e, d, et, dt)
-    model = GAOT(1, 1, cfg, dtype=dtype, device=device,
+    return FxGraphs(lat, e, d, et, dt), torch.from_numpy(path.coords).to(device), None
+
+
+def _model(path: Path, dtype, device):
+    import torch
+
+    from gaot_torch.models import GAOT
+
+    model = GAOT(1, 1, path.cfg.model, dtype=dtype, device=device,
                  generator=torch.Generator().manual_seed(0)).eval()
     if model.pos_emb.shape[0] != path.seq:
         fail(f"{path.name}: the model has {model.pos_emb.shape[0]} tokens, "
              f"expected {path.seq}")
-    return model, graphs
+    return model
 
 
 def _batch(seed, path: Path):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    shape = (max(path.batch, path.check_batch), path.coords.shape[0], 1)
+    shape = (max(path.batch, path.check_batch), path.coords.shape[-2], 1)
     pndata = rng.normal(size=shape).astype(np.float32)
     target = rng.normal(size=shape).astype(np.float32)
     return pndata, target
@@ -937,16 +1138,16 @@ def phase_forward(path: Path):
     from gaot_torch.utils.routing import format_routes, reset_routes
 
     pndata, target = _batch(1, path)
-    n, cb = path.coords.shape[0], path.check_batch
+    n, cb = path.coords.shape[-2], path.check_batch
     out = {}
     for name, dtype in _check_dtypes(path):
-        mg = {dev: _model_and_graphs(path, dtype, dev) for dev in ("cuda", "cpu")}
+        mg = {dev: (_model(path, dtype, dev), _graph_args(path, cb, dev))
+              for dev in ("cuda", "cpu")}
         t = lambda a, dev: torch.from_numpy(a[:cb]).to(dev)
         preds = {}
-        for dev, (model, graphs) in mg.items():
-            pred, _ = eval_step(model, graphs, torch.from_numpy(path.coords).to(dev),
-                                t(pndata, dev), t(target, dev),
-                                torch.ones(cb, dtype=torch.bool, device=dev))
+        for dev, (model, (graphs, coord, nmask)) in mg.items():
+            pred, _ = eval_step(model, graphs, coord, t(pndata, dev), t(target, dev),
+                                torch.ones(cb, dtype=torch.bool, device=dev), nmask)
             preds[dev] = pred.float().cpu()
         got, want = preds["cuda"], preds["cpu"]
         if got.shape != (cb, n, 1) or not torch.isfinite(got).all():
@@ -970,8 +1171,8 @@ def phase_forward(path: Path):
     if not path.batch:
         return out
 
-    model, graphs = _model_and_graphs(path, torch.bfloat16, "cuda")
-    xc = torch.from_numpy(path.coords).cuda()
+    model = _model(path, torch.bfloat16, "cuda")
+    graphs, xc, nmask = _graph_args(path, path.batch, "cuda")
     xp = torch.from_numpy(pndata).cuda()
     xt = torch.from_numpy(target).cuda()
     smask = torch.ones(path.batch, dtype=torch.bool, device="cuda")
@@ -979,7 +1180,7 @@ def phase_forward(path: Path):
     torch.cuda.reset_peak_memory_stats()
     reset_routes()
     kernels.reset_launches()
-    pred, loss = eval_step(model, graphs, xc, xp, xt, smask)
+    pred, loss = eval_step(model, graphs, xc, xp, xt, smask, nmask)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"{path.name} forward batch {path.batch} bf16 (S = {path.seq}): "
@@ -990,7 +1191,7 @@ def phase_forward(path: Path):
             or not torch.isfinite(loss):
         fail(f"{path.name} batch-{path.batch} forward: wrong shape or non-finite output")
     peak = torch.cuda.max_memory_allocated()
-    run = lambda: eval_step(model, graphs, xc, xp, xt, smask)
+    run = lambda: eval_step(model, graphs, xc, xp, xt, smask, nmask)
     log(f"  forward_ms {fmt_times(host_times(run, 10), path.batch)} "
         f"max_memory_allocated={peak / 2**30:.3f} GiB loss={float(loss):.4f}")
     profile_step(run, f"{path.name} forward")
@@ -1060,7 +1261,8 @@ def phase_train(path: Path):
     for name, dtype, shared in checks:
         res, feats = {}, []
         for dev in ("cpu", "cuda"):
-            model, graphs = _model_and_graphs(path, dtype, dev)
+            model = _model(path, dtype, dev)
+            graphs, coord, nmask = _graph_args(path, cb, dev)
             if shared:
                 _share_embedding(model, feats, record=dev == "cpu")
             opt, sched = make_optimizer(ocfg, model.parameters(), path.steps_per_epoch)
@@ -1069,9 +1271,9 @@ def phase_train(path: Path):
                 {n: p.grad.detach().float().cpu()
                  for n, p in model.named_parameters()}))
             t = lambda a: torch.from_numpy(a[:cb]).to(dev)
-            loss = train_step(model, opt, sched, 0, graphs,
-                              torch.from_numpy(path.coords).to(dev), t(pndata),
-                              t(target), torch.ones(cb, dtype=torch.bool, device=dev))
+            loss = train_step(model, opt, sched, 0, graphs, coord, t(pndata),
+                              t(target), torch.ones(cb, dtype=torch.bool, device=dev),
+                              nmask)
             res[dev] = (float(loss), grads)
             del model, graphs, opt
         if feats:
@@ -1121,15 +1323,15 @@ def phase_train(path: Path):
     if not path.batch:
         return None, None
 
-    model, graphs = _model_and_graphs(path, torch.bfloat16, "cuda")
+    model = _model(path, torch.bfloat16, "cuda")
+    graphs, xc, nmask = _graph_args(path, path.batch, "cuda")
     opt, sched = make_optimizer(ocfg, model.parameters(), path.steps_per_epoch)
-    xc = torch.from_numpy(path.coords).cuda()
     xp, xt = torch.from_numpy(pndata).cuda(), torch.from_numpy(target).cuda()
     smask = torch.ones(path.batch, dtype=torch.bool, device="cuda")
     step = [0]
 
     def run():
-        loss = train_step(model, opt, sched, step[0], graphs, xc, xp, xt, smask)
+        loss = train_step(model, opt, sched, step[0], graphs, xc, xp, xt, smask, nmask)
         step[0] += 1
         return loss
 
@@ -1469,6 +1671,112 @@ def phase_trainer(card: str, step_ms: float):
     return launches_a
 
 
+# Phase 5b: the elasticity recipe (config/examples/time_indep/elasticity.json,
+# a mesh per sample) trained through the CLI on synthetic data at the
+# Elasticity layout (tests/torch_synthetic.py: 972 points a sample in
+# [0, 1]^2, one c and one u channel), the example's batch of 32 and its
+# fp32, cut to these split sizes and epochs (the example: 1024 / 128 / 256
+# samples, 500 epochs).
+ELASTICITY = os.path.join(HERE, "config", "examples", "time_indep", "elasticity.json")
+VX_TRAINER_SIZES = {"train_size": 256, "val_size": 32, "test_size": 64}
+VX_TRAINER_EPOCHS = 6
+
+
+def phase_vx_trainer(card: str, step_ms: float):
+    """Phase 5b: the elasticity recipe through the CLI (module docstring).
+    Returns the run's launches."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from gaot_torch.train.static_trainer import StaticTrainer
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_synthetic import ELASTICITY_POINTS, make_elasticity_dataset
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gaot_vx_trainer_") as folder:
+        with open(ELASTICITY) as f:
+            raw = json.load(f)
+        n = sum(VX_TRAINER_SIZES.values())
+        make_elasticity_dataset(os.path.join(folder, f"{raw['dataset']['name']}.npz"),
+                                num_samples=n, seed=0)
+        raw["dataset"].update(VX_TRAINER_SIZES, base_path=folder)
+        raw["optimizer"]["args"]["epoch"] = VX_TRAINER_EPOCHS
+        raw["path"] = {k: os.path.join(folder, "run", os.path.basename(v))
+                       for k, v in raw["path"].items()}
+        raw["path"]["result_path"] = os.path.join(folder, "run", "result.png")
+        cfg_path = os.path.join(folder, "elasticity.json")
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f, indent=1)
+        log(f"vx trainer data: {n} samples x {ELASTICITY_POINTS} points (seed 0), "
+            f"splits {VX_TRAINER_SIZES}, {VX_TRAINER_EPOCHS} epochs, batch "
+            f"{raw['dataset']['batch_size']}, fp32")
+
+        # The tables from the graphs the trainer builds (a trainer made
+        # from the same config, not fitted); fp32 runs no SwiGLU kernel.
+        # The loader selects a batch with one index_select (PyTorch's row
+        # gather) per buffer on the card: the coordinates, the node mask,
+        # u, c and every graph buffer (the layout beside them is placed
+        # once, not selected).
+        probe = StaticTrainer(copy.deepcopy(raw))
+        batch = next(iter(probe.train_loader))
+        graphs = probe._batch_graphs(batch)
+        tcfg = probe.model_config.args.transformer
+        fwd, train = _vx_tables(graphs, tcfg.num_layers, ffn=False)
+        per_batch = sum(isinstance(v, torch.Tensor) and v.is_cuda
+                        for k, v in batch.items()
+                        if k not in probe.train_loader.layout_keys)
+        ds, args = probe.dataset_config, probe.optimizer_config.args
+        batches = lambda k: math.ceil(k / min(ds.batch_size, k))
+        steps = args.epoch * batches(ds.train_size)
+        evals = args.epoch // args.eval_every_eps * batches(ds.val_size) \
+            + batches(ds.test_size)
+        want = {k: train.get(k, 0) * steps + fwd.get(k, 0) * evals
+                for k in set(train) | set(fwd)}
+        log(f"vx trainer tables: a step {train}, a forward {fwd}; {steps} steps, "
+            f"{evals} evaluation batches; the loader's row gathers {per_batch} a batch")
+        del probe, batch, graphs
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        launches, routes, secs, prof, out = _cli_in_process(cfg_path, "elasticity fp32",
+                                                            profile=True)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"vx trainer: launches {launches}; routes {routes}; {secs:.1f} s in the CLI")
+        rec, row = _check_run("elasticity fp32", raw, launches, routes, want, "plain")
+        if not all(r == "vx:cuda" for r in routes["agno"].split("+")):
+            fail(f"vx trainer: agno routes {routes['agno']}, expected vx:cuda")
+        if _ckpt_step(raw) != steps:
+            fail(f"vx trainer: the checkpoint's step is {_ckpt_step(raw)}, expected {steps}")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        busy_s = sum(e.self_device_time_total for e in events) / 1e6
+        n_gathers = sum(e.count for e in events if "vectorized_gather_kernel" in e.key)
+        loader_gathers = per_batch * (steps + evals)
+        log(f"vx trainer device profile: busy {busy_s:.3f} s of {secs:.3f} s, kernels "
+            f"{sum(e.count for e in events)}; row gathers (vectorized_gather_kernel) "
+            f"{n_gathers}, the loader's batch selects {loader_gathers}, the model's "
+            f"{n_gathers - loader_gathers}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  "
+                f"{e.key[:90]}")
+        if n_gathers != loader_gathers:
+            fail("vx trainer: the model runs PyTorch's row gather "
+                 "(vectorized_gather_kernel) beside the loader's batch selects")
+        first, steady = _steady_rate(out, VX_TRAINER_SIZES["train_size"])
+        log(f"vx trainer elasticity fp32 ({card}): training time "
+            f"{float(row['training time']):.3f} s, samples_per_sec "
+            f"{float(row['samples_per_sec']):.1f} (under the device profiler; "
+            f"{first:.3f} s to the first evaluation, {steady:.1f} samples/s after it), "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB; the vx flagship's bare "
+            f"step (batch {VX_BATCH}, 8192 nodes): median {step_ms:.3f} ms")
+    log(f"vx trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _entries(rows, names, launches, path: str, suffix: str = ""):
     """Kernel-line entries for ``rows`` (check key -> row), named by
     ``names`` (check key -> kernel name in SOURCES) plus ``suffix`` and
@@ -1514,8 +1822,19 @@ def main() -> int:
     cfg_long.model.args.transformer.patch_size = PATCH_LONG
     long_path = flagship._replace(name="3D long", cfg=cfg_long, seq=SEQ_LONG,
                                   check_batch=0, batch=BATCH_LONG)
+    cfg_vx = merge_config(GAOTConfig, CONFIG_VX)
+    coords_vx, lat_vx, enc_vx, dec_vx, bufs_vx = _host_graphs_vx(cfg_vx, "vx flagship")
+    vx_path = Path("vx flagship", cfg_vx, coords_vx, lat_vx, enc_vx, dec_vx, seq=SEQ,
+                   check_batch=VX_CHECK_BATCH, check_dtypes=("fp32", "bf16"),
+                   batch=VX_BATCH, steps_per_epoch=1, forward_launches={},
+                   train_launches={}, vx=bufs_vx)
+    fwd_vx, train_vx = _vx_tables(_graph_args(vx_path, VX_BATCH, "cpu")[0],
+                                  cfg_vx.model.args.transformer.num_layers, ffn=True)
+    vx_path = vx_path._replace(forward_launches=fwd_vx, train_launches=train_vx)
+    log(f"vx flagship launches: a forward {fwd_vx}; a training step {train_vx}")
     cases = _reduce_cases(main_path, "fx main path")
     cases3 = _reduce_cases(flagship, "3D flagship")
+    cases_vx = _vx_reduce_cases(vx_path, "vx flagship")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -1531,6 +1850,10 @@ def main() -> int:
                **check_flash(rnd, BATCH_3D, SEQ_3D, h3, d3)},
         "long": {**check_multiply_reduce(rnd, BATCH_LONG, c3, cases3, "3D long"),
                  **check_flash(rnd, BATCH_LONG, SEQ_LONG, h3, d3, with_eval=False)},
+        "vx": {**check_multiply_reduce(rnd, 1, cfg_vx.model.args.magno.lifting_channels,
+                                       cases_vx, "vx flagship"),
+               **check_flash(rnd, VX_BATCH, SEQ, 8, 32),
+               **check_ffn(rnd, VX_BATCH * SEQ, extras=False)},
     }
     # The long backward's regime at a length where the plain versions hold
     # all heads at once; logged only.
@@ -1544,7 +1867,10 @@ def main() -> int:
     phase_forward(aniso)
     phase_train(aniso)
     train_long, _ = phase_train(long_path)
+    fwd_v = phase_forward(vx_path)
+    train_v, step_ms_vx = phase_train(vx_path)
     trained = phase_trainer(card, step_ms)
+    trained_vx = phase_vx_trainer(card, step_ms_vx)
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
@@ -1558,10 +1884,16 @@ def main() -> int:
     counts3["fwd"] = fwd3["launches"]["flash_attention_fwd"]
     names_long = dict(main_names, bwd="flash_attention_bwd_long")
     counts_long = count(train_long, checks["long"])
+    # The vx entries: the flagship's training step (its forward for the
+    # flash forward without the LSE); the elasticity run's are logged.
+    counts_vx = {k: train_v[main_names[k]] for k in checks["vx"] if k != "fwd"}
+    counts_vx["fwd"] = fwd_v["launches"]["flash_attention_fwd"]
+    log(f"vx trainer (elasticity) launches, by kernel: {trained_vx}")
     kernels_line = (_entries(checks["main"], main_names, main_counts, "fx main path")
                     + _entries(checks["3d"], names3, counts3, "3D flagship", "@3d")
                     + _entries(checks["long"], names_long, counts_long, "3D long",
-                               "@long"))
+                               "@long")
+                    + _entries(checks["vx"], main_names, counts_vx, "vx flagship", "@vx"))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

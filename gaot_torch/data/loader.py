@@ -1,4 +1,4 @@
-"""Batch iterators with static shapes (fx).
+"""Batch iterators with static shapes (fx and vx).
 
 Counterpart of ``gaot_tpu/data/loader.py``. The order of the samples is the
 JAX package's, computed with the same NumPy calls:
@@ -80,18 +80,25 @@ class BatchLoader:
 
 def _buffers_loader(buffers: Dict[str, np.ndarray], num_samples: int,
                     batch_size: int, shuffle: bool, seed: int,
-                    device_data: bool, device) -> BatchLoader:
+                    device_data: bool, device,
+                    layout: Optional[Dict[str, np.ndarray]] = None) -> BatchLoader:
+    """Batches of the per-sample ``buffers``, each with the arrays of
+    ``layout`` (the same in every batch) beside them."""
+    layout = layout or {}
     if device_data and sum(v.nbytes for v in buffers.values()) <= DEVICE_DATA_BYTE_LIMIT:
         dev = {k: torch.from_numpy(v).to(device) for k, v in buffers.items()}
+        dev_layout = {k: torch.from_numpy(v).to(device) for k, v in layout.items()}
 
         def get_batch(idx):
             i = to_device(idx, device)
-            return {k: v.index_select(0, i) for k, v in dev.items()}
+            return {**{k: v.index_select(0, i) for k, v in dev.items()}, **dev_layout}
     else:
         def get_batch(idx):
-            return {k: np.take(v, idx, axis=0) for k, v in buffers.items()}
-    return BatchLoader(num_samples, batch_size, get_batch, shuffle=shuffle,
-                       seed=seed)
+            return {**{k: np.take(v, idx, axis=0) for k, v in buffers.items()}, **layout}
+    loader = BatchLoader(num_samples, batch_size, get_batch, shuffle=shuffle,
+                         seed=seed)
+    loader.layout_keys = frozenset(layout)
+    return loader
 
 
 def make_static_fx_loader(c: Optional[np.ndarray], u: np.ndarray,
@@ -104,6 +111,34 @@ def make_static_fx_loader(c: Optional[np.ndarray], u: np.ndarray,
         buffers["c"] = c
     return _buffers_loader(buffers, len(u), batch_size, shuffle, seed,
                            device_data, device)
+
+
+def make_static_vx_loader(c: Optional[np.ndarray], u: np.ndarray, graphs,
+                          batch_size: int, shuffle: bool = False, seed: int = 0,
+                          device_data: bool = True, device="cuda") -> BatchLoader:
+    """Loader for variable-coordinate static data: batches of (c, u), the
+    coordinates, the node mask and every graph buffer of the samples
+    (``vx_graph_buffers`` keys), with the batch's ``vx_layout`` beside
+    them, placed once. ``graphs`` is the split's VxSplitGraphs; u and c
+    [S, N, ·] are put in the graphs' Morton node order, then padded with
+    zero rows to the graphs' N_pad."""
+    from .graph_builder import apply_node_perm, vx_graph_buffers, vx_layout
+
+    n_pad = graphs.coords.shape[1]
+
+    def pad_nodes(a):
+        a = apply_node_perm(graphs.node_perm, a)
+        if a.shape[1] == n_pad:
+            return a
+        return np.pad(a, ((0, 0), (0, n_pad - a.shape[1]), (0, 0)))
+
+    buffers = {"u": pad_nodes(u), **vx_graph_buffers(graphs)}
+    buffers.pop("node_perm", None)   # a record of the build, not a batch input
+    if c is not None:
+        buffers["c"] = pad_nodes(c)
+    layout = vx_layout(buffers, min(batch_size, len(u)))
+    return _buffers_loader(buffers, len(u), batch_size, shuffle, seed,
+                           device_data, device, layout)
 
 
 class PrefetchLoader:

@@ -1,6 +1,6 @@
 """Attentional Graph Neural Operator (AGNO) on padded neighborhoods.
 
-Counterpart of ``gaot_tpu/models/agno.py`` for fx graphs:
+Counterpart of ``gaot_tpu/models/agno.py``:
 
     out(x) = reduce_{y in A(x)} α(x,y) · k(x, y[, f(y)]) [· f(y)]
 
@@ -8,7 +8,10 @@ over a padded K-neighborhood A(x). In 'linear' modes the kernel depends only
 on coordinates, so kernel values are computed once per graph and shared by
 the whole batch; attention, quadrature/mean weights and the padding mask fold
 into one per-edge scale cast to the kernel dtype, and one
-gather-multiply-reduce applies the coefficient to the features.
+gather-multiply-reduce applies the coefficient to the features. On a vx
+batch (a mesh per sample, flattened over the batch) the coefficient is per
+edge, from :meth:`AGNO._folded_coef` per degree bucket
+(``models/magno.py::_MAGNOBase._agno_scale_vx``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,12 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.gather_apply import apply_bucketed_graph_transform, apply_graph_transform
+from ..ops.gather_apply import (
+    FlatGraph,
+    apply_bucketed_graph_transform,
+    apply_graph_transform,
+    flat_gather_multiply_reduce,
+)
 from ..ops.padding import BucketedGraph
 from ..ops.segment_ops import masked_mean, masked_softmax, masked_sum
 from ..utils.routing import record_route
@@ -93,14 +101,18 @@ class AGNO(nn.Module):
                 rep_coords: Optional[torch.Tensor] = None) -> torch.Tensor:
         """y [n, d1] sources; graph PaddedGraph [m, K] (or BucketedGraph);
         x [m, d2] queries (default y); f_y [B, n, c] or [n, c]; weights [n].
-        Returns [B, m, c_out] (batched f_y) or [m, c_out]."""
+        Returns [B, m, c_out] (batched f_y) or [m, c_out]. A FlatGraph
+        takes the vx route (:meth:`_call_vx`)."""
         if x is None:
             x = y
+        if isinstance(graph, FlatGraph):
+            return self._call_vx(y, graph, x, f_y, weights)
         if isinstance(graph, BucketedGraph):
             return self._call_bucketed(y, graph, x, f_y, weights)
         if (tgraph is not None and f_y is not None and f_y.dim() == 2
                 and self.transform_type == "linear"):
-            raise NotImplementedError("the vx-flattened K-major route is not ported")
+            raise NotImplementedError("a vx batch takes the transpose-graph route "
+                                      "as a FlatGraph (data/graph_builder.py::vx_flat_graphs)")
         indices, mask = graph.indices, graph.mask
         if rep_coords is None:
             rep_coords = y[indices]                              # [Q, K, d1]
@@ -157,12 +169,15 @@ class AGNO(nn.Module):
         return masked_sum(out, m) if reduction == "sum" else masked_mean(out, m)
 
     def _folded_coef(self, y: torch.Tensor, graph, x: torch.Tensor,
-                     weights: Optional[torch.Tensor]) -> torch.Tensor:
+                     weights: Optional[torch.Tensor],
+                     rep_coords: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-edge coefficient of one degree bucket: kernel-MLP output with
         attention / quadrature / mean weights and the padding mask folded in
-        as one scale cast to the kernel dtype. x: [Qb, d] bucket queries."""
+        as one scale cast to the kernel dtype. x: [Qb, d] bucket queries;
+        rep_coords: y[indices] where the caller has read them."""
         indices, mask = graph.indices, graph.mask
-        rep_coords = y[indices]
+        if rep_coords is None:
+            rep_coords = y[indices]
         self_coords = x[:, None, :]
         attention = None
         if self.use_attn:
@@ -184,7 +199,8 @@ class AGNO(nn.Module):
         combined = (multiply_f and not nonlinear and bg.tgraph is not None
                     and f_y.dim() in (2, 3))
         if combined and f_y.dim() == 2:
-            raise NotImplementedError("the vx-flattened bucketed route is not ported")
+            raise NotImplementedError("a vx batch takes the bucketed route as a "
+                                      "FlatGraph (data/graph_builder.py::vx_flat_graphs)")
         record_route("agno", ("bucketed:cuda" if f_y.is_cuda else "bucketed:plain")
                      if combined else "bucketed-plain")
         parts, offset = [], 0
@@ -200,3 +216,29 @@ class AGNO(nn.Module):
         if combined:
             return apply_bucketed_graph_transform(parts, f_y, bg)
         return torch.cat(parts, dim=-2)
+
+    def _call_vx(self, y, vg: FlatGraph, x_cat, f_y, weights):
+        """Linear transform over a flattened vx batch (after the JAX
+        package's ``_call_flat_km`` and ``_call_bucketed_aug``): per degree
+        bucket the neighbours' coordinates are read once (the geometric
+        embedding reuses them) and the per-edge coefficient is formed; one
+        reduce per bucket then covers every sample. x_cat: [B·R, d2] the
+        rows' query coordinates. Returns (out [B·R, c_out], per-bucket
+        coordinate rows [B·R_j, K_j, d1], per-bucket queries [B·R_j, d2])."""
+        if self.transform_type != "linear" or f_y is None or f_y.dim() != 2:
+            raise NotImplementedError(
+                f"vx batches run the linear transform only, got "
+                f"{self.transform_type!r} (ROADMAP §1)")
+        b = vg.num_samples
+        x3 = x_cat.view(b, vg.rows, x_cat.shape[-1])
+        coefs, reps, queries, base = [], [], [], 0
+        for g in vg.buckets:
+            rj = g.indices.shape[0] // b
+            xs = x3[:, base:base + rj].reshape(b * rj, -1)
+            rep = y[g.indices]                                   # [B·R_j, K_j, d1]
+            coefs.append(self._folded_coef(y, g, xs, weights, rep))
+            reps.append(rep)
+            queries.append(xs)
+            base += rj
+        record_route("agno", "vx:" + ("cuda" if f_y.is_cuda else "plain"))
+        return flat_gather_multiply_reduce(coefs, f_y, vg), tuple(reps), tuple(queries)

@@ -3,7 +3,9 @@
 Counterpart of ``gaot_tpu/models/gemb.py`` (statistical method): per-query
 neighbor count, mean/variance of distances, centroid offset and covariance
 eigenvalues (closed-form symmetric 2x2/3x3 solvers), standardized over the
-queries and passed through a two-layer MLP.
+queries and passed through a two-layer MLP. On a vx batch the
+standardization runs per sample, over its valid rows across the degree
+buckets (:func:`_standardize_valid_grouped`).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.gather_apply import FlatGraph
 from ..ops.padding import BucketedGraph
 from .mlp import Dense
 
@@ -128,6 +131,22 @@ def _standardize_valid(feats: torch.Tensor, row_valid: torch.Tensor) -> torch.Te
     return (feats - mean) / std
 
 
+def _standardize_valid_grouped(feats: torch.Tensor,
+                               row_valid: torch.Tensor) -> torch.Tensor:
+    """Per-sample standardization over the valid rows of a vx batch's
+    bucket-concatenated rows: feats [B, R, F], row_valid [B, R] (after the
+    JAX package's function of this name, on its bucket-major layout);
+    unbiased std as torch's, in fp32."""
+    f32 = feats.float()
+    v = row_valid.float()[..., None]
+    cnt = v.sum(1, keepdim=True)
+    mean = (f32 * v).sum(1, keepdim=True) / cnt.clamp(min=1.0)
+    var = (((f32 - mean) ** 2) * v).sum(1, keepdim=True) / (cnt - 1.0).clamp(min=1.0)
+    std = torch.sqrt(var)
+    std = torch.where(std < 1e-6, torch.ones_like(std), std)
+    return ((f32 - mean) / std).to(feats.dtype)
+
+
 class GeometricEmbedding(nn.Module):
     """Per-query statistical geometric embedding (``mlp.0``, ``mlp.2``)."""
 
@@ -147,7 +166,21 @@ class GeometricEmbedding(nn.Module):
                 graph, num_samples: int = 1,
                 nbr: Optional[torch.Tensor] = None) -> torch.Tensor:
         """graph: PaddedGraph [Q, K], or BucketedGraph with latent_queries
-        in bucket-concatenated order (the result is in that order too)."""
+        in bucket-concatenated order (the result is in that order too), or
+        a FlatGraph with latent_queries and nbr its per-bucket queries and
+        coordinate rows (the result [B·R, C] in its row order)."""
+        if isinstance(graph, FlatGraph):
+            b = graph.num_samples
+            parts = [raw_statistical_features(input_geom, q, g, nbr=rep)
+                     .view(b, -1, 3 + 2 * q.shape[-1])
+                     for q, g, rep in zip(latent_queries, graph.buckets, nbr)]
+            feats = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+            if graph.row_valid is None:
+                feats = _standardize_grouped(feats.reshape(b * graph.rows, -1), b)
+            else:
+                feats = _standardize_valid_grouped(
+                    feats, graph.row_valid.view(b, graph.rows)).reshape(b * graph.rows, -1)
+            return self.mlp(feats)
         if isinstance(graph, BucketedGraph):
             parts, offset = [], 0
             for g in graph.buckets:

@@ -1,8 +1,13 @@
 """MAGNO — Multiscale Attentional Graph Neural Operator encoder/decoder.
 
-Counterpart of the fx branches of ``gaot_tpu/models/magno.py``. Graphs are
-precomputed on the host (data/graph_builder.py); fx batches share one graph,
-so kernel values are computed once per graph and broadcast over the batch.
+Counterpart of ``gaot_tpu/models/magno.py``. Graphs are precomputed on the
+host (data/graph_builder.py). fx batches share one graph, so kernel values
+are computed once per graph and broadcast over the batch. vx batches (a
+mesh per sample) are folded into the query axis: each sample's nodes join
+one flat point set, and the data pipeline hands each scale's graph over
+as one FlatGraph with per-sample offset indices
+(``data/graph_builder.py::vx_flat_graphs``), so one AGNO call covers the
+whole batch.
 """
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ import torch
 from torch import nn
 
 from ..core.config import MAGNOConfig
-from ..ops.gather_apply import unpermute_rows
+from ..ops.gather_apply import FlatGraph, permute_rows, unpermute_rows
 from ..ops.padding import BucketedGraph
 from .agno import AGNO
 from .gemb import GeometricEmbedding, node_pos_encode
@@ -56,6 +61,24 @@ class _MAGNOBase(nn.Module):
                 cfg.coord_dim, len(cfg.scales), cfg.hidden_size // 4,
                 dtype=dtype, device=device)
 
+    def _agno_scale_vx(self, src_coords, dst_coords, f_src, vg: FlatGraph):
+        """One scale of a vx batch: the AGNO transform over the flattened
+        graph, the geometric embedding from the same coordinate rows
+        (standardized per sample), recovery, then the rows back to query
+        order. src [B·n, d], dst [B·m, d], f_src [B·n, c]. Returns
+        [B·m, c]."""
+        cfg = self.config
+        if cfg.node_embedding:
+            raise NotImplementedError("node_embedding on vx batches is not ported "
+                                      "(ROADMAP §1)")
+        x_cat = dst_coords if vg.perm is None else dst_coords.index_select(0, vg.perm)
+        out, reps, queries = self.agno(src_coords, vg, x=x_cat, f_y=f_src)
+        if cfg.use_geoembed:
+            gemb = self.geoembed(src_coords, queries, vg, nbr=reps)
+            out = self.recovery(torch.cat([out, gemb], dim=-1))
+        return out if vg.perm is None else permute_rows(out, vg.inv_perm, vg.perm,
+                                                        vg.row_valid)
+
     def _agno_scale(self, src_coords, dst_coords, f_src, graph, tgraph=None):
         """One scale: AGNO transform + optional geometric embedding +
         recovery. src [n, d], dst [m, d], f_src [B, n, c], graph [m, K]."""
@@ -63,7 +86,8 @@ class _MAGNOBase(nn.Module):
         if isinstance(graph, BucketedGraph):
             return self._agno_scale_bucketed(src_coords, dst_coords, f_src, graph)
         if f_src.dim() != 3:
-            raise NotImplementedError("vx-flattened MAGNO is not ported")
+            raise ValueError("fx features are [B, n, c]; a vx batch takes "
+                             "_agno_scale_vx")
         if cfg.node_embedding:
             src_proc, dst_proc = node_pos_encode(src_coords), node_pos_encode(dst_coords)
         else:
@@ -124,12 +148,20 @@ class MAGNOEncoder(_MAGNOBase):
                                   device=device)
 
     def forward(self, x_coord, pndata, latent_tokens_coord, graphs, tgraphs=None):
-        """x_coord [N, d]; pndata [B, N, Cin]; latent_tokens_coord [Q, d];
-        graphs: per-scale graphs. Returns [B, Q, Cout]."""
-        if x_coord.dim() != 2:
-            raise NotImplementedError("vx coordinates are not ported")
+        """x_coord [N, d] (fx) or [B, N, d] (vx); pndata [B, N, Cin];
+        latent_tokens_coord [Q, d]; graphs: per-scale graphs, [Q, K] (fx)
+        or FlatGraphs over the batch (vx). Returns [B, Q, Cout]."""
         tgraphs = tgraphs or [None] * len(graphs)
         lifted = self.lifting(pndata)
+        if x_coord.dim() == 3:
+            b, n, _ = x_coord.shape
+            q = latent_tokens_coord.shape[0]
+            src = x_coord.reshape(b * n, -1)
+            dst = latent_tokens_coord.repeat(b, 1)
+            f = lifted.reshape(b * n, -1)
+            per_scale = [self._agno_scale_vx(src, dst, f, vg).view(b, q, -1)
+                         for vg in graphs]
+            return self._combine_scales(per_scale, latent_tokens_coord)
         per_scale = [self._agno_scale(x_coord, latent_tokens_coord, lifted, g, t)
                      for g, t in zip(graphs, tgraphs)]
         return self._combine_scales(per_scale, latent_tokens_coord)
@@ -150,11 +182,30 @@ class MAGNODecoder(_MAGNOBase):
 
     def forward(self, latent_tokens_coord, rndata, query_coord, graphs,
                 tgraphs=None):
-        """latent_tokens_coord [Q, d]; rndata [B, Q, C]; query_coord [M, d];
-        graphs: per-scale graphs [M, K]. Returns [B, M, Cout]."""
-        if query_coord.dim() != 2:
-            raise NotImplementedError("vx coordinates are not ported")
+        """latent_tokens_coord [Q, d]; rndata [B, Q, C]; query_coord [M, d]
+        (fx) or [B, M, d] (vx); graphs: per-scale graphs, [M, K] (fx) or
+        FlatGraphs over the batch (vx). Returns [B, M, Cout]."""
         tgraphs = tgraphs or [None] * len(graphs)
+        if query_coord.dim() == 3:
+            b, m, _ = query_coord.shape
+            q = latent_tokens_coord.shape[0]
+            src = latent_tokens_coord.repeat(b, 1)
+            dst = query_coord.reshape(b * m, -1)
+            f = rndata.reshape(b * q, -1)
+            per_scale = [self._agno_scale_vx(src, dst, f, vg).view(b, m, -1)
+                         for vg in graphs]
+            return self.projection(self._combine_scales_vx(per_scale, query_coord))
         per_scale = [self._agno_scale(latent_tokens_coord, query_coord, rndata, g, t)
                      for g, t in zip(graphs, tgraphs)]
         return self.projection(self._combine_scales(per_scale, query_coord))
+
+    def _combine_scales_vx(self, per_scale, query_coord):
+        """Scale weights from each sample's own query coordinates
+        [B, M, d] (the original code reuses the first sample's)."""
+        if len(per_scale) == 1:
+            return per_scale[0]
+        stacked = torch.stack(list(per_scale), dim=0)          # [S, B, M, c]
+        if self.config.use_scale_weights:
+            w = torch.softmax(self.scale_weighting(query_coord), dim=-1)
+            return (stacked * w.movedim(-1, 0)[..., None]).sum(0)
+        return stacked.mean(0)

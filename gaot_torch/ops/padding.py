@@ -8,8 +8,12 @@ length rounded up to ``pad_multiple``, optionally capped.
 
 The graph containers hold NumPy arrays while they are built;
 :func:`graph_to_device` turns any of them into the same container of torch
-tensors on a device. Only the fx layouts are here: the dense graph, its
-transpose, the degree-bucketed graph and the in-degree-grouped transpose.
+tensors on a device. The fx layouts: the dense graph, its transpose, the
+degree-bucketed graph and the in-degree-grouped transpose. The vx layouts
+(one mesh per sample): per-sample graphs stacked to [S, Q, K]
+(:func:`stack_graphs`), their Morton node order (:func:`morton_order`),
+stacked transpose graphs (:func:`stack_tgraphs`) and the shared-layout
+degree buckets (:class:`BatchedBucketedGraph`).
 """
 from __future__ import annotations
 
@@ -41,6 +45,25 @@ class PaddedGraph(NamedTuple):
 
 def _round_up(x: int, m: int) -> int:
     return ((max(x, 1) + m - 1) // m) * m
+
+
+def morton_order(coords: np.ndarray, bits: int = 16) -> np.ndarray:
+    """Z-order (Morton) permutation of a point set [N, d] (d in {2, 3}).
+
+    Spatially sorted nodes make radius-graph neighbour indices of nearby
+    queries cluster, so the rows the reduces read by index lie close
+    together. Applied per sample at the vx graph build."""
+    coords = np.asarray(coords, dtype=np.float64)
+    n, d = coords.shape
+    lo = coords.min(axis=0)
+    rng = np.maximum(coords.max(axis=0) - lo, 1e-12)
+    q = ((coords - lo) / rng * ((1 << bits) - 1)).astype(np.uint64)
+    key = np.zeros(n, dtype=np.uint64)
+    for b in range(bits):
+        for dim in range(d):
+            key |= ((q[:, dim] >> np.uint64(b)) & np.uint64(1)) << np.uint64(
+                b * d + dim)
+    return np.argsort(key, kind="stable")
 
 
 def pad_csr(
@@ -77,6 +100,36 @@ def pad_csr(
     flat_pos = (row_splits[:-1][:, None] + col)[mask]
     indices[mask] = neighbors_index[flat_pos].astype(np.int32)
     return PaddedGraph(indices=indices, mask=mask)
+
+
+def repad(graph: PaddedGraph, k: int) -> PaddedGraph:
+    """Re-pad (or truncate) a graph to an exact K."""
+    old_k = graph.indices.shape[-1]
+    if old_k == k:
+        return graph
+    if old_k > k:
+        return PaddedGraph(graph.indices[..., :k], graph.mask[..., :k])
+    pad = [(0, 0)] * (graph.indices.ndim - 1) + [(0, k - old_k)]
+    return PaddedGraph(
+        np.pad(graph.indices, pad), np.pad(graph.mask, pad, constant_values=False))
+
+
+def stack_graphs(graphs: Sequence[PaddedGraph]) -> PaddedGraph:
+    """Stack per-sample graphs to a batched PaddedGraph [S, Q, K], re-padded
+    to the largest K; query counts must already match."""
+    k = max(g.k for g in graphs)
+    graphs = [repad(g, k) for g in graphs]
+    return PaddedGraph(indices=np.stack([g.indices for g in graphs]),
+                       mask=np.stack([g.mask for g in graphs]))
+
+
+def padded_from_search(search_result: dict, pad_multiple: int = 8,
+                       cap: Optional[int] = None, k: Optional[int] = None) -> PaddedGraph:
+    """Pad a search result given as a dict of CSR arrays
+    (``neighbors_index``, ``neighbors_row_splits``)."""
+    return pad_csr(search_result["neighbors_index"],
+                   search_result["neighbors_row_splits"],
+                   pad_multiple=pad_multiple, cap=cap, k=k)
 
 
 class TransposeGraph(NamedTuple):
@@ -188,6 +241,30 @@ def degree_group_tgraph(tgraph: TransposeGraph,
             np.ascontiguousarray(tq_p[:, lo:hi, :kg]),
             np.ascontiguousarray(tm_p[:, lo:hi, :kg])))
     return GroupedTransposeGraph(tuple(groups), inv_perm)
+
+
+def repad_tgraph(tgraph: TransposeGraph, kt: int) -> TransposeGraph:
+    """Re-pad (or truncate) a transpose graph to an exact Kt."""
+    old = tgraph.edge_pos.shape[-1]
+    if old == kt:
+        return tgraph
+    if old > kt:
+        return TransposeGraph(tgraph.edge_pos[..., :kt], tgraph.query[..., :kt],
+                              tgraph.mask[..., :kt])
+    pad = [(0, 0)] * (tgraph.edge_pos.ndim - 1) + [(0, kt - old)]
+    return TransposeGraph(
+        np.pad(tgraph.edge_pos, pad), np.pad(tgraph.query, pad),
+        np.pad(tgraph.mask, pad, constant_values=False))
+
+
+def stack_tgraphs(tgraphs: Sequence[TransposeGraph]) -> TransposeGraph:
+    """Stack per-sample transpose graphs to [S, N, Kt] (re-padded to the
+    largest Kt)."""
+    kt = max(t.kt for t in tgraphs)
+    tgraphs = [repad_tgraph(t, kt) for t in tgraphs]
+    return TransposeGraph(edge_pos=np.stack([t.edge_pos for t in tgraphs]),
+                          query=np.stack([t.query for t in tgraphs]),
+                          mask=np.stack([t.mask for t in tgraphs]))
 
 
 class BucketedGraph(NamedTuple):
@@ -344,6 +421,113 @@ def bucketize_graph(graph: PaddedGraph, num_sources: int,
     )
 
 
+class BatchedBucketedGraph(NamedTuple):
+    """Per-sample degree-bucketed graphs with a shared bucket layout (vx).
+
+    Every sample's [Q, K] graph is re-packed into the same bucket K values
+    (chosen from the split-wide degree distribution), each bucket's row
+    count padded to the split-wide maximum, so a whole split shares one
+    shape per bucket and a batch is a selection of samples.
+
+    buckets: per-bucket subgraphs, indices/mask [S, R_b, K_b] (ascending K).
+    tgraph: per-sample combined transpose graphs (stacked [S, N_src, Kt], or
+        their GroupedTransposeGraph); edge_pos / query address each
+        sample's own bucket-concatenated edge / row spaces (edge base
+        Σ_{j<b} R_j·K_j, edge r·K_b + k within bucket b; row base
+        Σ_{j<b} R_j).
+    perm: int [S, R] per-sample concat row → original query (0 on pad rows).
+    inv_perm: int [S, Q] original query → per-sample concat row.
+    row_valid: bool [S, R].
+    """
+
+    buckets: Tuple[PaddedGraph, ...]
+    tgraph: Optional[TransposeGraph]
+    perm: np.ndarray
+    inv_perm: np.ndarray
+    row_valid: np.ndarray
+
+    @property
+    def num_queries(self) -> int:
+        return self.inv_perm.shape[-1]
+
+    @property
+    def bucket_rows(self) -> Tuple[int, ...]:
+        return tuple(g.indices.shape[-2] for g in self.buckets)
+
+    @property
+    def bucket_ks(self) -> Tuple[int, ...]:
+        return tuple(g.indices.shape[-1] for g in self.buckets)
+
+
+def bucketize_graphs_stacked(graph: PaddedGraph, num_sources: int,
+                             with_transpose: bool = True, tile: int = 8,
+                             max_buckets: int = 4,
+                             launch_penalty_rows: int = 256,
+                             min_gain: float = 1.15,
+                             min_k: int = 12) -> Optional[BatchedBucketedGraph]:
+    """Degree-bucket a stacked per-sample graph [S, Q, K].
+
+    The bucket K values come from the pooled degree distribution of all
+    samples; per-sample bucket row counts are padded to the maximum over
+    samples (rounded to ``tile``), so every sample shares the layout.
+    Returns None when the padded-row win does not clear ``min_gain`` or
+    K < ``min_k``. ``num_sources`` is the per-sample source-set size.
+    The decision and the layout are the JAX package's."""
+    if graph.indices.ndim != 3 or graph.indices.shape[-1] < min_k:
+        return None
+    s, q, k = graph.indices.shape
+    deg = graph.mask.sum(-1).astype(np.int64)                     # [S, Q]
+    ks = _choose_bucket_ks(deg.reshape(-1), k, max_buckets, tile,
+                           launch_penalty_rows)
+    bid = np.searchsorted(np.asarray(ks), np.maximum(deg, 1))     # [S, Q]
+    counts = np.stack([(bid == b).sum(axis=1) for b in range(len(ks))],
+                      axis=0)                                     # [nb, S]
+    rs = [int(-(-max(int(c.max()), 0) // tile) * tile) if c.max() else 0
+          for c in counts]
+    keep = [b for b in range(len(ks)) if rs[b] > 0]
+    ks = [ks[b] for b in keep]
+    rs = [rs[b] for b in keep]
+    bucketed_rows = sum(r * kk for r, kk in zip(rs, ks))
+    if bucketed_rows == 0 or q * k < min_gain * bucketed_rows:
+        return None
+    bid = np.searchsorted(np.asarray(ks), np.maximum(deg, 1))
+
+    r_total = sum(rs)
+    buckets = [(np.zeros((s, r, kk), dtype=np.int32),
+                np.zeros((s, r, kk), dtype=bool)) for r, kk in zip(rs, ks)]
+    perm = np.zeros((s, r_total), dtype=np.int32)
+    inv_perm = np.zeros((s, q), dtype=np.int32)
+    row_valid = np.zeros((s, r_total), dtype=bool)
+    r_base = np.concatenate([[0], np.cumsum(rs)]).astype(np.int64)
+
+    for i in range(s):
+        order = np.argsort(bid[i], kind="stable")
+        for b in range(len(ks)):
+            rows = order[bid[i][order] == b]
+            n = rows.shape[0]
+            if n == 0:
+                continue
+            idx_b, msk_b = buckets[b]
+            kb = ks[b]
+            idx_b[i, :n] = graph.indices[i][rows, :kb]
+            msk_b[i, :n] = graph.mask[i][rows, :kb]
+            base = int(r_base[b])
+            inv_perm[i, rows] = base + np.arange(n, dtype=np.int32)
+            perm[i, base:base + n] = rows
+            row_valid[i, base:base + n] = True
+
+    bucket_graphs = tuple(PaddedGraph(idx, msk) for idx, msk in buckets)
+    tg = None
+    if with_transpose:
+        tg = stack_tgraphs([
+            transpose_bucket_edges(
+                [PaddedGraph(g.indices[i], g.mask[i]) for g in bucket_graphs],
+                num_sources)
+            for i in range(s)])
+    return BatchedBucketedGraph(buckets=bucket_graphs, tgraph=tg, perm=perm,
+                                inv_perm=inv_perm, row_valid=row_valid)
+
+
 def _array_to_device(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.bool_:
@@ -356,7 +540,8 @@ def _array_to_device(a, device) -> torch.Tensor:
 
 def graph_to_device(graph, device):
     """The same graph container (PaddedGraph, TransposeGraph,
-    GroupedTransposeGraph, BucketedGraph, or a tuple of them) with every
+    GroupedTransposeGraph, BucketedGraph, BatchedBucketedGraph, or a tuple
+    of them) with every
     array a torch tensor on ``device``; None passes through."""
     if graph is None:
         return None

@@ -1,9 +1,14 @@
-"""Trainer for static (time-independent) problems, fx mode.
+"""Trainer for static (time-independent) problems.
 
 Counterpart of ``gaot_tpu/train/static_trainer.py``: ``masked_mse``, the
 training and evaluation steps (its jitted ``train_fn`` and ``eval_fn``) and
-the :class:`StaticTrainer`, whose every batch shares one point cloud and one
-graph pair per scale. vx data (a mesh per sample) is ROADMAP item 10.
+the :class:`StaticTrainer`, in both coordinate modes:
+
+- fx: every batch shares one point cloud and one graph pair per scale;
+- vx (a mesh per sample): each batch carries its samples' coordinates,
+  node mask and stacked graphs, built once per split on the host
+  (``data/graph_builder.py``) and selected with the samples by the loader;
+  the loss and the metric count real nodes only.
 """
 from __future__ import annotations
 
@@ -14,8 +19,8 @@ import numpy as np
 import torch
 
 from ..data.data_processor import DataProcessor
-from ..data.graph_builder import GraphBuilder, prepare_fx_device_graphs
-from ..data.loader import make_static_fx_loader
+from ..data.graph_builder import GraphBuilder, prepare_fx_device_graphs, vx_flat_graphs
+from ..data.loader import make_static_fx_loader, make_static_vx_loader
 from ..models import GAOT
 from ..utils.metrics import compute_batch_errors, compute_final_metric
 from ..utils.plotting import plot_estimates, pyplot
@@ -23,7 +28,8 @@ from .base_trainer import BaseTrainer
 
 
 class FxGraphs(NamedTuple):
-    """The fx model's graph arguments, all on the model's device."""
+    """The model's graph arguments, all on the model's device: in fx the
+    split's shared graphs, in vx one batch's stacked per-sample graphs."""
 
     latent_tokens_coord: torch.Tensor
     encoder: list
@@ -88,13 +94,16 @@ def eval_step(model, graphs: FxGraphs, coord: torch.Tensor, pndata: torch.Tensor
 
 
 class StaticTrainer(BaseTrainer):
-    """The fx static trainer (reference src/trainer/static_trainer.py:16-366)."""
+    """The static trainer, fx and vx (reference
+    src/trainer/static_trainer.py:16-366)."""
 
     def __init__(self, config, datarow: Optional[Dict] = None):
         self.data_processor: Optional[DataProcessor] = None
         self.coord_dim: Optional[int] = None
-        self.coord: Optional[torch.Tensor] = None    # [N, d] model coordinates
-        self.graphs: Optional[FxGraphs] = None
+        self.coord_mode: Optional[str] = None
+        self.coord: Optional[torch.Tensor] = None    # fx: [N, d] model coordinates
+        self.graphs: Optional[FxGraphs] = None       # fx: the shared graphs
+        self.latent: Optional[torch.Tensor] = None   # [Q, d] latent grid
         super().__init__(config, datarow)
 
     # ------------------------------------------------------------------
@@ -103,15 +112,14 @@ class StaticTrainer(BaseTrainer):
                                             dtype=np.float32,
                                             seed=self.setup_config.seed)
         splits, is_vx = self.data_processor.load_and_process_data()
-        if is_vx:
-            raise NotImplementedError(
-                f"{dataset_config.metaname} has a mesh per sample (vx): the vx "
-                "trainer is not ported (ROADMAP item 10)")
+        self.coord_mode = "vx" if is_vx else "fx"
+        self._refuse_unported(dataset_config)
 
         # The latent grid fits the coordinate scaler (over the metadata
         # domain) before the nodes are scaled.
         latent = self.data_processor.generate_latent_queries(
             tuple(self.model_config.latent_tokens_size))
+        self.latent = torch.from_numpy(latent).to(self.device)
         self.coord_dim = splits["train"]["x"].shape[-1]
         c_sample = splits["train"]["c"]
         if c_sample is None:
@@ -121,26 +129,59 @@ class StaticTrainer(BaseTrainer):
         self.num_output_channels = splits["train"]["u"].shape[-1]
 
         magno = self.model_config.args.magno
-        coord = self.data_processor.coord_scaler(splits["train"]["x"])
-        enc, dec = GraphBuilder.from_magno_config(magno).build_fx_graphs(
-            coord, latent, magno.radius, magno.scales)
-        self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
-        self.graphs = FxGraphs(torch.from_numpy(latent).to(self.device),
-                               *prepare_fx_device_graphs(
-                                   enc, dec, coord.shape[0], latent.shape[0],
-                                   magno, device=self.device))
+        builder = GraphBuilder.from_magno_config(magno)
         cfg = dataset_config
-        loaders = {
-            name: make_static_fx_loader(
-                splits[name]["c"], splits[name]["u"], cfg.batch_size,
-                shuffle=(cfg.shuffle and name == "train"),
-                seed=self.setup_config.seed, device_data=cfg.device_data,
-                device=self.device)
-            for name in ["train", "val", "test"]
-        }
+        if is_vx:
+            graphs = builder.build_all_vx_graphs(
+                splits, latent, magno.radius, magno.scales,
+                build_train=self.setup_config.train,
+                model_transform=self.data_processor.coord_scaler,
+                with_transpose=magno.use_transpose_backward,
+                bucketing=magno.use_query_bucketing)
+            loaders = {
+                name: None if graphs[name] is None else make_static_vx_loader(
+                    splits[name]["c"], splits[name]["u"], graphs[name],
+                    cfg.batch_size, shuffle=(cfg.shuffle and name == "train"),
+                    seed=self.setup_config.seed, device_data=cfg.device_data,
+                    device=self.device)
+                for name in ["train", "val", "test"]
+            }
+        else:
+            coord = self.data_processor.coord_scaler(splits["train"]["x"])
+            enc, dec = builder.build_fx_graphs(coord, latent, magno.radius,
+                                               magno.scales)
+            self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
+            self.graphs = FxGraphs(self.latent, *prepare_fx_device_graphs(
+                enc, dec, coord.shape[0], latent.shape[0], magno,
+                device=self.device))
+            loaders = {
+                name: make_static_fx_loader(
+                    splits[name]["c"], splits[name]["u"], cfg.batch_size,
+                    shuffle=(cfg.shuffle and name == "train"),
+                    seed=self.setup_config.seed, device_data=cfg.device_data,
+                    device=self.device)
+                for name in ["train", "val", "test"]
+            }
         self.train_loader = loaders["train"]
         self.val_loader = loaders["val"]
         self.test_loader = loaders["test"]
+
+    def _refuse_unported(self, dataset_config):
+        """Refuse, before any graph is built, what the port does not run."""
+        magno = self.model_config.args.magno
+        if self.setup_config.train and not magno.use_transpose_backward:
+            raise NotImplementedError("training needs the transpose graphs "
+                                      "(magno.use_transpose_backward)")
+        if self.coord_mode != "vx":
+            return
+        if magno.transform_type != "linear" or magno.node_embedding:
+            raise NotImplementedError(
+                f"vx batches run the linear transform without node_embedding; "
+                f"transform_type {magno.transform_type!r}, node_embedding "
+                f"{magno.node_embedding} is not ported on vx (ROADMAP §1)")
+        if dataset_config.graph_cache_dir:
+            raise NotImplementedError("dataset.graph_cache_dir (the vx graph "
+                                      "cache) is not ported (ROADMAP §1)")
 
     def init_model(self, model_config):
         model_config.args.magno.coord_dim = self.coord_dim
@@ -151,11 +192,24 @@ class StaticTrainer(BaseTrainer):
                               self.setup_config.seed))
 
     # ------------------------------------------------------------------
+    def _batch_graphs(self, batch: Dict) -> FxGraphs:
+        """A vx batch's per-scale graphs, flattened over the batch, from its
+        buffers and its layout."""
+        return FxGraphs(self.latent, *vx_flat_graphs(
+            batch, len(self.model_config.args.magno.scales)))
+
+    def _model_args(self, batch: Dict):
+        """(graphs, coordinates, node mask or None) of a placed batch."""
+        if self.coord_mode == "fx":
+            return self.graphs, self.coord, None
+        return self._batch_graphs(batch), batch["x"], batch["node_mask"]
+
     def train_step(self, batch) -> torch.Tensor:
         batch = self.place_batch(batch)
+        graphs, coord, node_mask = self._model_args(batch)
         loss = train_step(self.model, self.optimizer, self.schedule, self.step,
-                          self.graphs, self.coord, batch["c"], batch["u"],
-                          self.sample_mask(batch))
+                          graphs, coord, batch["c"], batch["u"],
+                          self.sample_mask(batch), node_mask)
         self.step += 1
         return loss
 
@@ -163,8 +217,9 @@ class StaticTrainer(BaseTrainer):
         """(prediction, masked MSE) of one batch, in evaluation mode."""
         self.model.eval()
         batch = self.place_batch(batch)
-        return eval_step(self.model, self.graphs, self.coord, batch["c"],
-                         batch["u"], self.sample_mask(batch))
+        graphs, coord, node_mask = self._model_args(batch)
+        return eval_step(self.model, graphs, coord, batch["c"], batch["u"],
+                         self.sample_mask(batch), node_mask)
 
     def validate(self, loader) -> float:
         if loader is None:
@@ -190,6 +245,15 @@ class StaticTrainer(BaseTrainer):
             keep = batch["sample_mask"]
             pred_denorm = pred[keep] * u_std + u_mean
             target_denorm = target[keep] * u_std + u_mean
+            if self.coord_mode == "vx":
+                # Padded nodes add nothing to the error nor to the |gt|
+                # denominator of the relative L1: both sides take the
+                # metric's global mean there.
+                active = list(self.metadata.active_variables)
+                gmean = np.asarray(self.metadata.global_mean)[active].reshape(1, 1, -1)
+                valid = np.asarray(torch.as_tensor(batch["node_mask"]).cpu())[keep][..., None]
+                pred_denorm = np.where(valid, pred_denorm, gmean)
+                target_denorm = np.where(valid, target_denorm, gmean)
             # The reference hands 3-D [B, N, V] tensors to
             # compute_batch_errors, whose [1, 1, 1, -1] statistics broadcast
             # them to [1, B, N, V]: each test batch pools into one rel-L1
@@ -218,7 +282,9 @@ class StaticTrainer(BaseTrainer):
         batch, pred_denorm, target_denorm, bidx = last
         dp = self.data_processor
         try:
-            coords = dp.coord_scaler.inverse_transform(self.coord.cpu().numpy())
+            coords = dp.coord_scaler.inverse_transform(
+                (self.coord if self.coord_mode == "fx"
+                 else torch.as_tensor(batch["x"][bidx])).cpu().numpy())
             c = batch.get("c")
             if c is not None and dp.c_mean is not None:
                 c_denorm = np.asarray(torch.as_tensor(c[bidx]).cpu()) * dp.c_std + dp.c_mean

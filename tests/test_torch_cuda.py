@@ -631,3 +631,73 @@ def test_static_trainer_card_vs_cpu(tmp_path, device_data):
     for k in ("losses", "val_losses"):
         np.testing.assert_allclose(records["cuda"][k], records["cpu"][k], rtol=1e-3)
     np.testing.assert_allclose(errors["cuda"], errors["cpu"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_vx_train_step_card_vs_cpu(dtype):
+    """One AdamW step of a small vx GAOT (a mesh per sample, bucketed
+    encoder and decoder, two scales with scale weights): the vx reduces
+    launch, and the card's loss and every gradient agree with the CPU
+    plain route (fp32: each gradient within 1e-3 of its largest entry;
+    bf16: relative L2 5e-2 over all gradients)."""
+    from gaot_torch.core.config import ModelConfig, OptimizerConfig, merge_config
+    from gaot_torch.data.graph_builder import (
+        GraphBuilder,
+        vx_flat_graphs,
+        vx_graph_buffers,
+        vx_layout,
+    )
+    from gaot_torch.models import GAOT
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train.schedules import make_optimizer
+    from gaot_torch.train.static_trainer import FxGraphs, train_step
+
+    cfg = merge_config(ModelConfig, {
+        "latent_tokens_size": [16, 16],
+        "args": {"magno": {"radius": 0.14, "hidden_size": 64, "lifting_channels": 64,
+                           "scales": [1.0, 1.5], "use_scale_weights": True},
+                 "transformer": {"patch_size": 2, "hidden_size": 256, "num_layers": 1}}})
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1, 1, (2, 600, 2)).astype(np.float32)
+    ax = np.linspace(-1, 1, 16)
+    lat = np.stack(np.meshgrid(ax, ax, indexing="ij"), -1).reshape(-1, 2).astype(np.float32)
+    split = GraphBuilder(morton=True).build_all_vx_graphs(
+        {"test": {"x": x}}, lat, 0.14, [1.0, 1.5], build_train=False,
+        with_transpose=True, bucketing=True)["test"]
+    bufs = vx_graph_buffers(split)
+    bufs.pop("node_perm")
+    bufs.update(vx_layout(bufs, 2))
+    n_pad = split.coords.shape[1]
+    pndata = rng.normal(size=(2, n_pad, 1)).astype(np.float32)
+    target = rng.normal(size=(2, n_pad, 1)).astype(np.float32)
+    ocfg = merge_config(OptimizerConfig, {"args": {"epoch": 10}})
+    res = {}
+    for dev in ("cuda", "cpu"):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
+        graphs = FxGraphs(torch.from_numpy(lat).to(dev), *vx_flat_graphs(batch, 2))
+        model = GAOT(1, 1, cfg, dtype=dtype, device=dev,
+                     generator=torch.Generator().manual_seed(3))
+        opt, sched = make_optimizer(ocfg, model.parameters(), steps_per_epoch=1)
+        grads = {}
+        opt.register_step_pre_hook(lambda *_: grads.update(
+            {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}))
+        t = lambda a: torch.from_numpy(a).to(dev)
+        kernels.reset_launches()
+        loss = train_step(model, opt, sched, 0, graphs, batch["x"], t(pndata), t(target),
+                          torch.ones(2, dtype=torch.bool, device=dev), batch["node_mask"])
+        counts = kernels.launch_counts()
+        if dev == "cuda":
+            assert counts["multiply_reduce_k"] >= 8 and counts["multiply_reduce_b"] >= 4
+        else:
+            assert not any(counts.values())
+        res[dev] = (float(loss), grads)
+    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+    assert set(gc) == set(gp)
+    if dtype is None:
+        assert abs(lc - lp) <= 1e-4 * abs(lp)
+        for n in gp:
+            assert float((gc[n] - gp[n]).abs().max()) <= 1e-3 * float(gp[n].abs().max()), n
+    else:
+        cat = lambda g: torch.cat([g[n].reshape(-1) for n in sorted(g)])
+        assert abs(lc - lp) <= 2e-2 * abs(lp)
+        assert float((cat(gc) - cat(gp)).norm() / cat(gp).norm()) <= 5e-2

@@ -220,8 +220,9 @@ def test_no_scatter_on_the_training_path(graphs, dtype):
         names.add(type(fn).__name__)
         stack.extend(nxt for nxt, _ in fn.next_functions)
     assert not names & _SCATTERS, names & _SCATTERS
-    custom = {"_GatherMultiplyReduceNBCBackward", "_BucketedGatherMultiplyReduceBackward",
-              "_UnpermuteRowsBackward", "_FlashAttentionBackward"}
+    # The dense and the bucketed apply both run the one flat Function.
+    custom = {"_FlatGatherMultiplyReduceBackward", "_PermuteRowsBackward",
+              "_FlashAttentionBackward"}
     if dtype == torch.bfloat16:
         custom.add("_FusedFFNBackward")
     assert custom <= names

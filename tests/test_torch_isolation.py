@@ -2,7 +2,8 @@
 kernel_ab.py) imports JAX, Flax, Optax or gaot_tpu; it imports with JAX
 blocked, and imports and trains through its CLI with the host libraries
 the card's machine lacks (matplotlib, pandas, h5py) blocked too; and its
-entry points ask for the CUDA device unless told otherwise."""
+entry points ask for the CUDA device unless told otherwise. A vx config
+(the elasticity example) trains with JAX blocked."""
 import ast
 import pathlib
 import subprocess
@@ -89,6 +90,31 @@ def test_trains_without_host_libraries(tmp_path):
     assert (tmp_path / "out" / "db.csv").exists()
     assert (tmp_path / "out" / "ckpt.pt").exists()
     assert not (tmp_path / "out" / "loss.png").exists()
+
+
+def test_trains_vx_without_jax(tmp_path):
+    """With JAX and gaot_tpu blocked, every module (the vx pipeline, model
+    and trainer among them) imports and the elasticity example, a mesh per
+    sample, trains on the CPU through ``gaot_torch.cli.main``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_vx_trainer import elasticity_cpu_config
+
+    cfg = elasticity_cpu_config(str(tmp_path))
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'gaot_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import pkgutil, importlib, gaot_torch\n"
+        "for m in pkgutil.walk_packages(gaot_torch.__path__, 'gaot_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from gaot_torch.cli import main\n"
+        f"sys.exit(main(['-c', {cfg!r}]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "agno=vx:plain" in out.stdout
+    assert (tmp_path / "out" / "database" / "elasticity.csv").exists()
+    assert (tmp_path / "out" / "ckpt" / "elasticity.pt").exists()
 
 
 def test_entry_points_default_to_cuda():

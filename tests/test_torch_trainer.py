@@ -219,10 +219,25 @@ def test_refuses_what_is_not_ported(tmp_path, what):
     from gaot_torch.train import StaticTrainer
 
     if what == "vx":
+        # vx trains (tests/test_torch_vx_trainer.py); its nonlinear
+        # transforms and its on-disk graph cache are not ported, and no
+        # training runs without the transpose graphs: each is refused
+        # before a graph is built.
         make_static_vx_dataset(str(tmp_path / "vx.npz"))
         cfg = _config(tmp_path, "vx", data=False,
                       dataset={"metaname": "compressible_flow/naca0012"})
-        with pytest.raises(NotImplementedError, match="item 10"):
+        cfg["model"]["args"]["magno"]["transform_type"] = "nonlinear"
+        with pytest.raises(NotImplementedError, match="linear transform"):
+            StaticTrainer(cfg)
+        cfg = _config(tmp_path, "vx", data=False,
+                      dataset={"metaname": "compressible_flow/naca0012",
+                               "graph_cache_dir": str(tmp_path / "cache")})
+        with pytest.raises(NotImplementedError, match="graph cache"):
+            StaticTrainer(cfg)
+        cfg = _config(tmp_path, "vx", data=False,
+                      dataset={"metaname": "compressible_flow/naca0012"})
+        cfg["model"]["args"]["magno"]["use_transpose_backward"] = False
+        with pytest.raises(NotImplementedError, match="use_transpose_backward"):
             StaticTrainer(cfg)
     elif what == "sequential":
         cfg = _config(tmp_path, "seq", setup={"trainer_name": "sequential"})
