@@ -3,8 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Four paths run through the port's entry points, and the fx and elasticity
-recipes train through the port's CLI:
+Five paths run through the port's entry points, and the fx, elasticity and
+sequential recipes train through the port's CLI:
   - the fx main path: the Poisson-Gauss recipe (8192 nodes, 64x64 latent
     grid, config/examples/time_indep/poisson_gauss.json), batch 64;
   - the 3D flagship of scripts/train_demo.py::run_3d: 32768 nodes in
@@ -14,7 +14,11 @@ recipes train through the port's CLI:
   - the vx flagship of bench.py::build_vx_workload: a mesh per sample, 16
     samples of 8192 nodes each in [-1, 1]^2, the 64x64 grid, degree-bucketed
     encoder and decoder with in-degree-grouped transpose graphs, the fx
-    path's UViT, batch 16.
+    path's UViT, batch 16;
+  - the sequential main path: config/examples/time_dep/ns_gauss.json at
+    full width on the Poseidon sets' 128x128 lattice (16384 nodes, one
+    point cloud), input 4 (u 2, the start time, the time difference),
+    output 2, batch 64, and its autoregressive rollout.
 
 Phases (any failure exits nonzero; no phase carries on past its own
 failure):
@@ -93,9 +97,35 @@ failure):
      record and CSV row exist, and PyTorch's row gather run only for the
      loader's batch selects (one per buffer on the card a batch), none in
      the model.
-  6. prints one JSON line listing every kernel of the four paths (the fx
+  4b. the rollout of the sequential path (gaot_torch/models/rollout.py):
+     at batch 2 the card's fp32 rollout against the CPU plain route's,
+     every step within 1e-3 of that step's largest entry (the bf16 rollout's
+     relative L2 by step logged); at batch 64 in bf16, each predict mode
+     (7 / 1 / 4 forwards): launches equal to the forward's table times the
+     forwards, ms a rollout and a forward, and (autoregressive) a profile
+     with no row gather. Phases 2-4 run on this path too: its reduces on
+     its own graphs, the launch tables derived from them.
+  5c. the sequential trainer: run A, ns_gauss.json read from disk, bf16,
+     through gaot_torch.cli.main in this process under a device-only
+     profiler, on synthetic data at the Poseidon layout (tests/
+     torch_synthetic.py: u [S, 21, 16384, 2], seed 0; the 21 steps cut to
+     15), train/val/test 128 / 16 / 32 samples (3584 pairs an epoch), 4
+     epochs: launches equal to the step's table times 224 steps plus the
+     forward's times 14 validation batches and 12 rollout forwards, falling
+     loss, the three rollout errors finite, checkpoint, loss record, CSV
+     row, the kernels' routes, and PyTorch's row gather only in the
+     loader's pair assembly (one index_select a batch). Run B, ce_crp.json
+     in its own fp32 (4 channels, time_der) through `python -m
+     gaot_torch.cli -c`, 64 / 16 / 32 samples, 2 epochs with a validation
+     each: falling loss, finite errors, no SwiGLU (ffn=plain). Run C, vx
+     sequential through SequentialTrainer (tests/synthetic.py's layout at
+     4096 nodes a sample), 48 / 8 / 8 samples, batch 16, 2 epochs, fp32:
+     launches equal to the tables of the trainer's graphs, falling loss,
+     finite errors.
+  6. prints one JSON line listing every kernel of the five paths (the fx
      main path's launches are those of the trainer's run A; the vx
-     entries' those of the vx flagship's training step and forward).
+     entries' those of the vx flagship's training step and forward; the
+     sequential entries', @seq, those of run A).
 The last line is {"ok": true, "device": {...}}.
 """
 import copy
@@ -202,6 +232,17 @@ CONFIG_VX = {
                   "args": {"lr": 8e-4, "weight_decay": 1e-5, "epoch": 1000}},
 }
 
+# The sequential main path: config/examples/time_dep/ns_gauss.json at full
+# width (MAGNO hidden 64, 3 MLP layers, lifting 64, radius 0.033, the 64x64
+# latent grid; the default UViT, 3 x 256, 8 heads of dim 32, patch 2,
+# SwiGLU 1024) on the Poseidon sets' 128x128 lattice on [0, 1]^2 (16384
+# nodes) under the example's global_scaling, input 4 (u 2, the start time,
+# the time difference), output 2, batch 64, bf16; rollouts at its
+# max_time_diff 14 and time_step 2 (7 / 1 / 4 forwards).
+SEQ_CONFIG = os.path.join(HERE, "config", "examples", "time_dep", "ns_gauss.json")
+CE_CONFIG = os.path.join(HERE, "config", "examples", "time_dep", "ce_crp.json")
+SEQ_GRID, SEQ_CHECK_BATCH = 128, 2
+
 SOURCES = {   # kernel: (source, the TPU kernel's pallas_call it replaces)
     "multiply_reduce_k": ("gaot_torch/csrc/multiply_reduce.cu",
                           "gaot_tpu/ops/pallas/multiply_reduce.py:105"),
@@ -241,6 +282,7 @@ class Path(NamedTuple):
     forward_launches: dict
     train_launches: dict
     vx: object = None           # vx: the split's host buffers (a mesh per sample)
+    channels: tuple = (1, 1)    # the model's input and output channels
 
 
 def fail(msg: str) -> None:
@@ -538,19 +580,53 @@ def _host_graphs_vx(cfg, what):
     return split.coords, lat, split.encoder, split.decoder, bufs
 
 
-def _vx_tables(graphs, layers: int, ffn: bool) -> tuple:
-    """The launches of one vx forward and one training step, from a batch's
-    graphs (FxGraphs; per scale and side a FlatGraph with its in-degree
-    grouped transpose graph): the forward reduces once per bucket and,
-    where the rows were bucketed, once more to put them back in query
-    order; the step adds d_f once per in-degree group, that reorder's
-    gradient, and d_coef once per bucket. One flash call per UViT layer;
-    the SwiGLU where ``ffn``."""
+def _seq_host_graphs(cfg, what):
+    """The Poseidon lattice (SEQ_GRID^2 nodes on [0, 1]^2) and the latent
+    grid over the metadata domain, both through the config's coordinate
+    scaler fitted on the latent grid (as the trainer fits it), and the host
+    graphs from the port's builder; logs the build time and the layout."""
+    import numpy as np
+
+    from gaot_torch.data.graph_builder import GraphBuilder
+    from gaot_torch.utils.scaling import CoordinateScaler
+
+    def unit_lattice(n):
+        ax = np.linspace(0, 1, n)
+        return np.stack(np.meshgrid(ax, ax, indexing="ij"), -1).reshape(-1, 2)
+
+    magno = cfg.model.args.magno
+    scaler = CoordinateScaler(target_range=(-1, 1), mode=cfg.dataset.coord_scaling)
+    lat = scaler(unit_lattice(cfg.model.latent_tokens_size[0])).astype(np.float32)
+    coords = scaler(unit_lattice(SEQ_GRID)).astype(np.float32)
+    builder = GraphBuilder.from_magno_config(magno)
+    t0 = time.perf_counter()
+    enc, dec = builder.build_fx_graphs(coords, lat, magno.radius, magno.scales)
+    log(f"{what} graphs: {coords.shape[0]} nodes, search={builder.search_method} "
+        f"host_build_s={time.perf_counter() - t0:.2f}; encoder [Q, K] "
+        f"{tuple(enc[0].indices.shape)}, decoder {tuple(dec[0].indices.shape)}")
+    return coords, lat, enc, dec
+
+
+def _tables(graphs, layers: int, ffn: bool) -> tuple:
+    """The launches of one forward and one training step, from the model's
+    graphs (FxGraphs): per scale and side, the forward reduces once per
+    degree bucket (a dense graph is one) and, where the rows were bucketed,
+    once more to put them back in query order; the step adds d_f once per
+    in-degree group (a flat transpose graph is one), that reorder's
+    gradient, and d_coef once per bucket. fx graphs are BucketedGraphs or
+    PaddedGraphs with a separate transpose graph; vx graphs FlatGraphs.
+    One flash call per UViT layer; the SwiGLU where ``ffn``."""
     fwd_k = step_k = step_b = 0
-    for g in graphs.encoder + graphs.decoder:
-        nb, perm = len(g.buckets), int(g.perm is not None)
+    sides = list(zip(graphs.encoder, graphs.encoder_t or [None] * len(graphs.encoder)))
+    sides += zip(graphs.decoder, graphs.decoder_t or [None] * len(graphs.decoder))
+    for g, t in sides:
+        if hasattr(g, "buckets"):
+            nb, perm = len(g.buckets), int(g.perm is not None)
+            groups = len(g.tgraph.groups)
+        else:
+            nb, perm, groups = 1, 0, 1 if t is not None else 0
         fwd_k += nb + perm
-        step_k += nb + len(g.tgraph.groups) + 2 * perm
+        step_k += nb + groups + 2 * perm
         step_b += nb
     fwd = {"multiply_reduce_k": fwd_k, "flash_attention_fwd": layers}
     train = {"multiply_reduce_k": step_k, "multiply_reduce_b": step_b,
@@ -1098,7 +1174,7 @@ def _model(path: Path, dtype, device):
 
     from gaot_torch.models import GAOT
 
-    model = GAOT(1, 1, path.cfg.model, dtype=dtype, device=device,
+    model = GAOT(*path.channels, path.cfg.model, dtype=dtype, device=device,
                  generator=torch.Generator().manual_seed(0)).eval()
     if model.pos_emb.shape[0] != path.seq:
         fail(f"{path.name}: the model has {model.pos_emb.shape[0]} tokens, "
@@ -1110,9 +1186,9 @@ def _batch(seed, path: Path):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    shape = (max(path.batch, path.check_batch), path.coords.shape[-2], 1)
-    pndata = rng.normal(size=shape).astype(np.float32)
-    target = rng.normal(size=shape).astype(np.float32)
+    shape = (max(path.batch, path.check_batch), path.coords.shape[-2])
+    pndata = rng.normal(size=shape + path.channels[:1]).astype(np.float32)
+    target = rng.normal(size=shape + path.channels[1:]).astype(np.float32)
     return pndata, target
 
 
@@ -1150,7 +1226,7 @@ def phase_forward(path: Path):
                                 torch.ones(cb, dtype=torch.bool, device=dev), nmask)
             preds[dev] = pred.float().cpu()
         got, want = preds["cuda"], preds["cpu"]
-        if got.shape != (cb, n, 1) or not torch.isfinite(got).all():
+        if got.shape != (cb, n, path.channels[1]) or not torch.isfinite(got).all():
             fail(f"{path.name} batch-{cb} {name} forward: shape {tuple(got.shape)} "
                  f"or non-finite")
         rel = float((got - want).norm() / want.norm())
@@ -1187,15 +1263,17 @@ def phase_forward(path: Path):
         f"launches {launches}")
     log(f"  routes: {format_routes()}")
     _expect_launches(f"{path.name} forward", launches, path.forward_launches)
-    if pred.shape != (path.batch, n, 1) or not torch.isfinite(pred).all() \
+    if pred.shape != (path.batch, n, path.channels[1]) or not torch.isfinite(pred).all() \
             or not torch.isfinite(loss):
         fail(f"{path.name} batch-{path.batch} forward: wrong shape or non-finite output")
     peak = torch.cuda.max_memory_allocated()
     run = lambda: eval_step(model, graphs, xc, xp, xt, smask, nmask)
-    log(f"  forward_ms {fmt_times(host_times(run, 10), path.batch)} "
+    times = host_times(run, 10)
+    log(f"  forward_ms {fmt_times(times, path.batch)} "
         f"max_memory_allocated={peak / 2**30:.3f} GiB loss={float(loss):.4f}")
     profile_step(run, f"{path.name} forward")
     out["launches"] = launches
+    out["ms"] = statistics.median(times)
     del model, graphs
     torch.cuda.empty_cache()
     return out
@@ -1405,6 +1483,88 @@ def profile_step(run, what: str, steps: int = 10, top: int = 20):
         f"{sum(e.self_device_time_total for e in gathers) / 1e3 / steps:.4f} ms")
     if gathers:
         fail(f"the {what} still runs PyTorch's row gather")
+
+
+def phase_rollout(path: Path):
+    """Phase 4b: ``autoregressive_predict`` on the sequential path (module
+    docstring). The statistics are those of seeded trajectories on the
+    path's nodes; the initial states are seeded too. Returns, per predict
+    mode, (forwards, launches, median ms of a rollout)."""
+    import numpy as np
+    import torch
+
+    from gaot_torch.data.sequential import compute_sequential_stats
+    from gaot_torch.models.rollout import autoregressive_predict
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train import predict_mode_indices
+    from gaot_torch.train.sequential_trainer import PREDICT_MODES
+
+    ds = path.cfg.dataset
+    t_values = np.linspace(0, 1, 21)[:ds.max_time_diff + 1]
+    rng = np.random.default_rng(7)
+    n, (cin, cout) = path.coords.shape[0], path.channels
+    u = rng.normal(size=(2, len(t_values), n, cout)).astype(np.float32)
+    stats = compute_sequential_stats(u, None, t_values, max_time_diff=ds.max_time_diff,
+                                     time_step=ds.time_step)
+    x0 = np.zeros((path.batch, n, cin), np.float32)
+    x0[..., :cout] = rng.normal(size=(path.batch, n, cout))
+
+    def rollout(model, graphs, coord, x, indices):
+        return autoregressive_predict(model, x, indices, t_values, stats, ds.stepper_mode,
+                                      graphs, coord)
+
+    # Batch 2: the card against the CPU plain route, fp32 (every step within
+    # 1e-3 of its largest entry) and bf16 (relative L2 of each step, logged).
+    ti = predict_mode_indices("autoregressive", ds.max_time_diff, ds.time_step)
+    cb = SEQ_CHECK_BATCH
+    preds = {}
+    for dev, dtype in (("cpu", None), ("cuda", None), ("cuda", torch.bfloat16)):
+        graphs, coord, _ = _graph_args(path, cb, dev)
+        preds[dev, dtype] = rollout(_model(path, dtype, dev), graphs, coord,
+                                    torch.from_numpy(x0[:cb]).to(dev), ti).float().cpu()
+    want = preds["cpu", None]
+    errs = [float((preds["cuda", None][:, i] - want[:, i]).abs().max()
+                  / want[:, i].abs().max()) for i in range(want.shape[1])]
+    rel_bf16 = [float((preds["cuda", torch.bfloat16][:, i] - want[:, i]).norm()
+                      / want[:, i].norm()) for i in range(want.shape[1])]
+    ok = all(math.isfinite(e) and e <= 1e-3 for e in errs)
+    log(f"{path.name} rollout batch {cb} ({ds.stepper_mode}, {len(ti) - 1} steps): card "
+        f"vs CPU plain route, fp32 max error over each step's largest entry "
+        f"{' '.join(f'{e:.2e}' for e in errs)} (each within 1e-3) "
+        f"{'ok' if ok else 'MISMATCH'}; bf16 relative L2 by step "
+        f"{' '.join(f'{e:.2e}' for e in rel_bf16)}")
+    if not ok:
+        fail(f"{path.name}: the fp32 rollout disagrees with the CPU plain route")
+    del preds
+
+    model = _model(path, torch.bfloat16, "cuda")
+    graphs, coord, _ = _graph_args(path, path.batch, "cuda")
+    x = torch.from_numpy(x0).cuda()
+    out = {}
+    for mode in PREDICT_MODES:
+        ti = predict_mode_indices(mode, ds.max_time_diff, ds.time_step)
+        forwards = len(ti) - 1
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        pred = rollout(model, graphs, coord, x, ti)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        _expect_launches(f"{path.name} rollout ({mode})", launches,
+                         {k: v * forwards for k, v in path.forward_launches.items()})
+        if pred.shape != (path.batch, forwards, n, cout) or not torch.isfinite(pred).all():
+            fail(f"{path.name} rollout ({mode}): shape {tuple(pred.shape)} or non-finite")
+        run = lambda: rollout(model, graphs, coord, x, ti)
+        times = host_times(run, 5)
+        ms = statistics.median(times)
+        log(f"{path.name} rollout ({mode}) batch {path.batch} bf16: {forwards} forwards, "
+            f"launches {launches}; rollout_ms median={ms:.3f} min={min(times):.3f} "
+            f"max={max(times):.3f}, {ms / forwards:.3f} ms a forward")
+        if mode == "autoregressive":
+            profile_step(run, f"{path.name} rollout ({mode})", steps=3)
+        out[mode] = (forwards, launches, ms)
+    del model, graphs
+    torch.cuda.empty_cache()
+    return out
 
 
 # The trainer phase: the fx recipe trained through the CLI on synthetic
@@ -1724,7 +1884,7 @@ def phase_vx_trainer(card: str, step_ms: float):
         batch = next(iter(probe.train_loader))
         graphs = probe._batch_graphs(batch)
         tcfg = probe.model_config.args.transformer
-        fwd, train = _vx_tables(graphs, tcfg.num_layers, ffn=False)
+        fwd, train = _tables(graphs, tcfg.num_layers, ffn=False)
         per_batch = sum(isinstance(v, torch.Tensor) and v.is_cuda
                         for k, v in batch.items()
                         if k not in probe.train_loader.layout_keys)
@@ -1777,6 +1937,240 @@ def phase_vx_trainer(card: str, step_ms: float):
     return launches
 
 
+# Phase 5c: the sequential trainer. Run A: ns_gauss.json in bf16, cut to
+# these split sizes and epochs (the example: 1024 / 128 / 256 samples, 500
+# epochs); run B: ce_crp.json in its own fp32, cut the same way and to a
+# validation every epoch (the example: every 2), so that its two epochs
+# give two losses; both on synthetic data at the Poseidon layout
+# (tests/torch_synthetic.py: 21 snapshots of the 128x128 lattice, seed 0).
+# Run C: vx sequential (tests/synthetic.py::make_sequential_vx_dataset's
+# layout, a mesh per sample, fixed over 15 steps) at the ns_gauss model's
+# full width, fp32.
+SEQ_SIZES = {"train_size": 128, "val_size": 16, "test_size": 32}
+SEQ_EPOCHS = 4
+CE_SIZES = {"train_size": 64, "val_size": 16, "test_size": 32}
+CE_EPOCHS = 2
+VXSEQ_SIZES = {"train_size": 48, "val_size": 8, "test_size": 8}
+VXSEQ_NODES, VXSEQ_BATCH, VXSEQ_EPOCHS = 4096, 16, 2
+VXSEQ_META = "_chip_smoke/seq_vx"
+
+
+def _seq_example(folder: str, config: str, run: str, sizes: dict, epochs: int,
+                 eval_every: int = None, **setup) -> tuple:
+    """An example config read from disk with ``sizes``, ``epochs`` (and a
+    validation every ``eval_every`` epochs where given), its data and every
+    output path in ``folder`` (under ``run``) and ``setup`` merged in.
+    Returns (the written config's path, the config)."""
+    with open(config) as f:
+        raw = json.load(f)
+    raw["setup"].update(setup)
+    raw["dataset"].update(sizes, base_path=folder)
+    raw["optimizer"]["args"]["epoch"] = epochs
+    if eval_every is not None:
+        raw["optimizer"]["args"]["eval_every_eps"] = eval_every
+    raw["path"] = {k: os.path.join(folder, run, os.path.basename(v))
+                   for k, v in raw["path"].items()}
+    path = os.path.join(folder, f"{run}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f, indent=1)
+    return path, raw
+
+
+def _seq_plan(trainer, graphs, ffn: bool) -> tuple:
+    """What a fit of ``trainer`` (a SequentialTrainer, not fitted) must
+    launch: the training step's table times the steps, plus the forward's
+    times the validation batches and the rollout forwards of test() (each
+    predict mode's steps for each test batch). Returns (launches, steps,
+    validation batches, rollout forwards)."""
+    from gaot_torch.train import predict_mode_indices
+    from gaot_torch.train.sequential_trainer import PREDICT_MODES
+
+    ds, args = trainer.dataset_config, trainer.optimizer_config.args
+    fwd, train = _tables(graphs, trainer.model_config.args.transformer.num_layers, ffn)
+    steps = args.epoch * len(trainer.train_loader)
+    vals = args.epoch // args.eval_every_eps * len(trainer.val_loader)
+    t_lim = min(ds.max_time_diff, trainer.splits["test"]["u"].shape[1] - 1)
+    modes = PREDICT_MODES if ds.predict_mode == "all" else (ds.predict_mode,)
+    n_test = trainer.splits["test"]["u"].shape[0]
+    rollouts = math.ceil(n_test / min(ds.batch_size, n_test)) * sum(
+        len(predict_mode_indices(m, t_lim, ds.time_step)) - 1 for m in modes)
+    want = {k: train.get(k, 0) * steps + fwd.get(k, 0) * (vals + rollouts)
+            for k in set(train) | set(fwd)}
+    return want, steps, vals, rollouts
+
+
+def _check_seq_errors(what: str, row: dict) -> None:
+    errs = {k: float(row[f"relative error ({k})"]) for k in ("direct", "auto2", "auto4")}
+    log(f"trainer {what}: rollout relative errors {errs}")
+    if not all(map(math.isfinite, errs.values())):
+        fail(f"trainer {what}: a rollout error is not finite ({errs})")
+
+
+def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
+    """Phase 5c: the sequential examples through the CLI and vx sequential
+    through SequentialTrainer (module docstring). Returns run A's
+    launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from gaot_torch.core import metadata as meta
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train import SequentialTrainer
+    from gaot_torch.utils.routing import format_routes, reset_routes
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from synthetic import make_sequential_vx_dataset
+    from torch_synthetic import POSEIDON_GRID, POSEIDON_STEPS, make_poseidon_sequential_dataset
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gaot_seq_trainer_") as folder:
+        # Run A: ns_gauss.json in bf16 through gaot_torch.cli.main, in this
+        # process, under a device-only profiler.
+        cfg_a, raw_a = _seq_example(folder, SEQ_CONFIG, "run_a", SEQ_SIZES, SEQ_EPOCHS,
+                                    compute_dtype="bfloat16")
+        n_a = sum(SEQ_SIZES.values())
+        t0 = time.perf_counter()
+        make_poseidon_sequential_dataset(
+            os.path.join(folder, f"{raw_a['dataset']['name']}.npz"), n_a, channels=2, seed=0)
+        log(f"sequential trainer data (run A): {n_a} samples x {POSEIDON_STEPS} steps x "
+            f"{POSEIDON_GRID}^2 nodes x 2 channels (seed 0, written in "
+            f"{time.perf_counter() - t0:.1f} s), splits {SEQ_SIZES}, {SEQ_EPOCHS} epochs")
+        # The tables from the graphs a trainer of the same config builds
+        # (not fitted). The loader assembles each batch's pairs on the card
+        # with one index_select (PyTorch's row gather) for u (both steps),
+        # none for c (the set has none).
+        probe = SequentialTrainer(copy.deepcopy(raw_a))
+        want_a, steps, vals, rollouts = _seq_plan(probe, probe.graphs, ffn=True)
+        per_batch = probe.train_loader.row_selects
+        pairs = probe.train_loader.num_samples
+        log(f"sequential run A plan: {pairs} training pairs a epoch, {steps} steps, "
+            f"{vals} validation batches, {rollouts} rollout forwards; launches {want_a}; "
+            f"the loader's row gathers {per_batch} a batch")
+        del probe
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches_a, routes_a, secs_a, prof, out_a = _cli_in_process(
+            cfg_a, "seq run A bf16", profile=True)
+        peak_a = torch.cuda.max_memory_allocated()
+        log(f"sequential run A: launches {launches_a}; routes {routes_a}; "
+            f"{secs_a:.1f} s in the CLI")
+        rec_a, row_a = _check_run("seq run A bf16", raw_a, launches_a, routes_a, want_a,
+                                  "cuda")
+        _check_seq_errors("seq run A bf16", row_a)
+        if _ckpt_step(raw_a) != steps:
+            fail(f"sequential run A: the checkpoint's step is {_ckpt_step(raw_a)}, "
+                 f"expected {steps}")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        busy_s = sum(e.self_device_time_total for e in events) / 1e6
+        n_gathers = sum(e.count for e in events if "vectorized_gather_kernel" in e.key)
+        loader_gathers = per_batch * (steps + vals)
+        log(f"sequential run A device profile: busy {busy_s:.3f} s of {secs_a:.3f} s, "
+            f"kernels {sum(e.count for e in events)}; row gathers "
+            f"(vectorized_gather_kernel) {n_gathers}, the loader's pair assembly "
+            f"{loader_gathers} ({per_batch} a batch x {steps} steps + {vals} validation "
+            f"batches), the model's and the rollout's {n_gathers - loader_gathers}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  "
+                f"{e.key[:90]}")
+        if n_gathers != loader_gathers:
+            fail("sequential run A: PyTorch's row gather (vectorized_gather_kernel) "
+                 "runs beside the loader's pair assembly")
+        first, steady = _steady_rate(out_a, pairs)
+        fwd_ms = rollout["autoregressive"][2] / rollout["autoregressive"][0]
+        log(f"sequential run A bf16 ({card}): training time "
+            f"{float(row_a['training time']):.3f} s, samples (pairs) per s "
+            f"{float(row_a['samples_per_sec']):.1f} (under the device profiler; "
+            f"{first:.3f} s to the first evaluation, {steady:.1f} pairs/s after it), "
+            f"max_memory_allocated {peak_a / 2**30:.3f} GiB; the bare step (batch "
+            f"{BATCH}, 16384 nodes): median {step_ms:.3f} ms = "
+            f"{BATCH / step_ms * 1e3:.1f} pairs/s; a rollout forward {fwd_ms:.3f} ms")
+        os.remove(os.path.join(folder, f"{raw_a['dataset']['name']}.npz"))
+
+        # Run B: ce_crp.json in its own fp32, through the command line.
+        cfg_b, raw_b = _seq_example(folder, CE_CONFIG, "run_b", CE_SIZES, CE_EPOCHS,
+                                    eval_every=1)
+        make_poseidon_sequential_dataset(
+            os.path.join(folder, f"{raw_b['dataset']['name']}.npz"),
+            sum(CE_SIZES.values()), channels=4, seed=0)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gaot_torch.cli", "-c", cfg_b],
+                              cwd=HERE, capture_output=True, text=True, timeout=600)
+        for line in (proc.stdout + proc.stderr).splitlines()[-30:]:
+            log(f"  [seq run B] {line}")
+        if proc.returncode != 0:
+            fail(f"sequential run B: python -m gaot_torch.cli exited {proc.returncode}")
+        routes = [ln for ln in proc.stdout.splitlines()
+                  if ln.startswith("[gaot_torch] kernel routes:")]
+        routes_b = dict(kv.split("=", 1) for kv in routes[0].split(": ", 1)[1].split()
+                        if "=" in kv) if len(routes) == 1 else {}
+        rec_b, row_b = _check_run("seq run B fp32", raw_b, {}, routes_b, {}, "plain")
+        _check_seq_errors("seq run B fp32", row_b)
+        log(f"sequential run B fp32 ({card}; ce_crp, 4 channels, subprocess, "
+            f"{time.perf_counter() - t0:.1f} s): samples (pairs) per s "
+            f"{float(row_b['samples_per_sec']):.1f}, training time "
+            f"{float(row_b['training time']):.3f} s; ffn={routes_b.get('ffn')} (no "
+            f"SwiGLU launch in fp32)")
+
+        # Run C: vx sequential through SequentialTrainer, fp32.
+        make_sequential_vx_dataset(os.path.join(folder, "seq_vx.npz"),
+                                   num_samples=sum(VXSEQ_SIZES.values()),
+                                   num_nodes=VXSEQ_NODES, seed=0)
+        meta.DATASET_METADATA[VXSEQ_META] = meta.Metadata(
+            periodic=False, group_u="u", group_c="c", group_x="x", type="gaot",
+            domain_x=([0, 0], [1, 1]), domain_t=(0, 1), fix_x=False,
+            active_variables=[0], chunked_variables=[0], num_variable_chunks=1,
+            signed={"u": [True], "c": [True]}, names={"u": ["$u$"], "c": ["$c$"]},
+            global_mean=[0.0], global_std=[1.0])
+        _, raw_c = _seq_example(folder, SEQ_CONFIG, "run_c", VXSEQ_SIZES, VXSEQ_EPOCHS,
+                                eval_every=1)
+        raw_c["dataset"].update(name="seq_vx", metaname=VXSEQ_META,
+                                batch_size=VXSEQ_BATCH, stepper_mode="output")
+        try:
+            t0 = time.perf_counter()
+            trainer = SequentialTrainer(raw_c)
+            graphs = trainer._batch_graphs(trainer.place_batch(next(iter(trainer.val_loader))))
+            want_c, steps_c, vals_c, rollouts_c = _seq_plan(trainer, graphs, ffn=False)
+            log(f"sequential run C (vx, {VXSEQ_NODES} nodes a sample, batch {VXSEQ_BATCH}, "
+                f"fp32): trainer built in {time.perf_counter() - t0:.1f} s; {steps_c} "
+                f"steps, {vals_c} validation batches, {rollouts_c} rollout forwards; "
+                f"launches {want_c}")
+            torch.cuda.synchronize()
+            reset_routes()
+            kernels.reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainer.fit()
+                torch.cuda.synchronize()
+            for line in buf.getvalue().splitlines():
+                log(f"  [seq run C] {line}")
+            launches_c = kernels.launch_counts()
+            routes_c = dict(kv.split("=", 1) for kv in format_routes().split())
+        finally:
+            del meta.DATASET_METADATA[VXSEQ_META]
+        _expect_launches("sequential run C (vx)", launches_c, want_c)
+        if not all(r == "vx:cuda" for r in routes_c["agno"].split("+")) \
+                or routes_c.get("attn") != "cuda":
+            fail(f"sequential run C: routes {routes_c}")
+        losses = [float(v) for v in np.load(raw_c["path"]["loss_path"][:-4] + ".npz")["losses"]]
+        _check_seq_errors("seq run C vx fp32", trainer.datarow)
+        log(f"sequential run C vx fp32 ({card}): launches {launches_c}; routes {routes_c}; "
+            f"train losses {' '.join(f'{v:.5f}' for v in losses)}; samples (pairs) per s "
+            f"{trainer.datarow['samples_per_sec']:.1f}")
+        if not losses[-1] < losses[0]:
+            fail(f"sequential run C: the train loss did not fall ({losses})")
+        del trainer, graphs
+        torch.cuda.empty_cache()
+    log(f"sequential trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches_a
+
+
 def _entries(rows, names, launches, path: str, suffix: str = ""):
     """Kernel-line entries for ``rows`` (check key -> row), named by
     ``names`` (check key -> kernel name in SOURCES) plus ``suffix`` and
@@ -1822,19 +2216,33 @@ def main() -> int:
     cfg_long.model.args.transformer.patch_size = PATCH_LONG
     long_path = flagship._replace(name="3D long", cfg=cfg_long, seq=SEQ_LONG,
                                   check_batch=0, batch=BATCH_LONG)
+    cfg_seq = load_experiment_config(SEQ_CONFIG)
+    seq_path = Path("sequential main path", cfg_seq,
+                    *_seq_host_graphs(cfg_seq, "sequential main path"), seq=SEQ,
+                    check_batch=SEQ_CHECK_BATCH, check_dtypes=("fp32", "bf16"),
+                    batch=cfg_seq.dataset.batch_size,
+                    steps_per_epoch=math.ceil(cfg_seq.dataset.train_size * 28
+                                              / cfg_seq.dataset.batch_size),
+                    forward_launches={}, train_launches={}, channels=(4, 2))
+    fwd_seq, train_seq = _tables(_graph_args(seq_path, 1, "cpu")[0],
+                                 cfg_seq.model.args.transformer.num_layers, ffn=True)
+    seq_path = seq_path._replace(forward_launches=fwd_seq, train_launches=train_seq)
+    log(f"sequential main path launches (from its graphs): a forward {fwd_seq}; a "
+        f"training step {train_seq}")
     cfg_vx = merge_config(GAOTConfig, CONFIG_VX)
     coords_vx, lat_vx, enc_vx, dec_vx, bufs_vx = _host_graphs_vx(cfg_vx, "vx flagship")
     vx_path = Path("vx flagship", cfg_vx, coords_vx, lat_vx, enc_vx, dec_vx, seq=SEQ,
                    check_batch=VX_CHECK_BATCH, check_dtypes=("fp32", "bf16"),
                    batch=VX_BATCH, steps_per_epoch=1, forward_launches={},
                    train_launches={}, vx=bufs_vx)
-    fwd_vx, train_vx = _vx_tables(_graph_args(vx_path, VX_BATCH, "cpu")[0],
+    fwd_vx, train_vx = _tables(_graph_args(vx_path, VX_BATCH, "cpu")[0],
                                   cfg_vx.model.args.transformer.num_layers, ffn=True)
     vx_path = vx_path._replace(forward_launches=fwd_vx, train_launches=train_vx)
     log(f"vx flagship launches: a forward {fwd_vx}; a training step {train_vx}")
     cases = _reduce_cases(main_path, "fx main path")
     cases3 = _reduce_cases(flagship, "3D flagship")
     cases_vx = _vx_reduce_cases(vx_path, "vx flagship")
+    cases_seq = _reduce_cases(seq_path, "sequential main path")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -1855,6 +2263,13 @@ def main() -> int:
                **check_flash(rnd, VX_BATCH, SEQ, 8, 32),
                **check_ffn(rnd, VX_BATCH * SEQ, extras=False)},
     }
+    # The sequential path's reduces on its own graphs; its flash and SwiGLU
+    # shapes are the fx main path's (B 64, S 1024, D 32; M 256, F 1024), so
+    # its rows share those times.
+    checks["seq"] = {**check_multiply_reduce(rnd, seq_path.batch, 64, cases_seq,
+                                             "sequential main path"),
+                     **{k: v for k, v in checks["main"].items()
+                        if not k.startswith("multiply_reduce")}}
     # The long backward's regime at a length where the plain versions hold
     # all heads at once; logged only.
     check_flash(rnd, 1, 8192, h3, d3, with_eval=False)
@@ -1869,8 +2284,12 @@ def main() -> int:
     train_long, _ = phase_train(long_path)
     fwd_v = phase_forward(vx_path)
     train_v, step_ms_vx = phase_train(vx_path)
+    phase_forward(seq_path)
+    _, step_ms_seq = phase_train(seq_path)
+    rollouts = phase_rollout(seq_path)
     trained = phase_trainer(card, step_ms)
     trained_vx = phase_vx_trainer(card, step_ms_vx)
+    trained_seq = phase_seq_trainer(card, step_ms_seq, rollouts)
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
@@ -1893,7 +2312,12 @@ def main() -> int:
                     + _entries(checks["3d"], names3, counts3, "3D flagship", "@3d")
                     + _entries(checks["long"], names_long, counts_long, "3D long",
                                "@long")
-                    + _entries(checks["vx"], main_names, counts_vx, "vx flagship", "@vx"))
+                    + _entries(checks["vx"], main_names, counts_vx, "vx flagship", "@vx")
+                    # The sequential entries: ns_gauss run A's launches
+                    # (through the CLI: steps, validation and rollouts).
+                    + _entries(checks["seq"], main_names,
+                               {k: trained_seq[main_names[k]] for k in checks["seq"]},
+                               "sequential main path", "@seq"))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

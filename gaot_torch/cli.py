@@ -2,10 +2,10 @@
 ``-f config_folder/``.
 
 Counterpart of ``gaot_tpu/cli.py`` (reference main.py:19-198): load one or
-many JSON/TOML experiment configs, run the static trainer, and append a
-result row to the experiment CSV database. Relative output paths resolve
-against the config file's folder. The sequential trainer is ROADMAP item
-11.
+many JSON/TOML experiment configs, run the static or the sequential
+trainer (``setup.trainer_name``), and append a result row to the
+experiment CSV database. Relative output paths resolve against the config
+file's folder.
 
 A folder runs each config as a ``python -m gaot_torch.cli -c`` subprocess,
 ``--jobs`` at a time (default 1: one card); ``--debug`` runs them in this
@@ -77,14 +77,10 @@ def _append_csv(database_path: str, row: Dict) -> None:
 def run_config(config_path: str):
     """Train and/or test one config; returns the trainer."""
     from .core.config import GAOTConfig, load_config_file, merge_config
-    from .train.static_trainer import StaticTrainer
+    from .train import SequentialTrainer, StaticTrainer
 
     raw = load_config_file(config_path)
     cfg = merge_config(GAOTConfig, raw)
-    if cfg.setup.trainer_name != "static":
-        raise NotImplementedError(
-            f"trainer_name {cfg.setup.trainer_name!r}: the sequential trainer "
-            "is not ported (ROADMAP item 11)")
     base = os.path.dirname(os.path.abspath(config_path))
     for attr in ("ckpt_path", "loss_path", "result_path", "database_path"):
         p = getattr(cfg.path, attr)
@@ -92,7 +88,9 @@ def run_config(config_path: str):
             setattr(cfg.path, attr, os.path.join(base, p))
 
     datarow = _make_datarow(raw, config_path)
-    trainer = StaticTrainer(cfg, datarow=datarow)
+    trainer_cls = (SequentialTrainer if cfg.setup.trainer_name == "sequential"
+                   else StaticTrainer)
+    trainer = trainer_cls(cfg, datarow=datarow)
 
     if cfg.setup.train:
         if cfg.setup.ckpt:

@@ -1,4 +1,4 @@
-"""GAOT — Geometry-Aware Operator Transformer (fx forward).
+"""GAOT — Geometry-Aware Operator Transformer.
 
 Counterpart of ``gaot_tpu/models/gaot.py``: a MAGNO encoder maps scattered
 physical-node features onto a regular latent grid, a patchified UViT
@@ -83,8 +83,6 @@ class GAOT(nn.Module):
         super().__init__()
         cfg = config
         magno, tcfg = cfg.args.magno, cfg.args.transformer
-        if cfg.use_conditional_norm:
-            raise NotImplementedError("time-conditional GAOT is not ported")
         self.grid_shape = tuple(cfg.latent_tokens_size)
         if len(self.grid_shape) != magno.coord_dim:
             raise ValueError(f"latent_tokens_size {self.grid_shape} must have "
@@ -113,24 +111,28 @@ class GAOT(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_parameters(self, generator)
 
-    def process(self, rndata: torch.Tensor) -> torch.Tensor:
-        """UViT over patch tokens."""
+    def process(self, rndata: torch.Tensor,
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """UViT over patch tokens; ``condition`` [B, 1] feeds the
+        conditional norms."""
         c = rndata.shape[-1]
         tokens = self.patch_linear(patchify(rndata, self.grid_shape, self.patch_size))
         if not self.use_rope:
             tokens = tokens + self.pos_emb.to(tokens.dtype)
-        tokens = self.processor(tokens, use_rope=self.use_rope)
+        tokens = self.processor(tokens, use_rope=self.use_rope, condition=condition)
         return unpatchify(tokens, self.grid_shape, self.patch_size, c)
 
     def forward(self, latent_tokens_coord, xcoord, pndata, encoder_graphs,
                 decoder_graphs, query_coord=None, encoder_tgraphs=None,
-                decoder_tgraphs=None) -> torch.Tensor:
+                decoder_tgraphs=None, condition=None) -> torch.Tensor:
         """latent_tokens_coord [Q, d]; xcoord [N, d]; pndata [B, N, Cin];
         graphs: per-scale graphs on the model's device; query_coord defaults
-        to xcoord. Returns [B, M, Cout]."""
+        to xcoord; ``condition`` [B, 1], the time condition of the
+        processor's conditional norms (``attn_config.use_conditional_norm``).
+        Returns [B, M, Cout]."""
         rndata = self.encoder(xcoord, pndata, latent_tokens_coord,
                               encoder_graphs, tgraphs=encoder_tgraphs)
-        rndata = self.process(rndata)
+        rndata = self.process(rndata, condition=condition)
         if query_coord is None:
             query_coord = xcoord
         return self.decoder(latent_tokens_coord, rndata, query_coord,

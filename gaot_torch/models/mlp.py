@@ -109,7 +109,8 @@ class ScaleWeightMLP(nn.Sequential):
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation: LeCun-normal weights (std 1/sqrt(fan_in), the
-    Flax Dense default), zero biases, unit norm scales. Values are drawn on
+    Flax Dense default), normal(0.01) weights in a :class:`ConditionedNorm`
+    (``correction``), zero biases, unit norm scales. Values are drawn on
     the CPU from ``generator`` and copied, so a seed gives the same weights
     on every device."""
     with torch.no_grad():
@@ -119,7 +120,44 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)
+            elif ".correction." in f".{name}":
+                p.copy_(0.01 * torch.randn(p.shape, generator=generator))
             else:
                 fan_in = p.shape[1] * (p.shape[2] if p.dim() == 3 else 1)
                 w = torch.randn(p.shape, generator=generator) / fan_in ** 0.5
                 p.copy_(w)
+
+
+class _SimpleMLP(nn.Module):
+    """The reference ``MLP(num_layers=2)``: one Linear in a ModuleList
+    (``layers.0``), as ``gaot_tpu/models/mlp.py::SimpleMLP`` at two layers."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [Dense(in_features, out_features, compute_dtype=dtype, device=device)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers[0](x)
+
+
+class ConditionedNorm(nn.Module):
+    """Time-conditioned scale and bias, ``x·(1 + c·S(c)) + c·B(c)``
+    (``gaot_tpu/models/mlp.py::ConditionedNorm``). c: [B, 1], x: [B, S, F].
+    S and B (``mlp_scale``, ``mlp_bias``) start from normal(0.01) weights
+    and zero biases, so the correction starts near the identity; their
+    values are drawn by :func:`init_parameters` from the model's generator.
+    The products promote as in the JAX package: a bf16 x times the fp32
+    scale of an fp32 condition is fp32."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        self.mlp_scale = _SimpleMLP(1, features, dtype=dtype, device=device)
+        self.mlp_bias = _SimpleMLP(1, features, dtype=dtype, device=device)
+
+    def forward(self, c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        scale = 1.0 + c * self.mlp_scale(c)
+        bias = c * self.mlp_bias(c)
+        return x * scale[:, None, :] + bias[:, None, :]

@@ -2,7 +2,10 @@
 
 Counterpart of ``gaot_tpu/models/transformer.py``: pre-RMSNorm blocks with
 grouped-query attention, SwiGLU FFNs and UViT long-range skips
-(encoder → decoder skip-concat + projection). Attention and the bf16 FFN go
+(encoder → decoder skip-concat + projection). With
+``attn_config.use_conditional_norm`` a :class:`~.mlp.ConditionedNorm`
+(``correction``) scales the attention's input and the FFN's output by the
+time condition, as in the JAX package. Attention and the bf16 FFN go
 through the hand-written kernels' wrappers (ops/cuda/), which launch the
 kernel on a CUDA tensor and run the plain version on a CPU tensor.
 """
@@ -18,7 +21,7 @@ from ..core.config import TransformerConfig
 from ..ops.cuda import flash_attention as flash
 from ..ops.cuda import fused_ffn as ffn_kernel
 from ..utils.routing import record_route
-from .mlp import Dense
+from .mlp import ConditionedNorm, Dense
 
 
 class RMSNorm(nn.Module):
@@ -58,6 +61,7 @@ class GroupQueryAttention(nn.Module):
 
     def __init__(self, input_size: int, hidden_size: int, num_heads: int = 8,
                  num_kv_heads: int = 8, backend: str = "auto",
+                 use_conditional_norm: bool = False,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         if hidden_size % num_heads or num_heads % num_kv_heads:
@@ -72,8 +76,13 @@ class GroupQueryAttention(nn.Module):
         self.k_proj = mk(input_size, kv_hidden)
         self.v_proj = mk(input_size, kv_hidden)
         self.o_proj = mk(hidden_size, input_size)
+        self.correction = (ConditionedNorm(input_size, dtype=dtype, device=device)
+                           if use_conditional_norm else None)
 
-    def forward(self, x: torch.Tensor, use_rope: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_rope: bool = False,
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.correction is not None:
+            x = self.correction(condition, x)
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
@@ -97,7 +106,7 @@ class FFN(nn.Module):
 
     def __init__(self, input_size: int, ffn_hidden_size: int,
                  dtype: Optional[torch.dtype] = None, fused: str = "auto",
-                 device=None):
+                 use_conditional_norm: bool = False, device=None):
         super().__init__()
         self.dtype = dtype
         self.fused = fused
@@ -106,6 +115,8 @@ class FFN(nn.Module):
         self.w1 = mk(input_size, ffn_hidden_size)
         self.w3 = mk(input_size, ffn_hidden_size)
         self.w2 = mk(ffn_hidden_size, input_size)
+        self.correction = (ConditionedNorm(input_size, dtype=dtype, device=device)
+                           if use_conditional_norm else None)
 
     def _use_fused(self, x: torch.Tensor) -> bool:
         """The JAX package's routing: the fused SwiGLU kernel's wrapper
@@ -124,16 +135,21 @@ class FFN(nn.Module):
         return ffn_kernel.supported(x.numel() // max(m, 1), m,
                                     self.ffn_hidden_size, x.dtype) > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self._use_fused(x):
             record_route("ffn", "cuda" if x.is_cuda else "plain-fused")
             dt = x.dtype
             out = ffn_kernel.fused_ffn(
                 x.reshape(-1, x.shape[-1]).contiguous(), self.w1.weight.to(dt),
                 self.w3.weight.to(dt), self.w2.weight.to(dt).contiguous())
-            return out.view(x.shape)
-        record_route("ffn", "plain")
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+            out = out.view(x.shape)
+        else:
+            record_route("ffn", "plain")
+            out = self.w2(F.silu(self.w1(x)) * self.w3(x))
+        if self.correction is not None:
+            out = self.correction(condition, out)
+        return out
 
 
 class TransformerBlock(nn.Module):
@@ -143,28 +159,28 @@ class TransformerBlock(nn.Module):
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         cfg = config
-        if cfg.attn_config.use_conditional_norm:
-            raise NotImplementedError("time-conditional norm is not ported")
+        cond = cfg.attn_config.use_conditional_norm
         h = cfg.hidden_size
         self.skip_proj = (Dense(2 * h, h, compute_dtype=dtype, device=device)
                           if skip_connection and cfg.use_long_range_skip else None)
         self.attn_norm = RMSNorm(h, cfg.norm_eps, device) if cfg.use_attn_norm else None
         self.attn = GroupQueryAttention(
             h, h, cfg.attn_config.num_heads, cfg.attn_config.num_kv_heads,
-            backend=cfg.attn_backend, dtype=dtype, device=device)
+            backend=cfg.attn_backend, use_conditional_norm=cond, dtype=dtype,
+            device=device)
         self.ffn_norm = RMSNorm(h, cfg.norm_eps, device) if cfg.use_ffn_norm else None
         self.ffn = FFN(h, h * cfg.ffn_multiplier, dtype=dtype,
-                       fused=cfg.fused_ffn, device=device)
+                       fused=cfg.fused_ffn, use_conditional_norm=cond, device=device)
 
-    def forward(self, x, use_rope: bool = False, skip=None):
+    def forward(self, x, use_rope: bool = False, skip=None, condition=None):
         if self.skip_proj is not None and skip is not None:
             x = self.skip_proj(torch.cat([x, skip], dim=-1))
         h = self.attn_norm(x) if self.attn_norm is not None else x
-        h = x + self.attn(h, use_rope=use_rope)
+        h = x + self.attn(h, use_rope=use_rope, condition=condition)
         # The reference's FFN residual branches off the NORMED activation:
         # out = norm(h) + ffn(norm(h)), kept for weight-level parity.
         h = self.ffn_norm(h) if self.ffn_norm is not None else h
-        return h + self.ffn(h)
+        return h + self.ffn(h, condition=condition)
 
 
 class Transformer(nn.Module):
@@ -189,18 +205,21 @@ class Transformer(nn.Module):
             TransformerBlock(cfg, skip_connection=True, dtype=dtype, device=device)
             for _ in range(n_half))
 
-    def forward(self, x: torch.Tensor, use_rope: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_rope: bool = False,
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, S, F]; ``condition`` [B, 1], the time condition of the
+        conditional norms."""
         if self.input_proj is not None:
             x = self.input_proj(x)
         skips = []
         for block in self.encoder_layers:
-            x = block(x, use_rope=use_rope)
+            x = block(x, use_rope=use_rope, condition=condition)
             skips.append(x)
         if self.middle_layer is not None:
-            x = self.middle_layer(x, use_rope=use_rope)
+            x = self.middle_layer(x, use_rope=use_rope, condition=condition)
         for block in self.decoder_layers:
             skip = skips.pop() if self.config.use_long_range_skip else None
-            x = block(x, use_rope=use_rope, skip=skip)
+            x = block(x, use_rope=use_rope, skip=skip, condition=condition)
         if self.output_proj is not None:
             x = self.output_proj(x)
         return x

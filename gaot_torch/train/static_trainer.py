@@ -50,21 +50,23 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
     return (err * w).sum() / w.sum().clamp(min=1.0)
 
 
-def _forward(model, graphs: FxGraphs, coord, pndata):
+def _forward(model, graphs: FxGraphs, coord, pndata, condition=None):
     return model(graphs.latent_tokens_coord, coord, pndata, graphs.encoder,
                  graphs.decoder, encoder_tgraphs=graphs.encoder_t,
-                 decoder_tgraphs=graphs.decoder_t)
+                 decoder_tgraphs=graphs.decoder_t, condition=condition)
 
 
 def train_step(model, optimizer: torch.optim.Optimizer,
                schedule: Callable[[int], float], step: int, graphs: FxGraphs,
                coord: torch.Tensor, pndata: torch.Tensor, target: torch.Tensor,
                sample_mask: torch.Tensor,
-               node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               node_mask: Optional[torch.Tensor] = None,
+               condition: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One optimizer step on one batch: the forward in training mode, the
     masked MSE, its backward through the kernels' gradients, then the
     update with the learning rate ``schedule(step)`` (``step`` counts the
-    updates from 0). Returns the loss (detached, fp32)."""
+    updates from 0). ``condition`` [B, 1] is the time condition of a
+    conditional-norm model. Returns the loss (detached, fp32)."""
     if model.processor.config.attn_config.atten_dropout > 0:
         raise NotImplementedError("attention dropout is not ported")
     if model.encoder.config.sampling_strategy is not None:
@@ -73,7 +75,7 @@ def train_step(model, optimizer: torch.optim.Optimizer,
         raise NotImplementedError("training needs the transpose graphs "
                                   "(magno.use_transpose_backward)")
     model.train()
-    loss = masked_mse(_forward(model, graphs, coord, pndata), target,
+    loss = masked_mse(_forward(model, graphs, coord, pndata, condition), target,
                       sample_mask, node_mask)
     loss.backward()
     lr = schedule(step)
@@ -87,9 +89,10 @@ def train_step(model, optimizer: torch.optim.Optimizer,
 @torch.no_grad()
 def eval_step(model, graphs: FxGraphs, coord: torch.Tensor, pndata: torch.Tensor,
               target: torch.Tensor, sample_mask: torch.Tensor,
-              node_mask: Optional[torch.Tensor] = None):
+              node_mask: Optional[torch.Tensor] = None,
+              condition: Optional[torch.Tensor] = None):
     """One evaluation batch: (prediction [B, N, Cout], masked MSE)."""
-    pred = _forward(model, graphs, coord, pndata)
+    pred = _forward(model, graphs, coord, pndata, condition)
     return pred, masked_mse(pred, target, sample_mask, node_mask)
 
 
@@ -128,16 +131,9 @@ class StaticTrainer(BaseTrainer):
         self.num_input_channels = c_sample.shape[-1]
         self.num_output_channels = splits["train"]["u"].shape[-1]
 
-        magno = self.model_config.args.magno
-        builder = GraphBuilder.from_magno_config(magno)
         cfg = dataset_config
         if is_vx:
-            graphs = builder.build_all_vx_graphs(
-                splits, latent, magno.radius, magno.scales,
-                build_train=self.setup_config.train,
-                model_transform=self.data_processor.coord_scaler,
-                with_transpose=magno.use_transpose_backward,
-                bucketing=magno.use_query_bucketing)
+            graphs = self._build_vx_graphs(splits, latent)
             loaders = {
                 name: None if graphs[name] is None else make_static_vx_loader(
                     splits[name]["c"], splits[name]["u"], graphs[name],
@@ -147,13 +143,7 @@ class StaticTrainer(BaseTrainer):
                 for name in ["train", "val", "test"]
             }
         else:
-            coord = self.data_processor.coord_scaler(splits["train"]["x"])
-            enc, dec = builder.build_fx_graphs(coord, latent, magno.radius,
-                                               magno.scales)
-            self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
-            self.graphs = FxGraphs(self.latent, *prepare_fx_device_graphs(
-                enc, dec, coord.shape[0], latent.shape[0], magno,
-                device=self.device))
+            self._build_fx_graphs(splits["train"]["x"], latent)
             loaders = {
                 name: make_static_fx_loader(
                     splits[name]["c"], splits[name]["u"], cfg.batch_size,
@@ -166,9 +156,36 @@ class StaticTrainer(BaseTrainer):
         self.val_loader = loaders["val"]
         self.test_loader = loaders["test"]
 
+    def _build_vx_graphs(self, splits: Dict, latent: np.ndarray) -> Dict:
+        """Every split's vx graphs (``splits[name]["x"]`` [S, N, d]), one
+        layout over all splits."""
+        magno = self.model_config.args.magno
+        return GraphBuilder.from_magno_config(magno).build_all_vx_graphs(
+            splits, latent, magno.radius, magno.scales,
+            build_train=self.setup_config.train,
+            model_transform=self.data_processor.coord_scaler,
+            with_transpose=magno.use_transpose_backward,
+            bucketing=magno.use_query_bucketing)
+
+    def _build_fx_graphs(self, x: np.ndarray, latent: np.ndarray) -> None:
+        """The shared fx graphs of the nodes ``x`` [N, d] and the model's
+        coordinates, on the trainer's device."""
+        magno = self.model_config.args.magno
+        coord = self.data_processor.coord_scaler(x)
+        enc, dec = GraphBuilder.from_magno_config(magno).build_fx_graphs(
+            coord, latent, magno.radius, magno.scales)
+        self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
+        self.graphs = FxGraphs(self.latent, *prepare_fx_device_graphs(
+            enc, dec, coord.shape[0], latent.shape[0], magno, device=self.device))
+
     def _refuse_unported(self, dataset_config):
         """Refuse, before any graph is built, what the port does not run."""
         magno = self.model_config.args.magno
+        if magno.sampling_strategy is not None \
+                or self.model_config.args.transformer.attn_config.atten_dropout > 0:
+            raise NotImplementedError(
+                "edge drop (magno.sampling_strategy) and attention dropout "
+                "(atten_dropout) are not ported (ROADMAP item 12)")
         if self.setup_config.train and not magno.use_transpose_backward:
             raise NotImplementedError("training needs the transpose graphs "
                                       "(magno.use_transpose_backward)")
@@ -204,12 +221,17 @@ class StaticTrainer(BaseTrainer):
             return self.graphs, self.coord, None
         return self._batch_graphs(batch), batch["x"], batch["node_mask"]
 
+    def _inputs(self, batch: Dict):
+        """(model input, target, time condition or None) of a placed batch."""
+        return batch["c"], batch["u"], None
+
     def train_step(self, batch) -> torch.Tensor:
         batch = self.place_batch(batch)
         graphs, coord, node_mask = self._model_args(batch)
+        pndata, target, condition = self._inputs(batch)
         loss = train_step(self.model, self.optimizer, self.schedule, self.step,
-                          graphs, coord, batch["c"], batch["u"],
-                          self.sample_mask(batch), node_mask)
+                          graphs, coord, pndata, target, self.sample_mask(batch),
+                          node_mask, condition)
         self.step += 1
         return loss
 
@@ -218,8 +240,9 @@ class StaticTrainer(BaseTrainer):
         self.model.eval()
         batch = self.place_batch(batch)
         graphs, coord, node_mask = self._model_args(batch)
-        return eval_step(self.model, graphs, coord, batch["c"], batch["u"],
-                         self.sample_mask(batch), node_mask)
+        pndata, target, condition = self._inputs(batch)
+        return eval_step(self.model, graphs, coord, pndata, target,
+                         self.sample_mask(batch), node_mask, condition)
 
     def validate(self, loader) -> float:
         if loader is None:

@@ -4,11 +4,12 @@
   prediction / |error| scatter panels (reference
   src/utils/plotting.py:48-307),
 - :func:`plot_losses` — the loss record (.npz) and the train/val loss
-  curves (reference src/core/base_trainer.py:227-272).
+  curves (reference src/core/base_trainer.py:227-272),
+- :func:`create_sequential_animation` — the sequential trainer's rollout
+  GIF (reference src/utils/plotting.py:310-577).
 
 matplotlib is imported when a figure is drawn, not with the module: a host
-without it trains and writes the loss record, and draws no PNG. The rollout
-animation of the sequential trainer is not ported (ROADMAP item 11).
+without it trains and writes the loss record, and draws no PNG or GIF.
 """
 from __future__ import annotations
 
@@ -191,3 +192,93 @@ def plot_losses(path: str, epochs, losses, val_epochs=None, val_losses=None,
             ax1.set_yscale("log")
     fig.savefig(path)
     plt.close(fig)
+
+
+def create_sequential_animation(gt_sequence: np.ndarray, pred_sequence: np.ndarray,
+                                coords: np.ndarray, save_path: str,
+                                input_data: Optional[np.ndarray] = None,
+                                time_values: Optional[Sequence] = None,
+                                interval: int = 800,
+                                symmetric: Union[None, bool, Sequence[bool]] = None,
+                                domain=None, names: Optional[Sequence[str]] = None,
+                                colorbar_type: str = "light",
+                                show_error: bool = True) -> bool:
+    """Rollout GIF over every channel: one row per variable, columns
+    [input] | ground truth | prediction | [|error|], color limits fixed
+    across the whole sequence (reference plotting.py:310-577).
+
+    gt_sequence, pred_sequence: [n_steps, n_points, n_channels];
+    input_data: an optional static [n_points, n_in] first column. Returns
+    whether the GIF was written: nothing is drawn, with a message, for
+    coordinates that are not 2D or where matplotlib or Pillow is missing."""
+    plt = pyplot()
+    if plt is None:
+        print("matplotlib is not installed: no animation")
+        return False
+    try:
+        import PIL  # noqa: F401  (PillowWriter's back end)
+    except ImportError:
+        print("Pillow is not installed: no animation")
+        return False
+    from matplotlib.animation import FuncAnimation, PillowWriter
+
+    if coords.shape[1] != 2:
+        print("Animation currently only supports 2D coordinates")
+        return False
+    gt = np.asarray(gt_sequence)
+    pr = np.asarray(pred_sequence)
+    if gt.ndim == 2:
+        gt, pr = gt[..., None], pr[..., None]
+    steps, _, n_ch = gt.shape
+    sym = _per_var(symmetric, n_ch)
+    cmap_sym, cmap_asym, cmap_err = _cmaps(colorbar_type)
+    has_inp = input_data is not None
+    ncols = (1 if has_inp else 0) + 2 + (1 if show_error else 0)
+    size = _point_size(coords, base=2.5)
+
+    fig, axes = plt.subplots(n_ch, ncols, figsize=(2.9 * ncols, 2.5 * n_ch),
+                             squeeze=False)
+    gt_scs, pr_scs, err_scs = [], [], []
+    for v in range(n_ch):
+        col = 0
+        if has_inp:
+            j = min(v, input_data.shape[-1] - 1)
+            sc = _panel(axes[v, 0], coords, input_data[:, j], cmap_asym,
+                        *_asym_limits(input_data[:, j]), "input" if v == 0 else "",
+                        size, domain)
+            plt.colorbar(sc, ax=axes[v, 0], fraction=0.046)
+            col = 1
+        cmap = cmap_sym if sym[v] else cmap_asym
+        limits = (_sym_limits(gt[..., v], pr[..., v]) if sym[v]
+                  else _asym_limits(gt[..., v], pr[..., v]))
+        label = names[v] if names and v < len(names) else f"var {v}"
+        sc_g = _panel(axes[v, col], coords, gt[0, :, v], cmap, *limits,
+                      f"gt: {label}", size, domain)
+        sc_p = _panel(axes[v, col + 1], coords, pr[0, :, v], cmap, *limits,
+                      f"pred: {label}", size, domain)
+        plt.colorbar(sc_p, ax=[axes[v, col], axes[v, col + 1]], fraction=0.03)
+        gt_scs.append(sc_g)
+        pr_scs.append(sc_p)
+        if show_error:
+            err_all = np.abs(gt[..., v] - pr[..., v])
+            sc_e = _panel(axes[v, col + 2], coords, err_all[0], cmap_err,
+                          0.0, float(err_all.max()) or 1.0,
+                          f"|err|: {label}", size, domain)
+            plt.colorbar(sc_e, ax=axes[v, col + 2], fraction=0.046)
+            err_scs.append(sc_e)
+
+    def update(frame):
+        for v in range(n_ch):
+            gt_scs[v].set_array(gt[frame, :, v])
+            pr_scs[v].set_array(pr[frame, :, v])
+            if show_error:
+                err_scs[v].set_array(np.abs(gt[frame, :, v] - pr[frame, :, v]))
+        label = (time_values[frame] if time_values is not None
+                 and frame < len(time_values) else frame)
+        fig.suptitle(f"t = {label}")
+        return gt_scs + pr_scs + err_scs
+
+    anim = FuncAnimation(fig, update, frames=steps, interval=interval, blit=False)
+    anim.save(save_path, writer=PillowWriter(fps=max(1, 1000 // interval)))
+    plt.close(fig)
+    return True

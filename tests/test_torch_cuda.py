@@ -13,7 +13,9 @@ routes at widths above the templated kernels; what the wrappers refuse; and
 the small fx forward and training step against the CPU plain route; the
 flash backward at the edges of its tiles, and two of its bf16 calls bitwise
 identical; the fx StaticTrainer's fit on the card against the CPU, with the
-splits on the card and on the host.
+splits on the card and on the host; the sequential loader's device route
+against its host route, and the fx (with and without the conditional
+norm) and vx SequentialTrainers' fits and rollouts against the CPU.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. On the machine with the card
 (which has no JAX, so without the JAX-loading conftest):
@@ -701,3 +703,135 @@ def test_vx_train_step_card_vs_cpu(dtype):
         cat = lambda g: torch.cat([g[n].reshape(-1) for n in sorted(g)])
         assert abs(lc - lp) <= 2e-2 * abs(lp)
         assert float((cat(gc) - cat(gp)).norm() / cat(gp).norm()) <= 5e-2
+
+
+def _seq_config(tmp_path, dev, name, model=None, **dataset):
+    ds = {"name": name, "metaname": "incompressible_fluids/NS-Gauss",
+          "base_path": str(tmp_path), "train_size": 6, "val_size": 2, "test_size": 3,
+          "batch_size": 16, "max_time_diff": 14, "time_step": 2,
+          "stepper_mode": "time_der", "predict_mode": "all"}
+    ds.update(dataset)
+    out = tmp_path / dev
+    return {"setup": {"seed": 0, "device": dev, "trainer_name": "sequential"},
+            "model": model or {
+                "latent_tokens_size": [8, 8],
+                "args": {"magno": {"radius": 0.25, "hidden_size": 8, "mlp_layers": 1,
+                                   "lifting_channels": 8},
+                         "transformer": {"patch_size": 2, "hidden_size": 16,
+                                         "num_layers": 2,
+                                         "attn_config": {"num_heads": 2,
+                                                         "num_kv_heads": 2}}}},
+            "dataset": ds,
+            "optimizer": {"args": {"epoch": 2, "eval_every_eps": 2}},
+            "path": {"ckpt_path": str(out / "ckpt"), "loss_path": str(out / "loss.png"),
+                     "result_path": str(out / "result.png"),
+                     "database_path": str(out / "db.csv")}}
+
+
+@pytest.mark.parametrize("stepper", ["output", "residual", "time_der"])
+def test_pair_batches_card_vs_host(tmp_path, stepper):
+    """The sequential loader's device route on the card (fp32) against the
+    host route (NumPy float64, cast to fp32): inputs and targets within
+    1e-6 relative; one index_select of u, none of c (the set has none)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synthetic import make_sequential_fx_dataset
+
+    from gaot_torch.data.sequential import DynamicPairBatcher
+    from gaot_torch.train import SequentialTrainer
+
+    make_sequential_fx_dataset(str(tmp_path / "seq.npz"))
+    trainer = SequentialTrainer(_seq_config(tmp_path, "cuda", "seq", stepper_mode=stepper))
+    loader = trainer.train_loader
+    assert loader.row_selects == 1
+    items = np.array([0, 29, 57, 100, 33, 28, 167, 5])
+    dev = loader.get_batch(items)
+    sp = trainer.splits["train"]
+    ref = DynamicPairBatcher(sp["u"], sp["c"], sp["t"], 14, 2, stepper,
+                             trainer.stats).get_batch(items)
+    for k in ("input", "target"):
+        assert dev[k].is_cuda
+        want = torch.from_numpy(ref[k])
+        torch.testing.assert_close(dev[k].cpu(), want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("conditional_norm", [False, True])
+def test_sequential_trainer_card_vs_cpu(tmp_path, conditional_norm):
+    """The fx SequentialTrainer's fit (fp32) on the card against the same
+    fit on the CPU: the loss records and the three rollout errors within
+    1e-3 relative; the card's steps and rollouts launch the kernels."""
+    import json
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synthetic import make_sequential_fx_dataset
+
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train import SequentialTrainer
+
+    make_sequential_fx_dataset(str(tmp_path / "seq.npz"))
+    records, errors = {}, {}
+    for dev in ("cuda", "cpu"):
+        cfg = _seq_config(tmp_path, dev, "seq")
+        if conditional_norm:
+            cfg["model"]["use_conditional_norm"] = True
+            cfg["model"]["args"]["transformer"]["attn_config"]["use_conditional_norm"] = True
+        trainer = SequentialTrainer(json.loads(json.dumps(cfg)))
+        kernels.reset_launches()
+        trainer.fit(verbose=False)
+        counts = kernels.launch_counts()
+        if dev == "cuda":
+            # 6 x 28 pairs at batch 16: 11 steps an epoch, 2 epochs, 2 layers.
+            assert counts["flash_attention_bwd"] == 2 * 22
+            # validation (56 pairs: 4 batches) and 7 + 1 + 4 rollout forwards
+            assert counts["flash_attention_fwd"] == 2 * (4 + 12)
+        else:
+            assert not any(counts.values())
+        records[dev] = np.load(tmp_path / dev / "loss.npz")
+        errors[dev] = [trainer.datarow[f"relative error ({k})"]
+                       for k in ("direct", "auto2", "auto4")]
+    for k in ("losses", "val_losses"):
+        np.testing.assert_allclose(records["cuda"][k], records["cpu"][k], rtol=1e-3)
+    np.testing.assert_allclose(errors["cuda"], errors["cpu"], rtol=1e-3)
+
+
+def test_vx_sequential_trainer_card_vs_cpu(tmp_path):
+    """A vx sequential fit (fp32, a mesh per sample, batches that repeat a
+    sample under two pairs) on the card against the CPU: the loss records
+    and the rollout error within 1e-3 relative."""
+    import json
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synthetic import make_sequential_vx_dataset
+
+    from gaot_torch.core import metadata as meta
+    from gaot_torch.train import SequentialTrainer
+
+    make_sequential_vx_dataset(str(tmp_path / "seq_vx.npz"))
+    meta.DATASET_METADATA["_test/seq_vx"] = meta.Metadata(
+        periodic=False, group_u="u", group_c="c", group_x="x", type="gaot",
+        domain_x=([0, 0], [1, 1]), domain_t=(0, 1), fix_x=False,
+        active_variables=[0], chunked_variables=[0], num_variable_chunks=1,
+        signed={"u": [True], "c": [True]}, names={"u": ["$u$"], "c": ["$c$"]},
+        global_mean=[0.0], global_std=[1.0])
+    records, errors = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            cfg = _seq_config(tmp_path, dev, "seq_vx", metaname="_test/seq_vx",
+                              predict_mode="autoregressive", batch_size=8, test_size=2)
+            trainer = SequentialTrainer(json.loads(json.dumps(cfg)))
+            assert trainer.coord_mode == "vx"
+            trainer.fit(verbose=False)
+            records[dev] = np.load(tmp_path / dev / "loss.npz")
+            errors[dev] = trainer.datarow["relative error (autoregressive)"]
+    finally:
+        del meta.DATASET_METADATA["_test/seq_vx"]
+    for k in ("losses", "val_losses"):
+        np.testing.assert_allclose(records["cuda"][k], records["cpu"][k], rtol=1e-3)
+    np.testing.assert_allclose(errors["cuda"], errors["cpu"], rtol=1e-3)

@@ -3,7 +3,8 @@ kernel_ab.py) imports JAX, Flax, Optax or gaot_tpu; it imports with JAX
 blocked, and imports and trains through its CLI with the host libraries
 the card's machine lacks (matplotlib, pandas, h5py) blocked too; and its
 entry points ask for the CUDA device unless told otherwise. A vx config
-(the elasticity example) trains with JAX blocked."""
+(the elasticity example) trains with JAX blocked, and a sequential one
+(the ns_gauss example) with JAX and the host libraries blocked."""
 import ast
 import pathlib
 import subprocess
@@ -115,6 +116,37 @@ def test_trains_vx_without_jax(tmp_path):
     assert "agno=vx:plain" in out.stdout
     assert (tmp_path / "out" / "database" / "elasticity.csv").exists()
     assert (tmp_path / "out" / "ckpt" / "elasticity.pt").exists()
+
+
+def test_trains_sequential_without_host_libraries(tmp_path):
+    """With JAX, matplotlib, pandas and h5py blocked, the ns_gauss example
+    (cut for the CPU as tests/test_torch_seq_cli.py cuts it) trains and
+    rolls out through ``gaot_torch.cli.main``: its loss record, its CSV row
+    with the three rollout errors, its checkpoint, and no plot."""
+    import csv
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_seq_cli import example_cpu_config
+
+    cfg = example_cpu_config(str(tmp_path), "ns_gauss")
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'gaot_tpu', 'matplotlib',\n"
+        "          'pandas', 'h5py'):\n"
+        "    sys.modules[m] = None\n"
+        "from gaot_torch.cli import main\n"
+        f"sys.exit(main(['-c', {cfg!r}]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "no result plot or animation" in out.stdout
+    with open(tmp_path / "out" / "database" / "ns_gauss.csv") as f:
+        row = next(csv.DictReader(f))
+    for key in ("direct", "auto2", "auto4"):
+        assert float(row[f"relative error ({key})"]) > 0
+    assert (tmp_path / "out" / "loss" / "ns_gauss.npz").exists()
+    assert (tmp_path / "out" / "ckpt" / "ns_gauss.pt").exists()
+    assert not list((tmp_path / "out").rglob("*.png"))
 
 
 def test_entry_points_default_to_cuda():
