@@ -3,8 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Five paths run through the port's entry points, and the fx, elasticity and
-sequential recipes train through the port's CLI:
+Five paths run through the port's entry points, and the fx, elasticity,
+sequential and naca0012 recipes train through the port's CLI:
   - the fx main path: the Poisson-Gauss recipe (8192 nodes, 64x64 latent
     grid, config/examples/time_indep/poisson_gauss.json), batch 64;
   - the 3D flagship of scripts/train_demo.py::run_3d: 32768 nodes in
@@ -122,10 +122,40 @@ failure):
      4096 nodes a sample), 48 / 8 / 8 samples, batch 16, 2 epochs, fp32:
      launches equal to the tables of the trainer's graphs, falling loss,
      finite errors.
-  6. prints one JSON line listing every kernel of the five paths (the fx
+  5d. the naca0012 recipe (config/examples/time_indep/naca0012.json read
+     from disk: vx, edge drop with sampling_strategy "max_neighbors" and
+     max_neighbors 32) trained through gaot_torch.cli.main on synthetic
+     data at the airfoil layout (tests/torch_synthetic.py: 6144 nodes a
+     sample clustered around a NACA 0012 profile, seed 0), batch 32,
+     256 / 32 / 64 samples, 6 epochs, its fp32, under a device-only
+     profiler: launches equal to the tables of the CLI trainer's own graphs
+     times its steps and evaluation batches, falling loss, finite metric,
+     checkpoint, loss record, CSV row, the run's row gathers logged; then
+     on that trainer: the encoder's degree histogram and the share of its
+     edges each step's drop keeps (every bucket wider than 32 thinned to
+     min(degree, 32) of its own edges, the decoder's graphs untouched), the
+     same batch-32 step with and without the drop (launches, ms, device
+     busy, kernels) and the evaluation forward, each profile without a row
+     gather, the card against the CPU plain route at batch 2 on the
+     same dropped masks (drawn once on the CPU; fp32 bounds of phase 4),
+     and the multiply-reduces on the batch's masks with holes (ratio 0.5,
+     then max_neighbors 32) against their plain versions, twice bit for
+     bit.
+  6. attention dropout 0.1 on the fx main path's bf16 step at batch 64:
+     the route plain-dropout (no flash launch, every other launch the
+     table's), a finite loss, the keep share of the three layers' draws
+     within 4 sigma of 0.9, step ms, peak memory and a profile; at rate 0
+     with a generator the step's launch table unchanged.
+  7. the pointnet embedding (max pooling): the fx main path's forward and
+     step (batch-4 fp32 check against the CPU, batch-64 bf16 launches,
+     timings, profiles, no row gather) and the vx flagship's batch-2 fp32
+     check.
+  8. prints one JSON line listing every kernel of the five paths (the fx
      main path's launches are those of the trainer's run A; the vx
      entries' those of the vx flagship's training step and forward; the
-     sequential entries', @seq, those of run A).
+     sequential entries', @seq, those of run A; the naca0012 entries,
+     @naca, the multiply-reduces on its thinned masks with its CLI run's
+     launches).
 The last line is {"ok": true, "device": {...}}.
 """
 import copy
@@ -848,11 +878,12 @@ def _by_kv_head(fn, q, k, v, *rest):
     return tuple(join(ts) for ts in zip(*parts))
 
 
-def check_flash(rnd, bb, s, h, d, with_eval=True):
+def check_flash(rnd, bb, s, h, d, with_eval=True, row_dtype="bfloat16"):
     """The forward (with the LSE output, and without it where
     ``with_eval``) and the backward at (B, S, H = Hkv, D). The plain versions
     run one kv-head at a time where one fp32 [B, H, S, S] tensor would pass
-    8 GiB. Returns rows keyed "fwd", "fwd_lse" and "bwd" (bf16)."""
+    8 GiB. Returns rows keyed "fwd", "fwd_lse" and "bwd" (of ``row_dtype``,
+    "bfloat16" or "float32")."""
     import torch
 
     from gaot_torch.ops.cuda import flash_attention as fa
@@ -870,6 +901,7 @@ def check_flash(rnd, bb, s, h, d, with_eval=True):
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
         bf16 = dtype == torch.bfloat16
+        dt = "bf16" if bf16 else "fp32"
         peak = PEAK_BF16 if bf16 else PEAK_FP32
         # q/k/v as views of one [B, S, 3·H·D] buffer
         qkv = rnd(bb, s, 3, h, d).to(dtype)
@@ -888,8 +920,8 @@ def check_flash(rnd, bb, s, h, d, with_eval=True):
             log(f"    fwd {name}: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
                 f"library_ms={t_l:.4f} bound_ms={bnd[0]:.4f} ({bnd[2]} binds; "
                 f"{fwd_ops / t_k / 1e9:.1f} TFLOP/s)")
-            if bf16:
-                rows["fwd"] = _row(err, t_k, t_p, t_l, bnd, "one call", S=s, D=d)
+            if name == row_dtype:
+                rows["fwd"] = _row(err, t_k, t_p, t_l, bnd, "one call", dt, S=s, D=d)
         out, lse = fa.flash_attention_lse(q, k_, v)
         want_out, want_lse = plain_fwd(q, k_, v, with_lse=True)
         err_lse = max(compare(f"flash fwd+LSE {name} out", out, want_out, *tol),
@@ -943,10 +975,10 @@ def check_flash(rnd, bb, s, h, d, with_eval=True):
             f"{bwd_ops / t_kb / 1e9:.1f} TFLOP/s)")
         del o_l, leaves, qkv, out, lse, dout
         torch.cuda.empty_cache()
-        if bf16:
-            rows["fwd_lse"] = _row(err_lse, t_kl, t_pl, t_ll, bnd_lse, "one call",
+        if name == row_dtype:
+            rows["fwd_lse"] = _row(err_lse, t_kl, t_pl, t_ll, bnd_lse, "one call", dt,
                                    S=s, D=d)
-            rows["bwd"] = _row(err_bwd, t_kb, t_pb, t_lb, bnd_bwd, "one call",
+            rows["bwd"] = _row(err_bwd, t_kb, t_pb, t_lb, bnd_bwd, "one call", dt,
                                S=s, D=d)
     return rows
 
@@ -1109,10 +1141,18 @@ def _vx_reduce_cases(path: Path, what: str, device="cuda"):
     rows to query order with its gradient (masked by the valid rows; a
     coefficient of one; no d_coef); "d_f", each in-degree group
     (``df_calls``)."""
+    graphs, _, _ = _graph_args(path, path.batch, device)
+    return _flat_reduce_cases(graphs, path.batch, path.coords.shape[1],
+                              path.lat.shape[0], what,
+                              path.train_launches["multiply_reduce_k"])
+
+
+def _flat_reduce_cases(graphs, b: int, n: int, nq: int, what: str, want: int):
+    """:func:`_vx_reduce_cases` of the FlatGraphs ``graphs`` of a vx batch
+    of ``b`` samples, n padded nodes and nq latent queries a sample;
+    ``want``: the multiply-reduce calls of its training step."""
     from gaot_torch.ops.gather_apply import df_calls
 
-    graphs, _, _ = _graph_args(path, path.batch, device)
-    b, n, nq = path.batch, path.coords.shape[1], path.lat.shape[0]
     cases = {"forward": [], "d_f": [], "forward_calls": 0}
     desc = []
     for side, vg, n_src, n_q in (("encoder", graphs.encoder[0], n, nq),
@@ -1135,7 +1175,6 @@ def _vx_reduce_cases(path: Path, what: str, device="cuda"):
         desc.append(f"{side} buckets {[tuple(bk.indices.shape) for bk in vg.buckets]}, "
                     f"in-degree groups {[tuple(c[0].shape) for c in df_calls(vg, 1)]}")
     log(f"{what} reduce graphs (batch {b}, flattened): " + "; ".join(desc))
-    want = path.train_launches["multiply_reduce_k"]
     got = len(cases["forward"]) + len(cases["d_f"])
     if got != want:
         fail(f"{what}: expected {want} multiply-reduce calls, the graphs give {got}")
@@ -1334,8 +1373,9 @@ def phase_train(path: Path):
     # to both sides: it holds everything downstream of them, the kernels
     # included, apart from the embedding's own rounding.
     checks = [(name, dtype, False) for name, dtype in _check_dtypes(path)]
-    checks += [(f"{name}, embedding shared", dtype, True)
-               for name, dtype, _ in checks if dtype is None]
+    if path.cfg.model.args.magno.embedding_method == "statistical":
+        checks += [(f"{name}, embedding shared", dtype, True)
+                   for name, dtype, _ in checks if dtype is None]
     for name, dtype, shared in checks:
         res, feats = {}, []
         for dev in ("cpu", "cuda"):
@@ -1468,9 +1508,10 @@ def profile_step(run, what: str, steps: int = 10, top: int = 20):
     busy_ms = sum(e.self_device_time_total for e in events) / steps / 1e3
     if busy_ms <= 0:
         fail(f"the profiler saw no device time in the {what}")
+    kernels_per_step = sum(e.count for e in events) / steps
     log(f"  pipelined {what} ({steps} back to back): wall_ms={wall * 1e3:.3f} "
         f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / (wall * 1e3):.3f} "
-        f"kernels_per_step={sum(e.count for e in events) / steps:.0f}")
+        f"kernels_per_step={kernels_per_step:.0f}")
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:top]:
         log(f"    {e.self_device_time_total / 1e3 / steps:9.4f} ms "
@@ -1483,6 +1524,7 @@ def profile_step(run, what: str, steps: int = 10, top: int = 20):
         f"{sum(e.self_device_time_total for e in gathers) / 1e3 / steps:.4f} ms")
     if gathers:
         fail(f"the {what} still runs PyTorch's row gather")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms, "kernels": kernels_per_step}
 
 
 def phase_rollout(path: Path):
@@ -2171,6 +2213,457 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
     return launches_a
 
 
+# Phase 5d: the naca0012 recipe (config/examples/time_indep/naca0012.json, a
+# mesh per sample, edge drop with sampling_strategy "max_neighbors" and
+# max_neighbors 32) trained through the CLI on synthetic data at the airfoil
+# layout (tests/torch_synthetic.py::make_naca_dataset: 6144 nodes a sample
+# clustered around a NACA 0012 profile in the metadata domain, 3 c channels
+# and 1 u channel, seed 0), the example's batch of 32 and its fp32, cut to
+# these split sizes and epochs (the example: 1024 / 128 / 256 samples, 500
+# epochs).
+NACA = os.path.join(HERE, "config", "examples", "time_indep", "naca0012.json")
+NACA_SIZES = {"train_size": 256, "val_size": 32, "test_size": 64}
+NACA_EPOCHS = 6
+NACA_CHECK_BATCH = 2
+# Degree bins of the encoder's histogram.
+DEGREE_BINS = (0, 1, 8, 16, 32, 64, 128, 256, 512)
+
+
+def _thin(graphs, strategy: str, generator, **kw):
+    """The FlatGraphs ``graphs`` (FxGraphs) with every bucket's mask thinned
+    by ``apply_edge_drop_mask`` (new masks; the graphs given untouched)."""
+    from gaot_torch.ops.edge_drop import apply_edge_drop_mask
+
+    def side(gs):
+        return [g._replace(buckets=tuple(
+            b._replace(mask=apply_edge_drop_mask(b.mask, generator, strategy, **kw))
+            for b in g.buckets)) for g in gs]
+    return graphs._replace(encoder=side(graphs.encoder), decoder=side(graphs.decoder))
+
+
+def _bucket_rows_valid(vg):
+    """Per bucket of a FlatGraph, its rows' validity [S·R_j] (all True
+    where the graph has no pad rows)."""
+    import torch
+
+    s = vg.num_samples
+    if vg.row_valid is None:
+        return [torch.ones(b.mask.shape[0], dtype=torch.bool, device=b.mask.device)
+                for b in vg.buckets]
+    rv = vg.row_valid.view(s, vg.rows)
+    out, base = [], 0
+    for b in vg.buckets:
+        rj = b.mask.shape[0] // s
+        out.append(rv[:, base:base + rj].reshape(-1))
+        base += rj
+    return out
+
+
+def _naca_drop_statistics(trainer, batches, m: int):
+    """The encoder's degree histogram over the training split (valid rows),
+    and the share of its valid edges each step's drop keeps, on every
+    training batch: each bucket wider than ``m`` keeps min(degree, m) edges
+    a row and nothing outside the graph's mask; the buckets at most ``m``
+    wide, and every decoder bucket, keep their mask (no draw)."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    degs, shares = [], []
+    for batch in batches:
+        graphs = trainer._batch_graphs(trainer.place_batch(batch))
+        kept = valid = 0
+        for vg in graphs.encoder:
+            dropped = trainer.model.encoder._drop_edges(vg, gen)
+            for b, d, rv in zip(vg.buckets, dropped.buckets, _bucket_rows_valid(vg)):
+                deg = b.mask.sum(-1)
+                degs.append(deg[rv].cpu())
+                if b.mask.shape[-1] <= m:
+                    if d.mask is not b.mask:
+                        fail(f"naca0012: the drop drew on an encoder bucket of K "
+                             f"{b.mask.shape[-1]} <= {m}")
+                elif not torch.equal(d.mask.sum(-1), deg.clamp(max=m)) \
+                        or (d.mask & ~b.mask).any():
+                    fail(f"naca0012: an encoder bucket of K {b.mask.shape[-1]} was not "
+                         f"thinned to min(degree, {m}) of its own edges")
+                kept += int(d.mask.sum())
+                valid += int(b.mask.sum())
+        for vg in graphs.decoder:
+            dropped = trainer.model.decoder._drop_edges(vg, gen)
+            if any(d.mask is not b.mask for b, d in zip(vg.buckets, dropped.buckets)):
+                fail("naca0012: the drop touched a decoder graph")
+        shares.append(kept / valid)
+    deg = torch.cat(degs).numpy()
+    hist, _ = np.histogram(deg, bins=list(DEGREE_BINS) + [max(int(deg.max()) + 1, 513)])
+    log(f"naca0012 encoder degrees over the training split ({len(deg)} rows): "
+        + ", ".join(f"[{lo}, {hi}) {c}" for lo, hi, c in zip(
+            DEGREE_BINS, list(DEGREE_BINS[1:]) + ["max"], hist))
+        + f"; max {int(deg.max())}, mean {deg.mean():.2f}; rows above {m}: "
+        f"{int((deg > m).sum())} ({(deg > m).mean():.4f}); the edges of those rows "
+        f"{deg[deg > m].sum() / deg.sum():.4f} of all")
+    log(f"naca0012 edge drop: the share of the encoder's edges kept a step, over "
+        f"{len(shares)} training batches: mean {np.mean(shares):.4f} min "
+        f"{min(shares):.4f} max {max(shares):.4f}; every decoder graph untouched")
+    return float(np.mean(shares))
+
+
+def _naca_drop_cost(trainer, batch, train_table):
+    """The same batch-32 fp32 step with and without the edge drop: launches
+    (each the step's table), step ms and the profile's device busy, idle
+    share and kernels a step; then the evaluation forward's profile. No
+    profile may hold PyTorch's row gather."""
+    import torch
+
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train.static_trainer import eval_step, train_step
+
+    magno = trainer.model_config.args.magno
+    placed = trainer.place_batch(batch)
+    graphs, coord, nmask = trainer._model_args(placed)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    smask = trainer.sample_mask(placed)
+    strategy = magno.sampling_strategy
+
+    def run():
+        return train_step(trainer.model, trainer.optimizer, trainer.schedule, 0,
+                          graphs, coord, placed["c"], placed["u"], smask, nmask,
+                          None, gen)
+
+    out = {}
+    try:
+        for label, strat in (("with the drop", strategy), ("without", None)):
+            magno.sampling_strategy = strat
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            run()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            _expect_launches(f"naca0012 step {label}", launches, train_table)
+            times = host_times(run, 10)
+            prof = profile_step(run, f"naca0012 training step {label}")
+            log(f"  naca0012 step {label} (batch {placed['c'].shape[0]}, fp32): "
+                f"launches {launches}; step_ms {fmt_times(times, placed['c'].shape[0])}")
+            out[label] = dict(prof, ms=statistics.median(times))
+    finally:
+        magno.sampling_strategy = strategy
+    profile_step(lambda: eval_step(trainer.model, graphs, coord, placed["c"], placed["u"],
+                                   smask, nmask), "naca0012 forward (evaluation)")
+    a, b = out["with the drop"], out["without"]
+    log(f"naca0012: the drop adds {a['ms'] - b['ms']:.3f} ms to the step median "
+        f"({a['ms']:.3f} vs {b['ms']:.3f}), {a['busy_ms'] - b['busy_ms']:.3f} ms of "
+        f"device busy ({a['busy_ms']:.3f} vs {b['busy_ms']:.3f}) and "
+        f"{a['kernels'] - b['kernels']:.0f} kernels ({a['kernels']:.0f} vs "
+        f"{b['kernels']:.0f})")
+    return out
+
+
+def _naca_agreement(trainer, batch):
+    """Batch 2: the card's route against the CPU plain route on the same
+    dropped masks, drawn once on the CPU and copied to the card; the model's
+    seeded fp32 weights in training mode; the forward (rtol 1e-3, atol 1e-3
+    of its largest entry), the masked loss (rel 1e-4) and every gradient
+    within 1e-3 of its largest entry."""
+    import torch
+
+    from gaot_torch.data.graph_builder import vx_flat_graphs, vx_layout
+    from gaot_torch.models import GAOT
+    from gaot_torch.train.static_trainer import FxGraphs, masked_mse
+
+    cb = NACA_CHECK_BATCH
+    keep = [k for k, v in batch.items() if isinstance(v, torch.Tensor)
+            and k not in trainer.train_loader.layout_keys]
+    bufs = {k: batch[k][:cb].cpu().numpy() for k in keep}
+    bufs.update(vx_layout(bufs, cb))
+    nscales = len(trainer.model_config.args.magno.scales)
+    gen = torch.Generator().manual_seed(2)
+    res, dropped = {}, None
+    for dev in ("cpu", "cuda"):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
+        graphs = FxGraphs(trainer.latent.to(dev), *vx_flat_graphs(b, nscales))
+        model = GAOT(trainer.num_input_channels, trainer.num_output_channels,
+                     trainer.model_config, dtype=None, device=dev,
+                     generator=torch.Generator().manual_seed(0)).train()
+        if dropped is None:
+            dropped = (
+                [model.encoder._drop_edges(g, gen) for g in graphs.encoder],
+                [model.decoder._drop_edges(g, gen) for g in graphs.decoder])
+            thinned = sum(int(a.mask.sum() - d.mask.sum())
+                          for g, dg in zip(graphs.encoder, dropped[0])
+                          for a, d in zip(g.buckets, dg.buckets))
+        take = lambda gs, ds: [g._replace(buckets=tuple(
+            bk._replace(mask=d.mask.to(dev)) for bk, d in zip(g.buckets, dg.buckets)))
+            for g, dg in zip(gs, ds)]
+        graphs = graphs._replace(encoder=take(graphs.encoder, dropped[0]),
+                                 decoder=take(graphs.decoder, dropped[1]))
+        pred = model(graphs.latent_tokens_coord, b["x"], b["c"], graphs.encoder,
+                     graphs.decoder)
+        loss = masked_mse(pred, b["u"], torch.ones(cb, dtype=torch.bool, device=dev),
+                          b["node_mask"])
+        loss.backward()
+        res[dev] = (pred.detach().float().cpu(), float(loss.detach()),
+                    {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+        del model, graphs
+    (pg, lg, gg), (pc, lc, gc) = res["cuda"], res["cpu"]
+    scale = float(pc.abs().max())
+    ok_fwd = bool(torch.allclose(pg, pc, rtol=1e-3, atol=1e-3 * scale))
+    per = {n: float((gg[n] - gc[n]).abs().max() / gc[n].abs().max().clamp(min=1e-30))
+           for n in gc}
+    worst = max(per, key=per.get)
+    loss_rel = abs(lg - lc) / abs(lc)
+    ok = ok_fwd and loss_rel <= 1e-4 and per[worst] <= 1e-3 \
+        and all(torch.isfinite(g).all() for g in gg.values())
+    log(f"naca0012 batch {cb} fp32, the same dropped masks on both sides ({thinned} "
+        f"encoder edges dropped): forward max_abs {float((pg - pc).abs().max()):.3e} "
+        f"(rtol 1e-3, atol 1e-3·max|ref| = {1e-3 * scale:.2e}); loss {lg:.6f} vs {lc:.6f} "
+        f"(rel {loss_rel:.2e}, bound 1e-4); worst gradient {per[worst]:.3e} of its "
+        f"largest entry ({worst}; bound 1e-3) {'ok' if ok else 'MISMATCH'}")
+    if not ok or thinned <= 0:
+        fail("naca0012: the card disagrees with the CPU plain route on dropped masks, "
+             "or nothing was dropped")
+
+
+def phase_naca(card: str, rnd):
+    """Phase 5d: the naca0012 recipe through the CLI (module docstring).
+    Returns (the run's launches, the multiply-reduce rows on its dropped
+    masks)."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from gaot_torch import cli
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_synthetic import NACA_POINTS, make_naca_dataset
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gaot_naca_") as folder:
+        with open(NACA) as f:
+            raw = json.load(f)
+        n = sum(NACA_SIZES.values())
+        t0 = time.perf_counter()
+        make_naca_dataset(os.path.join(folder, f"{raw['dataset']['name']}.npz"),
+                          num_samples=n, seed=0)
+        raw["dataset"].update(NACA_SIZES, base_path=folder)
+        raw["optimizer"]["args"]["epoch"] = NACA_EPOCHS
+        raw["path"] = {k: os.path.join(folder, "run", os.path.basename(v))
+                       for k, v in raw["path"].items()}
+        cfg_path = os.path.join(folder, "naca0012.json")
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f, indent=1)
+        magno = raw["model"]["args"]["magno"]
+        log(f"naca0012 data: {n} samples x {NACA_POINTS} nodes clustered around the "
+            f"profile (seed 0, {time.perf_counter() - t0:.1f} s), splits {NACA_SIZES}, "
+            f"{NACA_EPOCHS} epochs, batch {raw['dataset']['batch_size']}, fp32, "
+            f"sampling_strategy {magno['sampling_strategy']!r}, max_neighbors "
+            f"{magno['max_neighbors']}")
+
+        # The trainer the CLI runs, kept for its graphs and the checks after
+        # the fit.
+        ran = []
+        run_config = cli.run_config
+
+        def keep_trainer(path):
+            ran.append(run_config(path))
+            return ran[-1]
+
+        cli.run_config = keep_trainer
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            launches, routes, secs, prof, out = _cli_in_process(cfg_path, "naca0012 fp32",
+                                                                profile=True)
+        finally:
+            cli.run_config = run_config
+        peak = torch.cuda.max_memory_allocated()
+        trainer = ran[0]
+        batches = list(trainer.train_loader)
+        graphs = trainer._batch_graphs(trainer.place_batch(batches[0]))
+        fwd, train = _tables(graphs, trainer.model_config.args.transformer.num_layers,
+                             ffn=False)
+        ds, args = trainer.dataset_config, trainer.optimizer_config.args
+        nb = lambda k: math.ceil(k / min(ds.batch_size, k))
+        steps = args.epoch * nb(ds.train_size)
+        evals = args.epoch // args.eval_every_eps * nb(ds.val_size) + nb(ds.test_size)
+
+        want = {k: train.get(k, 0) * steps + fwd.get(k, 0) * evals
+                for k in set(train) | set(fwd)}
+        log(f"naca0012 tables (the trainer's graphs): a step {train}, a forward {fwd}; "
+            f"{steps} steps, {evals} evaluation batches; launches {launches}; routes "
+            f"{routes}; {secs:.1f} s in the CLI")
+        rec, row = _check_run("naca0012 fp32", raw, launches, routes, want, "plain")
+        if not all(r == "vx:cuda" for r in routes["agno"].split("+")):
+            fail(f"naca0012: agno routes {routes['agno']}, expected vx:cuda")
+        if _ckpt_step(raw) != steps:
+            fail(f"naca0012: the checkpoint's step is {_ckpt_step(raw)}, expected {steps}")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        busy_s = sum(e.self_device_time_total for e in events) / 1e6
+        # The loader selects each batch's buffers with index_select, which
+        # takes PyTorch's row gather for some of them and other kernels for
+        # the rest, by the buffers' sizes and alignment: its count a batch
+        # varies, so the model's share is held by the step's and the
+        # forward's profiles below (no row gather), not by a difference.
+        n_gathers = sum(e.count for e in events if "vectorized_gather_kernel" in e.key)
+        log(f"naca0012 device profile: busy {busy_s:.3f} s of {secs:.3f} s, kernels "
+            f"{sum(e.count for e in events)}; row gathers (vectorized_gather_kernel) "
+            f"{n_gathers}, {n_gathers / (steps + evals):.2f} a batch (the loader's "
+            f"selects of {sum(isinstance(v, torch.Tensor) for v in batches[0].values())} "
+            f"buffers)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  "
+                f"{e.key[:90]}")
+        first, steady = _steady_rate(out, NACA_SIZES["train_size"])
+        log(f"naca0012 fp32 ({card}): training time {float(row['training time']):.3f} s, "
+            f"samples_per_sec {float(row['samples_per_sec']):.1f} (under the device "
+            f"profiler; {first:.3f} s to the first evaluation, {steady:.1f} samples/s "
+            f"after it), max_memory_allocated {peak / 2**30:.3f} GiB")
+
+        _naca_drop_statistics(trainer, batches, trainer.model_config.args.magno.max_neighbors)
+        _naca_drop_cost(trainer, batches[0], train)
+        _naca_agreement(trainer, batches[0])
+
+        # The multiply-reduces on the batch's masks with holes: ratio 0.5 on
+        # every bucket, then the example's max_neighbors 32 (the rows the
+        # kernels line reports).
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        b = batches[0]["c"].shape[0]
+        n_pad, nq = batches[0]["x"].shape[1], trainer.latent.shape[0]
+        c = trainer.model_config.args.magno.lifting_channels
+        for label, kw in (("ratio 0.5", dict(sample_ratio=0.5)),
+                          ("max_neighbors 32", dict(max_neighbors=32))):
+            thinned = _thin(graphs, label.split()[0], gen, **kw)
+            what = f"naca0012, {label}"
+            rows = check_multiply_reduce(
+                rnd, 1, c, _flat_reduce_cases(thinned, b, n_pad, nq, what,
+                                              train["multiply_reduce_k"]), what)
+        # The flash kernels at the UViT's shapes here (batch 32, S = 1024, 8
+        # heads of dim 32), the example's fp32 in the rows.
+        tcfg = trainer.model_config.args.transformer
+        heads = tcfg.attn_config.num_heads
+        rows.update(check_flash(rnd, b, SEQ, heads, tcfg.hidden_size // heads,
+                                row_dtype="float32"))
+        del trainer, graphs, batches
+        torch.cuda.empty_cache()
+    log(f"naca0012 phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, rows
+
+
+# Phase 6: attention dropout at this rate on the fx main path's training step
+# (batch 64, bf16): the plain attention with dropout in place of the flash
+# kernels, as the JAX package routes it.
+ATTN_DROPOUT = 0.1
+
+
+def phase_attn_dropout(path: Path, step_ms: float):
+    """Phase 6 (module docstring)."""
+    import torch
+
+    from gaot_torch.models import transformer
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train.schedules import make_optimizer
+    from gaot_torch.train.static_trainer import train_step
+    from gaot_torch.utils.routing import format_routes, reset_routes
+
+    cfg = copy.deepcopy(path.cfg)
+    cfg.model.args.transformer.attn_config.atten_dropout = ATTN_DROPOUT
+    pndata, target = _batch(2, path)
+    xp, xt = torch.from_numpy(pndata).cuda(), torch.from_numpy(target).cuda()
+    smask = torch.ones(path.batch, dtype=torch.bool, device="cuda")
+    graphs, xc, nmask = _graph_args(path, path.batch, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for rate, drop_path in ((ATTN_DROPOUT, path._replace(cfg=cfg)), (0.0, path)):
+        model = _model(drop_path, torch.bfloat16, "cuda")
+        opt, sched = make_optimizer(path.cfg.optimizer, model.parameters(),
+                                    path.steps_per_epoch)
+        step = [0]
+
+        def run():
+            loss = train_step(model, opt, sched, step[0], graphs, xc, xp, xt, smask,
+                              nmask, None, gen)
+            step[0] += 1
+            return loss
+
+        counted = []
+        draw = transformer.dropout_keep
+
+        def count_keep(*a, **kw):
+            keep = draw(*a, **kw)
+            counted.append((keep.sum(), keep.numel()))
+            return keep
+
+        transformer.dropout_keep = count_keep
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_routes()
+            kernels.reset_launches()
+            loss = float(run())
+            torch.cuda.synchronize()
+        finally:
+            transformer.dropout_keep = draw
+        launches = kernels.launch_counts()
+        routes = format_routes()
+        peak = torch.cuda.max_memory_allocated()
+        if rate == 0.0:
+            # The existing table, the flash kernels included.
+            _expect_launches("fx step at attention dropout 0, with a generator",
+                             launches, TRAIN_LAUNCHES)
+            if counted or "attn=cuda" not in routes:
+                fail(f"fx step at attention dropout 0: routes {routes}, {len(counted)} "
+                     f"keep draws")
+            log(f"fx step at attention dropout 0 with a generator: launches {launches} "
+                f"(the table), routes {routes}")
+            del model, opt
+            continue
+        want = {k: v for k, v in TRAIN_LAUNCHES.items() if not k.startswith("flash")}
+        _expect_launches("fx step with attention dropout", launches, want)
+        kept = sum(int(s) for s, _ in counted)
+        total = sum(n for _, n in counted)
+        share = kept / total
+        sigma = math.sqrt(ATTN_DROPOUT * (1 - ATTN_DROPOUT) / total)
+        ok = ("attn=plain-dropout" in routes and math.isfinite(loss)
+              and len(counted) == path.cfg.model.args.transformer.num_layers
+              and abs(share - (1 - ATTN_DROPOUT)) <= 4 * sigma)
+        log(f"fx step with attention dropout {ATTN_DROPOUT} (batch {path.batch}, bf16): "
+            f"routes {routes}; launches {launches}; loss {loss:.5f}; keep share "
+            f"{share:.6f} of {total} weights in {len(counted)} layers (1 - rate = "
+            f"{1 - ATTN_DROPOUT}, 4 sigma = {4 * sigma:.2e}); max_memory_allocated "
+            f"{peak / 2**30:.3f} GiB {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("fx step with attention dropout: route, loss, layers or keep share")
+        times = host_times(run, 5)
+        log(f"  step_ms {fmt_times(times, path.batch)}; the step at rate 0 (phase 4): "
+            f"median {step_ms:.3f} ms")
+        profile_step(run, "fx training step with attention dropout", steps=5)
+        del model, opt
+        torch.cuda.empty_cache()
+
+
+def phase_pointnet(main_path: Path, vx_path: Path, step_ms: float):
+    """Phase 7: the pointnet embedding (max pooling) on the fx main path
+    (the batch-4 fp32 check against the CPU, then the batch-64 bf16 forward
+    and step with their launch tables, timings and profiles) and the fp32
+    check on a batch of 2 of the vx flagship."""
+    def pointnet(path):
+        cfg = copy.deepcopy(path.cfg)
+        cfg.model.args.magno.embedding_method = "pointnet"
+        cfg.model.args.magno.pooling = "max"
+        return cfg
+
+    fx = main_path._replace(name="fx main path, pointnet", cfg=pointnet(main_path),
+                            check_dtypes=("fp32",))
+    fwd = phase_forward(fx)
+    _, ms = phase_train(fx)
+    vx = vx_path._replace(name="vx flagship, pointnet", cfg=pointnet(vx_path),
+                          check_dtypes=("fp32",), batch=0)
+    phase_forward(vx)
+    phase_train(vx)
+    log(f"pointnet (max pooling), fx main path batch {main_path.batch} bf16: forward "
+        f"median {fwd['ms']:.3f} ms, step median {ms:.3f} ms; the statistical "
+        f"embedding's step (phase 4) {step_ms:.3f} ms")
+
+
 def _entries(rows, names, launches, path: str, suffix: str = ""):
     """Kernel-line entries for ``rows`` (check key -> row), named by
     ``names`` (check key -> kernel name in SOURCES) plus ``suffix`` and
@@ -2290,6 +2783,9 @@ def main() -> int:
     trained = phase_trainer(card, step_ms)
     trained_vx = phase_vx_trainer(card, step_ms_vx)
     trained_seq = phase_seq_trainer(card, step_ms_seq, rollouts)
+    trained_naca, checks_naca = phase_naca(card, rnd)
+    phase_attn_dropout(main_path, step_ms)
+    phase_pointnet(main_path, vx_path, step_ms)
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
@@ -2317,7 +2813,13 @@ def main() -> int:
                     # (through the CLI: steps, validation and rollouts).
                     + _entries(checks["seq"], main_names,
                                {k: trained_seq[main_names[k]] for k in checks["seq"]},
-                               "sequential main path", "@seq"))
+                               "sequential main path", "@seq")
+                    # The naca0012 entries: the reduces on its masks thinned
+                    # to max_neighbors 32 and the fp32 flash kernels at its
+                    # shapes, with the CLI run's launches.
+                    + _entries(checks_naca, main_names,
+                               {k: trained_naca[main_names[k]] for k in checks_naca},
+                               "naca0012", "@naca"))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

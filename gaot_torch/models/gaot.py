@@ -112,28 +112,37 @@ class GAOT(nn.Module):
         init_parameters(self, generator)
 
     def process(self, rndata: torch.Tensor,
-                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+                condition: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """UViT over patch tokens; ``condition`` [B, 1] feeds the
-        conditional norms."""
+        conditional norms, ``generator`` draws the attention dropout."""
         c = rndata.shape[-1]
         tokens = self.patch_linear(patchify(rndata, self.grid_shape, self.patch_size))
         if not self.use_rope:
             tokens = tokens + self.pos_emb.to(tokens.dtype)
-        tokens = self.processor(tokens, use_rope=self.use_rope, condition=condition)
+        tokens = self.processor(tokens, use_rope=self.use_rope, condition=condition,
+                                generator=generator)
         return unpatchify(tokens, self.grid_shape, self.patch_size, c)
 
     def forward(self, latent_tokens_coord, xcoord, pndata, encoder_graphs,
                 decoder_graphs, query_coord=None, encoder_tgraphs=None,
-                decoder_tgraphs=None, condition=None) -> torch.Tensor:
+                decoder_tgraphs=None, condition=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """latent_tokens_coord [Q, d]; xcoord [N, d]; pndata [B, N, Cin];
         graphs: per-scale graphs on the model's device; query_coord defaults
         to xcoord; ``condition`` [B, 1], the time condition of the
         processor's conditional norms (``attn_config.use_conditional_norm``).
-        Returns [B, M, Cout]."""
+        ``generator`` (a ``torch.Generator`` on the model's device) marks a
+        training forward: it draws the edge drop (``magno.sampling_strategy``)
+        and the attention dropout (``atten_dropout``), in that order: the
+        encoder's scales, the UViT's layers, the decoder's scales. None
+        (evaluation) drops nothing. Returns [B, M, Cout]."""
         rndata = self.encoder(xcoord, pndata, latent_tokens_coord,
-                              encoder_graphs, tgraphs=encoder_tgraphs)
-        rndata = self.process(rndata, condition=condition)
+                              encoder_graphs, tgraphs=encoder_tgraphs,
+                              generator=generator)
+        rndata = self.process(rndata, condition=condition, generator=generator)
         if query_coord is None:
             query_coord = xcoord
         return self.decoder(latent_tokens_coord, rndata, query_coord,
-                            decoder_graphs, tgraphs=decoder_tgraphs)
+                            decoder_graphs, tgraphs=decoder_tgraphs,
+                            generator=generator)

@@ -1,11 +1,16 @@
 """Geometric embedding and node positional encoding.
 
-Counterpart of ``gaot_tpu/models/gemb.py`` (statistical method): per-query
-neighbor count, mean/variance of distances, centroid offset and covariance
-eigenvalues (closed-form symmetric 2x2/3x3 solvers), standardized over the
-queries and passed through a two-layer MLP. On a vx batch the
-standardization runs per sample, over its valid rows across the degree
-buckets (:func:`_standardize_valid_grouped`).
+Counterpart of ``gaot_tpu/models/gemb.py``, both methods:
+
+- statistical: per-query neighbor count, mean/variance of distances,
+  centroid offset and covariance eigenvalues (closed-form symmetric 2x2/3x3
+  solvers), standardized over the queries and passed through a two-layer
+  MLP. On a vx batch the standardization runs per sample, over its valid
+  rows across the degree buckets (:func:`_standardize_valid_grouped`);
+- pointnet: a shared MLP on the query-centred neighbour coordinates, ReLU,
+  masked max / mean / sum pooling over K, then ``fc`` and ReLU; a query
+  without a valid edge gets zeros. Per row, so a bucketed or vx graph needs
+  no standardization.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from torch import nn
 
 from ..ops.gather_apply import FlatGraph
 from ..ops.padding import BucketedGraph
+from ..ops.segment_ops import masked_max, masked_mean, masked_sum
 from .mlp import Dense
 
 
@@ -148,19 +154,39 @@ def _standardize_valid_grouped(feats: torch.Tensor,
 
 
 class GeometricEmbedding(nn.Module):
-    """Per-query statistical geometric embedding (``mlp.0``, ``mlp.2``)."""
+    """Per-query geometric embedding: statistical (``mlp.0``, ``mlp.2``) or
+    pointnet (``pointnet_mlp.0``, ``pointnet_mlp.2``, ``fc.0``)."""
 
     def __init__(self, coord_dim: int, output_dim: int,
-                 method: str = "statistical", dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 method: str = "statistical", pooling: str = "max",
+                 dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        if method != "statistical":
-            raise NotImplementedError(f"geometric embedding {method!r} is not ported")
-        self.mlp = nn.Sequential(
-            Dense(3 + 2 * coord_dim, 64, compute_dtype=dtype, device=device),
-            nn.ReLU(),
-            Dense(64, output_dim, compute_dtype=dtype, device=device),
-            nn.ReLU())
+        self.method = method
+        dense = lambda i, o: Dense(i, o, compute_dtype=dtype, device=device)
+        if method == "statistical":
+            self.mlp = nn.Sequential(dense(3 + 2 * coord_dim, 64), nn.ReLU(),
+                                     dense(64, output_dim), nn.ReLU())
+        elif method == "pointnet":
+            if pooling not in ("max", "mean", "sum"):
+                raise ValueError(f"Unsupported pooling method: {pooling}")
+            self.pooling = pooling
+            self.pointnet_mlp = nn.Sequential(dense(coord_dim, 64), nn.ReLU(),
+                                              dense(64, 64))
+            self.fc = nn.Sequential(dense(64, output_dim), nn.ReLU())
+        else:
+            raise ValueError(f"Unknown geometric embedding method: {method}")
+
+    def _pointnet(self, input_geom: torch.Tensor, latent_queries: torch.Tensor,
+                  graph, nbr: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The pointnet embedding of one graph [Q, K]: [Q, output_dim]."""
+        mask = graph.mask
+        if nbr is None:
+            nbr = input_geom[graph.indices]                      # [Q, K, d]
+        h = torch.relu(self.pointnet_mlp(nbr - latent_queries[:, None, :]))
+        pool = {"max": masked_max, "mean": masked_mean, "sum": masked_sum}[self.pooling]
+        out = self.fc(pool(h, mask))
+        return torch.where(mask.any(-1)[:, None], out, torch.zeros((), dtype=out.dtype,
+                                                                   device=out.device))
 
     def forward(self, input_geom: torch.Tensor, latent_queries: torch.Tensor,
                 graph, num_samples: int = 1,
@@ -169,31 +195,34 @@ class GeometricEmbedding(nn.Module):
         in bucket-concatenated order (the result is in that order too), or
         a FlatGraph with latent_queries and nbr its per-bucket queries and
         coordinate rows (the result [B·R, C] in its row order)."""
+        pointnet = self.method == "pointnet"
+        features = self._pointnet if pointnet else raw_statistical_features
         if isinstance(graph, FlatGraph):
             b = graph.num_samples
-            parts = [raw_statistical_features(input_geom, q, g, nbr=rep)
-                     .view(b, -1, 3 + 2 * q.shape[-1])
+            parts = [features(input_geom, q, g, rep).view(b, q.shape[0] // b, -1)
                      for q, g, rep in zip(latent_queries, graph.buckets, nbr)]
-            feats = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+            feats = (parts[0] if len(parts) == 1 else torch.cat(parts, 1)).reshape(
+                b * graph.rows, -1)
+            if pointnet:
+                return feats
             if graph.row_valid is None:
-                feats = _standardize_grouped(feats.reshape(b * graph.rows, -1), b)
-            else:
-                feats = _standardize_valid_grouped(
-                    feats, graph.row_valid.view(b, graph.rows)).reshape(b * graph.rows, -1)
-            return self.mlp(feats)
+                return self.mlp(_standardize_grouped(feats, b))
+            return self.mlp(_standardize_valid_grouped(
+                feats.view(b, graph.rows, -1), graph.row_valid.view(b, graph.rows)
+            ).reshape(b * graph.rows, -1))
         if isinstance(graph, BucketedGraph):
             parts, offset = [], 0
             for g in graph.buckets:
                 nb = g.indices.shape[-2]
-                parts.append(raw_statistical_features(
-                    input_geom, latent_queries[offset:offset + nb], g))
+                parts.append(features(input_geom, latent_queries[offset:offset + nb], g))
                 offset += nb
             feats = torch.cat(parts, dim=0)
+            if pointnet:
+                return feats
             if num_samples > 1:
                 raise NotImplementedError("vx bucketed standardization is not ported")
-            feats = _standardize_valid(feats, graph.row_valid)
-        else:
-            feats = _standardize_grouped(
-                raw_statistical_features(input_geom, latent_queries, graph, nbr),
-                num_samples)
-        return self.mlp(feats)
+            return self.mlp(_standardize_valid(feats, graph.row_valid))
+        feats = features(input_geom, latent_queries, graph, nbr)
+        if pointnet:
+            return feats
+        return self.mlp(_standardize_grouped(feats, num_samples))

@@ -8,6 +8,13 @@ one flat point set, and the data pipeline hands each scale's graph over
 as one FlatGraph with per-sample offset indices
 (``data/graph_builder.py::vx_flat_graphs``), so one AGNO call covers the
 whole batch.
+
+Edge drop (``magno.sampling_strategy``) thins the graphs' masks in
+training only, when the forward is given a ``torch.Generator``: the dense
+graph, or each degree bucket before both the AGNO transform and the
+geometric embedding read it, so both see the same neighbourhoods. The
+transpose graphs stay as built: a dropped edge's coefficient is zero, so
+the gradient through them stays exact.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 from torch import nn
 
 from ..core.config import MAGNOConfig
+from ..ops.edge_drop import apply_edge_drop_mask
 from ..ops.gather_apply import FlatGraph, permute_rows, unpermute_rows
 from ..ops.padding import BucketedGraph
 from .agno import AGNO
@@ -39,8 +47,6 @@ class _MAGNOBase(nn.Module):
                  device=None):
         super().__init__()
         cfg = self.config = config
-        if cfg.sampling_strategy is not None:
-            raise NotImplementedError("edge drop (sampling_strategy) is not ported")
         kdim = _kernel_coord_dim(cfg)
         kernel_in = kdim * 2
         if cfg.transform_type in ("nonlinear", "nonlinear_kernelonly"):
@@ -53,7 +59,8 @@ class _MAGNOBase(nn.Module):
         if cfg.use_geoembed:
             self.geoembed = GeometricEmbedding(cfg.coord_dim, agno_out_channels,
                                                method=cfg.embedding_method,
-                                               dtype=dtype, device=device)
+                                               pooling=cfg.pooling, dtype=dtype,
+                                               device=device)
             self.recovery = ChannelMLP(2 * agno_out_channels, agno_out_channels,
                                        n_layers=1, dtype=dtype, device=device)
         if cfg.use_scale_weights:
@@ -61,7 +68,25 @@ class _MAGNOBase(nn.Module):
                 cfg.coord_dim, len(cfg.scales), cfg.hidden_size // 4,
                 dtype=dtype, device=device)
 
-    def _agno_scale_vx(self, src_coords, dst_coords, f_src, vg: FlatGraph):
+    def _drop_edges(self, graph, generator: Optional[torch.Generator]):
+        """The graph with its masks thinned by edge drop (a new graph; the
+        one given is not written): a PaddedGraph, or each bucket of a
+        BucketedGraph or FlatGraph. Without a generator (evaluation) or a
+        sampling strategy the graph itself."""
+        cfg = self.config
+        if generator is None or cfg.sampling_strategy is None:
+            return graph
+
+        def drop(g):
+            return g._replace(mask=apply_edge_drop_mask(
+                g.mask, generator, cfg.sampling_strategy, cfg.max_neighbors,
+                cfg.sample_ratio))
+        if isinstance(graph, (BucketedGraph, FlatGraph)):
+            return graph._replace(buckets=tuple(drop(g) for g in graph.buckets))
+        return drop(graph)
+
+    def _agno_scale_vx(self, src_coords, dst_coords, f_src, vg: FlatGraph,
+                       generator=None):
         """One scale of a vx batch: the AGNO transform over the flattened
         graph, the geometric embedding from the same coordinate rows
         (standardized per sample), recovery, then the rows back to query
@@ -71,6 +96,7 @@ class _MAGNOBase(nn.Module):
         if cfg.node_embedding:
             raise NotImplementedError("node_embedding on vx batches is not ported "
                                       "(ROADMAP §1)")
+        vg = self._drop_edges(vg, generator)
         x_cat = dst_coords if vg.perm is None else dst_coords.index_select(0, vg.perm)
         out, reps, queries = self.agno(src_coords, vg, x=x_cat, f_y=f_src)
         if cfg.use_geoembed:
@@ -79,15 +105,18 @@ class _MAGNOBase(nn.Module):
         return out if vg.perm is None else permute_rows(out, vg.inv_perm, vg.perm,
                                                         vg.row_valid)
 
-    def _agno_scale(self, src_coords, dst_coords, f_src, graph, tgraph=None):
+    def _agno_scale(self, src_coords, dst_coords, f_src, graph, tgraph=None,
+                    generator=None):
         """One scale: AGNO transform + optional geometric embedding +
         recovery. src [n, d], dst [m, d], f_src [B, n, c], graph [m, K]."""
         cfg = self.config
         if isinstance(graph, BucketedGraph):
-            return self._agno_scale_bucketed(src_coords, dst_coords, f_src, graph)
+            return self._agno_scale_bucketed(src_coords, dst_coords, f_src, graph,
+                                             generator)
         if f_src.dim() != 3:
             raise ValueError("fx features are [B, n, c]; a vx batch takes "
                              "_agno_scale_vx")
+        graph = self._drop_edges(graph, generator)
         if cfg.node_embedding:
             src_proc, dst_proc = node_pos_encode(src_coords), node_pos_encode(dst_coords)
         else:
@@ -104,10 +133,11 @@ class _MAGNOBase(nn.Module):
         return out
 
     def _agno_scale_bucketed(self, src_coords, dst_coords, f_src,
-                             bg: BucketedGraph):
+                             bg: BucketedGraph, generator=None):
         """One scale over a degree-bucketed graph: per-bucket transforms in
         degree-sorted order, then back to original query order."""
         cfg = self.config
+        bg = self._drop_edges(bg, generator)
         dst_cat = dst_coords.index_select(0, bg.perm)
         src_proc = node_pos_encode(src_coords) if cfg.node_embedding else src_coords
         dst_proc = node_pos_encode(dst_cat) if cfg.node_embedding else dst_cat
@@ -147,10 +177,12 @@ class MAGNOEncoder(_MAGNOBase):
                                   n_layers=lifting_layers, dtype=dtype,
                                   device=device)
 
-    def forward(self, x_coord, pndata, latent_tokens_coord, graphs, tgraphs=None):
+    def forward(self, x_coord, pndata, latent_tokens_coord, graphs, tgraphs=None,
+                generator=None):
         """x_coord [N, d] (fx) or [B, N, d] (vx); pndata [B, N, Cin];
         latent_tokens_coord [Q, d]; graphs: per-scale graphs, [Q, K] (fx)
-        or FlatGraphs over the batch (vx). Returns [B, Q, Cout]."""
+        or FlatGraphs over the batch (vx); ``generator`` draws the edge drop
+        (training; None: nothing dropped). Returns [B, Q, Cout]."""
         tgraphs = tgraphs or [None] * len(graphs)
         lifted = self.lifting(pndata)
         if x_coord.dim() == 3:
@@ -159,10 +191,11 @@ class MAGNOEncoder(_MAGNOBase):
             src = x_coord.reshape(b * n, -1)
             dst = latent_tokens_coord.repeat(b, 1)
             f = lifted.reshape(b * n, -1)
-            per_scale = [self._agno_scale_vx(src, dst, f, vg).view(b, q, -1)
+            per_scale = [self._agno_scale_vx(src, dst, f, vg, generator).view(b, q, -1)
                          for vg in graphs]
             return self._combine_scales(per_scale, latent_tokens_coord)
-        per_scale = [self._agno_scale(x_coord, latent_tokens_coord, lifted, g, t)
+        per_scale = [self._agno_scale(x_coord, latent_tokens_coord, lifted, g, t,
+                                      generator)
                      for g, t in zip(graphs, tgraphs)]
         return self._combine_scales(per_scale, latent_tokens_coord)
 
@@ -181,10 +214,11 @@ class MAGNODecoder(_MAGNOBase):
                                      device=device)
 
     def forward(self, latent_tokens_coord, rndata, query_coord, graphs,
-                tgraphs=None):
+                tgraphs=None, generator=None):
         """latent_tokens_coord [Q, d]; rndata [B, Q, C]; query_coord [M, d]
         (fx) or [B, M, d] (vx); graphs: per-scale graphs, [M, K] (fx) or
-        FlatGraphs over the batch (vx). Returns [B, M, Cout]."""
+        FlatGraphs over the batch (vx); ``generator`` as the encoder's.
+        Returns [B, M, Cout]."""
         tgraphs = tgraphs or [None] * len(graphs)
         if query_coord.dim() == 3:
             b, m, _ = query_coord.shape
@@ -192,10 +226,11 @@ class MAGNODecoder(_MAGNOBase):
             src = latent_tokens_coord.repeat(b, 1)
             dst = query_coord.reshape(b * m, -1)
             f = rndata.reshape(b * q, -1)
-            per_scale = [self._agno_scale_vx(src, dst, f, vg).view(b, m, -1)
+            per_scale = [self._agno_scale_vx(src, dst, f, vg, generator).view(b, m, -1)
                          for vg in graphs]
             return self.projection(self._combine_scales_vx(per_scale, query_coord))
-        per_scale = [self._agno_scale(latent_tokens_coord, query_coord, rndata, g, t)
+        per_scale = [self._agno_scale(latent_tokens_coord, query_coord, rndata, g, t,
+                                      generator)
                      for g, t in zip(graphs, tgraphs)]
         return self.projection(self._combine_scales(per_scale, query_coord))
 

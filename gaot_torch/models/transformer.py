@@ -7,7 +7,10 @@ grouped-query attention, SwiGLU FFNs and UViT long-range skips
 (``correction``) scales the attention's input and the FFN's output by the
 time condition, as in the JAX package. Attention and the bf16 FFN go
 through the hand-written kernels' wrappers (ops/cuda/), which launch the
-kernel on a CUDA tensor and run the plain version on a CPU tensor.
+kernel on a CUDA tensor and run the plain version on a CPU tensor. With
+``attn_config.atten_dropout`` > 0, a training forward (one given a
+``torch.Generator``) takes the plain attention with dropout on the softmax
+weights instead, as the JAX package routes it (:func:`attention_dropout`).
 """
 from __future__ import annotations
 
@@ -56,12 +59,41 @@ def apply_rope(x: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
     return rotated.to(x.dtype)
 
 
+def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """A Bernoulli(1 − rate) keep mask of ``shape`` drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      rate: float, generator: Optional[torch.Generator] = None,
+                      keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grouped-query attention with dropout on the softmax weights (the JAX
+    package's ``gqa_attention_xla`` in training): fp32 logits and softmax in
+    the layout [B, Hkv, G, S, S], a Bernoulli(1 − rate) keep drawn from
+    ``generator`` (or the bool ``keep`` given, in that layout), the kept
+    weights scaled by 1/(1 − rate) and cast to V's dtype, then the product
+    with V accumulated in fp32. q [B, S, H, D]; k, v [B, S, Hkv, D].
+    Returns [B, S, H, D] in V's dtype."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = (1.0 / torch.tensor(d, dtype=torch.float32).sqrt()).item()   # fp32, as JAX's
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(b, s, hkv, h // hkv, d),
+                          k.float()) * scale
+    weights = torch.softmax(logits, dim=-1)
+    if keep is None:
+        keep = dropout_keep(weights.shape, rate, generator, weights.device)
+    weights = torch.where(keep, weights / (1.0 - rate), 0.0).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", weights, v)
+    return out.reshape(b, s, h, d)
+
+
 class GroupQueryAttention(nn.Module):
     """GQA attention block (q/k/v/o projections without bias)."""
 
     def __init__(self, input_size: int, hidden_size: int, num_heads: int = 8,
                  num_kv_heads: int = 8, backend: str = "auto",
-                 use_conditional_norm: bool = False,
+                 use_conditional_norm: bool = False, atten_dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         if hidden_size % num_heads or num_heads % num_kv_heads:
@@ -70,6 +102,7 @@ class GroupQueryAttention(nn.Module):
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim = hidden_size // num_heads
         self.backend = backend
+        self.atten_dropout = atten_dropout
         kv_hidden = self.head_dim * num_kv_heads
         mk = lambda i, o: Dense(i, o, bias=False, compute_dtype=dtype, device=device)
         self.q_proj = mk(input_size, hidden_size)
@@ -80,7 +113,12 @@ class GroupQueryAttention(nn.Module):
                            if use_conditional_norm else None)
 
     def forward(self, x: torch.Tensor, use_rope: bool = False,
-                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+                condition: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``generator`` (training) draws the attention dropout where
+        ``atten_dropout`` > 0; ``keep`` hands it the keep mask
+        [B, Hkv, G, S, S] instead. Otherwise no dropout."""
         if self.correction is not None:
             x = self.correction(condition, x)
         b, s, _ = x.shape
@@ -92,7 +130,12 @@ class GroupQueryAttention(nn.Module):
         # "auto"/"pallas": the flash kernel's wrapper, which launches the
         # kernel on a CUDA tensor (every head dim the JAX gates take) and
         # runs the plain version on a CPU tensor; "xla": the plain version.
-        if self.backend == "xla":
+        # Dropout in training: the plain attention with the dropout, as the
+        # JAX package routes it (the flash kernel has none).
+        if keep is not None or (self.atten_dropout > 0 and generator is not None):
+            record_route("attn", "plain-dropout")
+            out = attention_dropout(q, k, v, self.atten_dropout, generator, keep)
+        elif self.backend == "xla":
             record_route("attn", "plain")
             out = flash.attention_plain(q, k, v)
         else:
@@ -166,17 +209,19 @@ class TransformerBlock(nn.Module):
         self.attn_norm = RMSNorm(h, cfg.norm_eps, device) if cfg.use_attn_norm else None
         self.attn = GroupQueryAttention(
             h, h, cfg.attn_config.num_heads, cfg.attn_config.num_kv_heads,
-            backend=cfg.attn_backend, use_conditional_norm=cond, dtype=dtype,
-            device=device)
+            backend=cfg.attn_backend, use_conditional_norm=cond,
+            atten_dropout=cfg.attn_config.atten_dropout, dtype=dtype, device=device)
         self.ffn_norm = RMSNorm(h, cfg.norm_eps, device) if cfg.use_ffn_norm else None
         self.ffn = FFN(h, h * cfg.ffn_multiplier, dtype=dtype,
                        fused=cfg.fused_ffn, use_conditional_norm=cond, device=device)
 
-    def forward(self, x, use_rope: bool = False, skip=None, condition=None):
+    def forward(self, x, use_rope: bool = False, skip=None, condition=None,
+                generator=None):
         if self.skip_proj is not None and skip is not None:
             x = self.skip_proj(torch.cat([x, skip], dim=-1))
         h = self.attn_norm(x) if self.attn_norm is not None else x
-        h = x + self.attn(h, use_rope=use_rope, condition=condition)
+        h = x + self.attn(h, use_rope=use_rope, condition=condition,
+                          generator=generator)
         # The reference's FFN residual branches off the NORMED activation:
         # out = norm(h) + ffn(norm(h)), kept for weight-level parity.
         h = self.ffn_norm(h) if self.ffn_norm is not None else h
@@ -206,20 +251,24 @@ class Transformer(nn.Module):
             for _ in range(n_half))
 
     def forward(self, x: torch.Tensor, use_rope: bool = False,
-                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+                condition: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, S, F]; ``condition`` [B, 1], the time condition of the
-        conditional norms."""
+        conditional norms; ``generator`` draws the attention dropout
+        (training)."""
         if self.input_proj is not None:
             x = self.input_proj(x)
         skips = []
         for block in self.encoder_layers:
-            x = block(x, use_rope=use_rope, condition=condition)
+            x = block(x, use_rope=use_rope, condition=condition, generator=generator)
             skips.append(x)
         if self.middle_layer is not None:
-            x = self.middle_layer(x, use_rope=use_rope, condition=condition)
+            x = self.middle_layer(x, use_rope=use_rope, condition=condition,
+                                  generator=generator)
         for block in self.decoder_layers:
             skip = skips.pop() if self.config.use_long_range_skip else None
-            x = block(x, use_rope=use_rope, skip=skip, condition=condition)
+            x = block(x, use_rope=use_rope, skip=skip, condition=condition,
+                      generator=generator)
         if self.output_proj is not None:
             x = self.output_proj(x)
         return x

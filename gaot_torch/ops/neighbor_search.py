@@ -7,6 +7,7 @@ index/mask arrays for the device.
 Methods:
   - ``cpp``:    native C++ grid-hash search (cpp/neighbor_search.cc via ctypes)
   - ``kdtree``: scipy cKDTree
+  - ``grid``:   pure NumPy spatial hash (radius search only)
   - ``auto``:   cpp if the shared library builds, else kdtree
 """
 from __future__ import annotations
@@ -38,14 +39,43 @@ def _csr_from_lists(lists) -> CSR:
 
 
 def resolve_method(method: str) -> str:
-    """The search method ``method`` runs as on this host."""
+    """The radius search method ``method`` runs as on this host."""
     if method == "auto":
         return "cpp" if get_native_lib() is not None else "kdtree"
     if method == "cpp" and get_native_lib() is None:
         return "kdtree"
-    if method not in ("cpp", "kdtree"):
+    if method not in ("cpp", "kdtree", "grid"):
         raise ValueError(f"Unknown neighbor search method: {method}")
     return method
+
+
+def _radius_grid(data: np.ndarray, queries: np.ndarray, radius: float) -> CSR:
+    """Pure-NumPy spatial-hash radius search (any dimension): data points
+    bucketed by cells of side ``radius``, each query scanning the 3^d cells
+    around its own (the JAX package's ``_radius_grid``)."""
+    d = data.shape[1]
+    lo = data.min(axis=0) - 1e-9
+    keys_data = np.floor((data - lo) / radius).astype(np.int64)
+    order = np.lexsort(keys_data.T[::-1])
+    uniq, starts = np.unique(keys_data[order], axis=0, return_index=True)
+    bucket = {tuple(k): (s, e) for k, s, e in zip(
+        map(tuple, uniq), starts, np.append(starts[1:], len(order)))}
+    offsets = np.stack(np.meshgrid(*([np.arange(-1, 2)] * d), indexing="ij"),
+                       axis=-1).reshape(-1, d)
+    keys_q = np.floor((queries - lo) / radius).astype(np.int64)
+    r2 = radius * radius
+    lists = []
+    for qi in range(queries.shape[0]):
+        cands = [order[se[0]:se[1]] for se in
+                 (bucket.get(tuple(keys_q[qi] + off)) for off in offsets)
+                 if se is not None]
+        if not cands:
+            lists.append(np.zeros(0, dtype=np.int64))
+            continue
+        cand = np.concatenate(cands)
+        diff = data[cand] - queries[qi]
+        lists.append(cand[(diff * diff).sum(axis=1) <= r2])
+    return _csr_from_lists(lists)
 
 
 def radius_search(data, queries, radius: float, method: str = "auto") -> CSR:
@@ -54,10 +84,13 @@ def radius_search(data, queries, radius: float, method: str = "auto") -> CSR:
     queries = _as2d(queries)
     if data.shape[1] != queries.shape[1]:
         raise ValueError("data and queries must have the same coordinate dimension")
-    if resolve_method(method) == "cpp":
+    method = resolve_method(method)
+    if method == "cpp":
         return get_native_lib().radius_search(
             np.ascontiguousarray(data, dtype=np.float32),
             np.ascontiguousarray(queries, dtype=np.float32), float(radius))
+    if method == "grid":
+        return _radius_grid(data, queries, float(radius))
     from scipy.spatial import cKDTree
 
     tree = cKDTree(data)

@@ -93,6 +93,11 @@ class BaseTrainer(ABC):
         _check_single_device(self.setup_config)
         self.device = resolve_device(self.setup_config.device)
         np.random.seed(self.setup_config.seed)
+        # The training steps' draws (edge drop, attention dropout), from the
+        # seed on the model's device. As the JAX package's rng key, it is
+        # not checkpointed: a resumed run draws from the seed again.
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.setup_config.seed)
         if self.setup_config.compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"setup.compute_dtype {self.setup_config.compute_dtype!r} "
                              f"is not one of {sorted(_COMPUTE_DTYPES)}")

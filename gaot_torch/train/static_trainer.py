@@ -50,10 +50,11 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
     return (err * w).sum() / w.sum().clamp(min=1.0)
 
 
-def _forward(model, graphs: FxGraphs, coord, pndata, condition=None):
+def _forward(model, graphs: FxGraphs, coord, pndata, condition=None, generator=None):
     return model(graphs.latent_tokens_coord, coord, pndata, graphs.encoder,
                  graphs.decoder, encoder_tgraphs=graphs.encoder_t,
-                 decoder_tgraphs=graphs.decoder_t, condition=condition)
+                 decoder_tgraphs=graphs.decoder_t, condition=condition,
+                 generator=generator)
 
 
 def train_step(model, optimizer: torch.optim.Optimizer,
@@ -61,22 +62,26 @@ def train_step(model, optimizer: torch.optim.Optimizer,
                coord: torch.Tensor, pndata: torch.Tensor, target: torch.Tensor,
                sample_mask: torch.Tensor,
                node_mask: Optional[torch.Tensor] = None,
-               condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+               condition: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One optimizer step on one batch: the forward in training mode, the
     masked MSE, its backward through the kernels' gradients, then the
     update with the learning rate ``schedule(step)`` (``step`` counts the
     updates from 0). ``condition`` [B, 1] is the time condition of a
-    conditional-norm model. Returns the loss (detached, fp32)."""
-    if model.processor.config.attn_config.atten_dropout > 0:
-        raise NotImplementedError("attention dropout is not ported")
-    if model.encoder.config.sampling_strategy is not None:
-        raise NotImplementedError("edge drop (sampling_strategy) is not ported")
+    conditional-norm model. ``generator`` (on the model's device) draws the
+    edge drop and the attention dropout; a model configured with either
+    needs one. Returns the loss (detached, fp32)."""
+    if generator is None and (model.encoder.config.sampling_strategy is not None
+                              or model.processor.config.attn_config.atten_dropout > 0):
+        raise ValueError("edge drop (magno.sampling_strategy) and attention dropout "
+                         "(atten_dropout) draw from a generator: pass train_step a "
+                         "torch.Generator on the model's device")
     if not model.encoder.config.use_transpose_backward:
         raise NotImplementedError("training needs the transpose graphs "
                                   "(magno.use_transpose_backward)")
     model.train()
-    loss = masked_mse(_forward(model, graphs, coord, pndata, condition), target,
-                      sample_mask, node_mask)
+    loss = masked_mse(_forward(model, graphs, coord, pndata, condition, generator),
+                      target, sample_mask, node_mask)
     loss.backward()
     lr = schedule(step)
     for group in optimizer.param_groups:
@@ -181,11 +186,6 @@ class StaticTrainer(BaseTrainer):
     def _refuse_unported(self, dataset_config):
         """Refuse, before any graph is built, what the port does not run."""
         magno = self.model_config.args.magno
-        if magno.sampling_strategy is not None \
-                or self.model_config.args.transformer.attn_config.atten_dropout > 0:
-            raise NotImplementedError(
-                "edge drop (magno.sampling_strategy) and attention dropout "
-                "(atten_dropout) are not ported (ROADMAP item 12)")
         if self.setup_config.train and not magno.use_transpose_backward:
             raise NotImplementedError("training needs the transpose graphs "
                                       "(magno.use_transpose_backward)")
@@ -231,7 +231,7 @@ class StaticTrainer(BaseTrainer):
         pndata, target, condition = self._inputs(batch)
         loss = train_step(self.model, self.optimizer, self.schedule, self.step,
                           graphs, coord, pndata, target, self.sample_mask(batch),
-                          node_mask, condition)
+                          node_mask, condition, self.generator)
         self.step += 1
         return loss
 

@@ -124,19 +124,39 @@ def test_adamw_mix_steps_match_optax():
 
 
 def test_train_step_refuses_attention_dropout():
-    from gaot_torch.core.config import OptimizerConfig, merge_config
-    from gaot_torch.train.schedules import make_optimizer
-    from gaot_torch.train.static_trainer import train_step
+    """Attention dropout is ported: the call that raised trains now, given
+    a generator, on the plain attention with dropout (without one it raises,
+    as the dropout draws from it); one seed gives one loss."""
+    import copy
 
-    model = tp.torch_model()
-    model.processor.config.attn_config.atten_dropout = 0.1
-    try:
+    from gaot_torch.core.config import ModelConfig, OptimizerConfig, merge_config
+    from gaot_torch.models import GAOT
+    from gaot_torch.train.schedules import make_optimizer
+    from gaot_torch.train.static_trainer import FxGraphs, train_step
+    from gaot_torch.utils.routing import format_routes, reset_routes
+    from gaot_torch.utils.torch_interop import load_flax_params
+
+    cfg = copy.deepcopy(tp.MODEL_CFG)
+    cfg["args"]["transformer"]["attn_config"]["atten_dropout"] = 0.1
+    tcfg = merge_config(ModelConfig, cfg)
+    coords, lat, pn, tg = tp.workload()
+    graphs = FxGraphs(torch.from_numpy(lat), *tp.torch_graphs(coords, lat, tcfg))
+    batch = (graphs, torch.from_numpy(coords), torch.from_numpy(pn),
+             torch.from_numpy(tg), torch.ones(tp.BATCH, dtype=torch.bool))
+    losses = []
+    for seed in (0, 0, 1):
+        model = GAOT(tp.IN_CH, tp.OUT_CH, tcfg, device="cpu")
+        load_flax_params(model, tp.jax_params())
         opt, schedule = make_optimizer(merge_config(OptimizerConfig, OPT),
                                        model.parameters(), 1)
-        with pytest.raises(NotImplementedError, match="dropout"):
-            train_step(model, opt, schedule, 0, None, None, None, None, None)
-    finally:
-        model.processor.config.attn_config.atten_dropout = 0.0
+        with pytest.raises(ValueError, match="generator"):
+            train_step(model, opt, schedule, 0, *batch)
+        reset_routes()
+        losses.append(float(train_step(model, opt, schedule, 0, *batch,
+                                       generator=torch.Generator().manual_seed(seed))))
+        assert "attn=plain-dropout" in format_routes()
+    assert np.isfinite(losses).all()
+    assert losses[0] == losses[1] != losses[2]
 
 
 def test_train_step_refuses_without_transpose_graphs():

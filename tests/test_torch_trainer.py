@@ -12,15 +12,14 @@
   weights come back at the end of a fit.
 - CLI: the datarow's columns, a CSV database shared with the JAX CLI, ``-f``
   through ``python -m gaot_torch.cli`` subprocesses, ``setup.profile_dir``.
-- Refusals of what is not ported; the sequential trainer's (edge drop and
-  attention dropout) before any graph is built.
+- Refusals of what is not ported; the sequential trainer with edge drop
+  and with attention dropout, which are ported, trains through the CLI.
 """
 import copy
 import csv
 import json
 import os
 import sys
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -242,30 +241,28 @@ def test_refuses_what_is_not_ported(tmp_path, what):
         with pytest.raises(NotImplementedError, match="use_transpose_backward"):
             StaticTrainer(cfg)
     elif what == "sequential":
-        # The sequential trainer trains (tests/test_torch_seq_*.py); edge
-        # drop and attention dropout (ROADMAP item 12) are refused before
-        # a graph is built.
-        from gaot_torch.train import SequentialTrainer
+        # The sequential trainer trains (tests/test_torch_seq_*.py), with
+        # edge drop and with attention dropout too (both ported): each
+        # trains through the CLI, its loss record finite.
         from synthetic import make_sequential_fx_dataset
 
         make_sequential_fx_dataset(str(tmp_path / "seq.npz"))
         for option in ("edge drop", "attention dropout"):
-            cfg = _config(tmp_path, "seq", data=False,
+            name = option.replace(" ", "_")
+            cfg = _config(tmp_path, name, data=False,
                           setup={"trainer_name": "sequential"},
-                          dataset={"metaname": "incompressible_fluids/NS-Gauss"})
+                          dataset={"name": "seq",
+                                   "metaname": "incompressible_fluids/NS-Gauss"})
             args = cfg["model"]["args"]
             if option == "edge drop":
                 args["magno"].update(sampling_strategy="ratio", sample_ratio=0.5)
             else:
                 args["transformer"]["attn_config"]["atten_dropout"] = 0.1
-            path = tmp_path / "seq.json"
+            path = tmp_path / f"{name}.json"
             path.write_text(json.dumps(cfg))
-            with mock.patch("gaot_torch.data.graph_builder.GraphBuilder.build_fx_graphs",
-                            side_effect=AssertionError("a graph was built")):
-                with pytest.raises(NotImplementedError, match="item 12"):
-                    main(["-c", str(path)])
-                with pytest.raises(NotImplementedError, match="item 12"):
-                    SequentialTrainer(cfg)
+            assert main(["-c", str(path)]) == 0
+            rec = np.load(tmp_path / f"{name}_loss.npz")
+            assert len(rec["losses"]) == 2 and np.isfinite(rec["losses"]).all()
     elif what == "device":
         if torch.cuda.is_available():
             pytest.skip("a card is present: 'auto' takes it")
