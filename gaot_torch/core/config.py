@@ -329,7 +329,8 @@ class DatasetConfig:
     device_data: bool = True
     # On-disk npz cache for precomputed vx graphs (reference
     # CachedGraphBuilder, src/datasets/graph_builder.py:177-285); read by
-    # the vx trainer, which is not ported (ROADMAP item 10).
+    # both trainers on vx data (data/graph_builder.py::
+    # GraphBuilder.build_all_vx_graphs_cached), in the JAX package's format.
     graph_cache_dir: Optional[str] = None
     num_workers: int = 0                # kept for config-compat; loading is in-process
     shuffle: bool = True

@@ -12,7 +12,9 @@
   graphs chosen over all splits jointly (:meth:`GraphBuilder.
   build_all_vx_graphs`); a split serialised as a flat dict of per-sample
   arrays (:func:`vx_graph_buffers`), the loader's and the trainer's one key
-  vocabulary.
+  vocabulary, which is also that of the on-disk graph cache
+  (:meth:`GraphBuilder.build_all_vx_graphs_cached`; a cache either package
+  writes loads in the other).
 
 Every layout and decision is the JAX package's, with its defaults as
 constants: the vx bucketizer engages from K = 6 and the transpose graphs
@@ -21,6 +23,8 @@ are always grouped by in-degree.
 from __future__ import annotations
 
 import concurrent.futures
+import hashlib
+import json
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -239,6 +243,60 @@ class GraphBuilder:
                                     with_transpose)
             if with_transpose:
                 attach_transpose_graphs(built, latent_queries.shape[0], len(scales))
+        return out
+
+    # -- the on-disk cache (the JAX package's build_all_vx_graphs_cached) --
+    def _cache_path(self, cache_dir: str, dataset: str, radius: float,
+                    scales: Sequence[float], num_samples: Dict[str, int],
+                    with_transpose: bool = False, bucketing: bool = False) -> str:
+        """The cache file of a build: a hash of the JSON key the JAX package
+        hashes, with the constants the port takes for its ablation switches
+        (grouped transpose graphs, the bucketizer's least K), so that both
+        packages name the same build alike."""
+        key = json.dumps({
+            "dataset": dataset, "radius": radius, "scales": list(scales),
+            "strategy": self.strategy, "knn_k": self.knn_k,
+            "pad": self.pad_multiple, "cap": self.neighbor_cap,
+            "node_pad": NODE_PAD_MULTIPLE, "samples": num_samples,
+            "tgraphs": with_transpose, "bucketing": bucketing,
+            "morton": self.morton, "grouped_df": True,
+            "vx_min_bucket_k": VX_MIN_BUCKET_K,
+        }, sort_keys=True)
+        digest = hashlib.sha1(key.encode()).hexdigest()[:16]
+        return os.path.join(cache_dir, f"graphs_{dataset}_{digest}.npz")
+
+    def build_all_vx_graphs_cached(self, cache_dir: str, dataset: str,
+                                   data_splits: Dict, latent_queries: np.ndarray,
+                                   radius: float, scales: Sequence[float],
+                                   build_train: bool = True, model_transform=None,
+                                   with_transpose: bool = False,
+                                   bucketing: bool = False):
+        """:meth:`build_all_vx_graphs` through an ``.npz`` cache under
+        ``cache_dir``: each split's :func:`vx_graph_buffers`, its keys
+        prefixed ``{split}::``. A hit loads the splits and prints the path."""
+        counts = {s: int(len(data_splits[s]["x"])) for s in data_splits
+                  if data_splits[s].get("x") is not None}
+        path = self._cache_path(cache_dir, dataset, radius, scales, counts,
+                                with_transpose=with_transpose, bucketing=bucketing)
+        if os.path.exists(path):
+            print(f"Graph cache hit: {path}")
+            out = {}
+            with np.load(path, allow_pickle=False) as z:
+                for split in ["train", "val", "test"]:
+                    keys = [k for k in z.files if k.startswith(f"{split}::")]
+                    out[split] = vx_split_from_buffers(
+                        {k.split("::", 1)[1]: z[k] for k in keys},
+                        len(scales)) if keys else None
+            return out
+        out = self.build_all_vx_graphs(data_splits, latent_queries, radius, scales,
+                                       build_train=build_train,
+                                       model_transform=model_transform,
+                                       with_transpose=with_transpose,
+                                       bucketing=bucketing)
+        os.makedirs(cache_dir, exist_ok=True)
+        payload = {f"{split}::{k}": v for split, g in out.items() if g is not None
+                   for k, v in vx_graph_buffers(g).items()}
+        np.savez(path, **payload)
         return out
 
 

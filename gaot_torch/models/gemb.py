@@ -220,7 +220,11 @@ class GeometricEmbedding(nn.Module):
             if pointnet:
                 return feats
             if num_samples > 1:
-                raise NotImplementedError("vx bucketed standardization is not ported")
+                # The JAX package's vx bucketed standardization is the
+                # FlatGraph branch above: vx batches reach the embedding as
+                # FlatGraphs (data/graph_builder.py::vx_flat_graphs).
+                raise ValueError("a BucketedGraph is an fx graph (one sample); a vx "
+                                 "batch's graph is a FlatGraph")
             return self.mlp(_standardize_valid(feats, graph.row_valid))
         feats = features(input_geom, latent_queries, graph, nbr)
         if pointnet:

@@ -88,17 +88,17 @@ class _MAGNOBase(nn.Module):
     def _agno_scale_vx(self, src_coords, dst_coords, f_src, vg: FlatGraph,
                        generator=None):
         """One scale of a vx batch: the AGNO transform over the flattened
-        graph, the geometric embedding from the same coordinate rows
+        graph, the geometric embedding from the same raw coordinate rows
         (standardized per sample), recovery, then the rows back to query
-        order. src [B·n, d], dst [B·m, d], f_src [B·n, c]. Returns
+        order. Under ``node_embedding`` the AGNO's kernel takes the rows'
+        Fourier encodings and the embedding the raw rows, as in the JAX
+        package. src [B·n, d], dst [B·m, d], f_src [B·n, c]. Returns
         [B·m, c]."""
         cfg = self.config
-        if cfg.node_embedding:
-            raise NotImplementedError("node_embedding on vx batches is not ported "
-                                      "(ROADMAP §1)")
         vg = self._drop_edges(vg, generator)
         x_cat = dst_coords if vg.perm is None else dst_coords.index_select(0, vg.perm)
-        out, reps, queries = self.agno(src_coords, vg, x=x_cat, f_y=f_src)
+        out, reps, queries = self.agno(src_coords, vg, x=x_cat, f_y=f_src,
+                                       encode=cfg.node_embedding)
         if cfg.use_geoembed:
             gemb = self.geoembed(src_coords, queries, vg, nbr=reps)
             out = self.recovery(torch.cat([out, gemb], dim=-1))

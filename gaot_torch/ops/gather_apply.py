@@ -14,13 +14,16 @@ samples, one kernel launch per bucket over every sample.
 - vx (a mesh per sample): the batch's graphs flattened over the batch,
   f [B·N, C], b = 1, a per-edge coefficient.
 
-The gradients gather and never scatter, as the JAX package's custom VJPs
-do: d_coef reduces the rows of f, read by the forward's indices, against
-dout (``gather_multiply_reduce_b``), and d_f reduces the dout rows and the
-per-edge coefficients, both read through the transpose graph, with
-``gather_multiply_reduce_k`` (masked slots read nothing), one launch per
-in-degree group over every sample, each writing node order through its row
-map.
+With a transpose graph the gradients gather and never scatter, as the JAX
+package's custom VJPs do: d_coef reduces the rows of f, read by the
+forward's indices, against dout (``gather_multiply_reduce_b``), and d_f
+reduces the dout rows and the per-edge coefficients, both read through the
+transpose graph, with ``gather_multiply_reduce_k`` (masked slots read
+nothing), one launch per in-degree group over every sample, each writing
+node order through its row map. Without one (``magno.use_transpose_backward``
+false) d_f is a scatter, :func:`_scatter_df`, the counterpart of the
+scatter-add that XLA's autodiff makes of the JAX package's plain routes;
+the forward and d_coef keep their kernels.
 """
 from __future__ import annotations
 
@@ -129,6 +132,31 @@ def _transpose_df(table: torch.Tensor, dout2: torch.Tensor, fg: FlatGraph,
     return out
 
 
+def _scatter_df(coefs, dout2: torch.Tensor, fg: FlatGraph, n_out: int,
+                b: int) -> torch.Tensor:
+    """d_f [n_out, b·C] without a transpose graph: every edge's coef · dout
+    row added into its source row (``index_add_`` into an fp32 sum, then
+    the rows' dtype). Masked slots add nothing: the coefficient of a padded
+    or dropped edge is zero, as the AGNO folds the mask into it, and the
+    bucket's mask is applied again where the graph carries one, as the
+    forward reads it."""
+    s, w = fg.num_samples, dout2.shape[1]
+    c = w // b
+    d3 = dout2.view(s, fg.rows, w)
+    acc = torch.zeros((n_out, w), dtype=torch.float32, device=dout2.device)
+    base = 0
+    for coef, g in zip(coefs, fg.buckets):
+        rj = g.indices.shape[0] // s
+        rows = d3[:, base:base + rj].reshape(s * rj, 1, b, c).float()
+        cf = coef.float()
+        if g.mask is not None:
+            cf = torch.where(g.mask[..., None], cf, 0)
+        acc.index_add_(0, g.indices.reshape(-1),
+                       (cf[:, :, None, :] * rows).reshape(-1, w))
+        base += rj
+    return acc.to(dout2.dtype)
+
+
 class _FlatGatherMultiplyReduce(torch.autograd.Function):
     """After the AGNO apply routes of ``gaot_tpu/ops/gather_apply.py``
     (``gather_multiply_reduce_nbc``, ``bucketed_gather_multiply_reduce``
@@ -136,17 +164,14 @@ class _FlatGatherMultiplyReduce(torch.autograd.Function):
     ``gather_rows_bucketed_tg`` with the grouped scans): out[q] = Σ_k
     coef[q, k] · f[idx[q, k]] per bucket, each bucket writing its rows
     straight into the one output; d_coef from the same rows, d_f over the
-    transpose graph. The forward saves f and the coefficients, not gathered
-    rows. The coefficients are q-major [S·R_j, K_j, C] and come last, one
-    tensor argument each, so each gets its gradient; the transpose graph's
-    edge ids address their per-sample concatenation directly."""
+    transpose graph (by a scatter where the graph has none). The forward
+    saves f and the coefficients, not gathered rows. The coefficients are
+    q-major [S·R_j, K_j, C] and come last, one tensor argument each, so each
+    gets its gradient; the transpose graph's edge ids address their
+    per-sample concatenation directly."""
 
     @staticmethod
     def forward(ctx, f, fg, b, *coefs):
-        if fg.tgraph is None and ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "the gradient of f needs the transpose graphs "
-                "(magno.use_transpose_backward)")
         s = fg.num_samples
         out = f.new_empty((s * fg.rows, f.shape[1]))
         base = 0
@@ -181,7 +206,9 @@ class _FlatGatherMultiplyReduce(torch.autograd.Function):
                 d_coefs.append(None)
             base += rj
         d_f = None
-        if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0] and fg.tgraph is None:
+            d_f = _scatter_df(coefs, dout2, fg, f.shape[0], b)
+        elif ctx.needs_input_grad[0]:
             parts = [cf.reshape(s, -1, c) for cf in coefs]
             table = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
             d_f = _transpose_df(table.reshape(-1, c).to(f.dtype), dout2, fg,
@@ -272,23 +299,66 @@ def gather_multiply_reduce(coef: torch.Tensor, f: torch.Tensor,
 
 def apply_graph_transform(coef: torch.Tensor, f: torch.Tensor, graph,
                           tgraph=None) -> torch.Tensor:
-    """No transpose graph → the plain path (autograd's backward); f
-    [B, N, C] with shared coef [Q, K, C] → the node-leading route with the
-    transpose-graph backward; f [B, N, C] with a per-sample coef
-    [B, Q, K, C] → :func:`gather_multiply_reduce`. Returns [B, Q, C]."""
+    """f [B, N, C] with shared coef [Q, K, C] → the node-leading route of
+    :func:`flat_gather_multiply_reduce`, d_f over the transpose graph or,
+    without one, by a scatter; f [B, N, C] with a per-sample coef
+    [B, Q, K, C] → :func:`gather_multiply_reduce` with a transpose graph,
+    the plain path (autograd's backward) without. Returns [B, Q, C]."""
+    if f.dim() == 3 and coef.dim() == 3:
+        b, n, c = f.shape
+        out = flat_gather_multiply_reduce(
+            [coef], f.transpose(0, 1).reshape(n, b * c),
+            _fx_graph([graph.indices], tgraph), b)
+        return out.view(-1, b, c).transpose(0, 1)
     if tgraph is None:
         return _forward(coef, f, graph.indices)
-    if f.dim() == 3 and coef.dim() == 3:
-        out = gather_multiply_reduce_nbc(coef, f.transpose(0, 1).contiguous(),
-                                         graph.indices, tgraph.edge_pos,
-                                         tgraph.query, tgraph.mask)
-        return out.transpose(0, 1)
     if f.dim() == 3 and coef.dim() == 4:
         return gather_multiply_reduce(coef, f, graph.indices, tgraph.edge_pos,
                                       tgraph.query, tgraph.mask)
-    raise NotImplementedError("a 2D f with per-sample coefficients (the flat q-major "
-                              "route of nonlinear transforms on vx) is not ported "
-                              "(ROADMAP §1)")
+    raise NotImplementedError(
+        "a 2D f with per-sample coefficients and a flat transpose graph is the "
+        "Q-major route of a vx batch whose transpose graphs are not grouped by "
+        "in-degree (the JAX package's GAOT_GROUPED_DF=0 ablation switch), which "
+        "the port does not build: its vx transpose graphs are always grouped "
+        "(ROADMAP §1)")
+
+
+class _GatherRows(torch.autograd.Function):
+    """x.index_select(dim, idx), whose backward sums the gradient rows of
+    each index in a fixed order: the rows sorted by index (a stable sort),
+    then a segment sum in fp32 (or wider), cast back to x's dtype. No
+    atomics, so a run repeats bit for bit. Autograd's backward of
+    ``x[idx]`` (``indexing_backward_kernel``) took 80 of the 101 ms of a
+    nonlinear vx step (H100); ``index_add_`` is fast but sums in whatever
+    order its atomics land."""
+
+    @staticmethod
+    def forward(ctx, x, idx, dim):
+        ctx.save_for_backward(idx)
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        out = x.index_select(dim, idx.reshape(-1))
+        return out.view(*x.shape[:dim], *idx.shape, *x.shape[dim + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat, dim = idx.reshape(-1), ctx.dim
+        rows = g.reshape(*g.shape[:dim], -1, *g.shape[dim + idx.dim():])
+        perm = torch.argsort(flat, stable=True)
+        counts = torch.zeros(ctx.n, dtype=torch.long, device=flat.device).index_add_(
+            0, flat, torch.ones_like(flat, dtype=torch.long))
+        rows = rows.index_select(dim, perm).to(torch.promote_types(g.dtype, torch.float32))
+        out = torch.segment_reduce(rows.movedim(dim, 0), "sum", lengths=counts, axis=0,
+                                   unsafe=True)
+        return out.movedim(0, dim).to(g.dtype), None, None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """x's rows ``idx`` (any shape) along ``dim``: ``x[idx]`` (dim 0) or
+    ``x[:, idx]`` (dim 1), the per-edge feature rows of the AGNO's plain
+    body, with a fixed-order fp32 sum of the gradient rows as its
+    backward."""
+    return _GatherRows.apply(x, idx, dim)
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor, b: int,

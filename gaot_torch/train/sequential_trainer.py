@@ -71,7 +71,6 @@ class SequentialTrainer(StaticTrainer):
                                                       seed=self.setup_config.seed)
         splits, is_vx = self.data_processor.load_and_process_data()
         self.coord_mode = "vx" if is_vx else "fx"
-        self._refuse_unported(cfg)
         self.splits = splits
         self.stats = self.data_processor.stats
         self.t_values = self.data_processor.t_values
@@ -92,7 +91,7 @@ class SequentialTrainer(StaticTrainer):
         if is_vx:
             self.vx_graphs = self._build_vx_graphs(
                 {name: {"x": sp["x"][:, 0] if sp["x"].ndim == 4 else sp["x"]}
-                 for name, sp in splits.items()}, latent)
+                 for name, sp in splits.items()}, latent, cache_suffix="-seq")
         else:
             self._build_fx_graphs(splits["train"]["x"], latent)
 

@@ -76,9 +76,6 @@ def train_step(model, optimizer: torch.optim.Optimizer,
         raise ValueError("edge drop (magno.sampling_strategy) and attention dropout "
                          "(atten_dropout) draw from a generator: pass train_step a "
                          "torch.Generator on the model's device")
-    if not model.encoder.config.use_transpose_backward:
-        raise NotImplementedError("training needs the transpose graphs "
-                                  "(magno.use_transpose_backward)")
     model.train()
     loss = masked_mse(_forward(model, graphs, coord, pndata, condition, generator),
                       target, sample_mask, node_mask)
@@ -121,7 +118,6 @@ class StaticTrainer(BaseTrainer):
                                             seed=self.setup_config.seed)
         splits, is_vx = self.data_processor.load_and_process_data()
         self.coord_mode = "vx" if is_vx else "fx"
-        self._refuse_unported(dataset_config)
 
         # The latent grid fits the coordinate scaler (over the metadata
         # domain) before the nodes are scaled.
@@ -161,16 +157,27 @@ class StaticTrainer(BaseTrainer):
         self.val_loader = loaders["val"]
         self.test_loader = loaders["test"]
 
-    def _build_vx_graphs(self, splits: Dict, latent: np.ndarray) -> Dict:
+    def _build_vx_graphs(self, splits: Dict, latent: np.ndarray,
+                         cache_suffix: str = "") -> Dict:
         """Every split's vx graphs (``splits[name]["x"]`` [S, N, d]), one
-        layout over all splits."""
-        magno = self.model_config.args.magno
-        return GraphBuilder.from_magno_config(magno).build_all_vx_graphs(
-            splits, latent, magno.radius, magno.scales,
-            build_train=self.setup_config.train,
-            model_transform=self.data_processor.coord_scaler,
-            with_transpose=magno.use_transpose_backward,
-            bucketing=magno.use_query_bucketing)
+        layout over all splits, through the graph cache where
+        ``dataset.graph_cache_dir`` is set (the dataset named
+        ``{name}-{coord_scaling}{cache_suffix}``, as the JAX trainers name
+        it). Only the linear transforms' graphs are degree-bucketed; the
+        nonlinear ones stay dense, the JAX trainers' guard."""
+        magno, cfg = self.model_config.args.magno, self.dataset_config
+        builder = GraphBuilder.from_magno_config(magno)
+        kw = dict(build_train=self.setup_config.train,
+                  model_transform=self.data_processor.coord_scaler,
+                  with_transpose=magno.use_transpose_backward,
+                  bucketing=(magno.use_query_bucketing and magno.transform_type
+                             in ("linear", "linear_kernelonly")))
+        if cfg.graph_cache_dir:
+            return builder.build_all_vx_graphs_cached(
+                cfg.graph_cache_dir, f"{cfg.name}-{cfg.coord_scaling}{cache_suffix}",
+                splits, latent, magno.radius, magno.scales, **kw)
+        return builder.build_all_vx_graphs(splits, latent, magno.radius,
+                                           magno.scales, **kw)
 
     def _build_fx_graphs(self, x: np.ndarray, latent: np.ndarray) -> None:
         """The shared fx graphs of the nodes ``x`` [N, d] and the model's
@@ -182,23 +189,6 @@ class StaticTrainer(BaseTrainer):
         self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
         self.graphs = FxGraphs(self.latent, *prepare_fx_device_graphs(
             enc, dec, coord.shape[0], latent.shape[0], magno, device=self.device))
-
-    def _refuse_unported(self, dataset_config):
-        """Refuse, before any graph is built, what the port does not run."""
-        magno = self.model_config.args.magno
-        if self.setup_config.train and not magno.use_transpose_backward:
-            raise NotImplementedError("training needs the transpose graphs "
-                                      "(magno.use_transpose_backward)")
-        if self.coord_mode != "vx":
-            return
-        if magno.transform_type != "linear" or magno.node_embedding:
-            raise NotImplementedError(
-                f"vx batches run the linear transform without node_embedding; "
-                f"transform_type {magno.transform_type!r}, node_embedding "
-                f"{magno.node_embedding} is not ported on vx (ROADMAP §1)")
-        if dataset_config.graph_cache_dir:
-            raise NotImplementedError("dataset.graph_cache_dir (the vx graph "
-                                      "cache) is not ported (ROADMAP §1)")
 
     def init_model(self, model_config):
         model_config.args.magno.coord_dim = self.coord_dim

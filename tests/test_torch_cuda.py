@@ -15,7 +15,10 @@ flash backward at the edges of its tiles, and two of its bf16 calls bitwise
 identical; the fx StaticTrainer's fit on the card against the CPU, with the
 splits on the card and on the host; the sequential loader's device route
 against its host route, and the fx (with and without the conditional
-norm) and vx SequentialTrainers' fits and rollouts against the CPU.
+norm) and vx SequentialTrainers' fits and rollouts against the CPU; the
+vx step with each nonlinear transform, node_embedding and without
+transpose graphs against the CPU, and the reduce's d_f by the scatter
+against its d_f over the transpose graph.
 
 Needs an NVIDIA card and nvcc; skips elsewhere. On the machine with the card
 (which has no JAX, so without the JAX-loading conftest):
@@ -642,6 +645,33 @@ def test_vx_train_step_card_vs_cpu(dtype):
     launch, and the card's loss and every gradient agree with the CPU
     plain route (fp32: each gradient within 1e-3 of its largest entry;
     bf16: relative L2 5e-2 over all gradients)."""
+    counts = _vx_step_card_vs_cpu(dtype, {})
+    assert counts["multiply_reduce_k"] >= 8 and counts["multiply_reduce_b"] >= 4
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("option", ["nonlinear", "nonlinear_kernelonly", "node_embedding",
+                                    "no_transpose"])
+def test_vx_option_train_step_card_vs_cpu(dtype, option):
+    """:func:`test_vx_train_step_card_vs_cpu` with a nonlinear transform
+    (dense graphs, the plain per-edge body: no multiply-reduce in the AGNO,
+    only the rows' reorder there is none of), node_embedding (the linear
+    table) and without transpose graphs (d_f by the scatter: no d_f
+    reduce)."""
+    magno = {"no_transpose": {"use_transpose_backward": False},
+             "node_embedding": {"node_embedding": True}}.get(
+        option, {"transform_type": option})
+    counts = _vx_step_card_vs_cpu(dtype, magno)
+    if option.startswith("nonlinear"):
+        assert not any(counts.values())
+    else:
+        assert counts["multiply_reduce_k"] >= 4 and counts["multiply_reduce_b"] >= 4
+
+
+def _vx_step_card_vs_cpu(dtype, magno):
+    """The step of :func:`test_vx_train_step_card_vs_cpu` with the MAGNO
+    options ``magno``, its graphs built as the trainers build them; returns
+    the card's multiply-reduce launches."""
     from gaot_torch.core.config import ModelConfig, OptimizerConfig, merge_config
     from gaot_torch.data.graph_builder import (
         GraphBuilder,
@@ -657,15 +687,17 @@ def test_vx_train_step_card_vs_cpu(dtype):
     cfg = merge_config(ModelConfig, {
         "latent_tokens_size": [16, 16],
         "args": {"magno": {"radius": 0.14, "hidden_size": 64, "lifting_channels": 64,
-                           "scales": [1.0, 1.5], "use_scale_weights": True},
+                           "scales": [1.0, 1.5], "use_scale_weights": True, **magno},
                  "transformer": {"patch_size": 2, "hidden_size": 256, "num_layers": 1}}})
+    m = cfg.args.magno
     rng = np.random.default_rng(4)
     x = rng.uniform(-1, 1, (2, 600, 2)).astype(np.float32)
     ax = np.linspace(-1, 1, 16)
     lat = np.stack(np.meshgrid(ax, ax, indexing="ij"), -1).reshape(-1, 2).astype(np.float32)
     split = GraphBuilder(morton=True).build_all_vx_graphs(
         {"test": {"x": x}}, lat, 0.14, [1.0, 1.5], build_train=False,
-        with_transpose=True, bucketing=True)["test"]
+        with_transpose=m.use_transpose_backward,
+        bucketing=m.transform_type in ("linear", "linear_kernelonly"))["test"]
     bufs = vx_graph_buffers(split)
     bufs.pop("node_perm")
     bufs.update(vx_layout(bufs, 2))
@@ -687,13 +719,12 @@ def test_vx_train_step_card_vs_cpu(dtype):
         kernels.reset_launches()
         loss = train_step(model, opt, sched, 0, graphs, batch["x"], t(pndata), t(target),
                           torch.ones(2, dtype=torch.bool, device=dev), batch["node_mask"])
-        counts = kernels.launch_counts()
-        if dev == "cuda":
-            assert counts["multiply_reduce_k"] >= 8 and counts["multiply_reduce_b"] >= 4
-        else:
-            assert not any(counts.values())
-        res[dev] = (float(loss), grads)
-    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+        counts = {k: v for k, v in kernels.launch_counts().items()
+                  if k.startswith("multiply_reduce")}
+        if dev == "cpu":
+            assert not any(kernels.launch_counts().values())
+        res[dev] = (float(loss), grads, counts)
+    (lc, gc, counts), (lp, gp, _) = res["cuda"], res["cpu"]
     assert set(gc) == set(gp)
     if dtype is None:
         assert abs(lc - lp) <= 1e-4 * abs(lp)
@@ -703,6 +734,60 @@ def test_vx_train_step_card_vs_cpu(dtype):
         cat = lambda g: torch.cat([g[n].reshape(-1) for n in sorted(g)])
         assert abs(lc - lp) <= 2e-2 * abs(lp)
         assert float((cat(gc) - cat(gp)).norm() / cat(gp).norm()) <= 5e-2
+    return counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_df_card_vs_transpose_graph(dtype):
+    """d_f of the vx reduce without a transpose graph (the scatter) on the
+    card against d_f over the in-degree-grouped transpose graph, on masks
+    with holes (their coefficients zero, as the AGNO folds them); the
+    forward and d_coef the same bits, and no d_f reduce launched."""
+    from gaot_torch.data.graph_builder import (
+        GraphBuilder,
+        vx_flat_graphs,
+        vx_graph_buffers,
+        vx_layout,
+    )
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.ops.gather_apply import df_calls, flat_gather_multiply_reduce
+
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-1, 1, (4, 600, 2)).astype(np.float32)
+    ax = np.linspace(-1, 1, 16)
+    lat = np.stack(np.meshgrid(ax, ax, indexing="ij"), -1).reshape(-1, 2).astype(np.float32)
+    split = GraphBuilder(morton=True).build_all_vx_graphs(
+        {"test": {"x": x}}, lat, 0.14, [1.0], build_train=False, with_transpose=True,
+        bucketing=True)["test"]
+    bufs = vx_graph_buffers(split)
+    bufs.pop("node_perm")
+    bufs.update(vx_layout(bufs, 4))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in bufs.items()}
+    c = 64
+    enc, dec = vx_flat_graphs(batch, 1)
+    for vg, n_src in ((enc[0], split.coords.shape[1]), (dec[0], lat.shape[0])):
+        vg = vg._replace(buckets=tuple(
+            g._replace(mask=g.mask & (torch.rand(g.mask.shape, device="cuda") > 0.3))
+            for g in vg.buckets))
+        n = 4 * n_src            # d_f over the transpose graph writes every source row
+        coefs = [(torch.randn(*g.indices.shape, c, device="cuda")
+                  * g.mask[..., None]).to(dtype) for g in vg.buckets]
+        f = torch.randn(n, c, device="cuda", dtype=dtype)
+        dout = torch.randn(4 * vg.rows, c, device="cuda", dtype=dtype)
+        res = {}
+        for name, g in (("scatter", vg._replace(tgraph=None)), ("tgraph", vg)):
+            cls = [a.clone().requires_grad_(True) for a in coefs]
+            fl = f.clone().requires_grad_(True)
+            kernels.reset_launches()
+            out = flat_gather_multiply_reduce(cls, fl, g)
+            out.backward(dout)
+            res[name] = (out.detach(), [a.grad for a in cls], fl.grad,
+                         kernels.launch_counts()["multiply_reduce_k"])
+        (o_s, dc_s, df_s, k_s), (o_t, dc_t, df_t, k_t) = res["scatter"], res["tgraph"]
+        assert torch.equal(o_s, o_t)
+        assert all(torch.equal(a, b) for a, b in zip(dc_s, dc_t))
+        assert k_t - k_s == len(df_calls(vg, 1))
+        _close_scaled(df_s, df_t, 1e-2 if dtype == torch.bfloat16 else 1e-5, dtype)
 
 
 def _seq_config(tmp_path, dev, name, model=None, **dataset):

@@ -96,7 +96,8 @@ def workload(layout: str, cfg: dict, seed: int = 0, twins: int = 0):
         lat = _lattice(cfg["latent_tokens_size"][0])
         split = GraphBuilder(morton=True).build_all_vx_graphs(
             {"test": {"x": x}}, lat, jm.radius, jm.scales, build_train=False,
-            with_transpose=True, bucketing=layout.endswith("bucketed"))["test"]
+            with_transpose=jm.use_transpose_backward,
+            bucketing=layout.endswith("bucketed"))["test"]
         bufs = vx_graph_buffers(split)
         bufs.pop("node_perm")
         jgraphs = vx_batch_graphs({k: jnp.asarray(v) for k, v in bufs.items()},

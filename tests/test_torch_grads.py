@@ -150,24 +150,32 @@ def test_bucketed_gather_multiply_reduce_matches_vjp(graphs):
 
 
 def test_bucketed_gradient_of_f_needs_the_transpose_graph(graphs):
-    """Without a transpose graph the forward runs, d_coef alone is fine, and
-    asking for d_f is refused up front."""
+    """Without a transpose graph (magno.use_transpose_backward false) the
+    forward, d_coef and d_f (a scatter) equal those over the in-degree-grouped
+    transpose graph."""
     from gaot_torch.ops.gather_apply import bucketed_gather_multiply_reduce
 
     (_, _, _, _), (tenc, _, _, _) = graphs
     tb = tenc[0]
     idx = [g.indices for g in tb.buckets]
     rng = np.random.default_rng(14)
-    coefs = [_leaf(rng.normal(size=(*i.shape, C)).astype(np.float32)) for i in idx]
+    # Padded edges carry a zero coefficient, as the AGNO's fold makes them.
+    coefs = [(rng.normal(size=(*g.indices.shape, C)) * g.mask.numpy()[..., None])
+             .astype(np.float32) for g in tb.buckets]
     f = rng.normal(size=(tp.NUM_NODES, tp.BATCH, C)).astype(np.float32)
-    want = bucketed_gather_multiply_reduce(coefs, torch.from_numpy(f), idx,
-                                           tb.tgraph)
-    got = bucketed_gather_multiply_reduce(coefs, torch.from_numpy(f), idx, None)
+    ct = torch.from_numpy(rng.normal(
+        size=(sum(i.shape[0] for i in idx), tp.BATCH, C)).astype(np.float32))
+    res = []
+    for tgraph in (tb.tgraph, None):
+        cls, fl = [_leaf(a) for a in coefs], _leaf(f)
+        out = bucketed_gather_multiply_reduce(cls, fl, idx, tgraph)
+        out.backward(ct)
+        res.append((out, [c.grad for c in cls], fl.grad))
+    (want, want_dc, want_df), (got, got_dc, got_df) = res
     _close(got, want.detach().numpy())
-    got.sum().backward()
-    assert all(c.grad is not None for c in coefs)
-    with pytest.raises(NotImplementedError, match="use_transpose_backward"):
-        bucketed_gather_multiply_reduce(coefs, _leaf(f), idx, None)
+    for a, b in zip(got_dc, want_dc):
+        _close(a, b.numpy())
+    _close(got_df, want_df.numpy())
 
 
 def test_unpermute_rows_matches_vjp(graphs):

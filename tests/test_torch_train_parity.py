@@ -56,7 +56,7 @@ def _batches():
             for _ in range(STEPS)]
 
 
-def _jax_run(batches):
+def _jax_run(batches, use_transpose_backward=True):
     from gaot_torch.utils.torch_interop import flax_to_torch_state_dict
     from gaot_tpu.core.config import OptimizerConfig as JOptimizerConfig
     from gaot_tpu.core.config import merge_config as jmerge
@@ -66,6 +66,7 @@ def _jax_run(batches):
 
     coords, lat, _, _ = tp.workload()
     jcfg, _ = tp.configs()
+    jcfg.args.magno.use_transpose_backward = use_transpose_backward
     enc, dec, enc_t, dec_t = tp.jax_graphs(coords, lat, jcfg)
     model = JGAOT(input_size=tp.IN_CH, output_size=tp.OUT_CH, config=jcfg)
     tx, _ = make_optimizer(jmerge(JOptimizerConfig, OPT), STEPS_PER_EPOCH)
@@ -160,16 +161,39 @@ def test_train_step_refuses_attention_dropout():
 
 
 def test_train_step_refuses_without_transpose_graphs():
+    """Training without the transpose graphs (magno.use_transpose_backward
+    false), which was refused, takes an AdamW 'mix' step whose d_f is a
+    scatter (the encoder's buckets and the dense decoder, neither with a
+    transpose graph), and matches optax's step on the JAX package's plain
+    routes: the loss and the weights within rtol 2e-4."""
     from gaot_torch.core.config import OptimizerConfig, merge_config
     from gaot_torch.train.schedules import make_optimizer
-    from gaot_torch.train.static_trainer import train_step
+    from gaot_torch.train.static_trainer import FxGraphs, train_step
+    from gaot_torch.utils.routing import format_routes, reset_routes
 
+    batches = _batches()[:1]
+    want_losses, want = _jax_run(batches, use_transpose_backward=False)
+    coords, lat, _, _ = tp.workload()
+    _, tcfg = tp.configs()
+    tcfg.args.magno.use_transpose_backward = False
+    enc, dec, enc_t, dec_t = tp.torch_graphs(coords, lat, tcfg)
+    assert enc_t is None and dec_t is None and enc[0].tgraph is None
+    graphs = FxGraphs(torch.from_numpy(lat), enc, dec, enc_t, dec_t)
     model = tp.torch_model()
-    model.encoder.config.use_transpose_backward = False
-    try:
-        opt, schedule = make_optimizer(merge_config(OptimizerConfig, OPT),
-                                       model.parameters(), 1)
-        with pytest.raises(NotImplementedError, match="use_transpose_backward"):
-            train_step(model, opt, schedule, 0, None, None, None, None, None)
-    finally:
-        model.encoder.config.use_transpose_backward = True
+    opt, schedule = make_optimizer(merge_config(OptimizerConfig, OPT),
+                                   model.parameters(), STEPS_PER_EPOCH)
+    reset_routes()
+    (pn, tg), = batches
+    loss = float(train_step(model, opt, schedule, 0, graphs, torch.from_numpy(coords),
+                            torch.from_numpy(pn), torch.from_numpy(tg),
+                            torch.ones(tp.BATCH, dtype=torch.bool)))
+    assert format_routes().startswith(
+        "agno=bucketed:plain:scatter-df+dense:plain:scatter-df"), format_routes()
+    np.testing.assert_allclose([loss], want_losses, rtol=2e-4)
+    got = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    assert set(got) == set(want)
+    for name in sorted(want):
+        w = want[name].reshape(got[name].shape)
+        np.testing.assert_allclose(got[name], w, rtol=2e-4,
+                                   atol=2e-4 * float(np.abs(w).max()),
+                                   err_msg=name)

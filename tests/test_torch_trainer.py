@@ -12,8 +12,9 @@
   weights come back at the end of a fit.
 - CLI: the datarow's columns, a CSV database shared with the JAX CLI, ``-f``
   through ``python -m gaot_torch.cli`` subprocesses, ``setup.profile_dir``.
-- Refusals of what is not ported; the sequential trainer with edge drop
-  and with attention dropout, which are ported, trains through the CLI.
+- Refusals of what is not ported (multi-device); the vx options that were
+  refused build, and the sequential trainer with edge drop and with
+  attention dropout, which are ported, trains through the CLI.
 """
 import copy
 import csv
@@ -220,26 +221,29 @@ def test_refuses_what_is_not_ported(tmp_path, what):
     from gaot_torch.train import StaticTrainer
 
     if what == "vx":
-        # vx trains (tests/test_torch_vx_trainer.py); its nonlinear
-        # transforms and its on-disk graph cache are not ported, and no
-        # training runs without the transpose graphs: each is refused
-        # before a graph is built.
+        # vx trains (tests/test_torch_vx_trainer.py), and what was refused
+        # here builds now: a nonlinear transform (dense graphs), the
+        # on-disk graph cache (a file written) and training without the
+        # transpose graphs (none built).
         make_static_vx_dataset(str(tmp_path / "vx.npz"))
         cfg = _config(tmp_path, "vx", data=False,
                       dataset={"metaname": "compressible_flow/naca0012"})
         cfg["model"]["args"]["magno"]["transform_type"] = "nonlinear"
-        with pytest.raises(NotImplementedError, match="linear transform"):
-            StaticTrainer(cfg)
+        trainer = StaticTrainer(cfg)
+        batch = next(iter(trainer.train_loader))
+        # (the linear transform buckets this decoder graph)
+        assert "dec_idx_0" in batch and "dec_b0_idx_0" not in batch
         cfg = _config(tmp_path, "vx", data=False,
                       dataset={"metaname": "compressible_flow/naca0012",
                                "graph_cache_dir": str(tmp_path / "cache")})
-        with pytest.raises(NotImplementedError, match="graph cache"):
-            StaticTrainer(cfg)
+        StaticTrainer(cfg)
+        assert len(list((tmp_path / "cache").glob("graphs_vx-*.npz"))) == 1
         cfg = _config(tmp_path, "vx", data=False,
                       dataset={"metaname": "compressible_flow/naca0012"})
         cfg["model"]["args"]["magno"]["use_transpose_backward"] = False
-        with pytest.raises(NotImplementedError, match="use_transpose_backward"):
-            StaticTrainer(cfg)
+        trainer = StaticTrainer(cfg)
+        assert not any("_tg" in k or "_tinv_" in k or "_tpos_" in k
+                       for k in next(iter(trainer.train_loader)))
     elif what == "sequential":
         # The sequential trainer trains (tests/test_torch_seq_*.py), with
         # edge drop and with attention dropout too (both ported): each
