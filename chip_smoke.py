@@ -173,12 +173,33 @@ failure):
      dataset.graph_cache_dir, twice through `python -m gaot_torch.cli -c`
      (phase 5b's data and sizes, 2 epochs): the second run hits the cache
      and gives the same losses bit for bit; both set-up times logged.
+  10. multi-GPU training (gaot_torch/parallel/): (10.1) the fx recipe at
+     phase 5's sizes, epochs and validation cadence through torchrun at one
+     rank on NCCL with setup.distributed: a falling loss, one CSV row,
+     launches equal to phase 5's tables times its steps, samples/s (the CSV
+     row's and the rate after the first evaluation) beside run B's, its
+     like for like (a subprocess of the CLI, no profiler); (10.4) the
+     checkpoint tools: 10.1's checkpoint exported and imported again, bit for
+     bit; (10.2) two ranks on the one card over gloo (subprocesses of this
+     script, --rank; LOCAL_RANK 0, init_distributed(..., backend="gloo")) at
+     dp 2, mp 2 (tensor parallelism) and spatial_parallel at mp 2: an fp32
+     check at a global batch of 8 (the loss within 1e-6 relative of one
+     process on the card, every gradient and the weights after 3 AdamW
+     steps within 1e-4 of their tensor's largest entry), then a bf16 step
+     at a global batch of 64 (per-rank ms, the launch table derived from the
+     rank's graphs held exactly, from a profile the device time of NCCL's
+     kernels and of every copy in the step, gloo's round trips of the
+     all-reduces through the host among them; two ranks share the card: not
+     a multi-card speed); (10.3) with
+     two cards or more the same runs over NCCL, one rank a card, else logged
+     as not run; the kernels at the ranks' shapes for the line below.
   9. prints one JSON line listing every kernel of the five paths (the fx
      main path's launches are those of the trainer's run A; the vx
      entries' those of the vx flagship's training step and forward; the
      sequential entries', @seq, those of run A; the naca0012 entries,
      @naca, the multiply-reduces on its thinned masks with its CLI run's
-     launches).
+     launches; @dp, @tp, @sp, phase 10's, with rank 0's launches in one
+     bf16 step).
 The last line is {"ok": true, "device": {...}}.
 """
 import copy
@@ -1022,9 +1043,9 @@ def check_flash(rnd, bb, s, h, d, with_eval=True, row_dtype="bfloat16"):
     return rows
 
 
-def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True):
+def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
     """The SwiGLU forward and backward at R tokens (the fx shape by
-    default), M = 256, F = 1024, bf16: against the plain versions, timed 20
+    default), M = 256, F (1024 by default), bf16: against the plain versions, timed 20
     back to back and by profiler device time per call, beside the library's
     three products (and autograd of them); then, with ``extras``, the fp32
     kernels at the same shape (times logged), and the general route's
@@ -1035,7 +1056,7 @@ def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True):
 
     rows = {}
     silu = torch.nn.functional.silu
-    m, f = 256, 1024
+    m = 256
     log(f"fused SwiGLU, R={r} M={m} F={f} (bf16):")
 
     def weights(m, f, dtype):
@@ -1887,6 +1908,8 @@ def phase_trainer(card: str, step_ms: float):
             f"samples_per_sec {float(row_b['samples_per_sec']):.1f} (no profiler; "
             f"{first_b:.3f} s to the first evaluation, {steady_b:.1f} samples/s after "
             f"it), training time {float(row_b['training time']):.3f} s")
+        rates = {"sps_b": float(row_b["samples_per_sec"]), "first_b": first_b,
+                 "steady_b": steady_b}
         if (before, after) != (steps, 2 * steps):
             fail(f"trainer run B: checkpoint step {before} -> {after}, expected "
                  f"{steps} -> {2 * steps}")
@@ -1905,7 +1928,7 @@ def phase_trainer(card: str, step_ms: float):
             f"{steady_c:.1f} samples/s after it")
         _check_run("run C fp32", raw_c, launches_c, routes_c, want_c, "plain")
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches_a
+    return launches_a, rates
 
 
 # Phase 5b: the elasticity recipe (config/examples/time_indep/elasticity.json,
@@ -2930,6 +2953,428 @@ def phase_options(card: str, main_path: Path, vx_path: Path, step_ms: float,
     log(f"options phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 10: multi-GPU training (gaot_torch/parallel/). The fx recipe at
+# phase 5's sizes, epochs and cadence through torchrun at one rank on NCCL; then two ranks on the
+# one card over gloo (NCCL refuses two ranks on one device), each a
+# subprocess of this script (``--rank``) that joins the group itself, at
+# dp 2, at mp 2 (tensor parallelism) and with spatial_parallel at mp 2: an
+# fp32 check at a global batch of 8 against one process on the card, then a
+# bf16 step at a global batch of 64 (per-rank ms, launch table, the device
+# time of NCCL's kernels and every copy). With two cards or more the same runs go over
+# NCCL, one rank a card. Then the checkpoint tools' round trip.
+MESH_RUNS = {   # mode: setup of the two ranks
+    "dp": {"data_parallel": 2, "model_parallel": 1},
+    "tp": {"data_parallel": 1, "model_parallel": 2},
+    "sp": {"data_parallel": 1, "model_parallel": 2, "spatial_parallel": True},
+}
+MESH_SIZES = {"train_size": 64, "val_size": 8, "test_size": 8}
+MESH_CHECK_BATCH, MESH_CHECK_STEPS, MESH_TIME_STEPS = 8, 3, 10
+RANK_TIMEOUT = 420
+
+
+def _mesh_config(folder: str, name: str, batch: int, bf16: bool, **setup) -> dict:
+    """The example config with phase 10's split sizes, ``batch`` and the
+    compute dtype, outputs under ``folder``/``name``."""
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    raw["setup"].update(setup, compute_dtype="bfloat16" if bf16 else "float32")
+    raw["dataset"].update(MESH_SIZES, base_path=folder, batch_size=batch)
+    out = lambda f: os.path.join(folder, name, f)
+    raw["path"] = {"ckpt_path": out("ckpt"), "loss_path": out("loss.png"),
+                   "result_path": out("result.png"), "database_path": out("db.csv")}
+    return raw
+
+
+def _mesh_steps(trainer, steps: int):
+    """``steps`` training steps on the loader's first batches: (the losses,
+    the first step's gradients after DDP, joined over the model axis, the
+    full weights after the steps)."""
+    from gaot_torch.parallel.mesh import full_state_dict
+
+    grads = []
+    step = trainer.optimizer.step
+
+    def capture(*a, **k):
+        grads.append({n: g.float().cpu() for n, g in full_state_dict(
+            {n: p.grad for n, p in trainer.model.named_parameters()},
+            trainer.tp_specs, trainer.mesh).items()})
+        return step(*a, **k)
+
+    trainer.optimizer.step = capture
+    it = iter(trainer.train_loader)
+    losses = [float(trainer.train_step(next(it))) for _ in range(steps)]
+    trainer.optimizer.step = step
+    return losses, grads[0], {k: v.float().cpu() for k, v in trainer.full_state().items()}
+
+
+def _copy_events(events):
+    """The profile's NCCL kernels and every copy: over gloo the
+    all-reduces' round trips through the host are copies, but so are the
+    step's other copies (its sample mask, DDP's bucket copies), which this
+    does not tell apart."""
+    return [e for e in events
+            if re.search(r"nccl|allreduce|all_reduce|memcpy", e.key, re.I)]
+
+
+def _rank_child(argv) -> int:
+    """``chip_smoke.py --rank MODE RANK WORLD STORE FOLDER BACKEND``: one rank
+    of a phase 10 run (module comment above); writes its results to
+    FOLDER/MODE.rankR.pt."""
+    mode, rank, world, store, folder, backend = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from gaot_torch.core.config import SetUpConfig
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.parallel import init_distributed
+    from gaot_torch.train import StaticTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(SetUpConfig(distributed=True, device="cuda", process_id=rank,
+                                 num_processes=world,
+                                 coordinator_address=f"file://{store}"), backend=backend)
+    setup = dict(MESH_RUNS[mode], distributed=True)
+    out = {"device": torch.cuda.current_device()}
+    with _quiet():
+        trainer = StaticTrainer(_mesh_config(folder, f"{mode}_check", MESH_CHECK_BATCH,
+                                             False, **setup))
+    losses, grads, weights = _mesh_steps(trainer, MESH_CHECK_STEPS)
+    if rank == 0:
+        out.update(losses=losses, grads=grads, weights=weights)
+    del trainer, grads, weights
+    torch.cuda.empty_cache()
+
+    with _quiet():
+        trainer = StaticTrainer(_mesh_config(folder, f"{mode}_time", BATCH, True, **setup))
+    placed = trainer.place_batch(next(iter(trainer.train_loader)))
+    for _ in range(3):
+        trainer.train_step(placed)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    trainer.train_step(placed)
+    torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    layers = trainer.model_config.args.transformer.num_layers
+    ffn = trainer.model.processor.encoder_layers[0].ffn
+    tokens = placed["c"].shape[0] * (SEQ // (trainer.mesh.mp if trainer.spatial else 1))
+    from gaot_torch.ops.cuda import fused_ffn
+
+    out["ffn_width"] = ffn.ffn_hidden_size
+    out["table"] = _tables(trainer.graphs, layers, fused_ffn.supported(
+        tokens, ffn.w1.weight.shape[1], ffn.ffn_hidden_size, torch.bfloat16) > 0)[1]
+    out["local_batch"] = placed["c"].shape[0]
+    out["ms"] = time_ms(lambda: trainer.train_step(placed), iters=MESH_TIME_STEPS,
+                        warmup=1)
+    events = _profile_once(lambda: trainer.train_step(placed))
+    copies = _copy_events(events)
+    out["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+    out["copy_ms"] = sum(e.self_device_time_total for e in copies) / 1e3
+    out["copy_events"] = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                          for e in copies]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(out, os.path.join(folder, f"{mode}.rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _quiet():
+    """The trainer's prints kept out of the log (the results are logged)."""
+    import contextlib
+    import io
+
+    return contextlib.redirect_stdout(io.StringIO())
+
+
+def _profile_once(fn):
+    """The device kernels of one ``fn()`` under torch.profiler (one trace,
+    no retake: the ranks must run the same steps)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0]
+
+
+def _cli_rank(argv) -> int:
+    """``chip_smoke.py --cli-rank CONFIG OUT``, launched by torchrun: the
+    port's CLI (``gaot_torch.cli.main``) in this rank, then its launch
+    counts written to OUT."""
+    cfg_path, out = argv
+    sys.path.insert(0, HERE)
+    from gaot_torch import cli
+    from gaot_torch.ops import cuda as kernels
+
+    kernels.reset_launches()
+    rc = cli.main(["-c", cfg_path])
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": kernels.launch_counts()}, f)
+    return rc
+
+
+def _run_ranks(cmds, what: str, envs, folder: str):
+    """Start every command at once (output to files under ``folder``) and
+    wait for all, each within RANK_TIMEOUT seconds; a failure or a timeout
+    stops the others and fails the phase."""
+    logs = [os.path.join(folder, f"{what.replace(' ', '_')}.{i}.log")
+            for i in range(len(cmds))]
+    files = [open(path, "w") for path in logs]
+    procs = [subprocess.Popen(c, cwd=HERE, env=e, stdout=f, stderr=subprocess.STDOUT)
+             for c, e, f in zip(cmds, envs, files)]
+    deadline = time.monotonic() + RANK_TIMEOUT
+    bad = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                bad.append(f"process {i} timed out after {RANK_TIMEOUT} s")
+                break
+            if p.returncode != 0:
+                bad.append(f"process {i} exited {p.returncode}")
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    for i, path in enumerate(logs):
+        with open(path) as f:
+            for line in f.read().splitlines()[-(40 if bad else 8):]:
+                log(f"  [{what} {i}] {line}")
+    if bad:
+        fail(f"{what}: {'; '.join(bad)}")
+
+
+def _nccl_one_rank(card: str, folder: str, rates: dict):
+    """10.1: the fx recipe at phase 5's sizes, epochs and validation
+    cadence through torchrun at one rank (NCCL), ``setup.distributed`` on;
+    its samples/s beside those of phase 5's run B (``rates``)."""
+    cfg_path, raw = _trainer_config(folder, "nccl1", compute_dtype="bfloat16",
+                                    distributed=True)
+    want, steps, evals = _trainer_launches(raw, bf16=True)
+    out = os.path.join(folder, "nccl1.json")
+    t0 = time.perf_counter()
+    _run_ranks([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node=1", os.path.join(HERE, "chip_smoke.py"),
+                 "--cli-rank", cfg_path, out]], "torchrun 1 rank",
+               [dict(os.environ, PYTHONPATH=HERE)], folder)
+    with open(out) as f:
+        res = json.load(f)
+    _expect_launches("phase 10.1 (torchrun, NCCL, one rank)", res["launches"], want)
+    rec, row = _run_record(raw)
+    sps = float(row["samples_per_sec"])
+    with open(os.path.join(folder, "torchrun_1_rank.0.log")) as f:
+        first, steady = _steady_rate(f.read(), TRAINER_SIZES["train_size"])
+    log(f"phase 10.1 ({card}): torchrun --nproc_per_node=1, NCCL, {steps} steps and "
+        f"{evals} evaluation batches in {time.perf_counter() - t0:.1f} s; launches "
+        f"{res['launches']} (phase 5's tables x its steps); train losses "
+        f"{' '.join(f'{v:.5f}' for v in rec['losses'])}; samples_per_sec {sps:.1f}, "
+        f"{first:.3f} s to the first evaluation, {steady:.1f} samples/s after it "
+        f"(phase 5's run B, the same epochs and cadence in a subprocess of the CLI: "
+        f"{rates['sps_b']:.1f}, {rates['first_b']:.3f} s, {rates['steady_b']:.1f})")
+    if not rec["losses"][-1] < rec["losses"][0]:
+        fail(f"phase 10.1: the train loss did not fall ({rec['losses']})")
+    return cfg_path, raw
+
+
+def _mesh_reference(folder: str):
+    """One process on the card: the fp32 check's losses, first gradients and
+    weights after the steps."""
+    import torch
+
+    from gaot_torch.train import StaticTrainer
+
+    with _quiet():
+        trainer = StaticTrainer(_mesh_config(folder, "one_check", MESH_CHECK_BATCH,
+                                             False))
+    w0 = {k: v.float().cpu() for k, v in trainer.full_state().items()}
+    ref = (*_mesh_steps(trainer, MESH_CHECK_STEPS), w0)
+    graphs = (trainer.coord.cpu().numpy(), trainer.latent.cpu().numpy())
+    del trainer
+    torch.cuda.empty_cache()
+    return ref, graphs
+
+
+def _mesh_run(card: str, folder: str, mode: str, ref, backend: str, cards: int):
+    """10.2 / 10.3: one mode on two ranks; the checks against ``ref``."""
+    import torch
+
+    store = os.path.join(folder, f"store_{mode}_{backend}")
+    cmds = [[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", mode,
+             str(r), "2", store, folder, backend] for r in range(2)]
+    envs = [dict(os.environ, PYTHONPATH=HERE, LOCAL_RANK=str(r if cards > 1 else 0))
+            for r in range(2)]
+    t0 = time.perf_counter()
+    _run_ranks(cmds, f"{mode} {backend}", envs, folder)
+    res = [torch.load(os.path.join(folder, f"{mode}.rank{r}.pt"), weights_only=False)
+           for r in range(2)]
+    where = (f"two ranks on {cards} card{'s' if cards > 1 else ''} (devices "
+             f"{[r['device'] for r in res]}), {backend}")
+    losses, grads, weights, w0 = ref
+    got = res[0]
+    if abs(got["losses"][0] - losses[0]) > 1e-6 * abs(losses[0]):
+        fail(f"{mode} ({where}): fp32 loss {got['losses'][0]!r}, one process "
+             f"{losses[0]!r}")
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    g_err = max(rel(got["grads"][k], v) for k, v in grads.items())
+    w_rel = sorted(((rel(got["weights"][k], v), k) for k, v in weights.items()),
+                   reverse=True)
+    w_err = w_rel[0][0]
+    # AdamW divides each gradient entry by its own running scale, so an
+    # entry whose gradient sits at the rounding level takes a full-size step
+    # of either sign: under sp (sums in another order: the embedding's
+    # statistics over both ranks' queries) the weights are held within 1e-4
+    # of their largest entry plus 1e-2 of their largest update.
+    upd = {k: float((v - w0[k]).abs().max()) for k, v in weights.items()}
+    w_over = [k for k, v in weights.items()
+              if float((got["weights"][k] - v).abs().max())
+              > 1e-4 * float(v.abs().max()) + (1e-2 * upd[k] if mode == "sp" else 0.0)]
+    log(f"  {mode}: the weights farthest from one process's: " + "; ".join(
+        f"{k} {e:.3e} of its max {float(weights[k].abs().max()):.3e} "
+        f"(its largest update {upd[k]:.3e})" for e, k in w_rel[:4]))
+    log(f"phase 10 {mode} ({where}, {card}): fp32 global batch {MESH_CHECK_BATCH}: "
+        f"losses {got['losses']} vs one process {losses}; gradients within "
+        f"{g_err:.3e}, weights after {MESH_CHECK_STEPS} AdamW steps within {w_err:.3e} "
+        f"of each tensor's largest entry (bound 1e-4"
+        f"{' + 1e-2 of its largest update' if mode == 'sp' else ''})")
+    if g_err > 1e-4 or w_over:
+        fail(f"{mode} ({where}): gradients {g_err:.3e} of the largest entry from one "
+             f"process's; weights beyond the bound: {w_over}")
+    for r, out in enumerate(res):
+        _expect_launches(f"{mode} rank {r} bf16 step", out["launches"], out["table"])
+        log(f"phase 10 {mode} rank {r} ({where}, {card}): bf16 step at global batch "
+            f"{BATCH} (local {out['local_batch']}, SwiGLU width {out['ffn_width']}): "
+            f"{out['ms']:.3f} ms (CUDA events, {MESH_TIME_STEPS} steps), device busy "
+            f"{out['busy_ms']:.3f} ms, peak {out['peak_gib']:.2f} GiB; launches "
+            f"{out['launches']}; NCCL kernels and all copies in the step (gloo's "
+            f"all-reduce round trips among them) {out['copy_ms']:.3f} ms device "
+            f"{out['copy_events']}")
+    log(f"phase 10 {mode} ({backend}): {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def _tools_round_trip(cfg_path: str, raw: dict, folder: str):
+    """10.4: export 10.1's checkpoint, import it again: the weights bit for
+    bit."""
+    import torch
+
+    from gaot_torch.tools import export_torch_ckpt, import_torch_ckpt
+    from gaot_torch.train.checkpoint import checkpoint_file
+
+    raw = copy.deepcopy(raw)
+    raw["setup"]["distributed"] = False
+    path = os.path.join(folder, "tools.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    with _quiet():
+        exported = export_torch_ckpt.main(path, None, os.path.join(folder, "exported.pt"))
+        imported = import_torch_ckpt.main(path, exported, os.path.join(folder, "imported"))
+    want = torch.load(checkpoint_file(raw["path"]["ckpt_path"]), map_location="cpu",
+                      weights_only=True)["model"]
+    got_e = torch.load(exported, weights_only=True)["model"]
+    got_i = torch.load(imported, weights_only=True)
+    for name, got in (("export", got_e), ("import", got_i["model"])):
+        if got.keys() != want.keys() or not all(
+                torch.equal(got[k].cpu(), want[k]) for k in want):
+            fail(f"phase 10.4: the {name} differs from 10.1's checkpoint")
+    if got_i["step"] != 0:
+        fail(f"phase 10.4: the import's update count is {got_i['step']}")
+    log(f"phase 10.4: 10.1's checkpoint exported ({len(got_e)} tensors) and imported "
+        "again, bit for bit, update count 0")
+
+
+def phase_mesh(card: str, rnd, rates: dict, main_checks: dict):
+    """Phase 10 (module comment above). Returns the kernel rows and launches
+    of the @dp, @tp and @sp entries: {suffix: (rows, launches)}."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from synthetic import make_static_fx_dataset
+
+    from gaot_torch.core.config import load_experiment_config
+    from gaot_torch.data.graph_builder import GraphBuilder
+    from gaot_torch.parallel.spatial import cut_rows, spatial_shard
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="gaot_mesh_") as folder:
+        with open(CONFIG) as f:
+            name = json.load(f)["dataset"]["name"]
+        make_static_fx_dataset(os.path.join(folder, f"{name}.npz"),
+                               num_samples=sum(TRAINER_SIZES.values()),
+                               num_nodes=NUM_NODES, seed=0)
+        cfg_path, raw = _nccl_one_rank(card, folder, rates)
+        _tools_round_trip(cfg_path, raw, folder)
+
+        # The meshes read a split of MESH_SIZES from a folder of their own.
+        mesh_dir = os.path.join(folder, "mesh")
+        os.makedirs(mesh_dir)
+        make_static_fx_dataset(os.path.join(mesh_dir, f"{name}.npz"),
+                               num_samples=sum(MESH_SIZES.values()),
+                               num_nodes=NUM_NODES, seed=0)
+        ref, (coord, lat) = _mesh_reference(mesh_dir)
+        results = {}
+        for mode in MESH_RUNS:
+            torch.cuda.empty_cache()
+            results[mode] = _mesh_run(card, mesh_dir, mode, ref, "gloo", 1)
+        if cards >= 2:
+            for mode in MESH_RUNS:
+                _mesh_run(card, mesh_dir, mode, ref, "nccl", 2)
+        else:
+            log(f"phase 10.3: {cards} card on this machine: the two-card NCCL runs "
+                "did not run (a limit of the machine; the two-rank runs above ran)")
+
+        # The kernels at the ranks' shapes, for the kernels line.
+        cfg = load_experiment_config(CONFIG)
+        magno = cfg.model.args.magno
+        enc, dec = GraphBuilder.from_magno_config(magno).build_fx_graphs(
+            coord, lat, magno.radius, magno.scales)
+    entries = {}
+    rows_dp = {**check_multiply_reduce(rnd, BATCH // 2, 64, _reduce_cases(
+        _mesh_path(cfg, coord, lat, enc, dec, results["dp"][0]["table"]), "fx @dp"),
+        "fx @dp"), **check_flash(rnd, BATCH // 2, SEQ, 8, 32, with_eval=False),
+        **check_ffn(rnd, BATCH // 2 * SEQ, extras=False)}
+    entries["@dp"] = (rows_dp, results["dp"][0]["launches"])
+    heads = 8 // 2
+    rows_tp = {**{k: v for k, v in main_checks.items() if k.startswith("multiply")},
+               **check_flash(rnd, BATCH, SEQ, heads, 32, with_eval=False),
+               **check_ffn(rnd, BATCH * SEQ, extras=False,
+                           f=results["tp"][0]["ffn_width"])}
+    entries["@tp"] = (rows_tp, results["tp"][0]["launches"])
+    shard = spatial_shard(cfg.model.latent_tokens_size,
+                          cfg.model.args.transformer.patch_size, coord.shape[0], None, 0, 2)
+    sp_path = _mesh_path(cfg, coord, lat, [cut_rows(g, *shard.latent) for g in enc],
+                         [cut_rows(g, *shard.nodes) for g in dec],
+                         results["sp"][0]["table"])
+    rows_sp = {**check_multiply_reduce(rnd, BATCH, 64, _reduce_cases(sp_path, "fx @sp"),
+                                       "fx @sp rank 0"),
+               **{k: v for k, v in main_checks.items() if k in ("fwd_lse", "bwd")},
+               **check_ffn(rnd, BATCH * SEQ // 2, extras=False)}
+    entries["@sp"] = (rows_sp, results["sp"][0]["launches"])
+    log(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def _mesh_path(cfg, coord, lat, enc, dec, table) -> Path:
+    """A Path of the trainer's graphs (cut to a rank's rows under sp)."""
+    return Path("fx mesh", cfg, coord, lat, enc, dec, seq=SEQ, check_batch=0,
+                check_dtypes=(), batch=BATCH, steps_per_epoch=1, forward_launches={},
+                train_launches=table)
+
+
 def _entries(rows, names, launches, path: str, suffix: str = ""):
     """Kernel-line entries for ``rows`` (check key -> row), named by
     ``names`` (check key -> kernel name in SOURCES) plus ``suffix`` and
@@ -3046,13 +3491,14 @@ def main() -> int:
     phase_forward(seq_path)
     _, step_ms_seq = phase_train(seq_path)
     rollouts = phase_rollout(seq_path)
-    trained = phase_trainer(card, step_ms)
+    trained, rates = phase_trainer(card, step_ms)
     trained_vx = phase_vx_trainer(card, step_ms_vx)
     trained_seq = phase_seq_trainer(card, step_ms_seq, rollouts)
     trained_naca, checks_naca = phase_naca(card, rnd)
     phase_attn_dropout(main_path, step_ms)
     phase_pointnet(main_path, vx_path, step_ms)
     phase_options(card, main_path, vx_path, step_ms, step_ms_vx)
+    meshes = phase_mesh(card, rnd, rates, checks["main"])
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
@@ -3087,6 +3533,12 @@ def main() -> int:
                     + _entries(checks_naca, main_names,
                                {k: trained_naca[main_names[k]] for k in checks_naca},
                                "naca0012", "@naca"))
+    # The multi-GPU entries: the kernels at a rank's shapes, with rank 0's
+    # launches in one bf16 training step of its mesh run (phase 10).
+    for suffix, (rows, launches) in meshes.items():
+        kernels_line += _entries(rows, main_names,
+                                 {k: launches[main_names[k]] for k in rows},
+                                 f"fx main path {suffix[1:]} x 2 ranks", suffix)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3095,4 +3547,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(_rank_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(_cli_rank(sys.argv[2:]))
     sys.exit(main())

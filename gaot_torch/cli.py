@@ -74,10 +74,10 @@ def _append_csv(database_path: str, row: Dict) -> None:
     os.replace(tmp, database_path)
 
 
-def run_config(config_path: str):
-    """Train and/or test one config; returns the trainer."""
+def load_run_config(config_path: str):
+    """(the raw config, the merged GAOTConfig) of a config file, its
+    relative output paths resolved against the file's folder."""
     from .core.config import GAOTConfig, load_config_file, merge_config
-    from .train import SequentialTrainer, StaticTrainer
 
     raw = load_config_file(config_path)
     cfg = merge_config(GAOTConfig, raw)
@@ -86,11 +86,23 @@ def run_config(config_path: str):
         p = getattr(cfg.path, attr)
         if not os.path.isabs(p):
             setattr(cfg.path, attr, os.path.join(base, p))
+    return raw, cfg
 
-    datarow = _make_datarow(raw, config_path)
+
+def make_trainer(cfg, datarow=None):
+    """The static or the sequential trainer of ``cfg`` (``setup.trainer_name``)."""
+    from .train import SequentialTrainer, StaticTrainer
+
     trainer_cls = (SequentialTrainer if cfg.setup.trainer_name == "sequential"
                    else StaticTrainer)
-    trainer = trainer_cls(cfg, datarow=datarow)
+    return trainer_cls(cfg, datarow=datarow)
+
+
+def run_config(config_path: str):
+    """Train and/or test one config; returns the trainer."""
+    raw, cfg = load_run_config(config_path)
+    datarow = _make_datarow(raw, config_path)
+    trainer = make_trainer(cfg, datarow)
 
     if cfg.setup.train:
         if cfg.setup.ckpt:
@@ -102,7 +114,8 @@ def run_config(config_path: str):
     if cfg.setup.test:
         trainer.load_ckpt()
         trainer.test()
-    _append_csv(cfg.path.database_path, datarow)
+    if trainer.rank0:
+        _append_csv(cfg.path.database_path, datarow)
     return trainer
 
 
@@ -144,8 +157,14 @@ def main(argv=None) -> int:
 
     config_paths = [args.config] if args.config else _collect_configs(args.folder)
     if len(config_paths) == 1 or args.debug:
+        import torch.distributed as dist
+
+        joined = dist.is_initialized()
         for path in config_paths:
             run_config(path)
+        if dist.is_initialized() and not joined:
+            # A group the run joined (setup.distributed) is left here.
+            dist.destroy_process_group()
         return 0
 
     # Subprocess pool, `--jobs` at a time (reference main.py:132-173).

@@ -265,19 +265,19 @@ class SetUpConfig:
     test: bool = False
     ckpt: bool = False
 
-    # Distributed / parallelism settings: multi-device training is not
-    # ported (ROADMAP item 13); the trainer refuses distributed,
-    # data_parallel > 1, model_parallel > 1 and spatial_parallel.
-    distributed: bool = False           # multi-host initialisation
-    data_parallel: int = -1             # -1: use all visible devices on the 'data' axis
+    # Distributed / parallelism settings (gaot_torch/parallel/): one process
+    # a rank, launched by torchrun; data_parallel x model_parallel must equal
+    # the world size.
+    distributed: bool = False           # join the process group (torch.distributed)
+    data_parallel: int = -1             # -1: world size // model_parallel on the 'data' axis
     model_parallel: int = 1             # 'model' axis size (tensor parallel transformer)
     spatial_parallel: bool = False      # shard latent tokens / query points over 'model'
-    #   (sequence parallelism for GAOT-3D-scale grids; see parallel/spatial.py)
+    #   (sequence parallelism for GAOT-3D-scale grids, fx data; see parallel/spatial.py)
     epoch_scan: str = "auto"            # the JAX package's whole-epoch scan; the
     #   port issues its steps one by one whatever it says (kept so both
     #   packages read the same configs)
-    coordinator_address: Optional[str] = None
-    num_processes: Optional[int] = None
+    coordinator_address: Optional[str] = None   # rendezvous (host:port or URL);
+    num_processes: Optional[int] = None         # else torchrun's environment
     process_id: Optional[int] = None
     profile_dir: Optional[str] = None   # if set, fit runs under torch.profiler and
     #   writes a Chrome trace (trace.json) here

@@ -14,9 +14,10 @@ import torch
 from torch import nn
 
 from ..core.config import ModelConfig
+from ..parallel import comm
 from .magno import MAGNODecoder, MAGNOEncoder
 from .mlp import Dense, init_parameters
-from .transformer import Transformer
+from .transformer import GroupQueryAttention, Transformer
 
 
 def patch_positions(grid_shape: Sequence[int], patch_size: int) -> np.ndarray:
@@ -110,6 +111,20 @@ class GAOT(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_parameters(self, generator)
+        self.spatial = None
+
+    def shard_queries(self, shard) -> None:
+        """Spatial parallelism (``parallel/spatial.py``): from here on the
+        forward computes ``shard``'s latent queries, tokens and output
+        queries; the caller gives it the encoder and decoder graphs whose
+        rows are those ranges (``spatial.cut_rows``)."""
+        self.spatial = shard
+        for mod in self.processor.modules():
+            if isinstance(mod, GroupQueryAttention):
+                mod.sp = (shard.group, shard.tokens)
+        for mod in (self.encoder, self.decoder):
+            if mod.config.use_geoembed:
+                mod.geoembed.group = shard.group
 
     def process(self, rndata: torch.Tensor,
                 condition: Optional[torch.Tensor] = None,
@@ -117,12 +132,15 @@ class GAOT(nn.Module):
         """UViT over patch tokens; ``condition`` [B, 1] feeds the
         conditional norms, ``generator`` draws the attention dropout."""
         c = rndata.shape[-1]
-        tokens = self.patch_linear(patchify(rndata, self.grid_shape, self.patch_size))
+        sp = self.spatial
+        grid = self.grid_shape if sp is None else sp.grid
+        tokens = self.patch_linear(patchify(rndata, grid, self.patch_size))
         if not self.use_rope:
-            tokens = tokens + self.pos_emb.to(tokens.dtype)
+            pos = self.pos_emb if sp is None else self.pos_emb[sp.tokens[0]:sp.tokens[1]]
+            tokens = tokens + pos.to(tokens.dtype)
         tokens = self.processor(tokens, use_rope=self.use_rope, condition=condition,
                                 generator=generator)
-        return unpatchify(tokens, self.grid_shape, self.patch_size, c)
+        return unpatchify(tokens, grid, self.patch_size, c)
 
     def forward(self, latent_tokens_coord, xcoord, pndata, encoder_graphs,
                 decoder_graphs, query_coord=None, encoder_tgraphs=None,
@@ -136,13 +154,22 @@ class GAOT(nn.Module):
         training forward: it draws the edge drop (``magno.sampling_strategy``)
         and the attention dropout (``atten_dropout``), in that order: the
         encoder's scales, the UViT's layers, the decoder's scales. None
-        (evaluation) drops nothing. Returns [B, M, Cout]."""
-        rndata = self.encoder(xcoord, pndata, latent_tokens_coord,
+        (evaluation) drops nothing. Returns [B, M, Cout]; under spatial
+        parallelism (:meth:`shard_queries`) this rank's output queries
+        [B, M_rank, Cout]."""
+        sp = self.spatial
+        latent_enc = (latent_tokens_coord if sp is None
+                      else latent_tokens_coord[sp.latent[0]:sp.latent[1]])
+        rndata = self.encoder(xcoord, pndata, latent_enc,
                               encoder_graphs, tgraphs=encoder_tgraphs,
                               generator=generator)
         rndata = self.process(rndata, condition=condition, generator=generator)
         if query_coord is None:
             query_coord = xcoord
+        if sp is not None:
+            # The decoder reads the whole latent grid for its own queries.
+            rndata = comm.gather_along(rndata, sp.group, 1)
+            query_coord = query_coord[..., sp.nodes[0]:sp.nodes[1], :]
         return self.decoder(latent_tokens_coord, rndata, query_coord,
                             decoder_graphs, tgraphs=decoder_tgraphs,
                             generator=generator)

@@ -24,6 +24,7 @@ from torch import nn
 from ..ops.gather_apply import FlatGraph
 from ..ops.padding import BucketedGraph
 from ..ops.segment_ops import masked_max, masked_mean, masked_sum
+from ..parallel import comm
 from .mlp import Dense
 
 
@@ -113,6 +114,22 @@ def raw_statistical_features(input_geom: torch.Tensor,
     return torch.where(has_nbrs[:, None], feats, torch.zeros_like(feats))
 
 
+def _standardize_spread(feats: torch.Tensor, valid: Optional[torch.Tensor],
+                        group) -> torch.Tensor:
+    """Standardization over the (valid) queries of every rank of ``group``,
+    which each hold a range of them (spatial parallelism): the sums and
+    counts summed over the ranks, the unbiased std of one process."""
+    v = (torch.ones_like(feats[:, :1]) if valid is None
+         else valid.to(feats.dtype)[:, None])
+    n = comm.sum_over(v.sum(0, keepdim=True), group)
+    mean = comm.sum_over((feats * v).sum(0, keepdim=True), group) / n.clamp(min=1.0)
+    var = comm.sum_over((((feats - mean) ** 2) * v).sum(0, keepdim=True),
+                        group) / (n - 1.0).clamp(min=1.0)
+    std = torch.sqrt(var)
+    std = torch.where(std < 1e-6, torch.ones_like(std), std)
+    return (feats - mean) / std
+
+
 def _standardize_grouped(feats: torch.Tensor, num_samples: int) -> torch.Tensor:
     """Standardize over queries per sample (unbiased std, as torch .std)."""
     flat_q = feats.shape[0]
@@ -175,6 +192,9 @@ class GeometricEmbedding(nn.Module):
             self.fc = nn.Sequential(dense(64, output_dim), nn.ReLU())
         else:
             raise ValueError(f"Unknown geometric embedding method: {method}")
+        # Spatial parallelism: the ranks whose queries the statistical
+        # features are standardized over (GAOT.shard_queries sets it).
+        self.group = None
 
     def _pointnet(self, input_geom: torch.Tensor, latent_queries: torch.Tensor,
                   graph, nbr: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -225,8 +245,12 @@ class GeometricEmbedding(nn.Module):
                 # FlatGraphs (data/graph_builder.py::vx_flat_graphs).
                 raise ValueError("a BucketedGraph is an fx graph (one sample); a vx "
                                  "batch's graph is a FlatGraph")
+            if self.group is not None:
+                return self.mlp(_standardize_spread(feats, graph.row_valid, self.group))
             return self.mlp(_standardize_valid(feats, graph.row_valid))
         feats = features(input_geom, latent_queries, graph, nbr)
         if pointnet:
             return feats
+        if self.group is not None:
+            return self.mlp(_standardize_spread(feats, None, self.group))
         return self.mlp(_standardize_grouped(feats, num_samples))

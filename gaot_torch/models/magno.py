@@ -77,10 +77,14 @@ class _MAGNOBase(nn.Module):
         if generator is None or cfg.sampling_strategy is None:
             return graph
 
+        # A vx graph's rows are its samples' (sample-major): a data-parallel
+        # step draws the global batch's numbers for them.
+        samples = graph.num_samples if isinstance(graph, FlatGraph) else None
+
         def drop(g):
             return g._replace(mask=apply_edge_drop_mask(
                 g.mask, generator, cfg.sampling_strategy, cfg.max_neighbors,
-                cfg.sample_ratio))
+                cfg.sample_ratio, samples))
         if isinstance(graph, (BucketedGraph, FlatGraph)):
             return graph._replace(buckets=tuple(drop(g) for g in graph.buckets))
         return drop(graph)

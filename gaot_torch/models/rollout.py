@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..data.sequential import STEPPER_MODES
+from ..parallel.spatial import gather_nodes
 
 
 def _to(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -93,6 +94,9 @@ def autoregressive_predict(model, x_batch: torch.Tensor, time_indices,
         pred = model(graphs.latent_tokens_coord, coord, pndata, graphs.encoder,
                      graphs.decoder, encoder_tgraphs=graphs.encoder_t,
                      decoder_tgraphs=graphs.decoder_t, condition=cond)
+        # Under spatial parallelism each rank predicts its nodes; the next
+        # step reads them all.
+        pred = gather_nodes(pred, getattr(model, "spatial", None), 1)
         # Stepper-mode denormalisation (reference gaot.py:454-472).
         if stepper_mode == "output":
             pred_denorm = pred * u_std + u_mean

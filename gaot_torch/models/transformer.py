@@ -23,6 +23,8 @@ from torch import nn
 from ..core.config import TransformerConfig
 from ..ops.cuda import flash_attention as flash
 from ..ops.cuda import fused_ffn as ffn_kernel
+from ..ops.draws import Draws, uniform
+from ..parallel import comm
 from ..utils.routing import record_route
 from .mlp import ConditionedNorm, Dense
 
@@ -59,10 +61,18 @@ def apply_rope(x: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
     return rotated.to(x.dtype)
 
 
-def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
-                 device) -> torch.Tensor:
-    """A Bernoulli(1 − rate) keep mask of ``shape`` drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+def dropout_keep(shape, rate: float, generator: Optional[Draws],
+                 device, heads: tuple = (0, 1)) -> torch.Tensor:
+    """A Bernoulli(1 − rate) keep mask of ``shape`` [B, Hkv, G, S, S] drawn
+    from ``generator``; from a :class:`~gaot_torch.ops.draws.BatchShare`
+    (a data-parallel step) the global batch's draw, of which this rank's
+    samples are kept. ``heads`` (index, count) keeps the index-th of count
+    equal KV-head ranges of a tensor-parallel rank, so every rank draws
+    what one process draws."""
+    index, count = heads
+    full = (shape[0], shape[1] * count, *shape[2:])
+    u = uniform(full, generator, device, samples=shape[0])
+    return u.narrow(1, index * shape[1], shape[1]) < 1.0 - rate
 
 
 def attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,6 +121,15 @@ class GroupQueryAttention(nn.Module):
         self.o_proj = mk(hidden_size, input_size)
         self.correction = (ConditionedNorm(input_size, dtype=dtype, device=device)
                            if use_conditional_norm else None)
+        self.tp_group, self.tp_heads = None, (0, 1)
+        self.sp = None          # spatial parallelism: (group, this rank's token range)
+
+    def shard_over(self, group, index: int, count: int) -> None:
+        """Tensor parallelism (``parallel/mesh.py::shard_model``, which cuts
+        the weights): this rank holds the index-th of ``count`` head
+        ranges; ``o_proj`` is row-parallel, its outputs summed over
+        ``group``."""
+        self.tp_group, self.tp_heads = group, (index, count)
 
     def forward(self, x: torch.Tensor, use_rope: bool = False,
                 condition: Optional[torch.Tensor] = None,
@@ -121,10 +140,19 @@ class GroupQueryAttention(nn.Module):
         [B, Hkv, G, S, S] instead. Otherwise no dropout."""
         if self.correction is not None:
             x = self.correction(condition, x)
+        x = comm.copy_to_group(x, self.tp_group)
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        # The heads this rank holds: all of them, or 1/mp under tensor
+        # parallelism.
+        q = self.q_proj(x).view(b, s, -1, self.head_dim)
+        k = self.k_proj(x).view(b, s, -1, self.head_dim)
+        v = self.v_proj(x).view(b, s, -1, self.head_dim)
+        if self.sp is not None:
+            # Spatial parallelism: this rank's tokens; the sequence is
+            # gathered (RoPE then sees the global positions), attention runs
+            # at its full length and the rank keeps its rows.
+            group, (lo, hi) = self.sp
+            q, k, v = (comm.gather_along(t, group, 1) for t in (q, k, v))
         if use_rope:
             q, k = apply_rope(q), apply_rope(k)
         # "auto"/"pallas": the flash kernel's wrapper, which launches the
@@ -134,6 +162,12 @@ class GroupQueryAttention(nn.Module):
         # JAX package routes it (the flash kernel has none).
         if keep is not None or (self.atten_dropout > 0 and generator is not None):
             record_route("attn", "plain-dropout")
+            if keep is None and self.tp_group is not None:
+                # This rank's heads of the keep mask one process draws.
+                hkv = k.shape[2]
+                keep = dropout_keep((b, hkv, q.shape[2] // hkv, q.shape[1], k.shape[1]),
+                                    self.atten_dropout, generator, q.device,
+                                    self.tp_heads)
             out = attention_dropout(q, k, v, self.atten_dropout, generator, keep)
         elif self.backend == "xla":
             record_route("attn", "plain")
@@ -141,7 +175,9 @@ class GroupQueryAttention(nn.Module):
         else:
             record_route("attn", "cuda" if q.is_cuda else "plain")
             out = flash.flash_attention(q, k, v)
-        return self.o_proj(out.reshape(b, s, -1))
+        if self.sp is not None:
+            out = out[:, lo:hi]
+        return comm.reduce_from_group(self.o_proj(out.reshape(b, s, -1)), self.tp_group)
 
 
 class FFN(nn.Module):
@@ -160,6 +196,14 @@ class FFN(nn.Module):
         self.w2 = mk(ffn_hidden_size, input_size)
         self.correction = (ConditionedNorm(input_size, dtype=dtype, device=device)
                            if use_conditional_norm else None)
+        self.tp_group = None
+
+    def shard_over(self, group, index: int, count: int) -> None:
+        """Tensor parallelism (``parallel/mesh.py::shard_model``, which cuts
+        the weights): this rank holds 1/``count`` of the SwiGLU columns;
+        ``w2`` is row-parallel, its outputs summed over ``group``."""
+        self.tp_group = group
+        self.ffn_hidden_size //= count
 
     def _use_fused(self, x: torch.Tensor) -> bool:
         """The JAX package's routing: the fused SwiGLU kernel's wrapper
@@ -180,6 +224,7 @@ class FFN(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = comm.copy_to_group(x, self.tp_group)
         if self._use_fused(x):
             record_route("ffn", "cuda" if x.is_cuda else "plain-fused")
             dt = x.dtype
@@ -190,6 +235,7 @@ class FFN(nn.Module):
         else:
             record_route("ffn", "plain")
             out = self.w2(F.silu(self.w1(x)) * self.w3(x))
+        out = comm.reduce_from_group(out, self.tp_group)
         if self.correction is not None:
             out = self.correction(condition, out)
         return out

@@ -22,14 +22,14 @@ def checkpoint_file(path: str) -> str:
     return f"{path}.pt"
 
 
-def save_checkpoint(path: str, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer, step: int) -> str:
-    """Write the model, the optimizer and the update count; returns the file."""
+def save_checkpoint(path: str, model: Dict[str, torch.Tensor], optimizer: Dict,
+                    step: int) -> str:
+    """Write the model's and the optimizer's ``state_dict`` and the update
+    count; returns the file."""
     fname = checkpoint_file(os.path.abspath(path))
     os.makedirs(os.path.dirname(fname), exist_ok=True)
     tmp = f"{fname}.{os.getpid()}.tmp"
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "step": int(step)}, tmp)
+    torch.save({"model": model, "optimizer": optimizer, "step": int(step)}, tmp)
     os.replace(tmp, fname)
     return fname
 

@@ -154,9 +154,10 @@ class SequentialTrainer(StaticTrainer):
                     self.model, placed["input"], time_indices, self.t_values,
                     self.stats, self.stepper_mode, graph_args, coord,
                     use_conditional_norm=self.model_config.use_conditional_norm)
-                pred = pred.cpu().numpy()
-                target = np.asarray(batch["target"], dtype=np.float64)
+                # Each rank rolls its share out; the metric takes the batch.
                 keep = batch["sample_mask"]
+                pred = self.gather_batch(pred, len(keep)).cpu().numpy()
+                target = np.asarray(batch["target"], dtype=np.float64)
                 pred, target = pred[keep], target[keep]
                 if vx:
                     # Padded nodes take the metric's global mean on both
@@ -182,10 +183,11 @@ class SequentialTrainer(StaticTrainer):
                         "coords": self.data_processor.coord_scaler.inverse_transform(coords),
                     }
             errors[mode] = compute_final_metric(np.concatenate(all_errs, 0))
-            print(f"{mode} mode error: {errors[mode]}")
+            if self.rank0:
+                print(f"{mode} mode error: {errors[mode]}")
 
         self._store_results(errors, modes)
-        if example is not None:
+        if example is not None and self.rank0:
             self._plot_results(example)
         return errors
 

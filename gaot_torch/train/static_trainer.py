@@ -22,6 +22,9 @@ from ..data.data_processor import DataProcessor
 from ..data.graph_builder import GraphBuilder, prepare_fx_device_graphs, vx_flat_graphs
 from ..data.loader import make_static_fx_loader, make_static_vx_loader
 from ..models import GAOT
+from ..ops.draws import BatchShare
+from ..parallel import comm
+from ..parallel.spatial import cut_rows, spatial_shard, sum_grads
 from ..utils.metrics import compute_batch_errors, compute_final_metric
 from ..utils.plotting import plot_estimates, pyplot
 from .base_trainer import BaseTrainer
@@ -38,16 +41,42 @@ class FxGraphs(NamedTuple):
     decoder_t: Optional[list] = None
 
 
-def masked_mse(pred: torch.Tensor, target: torch.Tensor,
-               sample_mask: torch.Tensor,
-               node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """MSE over valid (sample, node) entries, in fp32."""
+def masked_sum_count(pred: torch.Tensor, target: torch.Tensor,
+                     sample_mask: torch.Tensor,
+                     node_mask: Optional[torch.Tensor] = None):
+    """(Σ squared error, count) over valid (sample, node) entries, fp32."""
     err = (pred.float() - target.float()) ** 2
     w = sample_mask.float()[:, None, None]
     if node_mask is not None:
         w = w * node_mask.float()[..., None]
     w = w.expand(err.shape)
-    return (err * w).sum() / w.sum().clamp(min=1.0)
+    return (err * w).sum(), w.sum()
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor,
+               sample_mask: torch.Tensor,
+               node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE over valid (sample, node) entries, in fp32."""
+    total, count = masked_sum_count(pred, target, sample_mask, node_mask)
+    return total / count.clamp(min=1.0)
+
+
+def global_masked_mse(pred, target, sample_mask, node_mask=None, mesh=None):
+    """The masked MSE of the global batch from this rank's share: (the
+    objective whose gradient, averaged by DDP over the data axis, is the
+    one-process gradient, the loss). The sum over the global batch divided
+    by its count of valid entries: each rank's objective is
+    dp · local sum / global count, the count summed outside autograd (a
+    mean of the ranks' means is wrong wherever their counts differ: vx node
+    masks, a padded last batch). With no mesh of several ranks, the masked
+    MSE twice."""
+    if mesh is None or mesh.trivial:
+        loss = masked_mse(pred, target, sample_mask, node_mask)
+        return loss, loss.detach()
+    total, count = masked_sum_count(pred, target, sample_mask, node_mask)
+    count = comm.all_reduce(count.detach(), mesh.loss_group).clamp(min=1.0)
+    loss = comm.all_reduce(total.detach(), mesh.loss_group) / count
+    return total * mesh.dp / count, loss
 
 
 def _forward(model, graphs: FxGraphs, coord, pndata, condition=None, generator=None):
@@ -63,39 +92,54 @@ def train_step(model, optimizer: torch.optim.Optimizer,
                sample_mask: torch.Tensor,
                node_mask: Optional[torch.Tensor] = None,
                condition: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               mesh=None) -> torch.Tensor:
     """One optimizer step on one batch: the forward in training mode, the
     masked MSE, its backward through the kernels' gradients, then the
     update with the learning rate ``schedule(step)`` (``step`` counts the
     updates from 0). ``condition`` [B, 1] is the time condition of a
     conditional-norm model. ``generator`` (on the model's device) draws the
     edge drop and the attention dropout; a model configured with either
-    needs one. Returns the loss (detached, fp32)."""
-    if generator is None and (model.encoder.config.sampling_strategy is not None
-                              or model.processor.config.attn_config.atten_dropout > 0):
+    needs one. On a ``mesh`` of several ranks ``model`` may be the DDP
+    wrapper, the batch is this rank's share, the draws those of the global
+    batch of which the rank keeps its samples' (so every rank's generator
+    moves as one process's) and the loss the global batch's
+    (:func:`global_masked_mse`). Returns the loss (detached, fp32)."""
+    net = getattr(model, "module", model)
+    if generator is None and (net.encoder.config.sampling_strategy is not None
+                              or net.processor.config.attn_config.atten_dropout > 0):
         raise ValueError("edge drop (magno.sampling_strategy) and attention dropout "
                          "(atten_dropout) draw from a generator: pass train_step a "
                          "torch.Generator on the model's device")
+    if generator is not None and mesh is not None and mesh.dp > 1:
+        b = sample_mask.shape[0]
+        generator = BatchShare(generator, mesh.data_index * b, mesh.dp * b)
     model.train()
-    loss = masked_mse(_forward(model, graphs, coord, pndata, condition, generator),
-                      target, sample_mask, node_mask)
-    loss.backward()
+    objective, loss = global_masked_mse(
+        _forward(model, graphs, coord, pndata, condition, generator),
+        target, sample_mask, node_mask, mesh)
+    objective.backward()
+    if mesh is not None and mesh.spatial:
+        # Each rank's gradients are its queries' share: summed over them.
+        sum_grads(net.parameters(), mesh.model_group)
     lr = schedule(step)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
-    return loss.detach()
+    return loss
 
 
 @torch.no_grad()
 def eval_step(model, graphs: FxGraphs, coord: torch.Tensor, pndata: torch.Tensor,
               target: torch.Tensor, sample_mask: torch.Tensor,
               node_mask: Optional[torch.Tensor] = None,
-              condition: Optional[torch.Tensor] = None):
-    """One evaluation batch: (prediction [B, N, Cout], masked MSE)."""
+              condition: Optional[torch.Tensor] = None, mesh=None):
+    """One evaluation batch: (prediction [B, N, Cout], masked MSE). On a
+    ``mesh`` of several ranks the batch is this rank's share, the
+    prediction its own and the MSE the global batch's."""
     pred = _forward(model, graphs, coord, pndata, condition)
-    return pred, masked_mse(pred, target, sample_mask, node_mask)
+    return pred, global_masked_mse(pred, target, sample_mask, node_mask, mesh)[1]
 
 
 class StaticTrainer(BaseTrainer):
@@ -165,6 +209,10 @@ class StaticTrainer(BaseTrainer):
         ``{name}-{coord_scaling}{cache_suffix}``, as the JAX trainers name
         it). Only the linear transforms' graphs are degree-bucketed; the
         nonlinear ones stay dense, the JAX trainers' guard."""
+        if self.mesh.spatial:
+            raise NotImplementedError(
+                "spatial_parallel on vx data (a mesh per sample) is not ported: "
+                "ROADMAP item 13b; fx data shards its queries")
         magno, cfg = self.model_config.args.magno, self.dataset_config
         builder = GraphBuilder.from_magno_config(magno)
         kw = dict(build_train=self.setup_config.train,
@@ -186,6 +234,15 @@ class StaticTrainer(BaseTrainer):
         coord = self.data_processor.coord_scaler(x)
         enc, dec = GraphBuilder.from_magno_config(magno).build_fx_graphs(
             coord, latent, magno.radius, magno.scales)
+        if self.mesh.spatial:
+            # This rank's rows: its latent queries in the encoder, its
+            # output queries in the decoder.
+            self.spatial = sp = spatial_shard(
+                self.model_config.latent_tokens_size,
+                self.model_config.args.transformer.patch_size, coord.shape[0],
+                self.mesh.model_group, self.mesh.model_index, self.mesh.mp)
+            enc = [cut_rows(g, *sp.latent) for g in enc]
+            dec = [cut_rows(g, *sp.nodes) for g in dec]
         self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
         self.graphs = FxGraphs(self.latent, *prepare_fx_device_graphs(
             enc, dec, coord.shape[0], latent.shape[0], magno, device=self.device))
@@ -216,23 +273,26 @@ class StaticTrainer(BaseTrainer):
         return batch["c"], batch["u"], None
 
     def train_step(self, batch) -> torch.Tensor:
-        batch = self.place_batch(batch)
+        if "global_samples" not in batch:
+            batch = self.place_batch(batch)
         graphs, coord, node_mask = self._model_args(batch)
         pndata, target, condition = self._inputs(batch)
-        loss = train_step(self.model, self.optimizer, self.schedule, self.step,
+        target = self.local_nodes(target)
+        loss = train_step(self.train_model, self.optimizer, self.schedule, self.step,
                           graphs, coord, pndata, target, self.sample_mask(batch),
-                          node_mask, condition, self.generator)
+                          node_mask, condition, self.generator, self.mesh)
         self.step += 1
         return loss
 
     def _eval(self, batch):
-        """(prediction, masked MSE) of one batch, in evaluation mode."""
+        """(this rank's prediction, the global batch's masked MSE) of one
+        batch, in evaluation mode."""
         self.model.eval()
         batch = self.place_batch(batch)
         graphs, coord, node_mask = self._model_args(batch)
         pndata, target, condition = self._inputs(batch)
-        return eval_step(self.model, graphs, coord, pndata, target,
-                         self.sample_mask(batch), node_mask, condition)
+        return eval_step(self.model, graphs, coord, pndata, self.local_nodes(target),
+                         self.sample_mask(batch), node_mask, condition, self.mesh)
 
     def validate(self, loader) -> float:
         if loader is None:
@@ -253,6 +313,7 @@ class StaticTrainer(BaseTrainer):
         last = None
         for batch in self.test_loader:
             pred, _ = self._eval(batch)
+            pred = self.gather_batch(pred, len(batch["sample_mask"]), node_dim=1)
             pred = pred.float().cpu().numpy().astype(np.float64)
             target = np.asarray(torch.as_tensor(batch["u"]).cpu(), dtype=np.float64)
             keep = batch["sample_mask"]
@@ -282,8 +343,9 @@ class StaticTrainer(BaseTrainer):
         self.last_test_errors = np.concatenate(all_errors, axis=0)
         final_metric = compute_final_metric(self.last_test_errors)
         self.datarow["relative error (direct)"] = final_metric
-        print(f"Relative error: {final_metric}")
-        self._plot_test_example(last)
+        if self.rank0:
+            print(f"Relative error: {final_metric}")
+            self._plot_test_example(last)
         return final_metric
 
     def _plot_test_example(self, last):

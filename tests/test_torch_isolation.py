@@ -22,6 +22,14 @@ def _sources():
                                                            ROOT / "kernel_ab.py"]
 
 
+def test_sources_cover_parallel_and_tools():
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for m in ("parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
+              "parallel/spatial.py", "tools/import_torch_ckpt.py",
+              "tools/export_torch_ckpt.py"):
+        assert f"gaot_torch/{m}" in names, m
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -47,6 +55,10 @@ def test_imports_with_jax_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert 'gaot_torch.models.gaot' in mods\n"
+        "for m in ('parallel', 'parallel.mesh', 'parallel.comm', 'parallel.spatial',\n"
+        "          'tools',\n"
+        "          'tools.import_torch_ckpt', 'tools.export_torch_ckpt'):\n"
+        "    assert 'gaot_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -12,9 +12,10 @@
   weights come back at the end of a fit.
 - CLI: the datarow's columns, a CSV database shared with the JAX CLI, ``-f``
   through ``python -m gaot_torch.cli`` subprocesses, ``setup.profile_dir``.
-- Refusals of what is not ported (multi-device); the vx options that were
-  refused build, and the sequential trainer with edge drop and with
-  attention dropout, which are ported, trains through the CLI.
+- What was refused: a mesh that does not fit the processes and a
+  distributed run without a rendezvous raise what they need; the vx options
+  that were refused build, and the sequential trainer with edge drop and
+  with attention dropout, which are ported, trains through the CLI.
 """
 import copy
 import csv
@@ -273,8 +274,15 @@ def test_refuses_what_is_not_ported(tmp_path, what):
         for device in ("auto", "cuda"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 StaticTrainer(_config(tmp_path, "dev", setup={"device": device}))
+    elif what == "distributed":
+        # Multi-GPU training is ported (tests/test_torch_parallel.py): a
+        # distributed run with no rendezvous (no torchrun environment, no
+        # coordinator address) says what it needs.
+        with pytest.raises(ValueError, match="rendezvous"):
+            StaticTrainer(_config(tmp_path, what, setup={"distributed": True}))
     else:
-        setup = ({"distributed": True} if what == "distributed"
-                 else {"model_parallel": 2})
-        with pytest.raises(NotImplementedError, match="item 13"):
-            StaticTrainer(_config(tmp_path, what, setup=setup))
+        # One process is a world of one rank: a mesh of two model ranks
+        # does not fit it (no device is left idle, unlike the JAX mesh).
+        for setup in ({"model_parallel": 2}, {"data_parallel": 2}):
+            with pytest.raises(ValueError, match="world size 1"):
+                StaticTrainer(_config(tmp_path, what, setup=setup))
