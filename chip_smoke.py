@@ -138,7 +138,9 @@ failure):
      min(degree, 32) of its own edges, the decoder's graphs untouched), the
      same batch-32 step with and without the drop (launches, ms, device
      busy, kernels) and the evaluation forward, each profile without a row
-     gather, the card against the CPU plain route at batch 2 on the
+     gather but the drop's reads of its uniforms (drawn in query order, one
+     index_select a thinned bucket), the card against the CPU plain route
+     at batch 2 on the
      same dropped masks (drawn once on the CPU; fp32 bounds of phase 4),
      and the multiply-reduces on the batch's masks with holes (ratio 0.5,
      then max_neighbors 32) against their plain versions, twice bit for
@@ -190,16 +192,29 @@ failure):
      rank's graphs held exactly, from a profile the device time of NCCL's
      kernels and of every copy in the step, gloo's round trips of the
      all-reduces through the host among them; two ranks share the card: not
-     a multi-card speed); (10.3) with
-     two cards or more the same runs over NCCL, one rank a card, else logged
-     as not run; the kernels at the ranks' shapes for the line below.
+     a multi-card speed); then on vx data (a mesh per sample), spatial_parallel
+     at mp 2 in one start of two ranks, one process's runs before them in a
+     process of its own: sp-vx, the vx flagship's model
+     through the trainer on synthetic meshes of 8192 nodes (each rank's cut
+     graphs through the graph cache: its second trainer must hit it), fp32
+     at a global batch of 4 against one process (the bounds above, the
+     weights under sp's), then bf16 at 16 (per-rank ms, profile, the launch
+     table derived from the rank's cut graphs held exactly); naca-sp, one
+     fp32 step of naca0012.json (edge drop to 32 neighbours) at a global
+     batch of 4, the loss and gradients against one process; elasticity-sp,
+     elasticity.json fitted 2 epochs in fp32, its train and validation
+     losses and test metric within 1e-5 of one process's; (10.3) with
+     two cards or more the fx runs over NCCL, one rank a card, else logged
+     as not run; the kernels at the ranks' shapes for the line below,
+     measured in a process of their own (the fx rows) and in rank 0 (the vx
+     reduces on its cut graphs of its bf16 batch).
   9. prints one JSON line listing every kernel of the five paths (the fx
      main path's launches are those of the trainer's run A; the vx
      entries' those of the vx flagship's training step and forward; the
      sequential entries', @seq, those of run A; the naca0012 entries,
      @naca, the multiply-reduces on its thinned masks with its CLI run's
-     launches; @dp, @tp, @sp, phase 10's, with rank 0's launches in one
-     bf16 step).
+     launches; @dp, @tp, @sp, @sp-vx, phase 10's, with rank 0's launches in
+     one bf16 step).
 The last line is {"ok": true, "device": {...}}.
 """
 import copy
@@ -395,7 +410,7 @@ def device_events(calls, what: str):
     that ``calls()`` runs under torch.profiler, synchronised at the end. A
     trace that holds no device event is taken again, at most twice more
     (the profiler's device tracing now and then delivers none on the
-    H100); a third empty trace fails."""
+    H100), a second after the last; a third empty trace fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -410,6 +425,7 @@ def device_events(calls, what: str):
         if events:
             return events
         log(f"  the profiler saw no device time in the {what} (trace {attempt + 1})")
+        time.sleep(1.0)
     fail(f"the profiler saw no device time in the {what}")
 
 
@@ -1207,16 +1223,20 @@ def _vx_reduce_cases(path: Path, what: str, device="cuda"):
                               path.train_launches["multiply_reduce_k"])
 
 
-def _flat_reduce_cases(graphs, b: int, n: int, nq: int, what: str, want: int):
+def _flat_reduce_cases(graphs, b: int, n: int, nq: int, what: str, want: int,
+                       rows=None):
     """:func:`_vx_reduce_cases` of the FlatGraphs ``graphs`` of a vx batch
-    of ``b`` samples, n padded nodes and nq latent queries a sample;
-    ``want``: the multiply-reduce calls of its training step."""
+    of ``b`` samples, n padded nodes and nq latent queries a sample (the
+    encoder's and the decoder's query rows ``rows``, a rank's under spatial
+    parallelism; default nq and n); ``want``: the multiply-reduce calls of
+    its training step."""
     from gaot_torch.ops.gather_apply import df_calls
 
     cases = {"forward": [], "d_f": [], "forward_calls": 0}
     desc = []
-    for side, vg, n_src, n_q in (("encoder", graphs.encoder[0], n, nq),
-                                 ("decoder", graphs.decoder[0], nq, n)):
+    rows = rows or (nq, n)
+    for side, vg, n_src, n_q in (("encoder", graphs.encoder[0], n, rows[0]),
+                                 ("decoder", graphs.decoder[0], nq, rows[1])):
         cases["forward"] += [dict(name=f"{side} bucket", idx=bk.indices, mask=bk.mask,
                                   n_src=b * n_src) for bk in vg.buckets]
         edges = sum(bk.indices.numel() for bk in vg.buckets)
@@ -1753,6 +1773,34 @@ def _cli_in_process(cfg_path: str, what: str, profile: bool = False):
                           if "=" in kv), secs, prof, buf.getvalue()
 
 
+def _cli_profiled(cfg_path: str, raw: dict, what: str):
+    """``_cli_in_process`` under the device-only profiler, its trace held
+    whole: it must hold one multiply-reduce kernel for each launch the
+    wrappers counted. The profiler's device tracing now and then delivers
+    no trace, or part of one, on the H100, and a row-gather count read from
+    such a trace says nothing; the run is then taken again (its CSV row
+    removed first), at most twice more, a second after the last. Returns
+    (launches, routes, seconds, the device kernels, the output)."""
+    from torch.autograd import DeviceType
+
+    for attempt in range(3):
+        launches, routes, secs, prof, out = _cli_in_process(cfg_path, what, profile=True)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        traced = sum(e.count for e in events if "mulred_" in e.key)
+        counted = launches["multiply_reduce_k"] + launches["multiply_reduce_b"]
+        if traced == counted:
+            return launches, routes, secs, events, out
+        log(f"  [{what}] the trace holds {traced} multiply-reduce kernels of the "
+            f"{counted} launched, {sum(e.count for e in events)} kernels in all "
+            f"(trace {attempt + 1})")
+        if os.path.exists(raw["path"]["database_path"]):
+            os.remove(raw["path"]["database_path"])
+        time.sleep(1.0)
+    fail(f"trainer {what}: three device traces in a row missed kernels the run launched")
+
+
 def _steady_rate(output: str, train_size: int) -> tuple:
     """From a fit's printed evaluations ("epoch E/N ... at T s"): the
     seconds to the first evaluation, and the samples/s from it to the last
@@ -1825,7 +1873,6 @@ def phase_trainer(card: str, step_ms: float):
     import tempfile
 
     import torch
-    from torch.autograd import DeviceType
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from synthetic import make_static_fx_dataset
@@ -1844,8 +1891,8 @@ def phase_trainer(card: str, step_ms: float):
         cfg_a, raw_a = _trainer_config(folder, "run_a", compute_dtype="bfloat16")
         want_a, steps, evals = _trainer_launches(raw_a, bf16=True)
         torch.cuda.reset_peak_memory_stats()
-        launches_a, routes_a, secs_a, prof, out_a = _cli_in_process(
-            cfg_a, "run A bf16", profile=True)
+        launches_a, routes_a, secs_a, events, out_a = _cli_profiled(
+            cfg_a, raw_a, "run A bf16")
         peak_a = torch.cuda.max_memory_allocated()
         log(f"trainer run A: {steps} training steps, {evals} evaluation batches; "
             f"launches {launches_a}; routes {routes_a}; {secs_a:.1f} s in the CLI")
@@ -1854,10 +1901,6 @@ def phase_trainer(card: str, step_ms: float):
         if _ckpt_step(raw_a) != steps:
             fail(f"trainer run A: the checkpoint's step is {_ckpt_step(raw_a)}, "
                  f"expected {steps}")
-        t_prof = time.perf_counter()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                  and e.self_device_time_total > 0]
         busy_s = sum(e.self_device_time_total for e in events) / 1e6
         # PyTorch's row gather runs only where the loader selects a batch's
         # samples from the split buffers on the device (index_select: one
@@ -1866,8 +1909,8 @@ def phase_trainer(card: str, step_ms: float):
         n_gathers = sum(e.count for e in gathers)
         loader_gathers = 2 * (steps + evals)
         train_s = float(row_a["training time"])
-        log(f"trainer run A device profile (the whole CLI run, read in "
-            f"{time.perf_counter() - t_prof:.1f} s): device busy {busy_s:.3f} s of "
+        log(f"trainer run A device profile (the whole CLI run): device busy "
+            f"{busy_s:.3f} s of "
             f"{secs_a:.3f} s, kernels {sum(e.count for e in events)}; row gathers "
             f"(vectorized_gather_kernel) {n_gathers} in "
             f"{sum(e.self_device_time_total for e in gathers) / 1e3:.3f} ms, the "
@@ -1877,8 +1920,9 @@ def phase_trainer(card: str, step_ms: float):
             log(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  "
                 f"{e.key[:90]}")
         if n_gathers != loader_gathers:
-            fail("trainer run A: the model runs PyTorch's row gather "
-                 "(vectorized_gather_kernel) beside the loader's batch selects")
+            fail(f"trainer run A: {n_gathers} row gathers (vectorized_gather_kernel) "
+                 f"where the loader's batch selects are {loader_gathers}: the model "
+                 f"runs PyTorch's row gather beside them")
         sps_a = float(row_a["samples_per_sec"])
         first_a, steady_a = _steady_rate(out_a, TRAINER_SIZES["train_size"])
         log(f"trainer run A bf16 ({card}): training time {train_s:.3f} s, "
@@ -1948,7 +1992,6 @@ def phase_vx_trainer(card: str, step_ms: float):
     import tempfile
 
     import torch
-    from torch.autograd import DeviceType
 
     from gaot_torch.train.static_trainer import StaticTrainer
 
@@ -2001,8 +2044,8 @@ def phase_vx_trainer(card: str, step_ms: float):
         torch.cuda.empty_cache()
 
         torch.cuda.reset_peak_memory_stats()
-        launches, routes, secs, prof, out = _cli_in_process(cfg_path, "elasticity fp32",
-                                                            profile=True)
+        launches, routes, secs, events, out = _cli_profiled(cfg_path, raw,
+                                                            "elasticity fp32")
         peak = torch.cuda.max_memory_allocated()
         log(f"vx trainer: launches {launches}; routes {routes}; {secs:.1f} s in the CLI")
         rec, row = _check_run("elasticity fp32", raw, launches, routes, want, "plain")
@@ -2010,9 +2053,6 @@ def phase_vx_trainer(card: str, step_ms: float):
             fail(f"vx trainer: agno routes {routes['agno']}, expected vx:cuda")
         if _ckpt_step(raw) != steps:
             fail(f"vx trainer: the checkpoint's step is {_ckpt_step(raw)}, expected {steps}")
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                  and e.self_device_time_total > 0]
         busy_s = sum(e.self_device_time_total for e in events) / 1e6
         n_gathers = sum(e.count for e in events if "vectorized_gather_kernel" in e.key)
         loader_gathers = per_batch * (steps + evals)
@@ -2024,8 +2064,9 @@ def phase_vx_trainer(card: str, step_ms: float):
             log(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  "
                 f"{e.key[:90]}")
         if n_gathers != loader_gathers:
-            fail("vx trainer: the model runs PyTorch's row gather "
-                 "(vectorized_gather_kernel) beside the loader's batch selects")
+            fail(f"vx trainer: {n_gathers} row gathers (vectorized_gather_kernel) "
+                 f"where the loader's batch selects are {loader_gathers}: the model "
+                 f"runs PyTorch's row gather beside them")
         first, steady = _steady_rate(out, VX_TRAINER_SIZES["train_size"])
         log(f"vx trainer elasticity fp32 ({card}): training time "
             f"{float(row['training time']):.3f} s, samples_per_sec "
@@ -2116,7 +2157,6 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
 
     from gaot_torch.core import metadata as meta
     from gaot_torch.ops import cuda as kernels
@@ -2154,8 +2194,8 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
         del probe
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        launches_a, routes_a, secs_a, prof, out_a = _cli_in_process(
-            cfg_a, "seq run A bf16", profile=True)
+        launches_a, routes_a, secs_a, events, out_a = _cli_profiled(
+            cfg_a, raw_a, "seq run A bf16")
         peak_a = torch.cuda.max_memory_allocated()
         log(f"sequential run A: launches {launches_a}; routes {routes_a}; "
             f"{secs_a:.1f} s in the CLI")
@@ -2165,9 +2205,6 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
         if _ckpt_step(raw_a) != steps:
             fail(f"sequential run A: the checkpoint's step is {_ckpt_step(raw_a)}, "
                  f"expected {steps}")
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                  and e.self_device_time_total > 0]
         busy_s = sum(e.self_device_time_total for e in events) / 1e6
         n_gathers = sum(e.count for e in events if "vectorized_gather_kernel" in e.key)
         loader_gathers = per_batch * (steps + vals)
@@ -2180,8 +2217,9 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
             log(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  "
                 f"{e.key[:90]}")
         if n_gathers != loader_gathers:
-            fail("sequential run A: PyTorch's row gather (vectorized_gather_kernel) "
-                 "runs beside the loader's pair assembly")
+            fail(f"sequential run A: {n_gathers} row gathers (vectorized_gather_kernel) "
+                 f"where the loader's pair assembly runs {loader_gathers}: PyTorch's "
+                 f"row gather runs beside it")
         first, steady = _steady_rate(out_a, pairs)
         fwd_ms = rollout["autoregressive"][2] / rollout["autoregressive"][0]
         log(f"sequential run A bf16 ({card}): training time "
@@ -2365,11 +2403,22 @@ def _naca_drop_statistics(trainer, batches, m: int):
     return float(np.mean(shares))
 
 
+def _drop_reads(graphs, magno) -> int:
+    """The row reads of edge drop's uniforms in a training step
+    (``ops/edge_drop.py::drop_edges``, one ``index_select``, PyTorch's row
+    gather, a thinned bucket): each bucket of a bucketed graph wider than
+    ``max_neighbors`` (every bucket under ``ratio``)."""
+    m = magno.max_neighbors if magno.sampling_strategy == "max_neighbors" else 0
+    return sum(b.mask.shape[-1] > m for g in graphs.encoder + graphs.decoder
+               if g.perm is not None for b in g.buckets)
+
+
 def _naca_drop_cost(trainer, batch, train_table):
     """The same batch-32 fp32 step with and without the edge drop: launches
     (each the step's table), step ms and the profile's device busy, idle
     share and kernels a step; then the evaluation forward's profile. No
-    profile may hold PyTorch's row gather."""
+    profile may hold PyTorch's row gather but the drop's reads of its
+    uniforms (:func:`_drop_reads`)."""
     import torch
 
     from gaot_torch.ops import cuda as kernels
@@ -2398,7 +2447,10 @@ def _naca_drop_cost(trainer, batch, train_table):
             launches = kernels.launch_counts()
             _expect_launches(f"naca0012 step {label}", launches, train_table)
             times = host_times(run, 10)
-            prof = profile_step(run, f"naca0012 training step {label}")
+            # The drop's uniforms are drawn in query order and each thinned
+            # bucket reads its rows' (one index_select a bucket).
+            prof = profile_step(run, f"naca0012 training step {label}",
+                                gathers=_drop_reads(graphs, magno) if strat else 0)
             log(f"  naca0012 step {label} (batch {placed['c'].shape[0]}, fp32): "
                 f"launches {launches}; step_ms {fmt_times(times, placed['c'].shape[0])}")
             out[label] = dict(prof, ms=statistics.median(times))
@@ -2970,6 +3022,20 @@ MESH_RUNS = {   # mode: setup of the two ranks
 MESH_SIZES = {"train_size": 64, "val_size": 8, "test_size": 8}
 MESH_CHECK_BATCH, MESH_CHECK_STEPS, MESH_TIME_STEPS = 8, 3, 10
 RANK_TIMEOUT = 420
+# 10.2's vx runs, spatial_parallel at mp 2 on two ranks, in one start of
+# the ranks (mode "vx"): sp-vx, the vx flagship's model (CONFIG_VX) on
+# synthetic meshes of VX_NODES nodes (tests/synthetic.py::
+# make_static_vx_dataset's layout, seed 0) through the trainer, its graph
+# cache shared by each rank's two trainers (fp32 at a global batch of 4,
+# then bf16 at VX_BATCH); naca-sp, naca0012.json (edge drop to 32) one fp32
+# step at a global batch of 4; elasticity-sp, elasticity.json fitted 2
+# epochs in fp32. Each against one process on the card.
+SP2 = {"data_parallel": 1, "model_parallel": 2, "spatial_parallel": True}
+VX_MESH_SIZES = {"train_size": 16, "val_size": 4, "test_size": 4}
+VX_MESH_CHECK_BATCH = 4
+NACA_MESH_SIZES = {"train_size": 4, "val_size": 2, "test_size": 2}
+ELASTICITY_MESH_SIZES = {"train_size": 32, "val_size": 8, "test_size": 8}
+ELASTICITY_MESH_EPOCHS, ELASTICITY_MESH_BATCH = 2, 8
 
 
 def _mesh_config(folder: str, name: str, batch: int, bf16: bool, **setup) -> dict:
@@ -2983,6 +3049,133 @@ def _mesh_config(folder: str, name: str, batch: int, bf16: bool, **setup) -> dic
     raw["path"] = {"ckpt_path": out("ckpt"), "loss_path": out("loss.png"),
                    "result_path": out("result.png"), "database_path": out("db.csv")}
     return raw
+
+
+def _vx_mesh_config(folder: str, run: str, name: str, batch: int, bf16: bool = False,
+                    **setup) -> dict:
+    """The config of one of 10.2's vx runs (``run``: "sp-vx", "naca-sp" or
+    "elasticity-sp"; comment above), its data under ``folder``, its
+    outputs under ``folder``/``name``."""
+    out = lambda f: os.path.join(folder, name, f)
+    paths = {"ckpt_path": out("ckpt"), "loss_path": out("loss.png"),
+             "result_path": out("result.png"), "database_path": out("db.csv")}
+    if run == "sp-vx":
+        raw = copy.deepcopy(CONFIG_VX)
+        raw["setup"] = {"seed": 0, "trainer_name": "static", "train": True}
+        raw["dataset"] = {"name": "vxmesh", "metaname": "compressible_flow/naca0012",
+                          "base_path": folder, "shuffle": True,
+                          "graph_cache_dir": os.path.join(folder, "cache"),
+                          **VX_MESH_SIZES}
+    else:
+        with open(NACA if run == "naca-sp" else ELASTICITY) as f:
+            raw = json.load(f)
+        raw["dataset"].update(NACA_MESH_SIZES if run == "naca-sp"
+                              else ELASTICITY_MESH_SIZES, base_path=folder)
+        raw["optimizer"]["args"].update(epoch=ELASTICITY_MESH_EPOCHS, eval_every_eps=1)
+    raw["setup"].update(setup, compute_dtype="bfloat16" if bf16 else "float32")
+    raw["dataset"]["batch_size"] = batch
+    raw["path"] = paths
+    return raw
+
+
+def _vx_mesh_runs(rank: int, folder: str, setup: dict) -> dict:
+    """10.2's three vx runs in this process (``setup``: the ranks', or one
+    process's): sp-vx's fp32 steps and (ranks only) its bf16 step, with the
+    reduces and the SwiGLU at rank 0's shapes checked and timed in rank 0;
+    naca-sp's step, elasticity-sp's fit."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from gaot_torch.data.graph_builder import VxCounts
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train import StaticTrainer
+
+    ranks = setup.get("spatial_parallel", False)
+    tag = "rank" if ranks else "one"
+    out = {}
+    with _quiet():
+        trainer = StaticTrainer(_vx_mesh_config(folder, "sp-vx", f"vx_{tag}_check",
+                                                VX_MESH_CHECK_BATCH, **setup))
+    w0 = {k: v.float().cpu().clone() for k, v in trainer.full_state().items()}
+    out["sp-vx"] = (*_mesh_steps(trainer, MESH_CHECK_STEPS), w0)
+    del trainer
+    torch.cuda.empty_cache()
+
+    if ranks:
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            trainer = StaticTrainer(_vx_mesh_config(folder, "sp-vx", "vx_rank_time",
+                                                    VX_BATCH, True, **setup))
+        out["cache_hit"] = "Graph cache hit" in said.getvalue()
+        placed = trainer.place_batch(next(iter(trainer.train_loader)))
+        for _ in range(3):
+            trainer.train_step(placed)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        trainer.train_step(placed)
+        torch.cuda.synchronize()
+        out["launches"] = kernels.launch_counts()
+        graphs = trainer._batch_graphs(placed)
+        out["table"] = _tables(graphs, trainer.model_config.args.transformer.num_layers,
+                               ffn=True)[1]
+        sp = trainer.spatial
+        out["counts"] = tuple(VxCounts(sp.num_nodes, trainer.latent.shape[0],
+                                       sp.latent[1] - sp.latent[0],
+                                       sp.nodes[1] - sp.nodes[0]))
+        out["buckets"] = {side: [tuple(b.indices.shape) for b in getattr(graphs, side)[0]
+                                 .buckets] for side in ("encoder", "decoder")}
+        out["ms"] = time_ms(lambda: trainer.train_step(placed), iters=MESH_TIME_STEPS,
+                            warmup=1)
+        events = _profile_once(lambda: trainer.train_step(placed))
+        copies = _copy_events(events)
+        out["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        out["copy_ms"] = sum(e.self_device_time_total for e in copies) / 1e3
+        out["kernels"] = sum(e.count for e in events)
+        out["top"] = [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in
+                      sorted(events, key=lambda e: -e.self_device_time_total)[:6]]
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # The kernels at rank 0's shapes (its cut graphs of this batch) for
+        # the @sp-vx entries, while rank 1 waits: the process that ran the
+        # ranks keeps no profiler work for after them.
+        torch.distributed.barrier()
+        if rank == 0:
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+            counts = VxCounts(*out["counts"])
+            what = "vx @sp-vx rank 0"
+            cases = _flat_reduce_cases(graphs, VX_BATCH, counts.nodes, counts.latent,
+                                       what, out["table"]["multiply_reduce_k"],
+                                       rows=(counts.enc_rows, counts.dec_rows))
+            out["rows"] = {**check_multiply_reduce(
+                rnd, 1, trainer.model_config.args.magno.lifting_channels, cases, what),
+                **check_ffn(rnd, VX_BATCH * SEQ // 2, extras=False)}
+        torch.distributed.barrier()
+        del trainer, placed, graphs
+        torch.cuda.empty_cache()
+
+    with _quiet():
+        trainer = StaticTrainer(_vx_mesh_config(folder, "naca-sp", f"naca_{tag}",
+                                                VX_MESH_CHECK_BATCH, **setup))
+    losses, grads, _ = _mesh_steps(trainer, 1)
+    out["naca-sp"] = (losses, grads)
+    del trainer
+    torch.cuda.empty_cache()
+
+    raw = _vx_mesh_config(folder, "elasticity-sp", f"elasticity_{tag}",
+                          ELASTICITY_MESH_BATCH, **setup)
+    with _quiet():
+        trainer = StaticTrainer(raw)
+        trainer.fit(verbose=False)
+    if rank == 0:
+        rec = np.load(raw["path"]["loss_path"][:-4] + ".npz")
+        out["elasticity-sp"] = (rec["losses"].tolist(), rec["val_losses"].tolist(),
+                                trainer.datarow["relative error (direct)"])
+    del trainer
+    torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_steps(trainer, steps: int):
@@ -3019,7 +3212,8 @@ def _copy_events(events):
 def _rank_child(argv) -> int:
     """``chip_smoke.py --rank MODE RANK WORLD STORE FOLDER BACKEND``: one rank
     of a phase 10 run (module comment above); writes its results to
-    FOLDER/MODE.rankR.pt."""
+    FOLDER/MODE.rankR.pt (the vx runs' FOLDER/vx.rankR.worldW.pt: at world 1
+    one process's, without a process group)."""
     mode, rank, world, store, folder, backend = argv
     rank, world = int(rank), int(world)
     sys.path.insert(0, HERE)
@@ -3033,11 +3227,21 @@ def _rank_child(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    init_distributed(SetUpConfig(distributed=True, device="cuda", process_id=rank,
-                                 num_processes=world,
-                                 coordinator_address=f"file://{store}"), backend=backend)
-    setup = dict(MESH_RUNS[mode], distributed=True)
+    if world > 1:
+        init_distributed(SetUpConfig(distributed=True, device="cuda", process_id=rank,
+                                     num_processes=world,
+                                     coordinator_address=f"file://{store}"),
+                         backend=backend)
     out = {"device": torch.cuda.current_device()}
+    if mode == "vx":
+        out.update(_vx_mesh_runs(rank, folder,
+                                 dict(SP2, distributed=True) if world > 1 else {}))
+        torch.save(out, os.path.join(folder, f"{mode}.rank{rank}.world{world}.pt"))
+        if world > 1:
+            dist.barrier()
+            dist.destroy_process_group()
+        return 0
+    setup = dict(MESH_RUNS[mode], distributed=True)
     with _quiet():
         trainer = StaticTrainer(_mesh_config(folder, f"{mode}_check", MESH_CHECK_BATCH,
                                              False, **setup))
@@ -3120,10 +3324,11 @@ def _cli_rank(argv) -> int:
     return rc
 
 
-def _run_ranks(cmds, what: str, envs, folder: str):
+def _run_ranks(cmds, what: str, envs, folder: str, echo: bool = False):
     """Start every command at once (output to files under ``folder``) and
     wait for all, each within RANK_TIMEOUT seconds; a failure or a timeout
-    stops the others and fails the phase."""
+    stops the others and fails the phase. Logs the last lines of each
+    output (all of it with ``echo``)."""
     logs = [os.path.join(folder, f"{what.replace(' ', '_')}.{i}.log")
             for i in range(len(cmds))]
     files = [open(path, "w") for path in logs]
@@ -3150,8 +3355,9 @@ def _run_ranks(cmds, what: str, envs, folder: str):
             f.close()
     for i, path in enumerate(logs):
         with open(path) as f:
-            for line in f.read().splitlines()[-(40 if bad else 8):]:
-                log(f"  [{what} {i}] {line}")
+            lines = f.read().splitlines()
+        for line in lines if echo else lines[-(40 if bad else 8):]:
+            log(f"  [{what} {i}] {line}")
     if bad:
         fail(f"{what}: {'; '.join(bad)}")
 
@@ -3206,6 +3412,45 @@ def _mesh_reference(folder: str):
     return ref, graphs
 
 
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _against_one(what: str, batch: int, got, ref, sp: bool) -> None:
+    """Ranks' fp32 steps (losses, first gradients, weights after the steps)
+    against one process's (``ref``, with the weights before the steps): the
+    first loss within 1e-6 relative, every gradient and weight within 1e-4
+    of its tensor's largest entry (no weights: gradients only)."""
+    losses, grads, weights, w0 = ref
+    if abs(got[0][0] - losses[0]) > 1e-6 * abs(losses[0]):
+        fail(f"{what}: fp32 loss {got[0][0]!r}, one process {losses[0]!r}")
+    g_err = max(_rel(got[1][k], v) for k, v in grads.items())
+    w_over, note = [], ""
+    if weights is not None:
+        w_rel = sorted(((_rel(got[2][k], v), k) for k, v in weights.items()),
+                       reverse=True)
+        # AdamW divides each gradient entry by its own running scale, so an
+        # entry whose gradient sits at the rounding level takes a full-size
+        # step of either sign: under sp (sums in another order: the
+        # embedding's statistics over both ranks' queries) the weights are
+        # held within 1e-4 of their largest entry plus 1e-2 of their largest
+        # update.
+        upd = {k: float((v - w0[k]).abs().max()) for k, v in weights.items()}
+        w_over = [k for k, v in weights.items()
+                  if float((got[2][k] - v).abs().max())
+                  > 1e-4 * float(v.abs().max()) + (1e-2 * upd[k] if sp else 0.0)]
+        log(f"  {what}: the weights farthest from one process's: " + "; ".join(
+            f"{k} {e:.3e} of its max {float(weights[k].abs().max()):.3e} "
+            f"(its largest update {upd[k]:.3e})" for e, k in w_rel[:4]))
+        note = (f", weights after {len(losses)} AdamW steps within {w_rel[0][0]:.3e}"
+                f" (bound 1e-4{' + 1e-2 of its largest update' if sp else ''})")
+    log(f"phase 10 {what}: fp32 global batch {batch}: losses {got[0]} vs one process "
+        f"{losses}; gradients within {g_err:.3e} of each tensor's largest entry{note}")
+    if g_err > 1e-4 or w_over:
+        fail(f"{what}: gradients {g_err:.3e} of the largest entry from one "
+             f"process's; weights beyond the bound: {w_over}")
+
+
 def _mesh_run(card: str, folder: str, mode: str, ref, backend: str, cards: int):
     """10.2 / 10.3: one mode on two ranks; the checks against ``ref``."""
     import torch
@@ -3221,36 +3466,9 @@ def _mesh_run(card: str, folder: str, mode: str, ref, backend: str, cards: int):
            for r in range(2)]
     where = (f"two ranks on {cards} card{'s' if cards > 1 else ''} (devices "
              f"{[r['device'] for r in res]}), {backend}")
-    losses, grads, weights, w0 = ref
     got = res[0]
-    if abs(got["losses"][0] - losses[0]) > 1e-6 * abs(losses[0]):
-        fail(f"{mode} ({where}): fp32 loss {got['losses'][0]!r}, one process "
-             f"{losses[0]!r}")
-    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-    g_err = max(rel(got["grads"][k], v) for k, v in grads.items())
-    w_rel = sorted(((rel(got["weights"][k], v), k) for k, v in weights.items()),
-                   reverse=True)
-    w_err = w_rel[0][0]
-    # AdamW divides each gradient entry by its own running scale, so an
-    # entry whose gradient sits at the rounding level takes a full-size step
-    # of either sign: under sp (sums in another order: the embedding's
-    # statistics over both ranks' queries) the weights are held within 1e-4
-    # of their largest entry plus 1e-2 of their largest update.
-    upd = {k: float((v - w0[k]).abs().max()) for k, v in weights.items()}
-    w_over = [k for k, v in weights.items()
-              if float((got["weights"][k] - v).abs().max())
-              > 1e-4 * float(v.abs().max()) + (1e-2 * upd[k] if mode == "sp" else 0.0)]
-    log(f"  {mode}: the weights farthest from one process's: " + "; ".join(
-        f"{k} {e:.3e} of its max {float(weights[k].abs().max()):.3e} "
-        f"(its largest update {upd[k]:.3e})" for e, k in w_rel[:4]))
-    log(f"phase 10 {mode} ({where}, {card}): fp32 global batch {MESH_CHECK_BATCH}: "
-        f"losses {got['losses']} vs one process {losses}; gradients within "
-        f"{g_err:.3e}, weights after {MESH_CHECK_STEPS} AdamW steps within {w_err:.3e} "
-        f"of each tensor's largest entry (bound 1e-4"
-        f"{' + 1e-2 of its largest update' if mode == 'sp' else ''})")
-    if g_err > 1e-4 or w_over:
-        fail(f"{mode} ({where}): gradients {g_err:.3e} of the largest entry from one "
-             f"process's; weights beyond the bound: {w_over}")
+    _against_one(f"{mode} ({where}, {card})", MESH_CHECK_BATCH,
+                 (got["losses"], got["grads"], got["weights"]), ref, mode == "sp")
     for r, out in enumerate(res):
         _expect_launches(f"{mode} rank {r} bf16 step", out["launches"], out["table"])
         log(f"phase 10 {mode} rank {r} ({where}, {card}): bf16 step at global batch "
@@ -3262,6 +3480,79 @@ def _mesh_run(card: str, folder: str, mode: str, ref, backend: str, cards: int):
             f"{out['copy_events']}")
     log(f"phase 10 {mode} ({backend}): {time.perf_counter() - t0:.1f} s")
     return res
+
+
+def _vx_mesh_run(card: str, folder: str, vx_checks: dict):
+    """10.2's vx runs (comment above): the data, one process's runs on the
+    card, then the two ranks' (over gloo, sharing the card) and the checks
+    against them; the reduces and the SwiGLU at rank 0's shapes, measured in
+    rank 0. Returns (the @sp-vx kernel rows, rank 0's launches in its bf16
+    step)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from synthetic import make_static_vx_dataset
+    from torch_synthetic import make_elasticity_dataset, make_naca_dataset
+
+    t0 = time.perf_counter()
+    vx_dir = os.path.join(folder, "vx")
+    os.makedirs(vx_dir)
+    make_static_vx_dataset(os.path.join(vx_dir, "vxmesh.npz"),
+                           num_samples=sum(VX_MESH_SIZES.values()), num_nodes=VX_NODES,
+                           seed=0)
+    for config, sizes, make in ((NACA, NACA_MESH_SIZES, make_naca_dataset),
+                                (ELASTICITY, ELASTICITY_MESH_SIZES,
+                                 make_elasticity_dataset)):
+        with open(config) as f:
+            name = json.load(f)["dataset"]["name"]
+        make(os.path.join(vx_dir, f"{name}.npz"), num_samples=sum(sizes.values()), seed=0)
+    # One process's runs, then the two ranks', each in processes of their
+    # own (this process only checks them).
+    store = os.path.join(vx_dir, "store_vx")
+    for world in (1, 2):
+        t1 = time.perf_counter()
+        _run_ranks([[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank",
+                     "vx", str(r), str(world), store, vx_dir, "gloo"]
+                    for r in range(world)], f"vx gloo {world}",
+                   [dict(os.environ, PYTHONPATH=HERE, LOCAL_RANK="0")] * world, vx_dir)
+        log(f"phase 10 vx, {world} process{'es' if world > 1 else ''}: "
+            f"{time.perf_counter() - t1:.1f} s")
+    one, *res = [torch.load(os.path.join(vx_dir, f"vx.rank{r}.world{w}.pt"),
+                            weights_only=False) for w, r in ((1, 0), (2, 0), (2, 1))]
+    where = f"two ranks on 1 card, gloo, {card}"
+    _against_one(f"sp-vx ({where})", VX_MESH_CHECK_BATCH, res[0]["sp-vx"][:3],
+                 one["sp-vx"], True)
+    _against_one(f"naca-sp ({where}; edge drop to 32)", VX_MESH_CHECK_BATCH,
+                 (*res[0]["naca-sp"], None), (*one["naca-sp"], None, None), True)
+    (losses, vals, metric), (losses1, vals1, metric1) = (res[0]["elasticity-sp"],
+                                                         one["elasticity-sp"])
+    log(f"phase 10 elasticity-sp ({where}): {ELASTICITY_MESH_EPOCHS} epochs fp32, "
+        f"train losses {losses} vs one process {losses1}, validation {vals} vs {vals1}, "
+        f"metric {metric!r} vs {metric1!r}")
+    if not (np.allclose(losses, losses1, rtol=1e-5, atol=0)
+            and np.allclose(vals, vals1, rtol=1e-5, atol=0)
+            and abs(metric - metric1) <= 1e-5 * abs(metric1)):
+        fail("elasticity-sp: the two ranks' fit differs from one process's beyond 1e-5")
+    for r, out in enumerate(res):
+        if not out["cache_hit"]:
+            fail(f"sp-vx rank {r}: the second trainer missed the rank's graph cache")
+        _expect_launches(f"sp-vx rank {r} bf16 step", out["launches"], out["table"])
+        log(f"phase 10 sp-vx rank {r} ({where}): bf16 step at global batch {VX_BATCH} "
+            f"(a rank's cut graphs: counts {out['counts']}, buckets {out['buckets']}): "
+            f"{out['ms']:.3f} ms (CUDA events, {MESH_TIME_STEPS} steps), device busy "
+            f"{out['busy_ms']:.3f} ms, {out['kernels']} kernels, all copies "
+            f"{out['copy_ms']:.3f} ms, peak {out['peak_gib']:.2f} GiB; launches "
+            f"{out['launches']}; top {out['top']}")
+    rows = {**res[0]["rows"],
+            **{k: v for k, v in vx_checks.items() if k in ("fwd_lse", "bwd")}}
+    for key, row in res[0]["rows"].items():
+        log(f"  {key} (vx @sp-vx rank 0, in the rank): " + " ".join(
+            f"{k}={row[k]:.4f}" for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+            if isinstance(row.get(k), float)) + f" max_abs_err={row['max_abs_err']:.3e}")
+    log(f"phase 10 vx: {time.perf_counter() - t0:.1f} s (the ranks' speeds are not "
+        "multi-card speeds: two processes share one card over gloo)")
+    return rows, res[0]["launches"]
 
 
 def _tools_round_trip(cfg_path: str, raw: dict, folder: str):
@@ -3294,19 +3585,15 @@ def _tools_round_trip(cfg_path: str, raw: dict, folder: str):
         "again, bit for bit, update count 0")
 
 
-def phase_mesh(card: str, rnd, rates: dict, main_checks: dict):
+def phase_mesh(card: str, rates: dict, main_checks: dict, vx_checks: dict):
     """Phase 10 (module comment above). Returns the kernel rows and launches
-    of the @dp, @tp and @sp entries: {suffix: (rows, launches)}."""
+    of the @dp, @tp, @sp and @sp-vx entries: {suffix: (rows, launches)}."""
     import tempfile
 
     import torch
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from synthetic import make_static_fx_dataset
-
-    from gaot_torch.core.config import load_experiment_config
-    from gaot_torch.data.graph_builder import GraphBuilder
-    from gaot_torch.parallel.spatial import cut_rows, spatial_shard
 
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
@@ -3337,35 +3624,70 @@ def phase_mesh(card: str, rnd, rates: dict, main_checks: dict):
             log(f"phase 10.3: {cards} card on this machine: the two-card NCCL runs "
                 "did not run (a limit of the machine; the two-rank runs above ran)")
 
-        # The kernels at the ranks' shapes, for the kernels line.
-        cfg = load_experiment_config(CONFIG)
-        magno = cfg.model.args.magno
-        enc, dec = GraphBuilder.from_magno_config(magno).build_fx_graphs(
-            coord, lat, magno.radius, magno.scales)
-    entries = {}
-    rows_dp = {**check_multiply_reduce(rnd, BATCH // 2, 64, _reduce_cases(
-        _mesh_path(cfg, coord, lat, enc, dec, results["dp"][0]["table"]), "fx @dp"),
-        "fx @dp"), **check_flash(rnd, BATCH // 2, SEQ, 8, 32, with_eval=False),
-        **check_ffn(rnd, BATCH // 2 * SEQ, extras=False)}
-    entries["@dp"] = (rows_dp, results["dp"][0]["launches"])
-    heads = 8 // 2
-    rows_tp = {**{k: v for k, v in main_checks.items() if k.startswith("multiply")},
-               **check_flash(rnd, BATCH, SEQ, heads, 32, with_eval=False),
-               **check_ffn(rnd, BATCH * SEQ, extras=False,
-                           f=results["tp"][0]["ffn_width"])}
-    entries["@tp"] = (rows_tp, results["tp"][0]["launches"])
+        # The kernels at the ranks' shapes, for the kernels line, in a
+        # process of its own: the profiler of this process, which has run
+        # every phase so far, saw no device time after the ranks in earlier
+        # runs of this script on the H100 (three empty traces in a row).
+        inputs = os.path.join(folder, "rows_in.pt")
+        torch.save({"coord": coord, "lat": lat, "ffn_width": results["tp"][0]["ffn_width"],
+                    "tables": {m: results[m][0]["table"] for m in ("dp", "sp")}}, inputs)
+        _run_ranks([[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mesh-rows",
+                     inputs]], "mesh rows", [dict(os.environ, PYTHONPATH=HERE)], folder,
+                   echo=True)
+        rows = torch.load(inputs + ".rows", weights_only=False)
+    entries = {"@dp": (rows["dp"], results["dp"][0]["launches"]),
+               "@tp": ({**{k: v for k, v in main_checks.items()
+                           if k.startswith("multiply")}, **rows["tp"]},
+                       results["tp"][0]["launches"]),
+               "@sp": ({**rows["sp"], **{k: v for k, v in main_checks.items()
+                                         if k in ("fwd_lse", "bwd")}},
+                       results["sp"][0]["launches"])}
+    # The vx runs; their kernels are measured in rank 0 for the same reason.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="gaot_mesh_vx_") as folder:
+        entries["@sp-vx"] = _vx_mesh_run(card, folder, vx_checks)
+    log(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def _mesh_rows(argv) -> int:
+    """``chip_smoke.py --mesh-rows IN``: phase 10's fx kernel rows at the
+    ranks' shapes (@dp: a rank's half batch; @tp: half the heads and the
+    SwiGLU width; @sp: rank 0's cut graphs and half the tokens), from the
+    phase's inputs IN, written to IN.rows."""
+    (inputs,) = argv
+    sys.path.insert(0, HERE)
+    import torch
+
+    from gaot_torch.core.config import load_experiment_config
+    from gaot_torch.data.graph_builder import GraphBuilder
+    from gaot_torch.parallel.spatial import cut_rows, spatial_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = torch.load(inputs, weights_only=False)
+    coord, lat, tables = got["coord"], got["lat"], got["tables"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    cfg = load_experiment_config(CONFIG)
+    magno = cfg.model.args.magno
+    enc, dec = GraphBuilder.from_magno_config(magno).build_fx_graphs(
+        coord, lat, magno.radius, magno.scales)
+    rows = {"dp": {**check_multiply_reduce(rnd, BATCH // 2, 64, _reduce_cases(
+        _mesh_path(cfg, coord, lat, enc, dec, tables["dp"]), "fx @dp"), "fx @dp"),
+        **check_flash(rnd, BATCH // 2, SEQ, 8, 32, with_eval=False),
+        **check_ffn(rnd, BATCH // 2 * SEQ, extras=False)}}
+    rows["tp"] = {**check_flash(rnd, BATCH, SEQ, 8 // 2, 32, with_eval=False),
+                  **check_ffn(rnd, BATCH * SEQ, extras=False, f=got["ffn_width"])}
     shard = spatial_shard(cfg.model.latent_tokens_size,
                           cfg.model.args.transformer.patch_size, coord.shape[0], None, 0, 2)
     sp_path = _mesh_path(cfg, coord, lat, [cut_rows(g, *shard.latent) for g in enc],
-                         [cut_rows(g, *shard.nodes) for g in dec],
-                         results["sp"][0]["table"])
-    rows_sp = {**check_multiply_reduce(rnd, BATCH, 64, _reduce_cases(sp_path, "fx @sp"),
-                                       "fx @sp rank 0"),
-               **{k: v for k, v in main_checks.items() if k in ("fwd_lse", "bwd")},
-               **check_ffn(rnd, BATCH * SEQ // 2, extras=False)}
-    entries["@sp"] = (rows_sp, results["sp"][0]["launches"])
-    log(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
-    return entries
+                         [cut_rows(g, *shard.nodes) for g in dec], tables["sp"])
+    rows["sp"] = {**check_multiply_reduce(rnd, BATCH, 64, _reduce_cases(sp_path, "fx @sp"),
+                                          "fx @sp rank 0"),
+                  **check_ffn(rnd, BATCH * SEQ // 2, extras=False)}
+    torch.save(rows, inputs + ".rows")
+    return 0
 
 
 def _mesh_path(cfg, coord, lat, enc, dec, table) -> Path:
@@ -3498,7 +3820,7 @@ def main() -> int:
     phase_attn_dropout(main_path, step_ms)
     phase_pointnet(main_path, vx_path, step_ms)
     phase_options(card, main_path, vx_path, step_ms, step_ms_vx)
-    meshes = phase_mesh(card, rnd, rates, checks["main"])
+    meshes = phase_mesh(card, rates, checks["main"], checks["vx"])
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
@@ -3536,9 +3858,10 @@ def main() -> int:
     # The multi-GPU entries: the kernels at a rank's shapes, with rank 0's
     # launches in one bf16 training step of its mesh run (phase 10).
     for suffix, (rows, launches) in meshes.items():
+        path = "vx flagship" if suffix == "@sp-vx" else "fx main path"
         kernels_line += _entries(rows, main_names,
                                  {k: launches[main_names[k]] for k in rows},
-                                 f"fx main path {suffix[1:]} x 2 ranks", suffix)
+                                 f"{path} {suffix[1:]} x 2 ranks", suffix)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3551,4 +3874,6 @@ if __name__ == "__main__":
         sys.exit(_rank_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(_cli_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-rows"]:
+        sys.exit(_mesh_rows(sys.argv[2:]))
     sys.exit(main())

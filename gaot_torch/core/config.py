@@ -272,7 +272,8 @@ class SetUpConfig:
     data_parallel: int = -1             # -1: world size // model_parallel on the 'data' axis
     model_parallel: int = 1             # 'model' axis size (tensor parallel transformer)
     spatial_parallel: bool = False      # shard latent tokens / query points over 'model'
-    #   (sequence parallelism for GAOT-3D-scale grids, fx data; see parallel/spatial.py)
+    #   (sequence parallelism for GAOT-3D-scale grids; fx data, and vx data, where each
+    #   sample's padded nodes are cut; see parallel/spatial.py)
     epoch_scan: str = "auto"            # the JAX package's whole-epoch scan; the
     #   port issues its steps one by one whatever it says (kept so both
     #   packages read the same configs)

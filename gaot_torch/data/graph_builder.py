@@ -27,7 +27,7 @@ import hashlib
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ from ..ops.padding import (
     PaddedGraph,
     TransposeGraph,
     _round_up,
+    bucket_width,
     bucketize_graph,
     bucketize_graphs_stacked,
     degree_group_tgraph,
@@ -52,6 +53,7 @@ from ..ops.padding import (
     stack_tgraphs,
     transpose_graph,
 )
+from ..parallel.spatial import cut_rows
 from ..utils.scaling import rescale
 
 SENTINEL = 10.0   # a padded node's coordinate: farther than any radius in [-1, 1]
@@ -73,6 +75,12 @@ class VxSplitGraphs:
     # node node_perm[i, j]; per-node data (u, c) must be permuted the same
     # way (apply_node_perm). None: build order kept.
     node_perm: Optional[np.ndarray] = None            # int32 [S, N]
+    # The latent queries: the decoder's sources (its rows may be a rank's
+    # range of them under spatial parallelism).
+    num_latent: Optional[int] = None
+    # A cut build's edge-drop draw widths, the uncut graphs' (encoder's,
+    # decoder's; per scale), else None (ops/padding.py::bucket_width).
+    draw_widths: Optional[tuple] = None
 
 
 def apply_node_perm(perm: Optional[np.ndarray], a: Optional[np.ndarray]):
@@ -96,6 +104,33 @@ def apply_node_perm(perm: Optional[np.ndarray], a: Optional[np.ndarray]):
                  np.arange(a.shape[1])[None, :, None],
                  perm[:, None, :]]
     raise ValueError(f"unsupported ndim {a.ndim} for node permutation")
+
+
+def vx_node_pad(data_splits: Dict, build_train: bool = True) -> int:
+    """The padded node count of every split's vx graphs: the largest node
+    count, rounded up to :data:`NODE_PAD_MULTIPLE`."""
+    names = ["test"] + (["train", "val"] if build_train else [])
+    max_n = max((data_splits[s]["x"].shape[-2] for s in names
+                 if s in data_splits and data_splits[s]["x"] is not None), default=0)
+    return _round_up(max_n, NODE_PAD_MULTIPLE)
+
+
+def _vx_draw_width(stacks: List[PaddedGraph], bucketing: bool) -> int:
+    """The edge-drop draw width of one scale and side of the splits' uncut,
+    jointly re-padded stacks: the widest bucket of their joint layout."""
+    if not bucketing:
+        return stacks[0].k
+    return bucket_width(PaddedGraph(np.concatenate([g.indices for g in stacks]),
+                                    np.concatenate([g.mask for g in stacks])),
+                        min_k=VX_MIN_BUCKET_K)
+
+
+def fx_draw_widths(graphs: Sequence[PaddedGraph], magno) -> tuple:
+    """The edge-drop draw width of each uncut fx graph: the widest bucket of
+    the layout that :func:`prepare_fx_device_graphs` gives it."""
+    bucketing = (magno.use_query_bucketing
+                 and magno.transform_type in ("linear", "linear_kernelonly"))
+    return tuple(bucket_width(g) if bucketing else g.k for g in graphs)
 
 
 class GraphBuilder:
@@ -213,15 +248,22 @@ class GraphBuilder:
                             radius: float, scales: Sequence[float],
                             build_train: bool = True, model_transform=None,
                             with_transpose: bool = False,
-                            bucketing: bool = False) -> Dict[str, Optional[VxSplitGraphs]]:
+                            bucketing: bool = False,
+                            rows=None) -> Dict[str, Optional[VxSplitGraphs]]:
         """vx graphs of every split with one shape across splits: one node
-        padding, one K per scale and side, and (``bucketing``) one bucket
-        layout and (``with_transpose``) one in-degree grouping chosen over
-        all splits jointly."""
+        padding (:func:`vx_node_pad`), one K per scale and side, and
+        (``bucketing``) one bucket layout and (``with_transpose``) one
+        in-degree grouping chosen over all splits jointly.
+
+        ``rows`` ((lo, hi) of the latent queries, (lo, hi) of each sample's
+        padded nodes): a rank's cut under spatial parallelism. After the
+        joint re-pad, every split's encoder keeps the rows of its latent
+        range and its decoder those of its node range, with all their
+        sources, and the buckets, in-degree groups and transpose graphs are
+        those of the cut graphs; ``draw_widths`` holds the uncut graphs'
+        edge-drop draw widths."""
         split_names = ["test"] + (["train", "val"] if build_train else [])
-        max_n = max((data_splits[s]["x"].shape[-2] for s in split_names
-                     if s in data_splits), default=0)
-        n_pad = _round_up(max_n, NODE_PAD_MULTIPLE)
+        n_pad = vx_node_pad(data_splits, build_train)
         out: Dict[str, Optional[VxSplitGraphs]] = {"train": None, "val": None,
                                                   "test": None}
         for s in split_names:
@@ -230,6 +272,7 @@ class GraphBuilder:
                 out[s] = self.build_vx_split(
                     data_splits[s]["x"], latent_queries, radius, scales,
                     n_pad=n_pad, model_transform=model_transform)
+                out[s].num_latent = latent_queries.shape[0]
         built = [g for g in out.values() if g is not None]
         if built:
             for si in range(len(scales)):
@@ -238,6 +281,15 @@ class GraphBuilder:
                 for g in built:
                     g.encoder[si] = repad(g.encoder[si], k_enc)
                     g.decoder[si] = repad(g.decoder[si], k_dec)
+            if rows is not None:
+                widths = tuple(tuple(_vx_draw_width([getattr(g, side)[si] for g in built],
+                                                    bucketing)
+                                     for si in range(len(scales)))
+                               for side in ("encoder", "decoder"))
+                for g in built:
+                    g.encoder = [cut_rows(e, *rows[0]) for e in g.encoder]
+                    g.decoder = [cut_rows(d, *rows[1]) for d in g.decoder]
+                    g.draw_widths = widths
             if bucketing:
                 bucketize_vx_splits(built, latent_queries.shape[0], len(scales),
                                     with_transpose)
@@ -248,12 +300,16 @@ class GraphBuilder:
     # -- the on-disk cache (the JAX package's build_all_vx_graphs_cached) --
     def _cache_path(self, cache_dir: str, dataset: str, radius: float,
                     scales: Sequence[float], num_samples: Dict[str, int],
-                    with_transpose: bool = False, bucketing: bool = False) -> str:
+                    with_transpose: bool = False, bucketing: bool = False,
+                    rows=None, ranks: int = 1) -> str:
         """The cache file of a build: a hash of the JSON key the JAX package
         hashes, with the constants the port takes for its ablation switches
         (grouped transpose graphs, the bucketizer's least K), so that both
-        packages name the same build alike."""
-        key = json.dumps({
+        packages name the same build alike. A rank's cut build (``rows`` of
+        ``ranks``) adds its ranges and the rank count to the key: a file of
+        its own, which neither a one-process run nor the JAX package reads
+        as the full graphs."""
+        key = {
             "dataset": dataset, "radius": radius, "scales": list(scales),
             "strategy": self.strategy, "knn_k": self.knn_k,
             "pad": self.pad_multiple, "cap": self.neighbor_cap,
@@ -261,8 +317,11 @@ class GraphBuilder:
             "tgraphs": with_transpose, "bucketing": bucketing,
             "morton": self.morton, "grouped_df": True,
             "vx_min_bucket_k": VX_MIN_BUCKET_K,
-        }, sort_keys=True)
-        digest = hashlib.sha1(key.encode()).hexdigest()[:16]
+        }
+        if rows is not None:
+            key["spatial"] = {"latent": list(rows[0]), "nodes": list(rows[1]),
+                              "ranks": ranks}
+        digest = hashlib.sha1(json.dumps(key, sort_keys=True).encode()).hexdigest()[:16]
         return os.path.join(cache_dir, f"graphs_{dataset}_{digest}.npz")
 
     def build_all_vx_graphs_cached(self, cache_dir: str, dataset: str,
@@ -270,33 +329,53 @@ class GraphBuilder:
                                    radius: float, scales: Sequence[float],
                                    build_train: bool = True, model_transform=None,
                                    with_transpose: bool = False,
-                                   bucketing: bool = False):
+                                   bucketing: bool = False, rows=None,
+                                   ranks: int = 1, write: bool = True):
         """:meth:`build_all_vx_graphs` through an ``.npz`` cache under
         ``cache_dir``: each split's :func:`vx_graph_buffers`, its keys
-        prefixed ``{split}::``. A hit loads the splits and prints the path."""
+        prefixed ``{split}::``, and a cut build's draw widths under
+        ``draw::``. A hit loads the splits and prints the path; a miss
+        builds and, with ``write``, writes the file (the ranks that build
+        the same graphs let one of them write it)."""
         counts = {s: int(len(data_splits[s]["x"])) for s in data_splits
                   if data_splits[s].get("x") is not None}
         path = self._cache_path(cache_dir, dataset, radius, scales, counts,
-                                with_transpose=with_transpose, bucketing=bucketing)
+                                with_transpose=with_transpose, bucketing=bucketing,
+                                rows=rows, ranks=ranks)
         if os.path.exists(path):
             print(f"Graph cache hit: {path}")
             out = {}
             with np.load(path, allow_pickle=False) as z:
+                widths = (tuple(tuple(int(w) for w in z[f"draw::{side}"])
+                                for side in ("encoder", "decoder"))
+                          if "draw::encoder" in z.files else None)
                 for split in ["train", "val", "test"]:
                     keys = [k for k in z.files if k.startswith(f"{split}::")]
                     out[split] = vx_split_from_buffers(
                         {k.split("::", 1)[1]: z[k] for k in keys},
                         len(scales)) if keys else None
+                    if out[split] is not None:
+                        out[split].num_latent = latent_queries.shape[0]
+                        out[split].draw_widths = widths
             return out
         out = self.build_all_vx_graphs(data_splits, latent_queries, radius, scales,
                                        build_train=build_train,
                                        model_transform=model_transform,
                                        with_transpose=with_transpose,
-                                       bucketing=bucketing)
-        os.makedirs(cache_dir, exist_ok=True)
-        payload = {f"{split}::{k}": v for split, g in out.items() if g is not None
-                   for k, v in vx_graph_buffers(g).items()}
-        np.savez(path, **payload)
+                                       bucketing=bucketing, rows=rows)
+        if write:
+            os.makedirs(cache_dir, exist_ok=True)
+            payload = {f"{split}::{k}": v for split, g in out.items() if g is not None
+                       for k, v in vx_graph_buffers(g).items()}
+            widths = next(g.draw_widths for g in out.values() if g is not None)
+            if widths is not None:
+                payload.update({f"draw::{side}": np.asarray(w, np.int64)
+                                for side, w in zip(("encoder", "decoder"), widths)})
+            # Written under another name and moved into place: a file under
+            # the cache's name is whole.
+            tmp = f"{path[:-4]}.{os.getpid()}.tmp.npz"
+            np.savez(tmp, **payload)
+            os.replace(tmp, path)
         return out
 
 
@@ -481,15 +560,18 @@ def vx_batch_graphs(batch: Dict, num_scales: int):
             None if all(t is None for t in dec_t) else dec_t)
 
 
-def vx_layout(bufs: Dict, batch_size: int) -> Dict[str, np.ndarray]:
+def vx_layout(bufs: Dict, batch_size: int,
+              num_latent: Optional[int] = None) -> Dict[str, np.ndarray]:
     """The index arrays a vx batch of ``batch_size`` samples needs beside
     its samples' buffers, which depend on the layout alone (the buffers'
-    shapes), not on the samples: ``iota`` (0, 1, ... as far as the batch,
+    shapes and ``num_latent``, the latent queries: the encoder's rows where
+    None), not on the samples: ``iota`` (0, 1, ... as far as the batch,
     the padded nodes and the latent queries reach) and, per bucketed scale
     and side with more than one bucket, ``{p}_b{j}_rmap_{s}`` [B·R_j]: the
     row s·R + Σ_{i<j} R_i + r of bucket j's row r of sample s in the
     sample-major output. Made once where a split is placed."""
-    out = {"iota": np.arange(max(batch_size, bufs["x"].shape[1], _num_latent(bufs)),
+    num_latent = num_latent or _num_latent(bufs)
+    out = {"iota": np.arange(max(batch_size, bufs["x"].shape[1], num_latent),
                              dtype=np.int32)}
     for key in bufs:
         if "_b0_idx_" not in key:
@@ -510,8 +592,21 @@ def vx_layout(bufs: Dict, batch_size: int) -> Dict[str, np.ndarray]:
 
 
 def _num_latent(batch: Dict) -> int:
-    """The latent queries of a vx batch dict (the encoder's rows)."""
+    """The encoder's rows of a vx batch dict (all the latent queries, but
+    under spatial parallelism)."""
     return (batch["enc_inv_0"] if "enc_inv_0" in batch else batch["enc_idx_0"]).shape[1]
+
+
+class VxCounts(NamedTuple):
+    """A sample's counts in a vx batch's graphs: its padded nodes (the
+    encoder's sources), the latent queries (the decoder's sources), and the
+    query rows of the encoder's and of the decoder's graphs (a rank's range
+    of them under spatial parallelism)."""
+
+    nodes: int
+    latent: int
+    enc_rows: int
+    dec_rows: int
 
 
 def _flatten(batch: Dict, p: str, s: int, num_sources: int,
@@ -546,13 +641,18 @@ def _flatten(batch: Dict, p: str, s: int, num_sources: int,
                      (None,), q, None, None, None, tgraph, b, iota)
 
 
-def vx_flat_graphs(batch: Dict, num_scales: int):
+def vx_flat_graphs(batch: Dict, num_scales: int, counts: Optional[VxCounts] = None):
     """The model's graphs of a placed vx batch (its buffers as tensors and
     its :func:`vx_layout`): (encoder, decoder), per scale a FlatGraph with
-    its own transpose graph."""
-    n_pad, q = batch["x"].shape[1], _num_latent(batch)
-    return ([_flatten(batch, "enc", s, n_pad, q) for s in range(num_scales)],
-            [_flatten(batch, "dec", s, q, n_pad) for s in range(num_scales)])
+    its own transpose graph. ``counts``: the graphs' sources and rows (None:
+    the uncut graphs', the batch's padded nodes and its encoder's rows)."""
+    if counts is None:
+        n_pad, q = batch["x"].shape[1], _num_latent(batch)
+        counts = VxCounts(n_pad, q, q, n_pad)
+    return ([_flatten(batch, "enc", s, counts.nodes, counts.enc_rows)
+             for s in range(num_scales)],
+            [_flatten(batch, "dec", s, counts.latent, counts.dec_rows)
+             for s in range(num_scales)])
 
 
 def vx_split_from_buffers(bufs: Dict[str, np.ndarray],

@@ -121,7 +121,10 @@ def make_static_vx_loader(c: Optional[np.ndarray], u: np.ndarray, graphs,
     (``vx_graph_buffers`` keys), with the batch's ``vx_layout`` beside
     them, placed once. ``graphs`` is the split's VxSplitGraphs; u and c
     [S, N, ·] are put in the graphs' Morton node order, then padded with
-    zero rows to the graphs' N_pad."""
+    zero rows to the graphs' N_pad. Under spatial parallelism the graphs
+    are a rank's cut (its rows, all their sources) and the coordinates,
+    node mask, u and c stay whole: the trainer cuts the target and the node
+    mask to the rank's nodes (``BaseTrainer.local_nodes``)."""
     from .graph_builder import apply_node_perm, vx_graph_buffers, vx_layout
 
     n_pad = graphs.coords.shape[1]
@@ -136,7 +139,7 @@ def make_static_vx_loader(c: Optional[np.ndarray], u: np.ndarray, graphs,
     buffers.pop("node_perm", None)   # a record of the build, not a batch input
     if c is not None:
         buffers["c"] = pad_nodes(c)
-    layout = vx_layout(buffers, min(batch_size, len(u)))
+    layout = vx_layout(buffers, min(batch_size, len(u)), graphs.num_latent)
     return _buffers_loader(buffers, len(u), batch_size, shuffle, seed,
                            device_data, device, layout)
 

@@ -23,7 +23,9 @@ On vx data (a mesh per sample), u and c are put in the graphs' Morton node
 order and padded to N_pad, and each batch carries the graph buffers, the
 coordinates and the node mask of its samples: a batch that holds a sample
 twice, under two time pairs, holds its graphs twice, one copy in each slot,
-with the batch's ``vx_layout`` beside them.
+with the batch's ``vx_layout`` beside them. Under spatial parallelism the
+graph buffers are a rank's cut (its rows, all their sources); u, c, the
+coordinates and the node mask stay whole.
 """
 from __future__ import annotations
 
@@ -249,6 +251,7 @@ class DynamicPairBatcher:
         self.num_samples = u_data.shape[0]
         self.num_pairs = len(self.t_in)
         self.buffers = _sample_buffers(graphs) if graphs is not None else {}
+        self.num_latent = graphs.num_latent if graphs is not None else None
 
     def __len__(self) -> int:
         return self.num_samples * self.num_pairs
@@ -389,7 +392,8 @@ def make_sequential_loader(batcher: DynamicPairBatcher, batch_size: int,
         loader_device = None
     layout = {}
     if batcher.buffers:
-        layout = vx_layout(batcher.buffers, min(batch_size, len(batcher)))
+        layout = vx_layout(batcher.buffers, min(batch_size, len(batcher)),
+                           batcher.num_latent)
         if loader_device is not None:
             layout = {k: torch.from_numpy(v).to(loader_device) for k, v in layout.items()}
     fetch = (lambda idx: {**get_batch(idx), **layout}) if layout else get_batch
@@ -415,6 +419,7 @@ class RolloutTestBatcher:
         self.stats = stats
         self.num_samples = u_data.shape[0]
         self.buffers = _sample_buffers(graphs) if graphs is not None else {}
+        self.num_latent = graphs.num_latent if graphs is not None else None
 
     def __len__(self) -> int:
         return self.num_samples

@@ -119,6 +119,9 @@ class GAOT(nn.Module):
         queries; the caller gives it the encoder and decoder graphs whose
         rows are those ranges (``spatial.cut_rows``)."""
         self.spatial = shard
+        widths = shard.widths or (None, None)
+        self.encoder.draw = (int(np.prod(self.grid_shape)), shard.latent[0], widths[0])
+        self.decoder.draw = (shard.num_nodes, shard.nodes[0], widths[1])
         for mod in self.processor.modules():
             if isinstance(mod, GroupQueryAttention):
                 mod.sp = (shard.group, shard.tokens)

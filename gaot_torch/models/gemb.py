@@ -7,6 +7,8 @@ Counterpart of ``gaot_tpu/models/gemb.py``, both methods:
   solvers), standardized over the queries and passed through a two-layer
   MLP. On a vx batch the standardization runs per sample, over its valid
   rows across the degree buckets (:func:`_standardize_valid_grouped`);
+  under spatial parallelism, fx or vx, over the rows of every rank
+  (:func:`_standardize_spread`);
 - pointnet: a shared MLP on the query-centred neighbour coordinates, ReLU,
   masked max / mean / sum pooling over K, then ``fc`` and ReLU; a query
   without a valid edge gets zeros. Per row, so a bucketed or vx graph needs
@@ -116,14 +118,16 @@ def raw_statistical_features(input_geom: torch.Tensor,
 
 def _standardize_spread(feats: torch.Tensor, valid: Optional[torch.Tensor],
                         group) -> torch.Tensor:
-    """Standardization over the (valid) queries of every rank of ``group``,
-    which each hold a range of them (spatial parallelism): the sums and
-    counts summed over the ranks, the unbiased std of one process."""
-    v = (torch.ones_like(feats[:, :1]) if valid is None
-         else valid.to(feats.dtype)[:, None])
-    n = comm.sum_over(v.sum(0, keepdim=True), group)
-    mean = comm.sum_over((feats * v).sum(0, keepdim=True), group) / n.clamp(min=1.0)
-    var = comm.sum_over((((feats - mean) ** 2) * v).sum(0, keepdim=True),
+    """Standardization of each sample's (valid) rows over the ranks of
+    ``group``, which each hold a range of them (spatial parallelism): the
+    sums and counts summed over the ranks (an all-reduce forward and
+    backward), the unbiased std of one process. feats [S, R, F], valid
+    [S, R] or None (every row counts)."""
+    v = (torch.ones_like(feats[..., :1]) if valid is None
+         else valid.to(feats.dtype)[..., None])
+    n = comm.sum_over(v.sum(1, keepdim=True), group)
+    mean = comm.sum_over((feats * v).sum(1, keepdim=True), group) / n.clamp(min=1.0)
+    var = comm.sum_over((((feats - mean) ** 2) * v).sum(1, keepdim=True),
                         group) / (n - 1.0).clamp(min=1.0)
     std = torch.sqrt(var)
     std = torch.where(std < 1e-6, torch.ones_like(std), std)
@@ -225,6 +229,14 @@ class GeometricEmbedding(nn.Module):
                 b * graph.rows, -1)
             if pointnet:
                 return feats
+            if self.group is not None:
+                # Spatial parallelism: each sample's rows lie on every rank.
+                valid = (None if graph.row_valid is None
+                         else graph.row_valid.view(b, graph.rows))
+                f = feats.view(b, graph.rows, -1)
+                f = f if valid is None else f.float()
+                return self.mlp(_standardize_spread(f, valid, self.group).to(
+                    feats.dtype).reshape(b * graph.rows, -1))
             if graph.row_valid is None:
                 return self.mlp(_standardize_grouped(feats, b))
             return self.mlp(_standardize_valid_grouped(
@@ -246,11 +258,12 @@ class GeometricEmbedding(nn.Module):
                 raise ValueError("a BucketedGraph is an fx graph (one sample); a vx "
                                  "batch's graph is a FlatGraph")
             if self.group is not None:
-                return self.mlp(_standardize_spread(feats, graph.row_valid, self.group))
+                return self.mlp(_standardize_spread(feats[None], graph.row_valid[None],
+                                                    self.group)[0])
             return self.mlp(_standardize_valid(feats, graph.row_valid))
         feats = features(input_geom, latent_queries, graph, nbr)
         if pointnet:
             return feats
         if self.group is not None:
-            return self.mlp(_standardize_spread(feats, None, self.group))
+            return self.mlp(_standardize_spread(feats[None], None, self.group)[0])
         return self.mlp(_standardize_grouped(feats, num_samples))

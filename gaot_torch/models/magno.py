@@ -12,7 +12,9 @@ whole batch.
 Edge drop (``magno.sampling_strategy``) thins the graphs' masks in
 training only, when the forward is given a ``torch.Generator``: the dense
 graph, or each degree bucket before both the AGNO transform and the
-geometric embedding read it, so both see the same neighbourhoods. The
+geometric embedding read it, so both see the same neighbourhoods; the
+uniforms are drawn in query order over the uncut graph, which a rank of
+spatial parallelism draws whole (``ops/edge_drop.py::bucket_uniforms``). The
 transpose graphs stay as built: a dropped edge's coefficient is zero, so
 the gradient through them stays exact.
 """
@@ -24,7 +26,7 @@ import torch
 from torch import nn
 
 from ..core.config import MAGNOConfig
-from ..ops.edge_drop import apply_edge_drop_mask
+from ..ops.edge_drop import apply_edge_drop_mask, bucket_uniforms
 from ..ops.gather_apply import FlatGraph, permute_rows, unpermute_rows
 from ..ops.padding import BucketedGraph
 from .agno import AGNO
@@ -67,30 +69,44 @@ class _MAGNOBase(nn.Module):
             self.scale_weighting = ScaleWeightMLP(
                 cfg.coord_dim, len(cfg.scales), cfg.hidden_size // 4,
                 dtype=dtype, device=device)
+        # Spatial parallelism (GAOT.shard_queries): (each sample's query rows
+        # in the uncut graphs, this rank's first, the draw width per scale).
+        self.draw = None
 
-    def _drop_edges(self, graph, generator: Optional[torch.Generator]):
-        """The graph with its masks thinned by edge drop (a new graph; the
-        one given is not written): a PaddedGraph, or each bucket of a
-        BucketedGraph or FlatGraph. Without a generator (evaluation) or a
-        sampling strategy the graph itself."""
+    def _drop_edges(self, graph, generator: Optional[torch.Generator], scale: int = 0):
+        """The graph of scale ``scale`` with its masks thinned by edge drop (a
+        new graph; the one given is not written): a PaddedGraph, or each
+        bucket of a BucketedGraph or FlatGraph, from the uniforms of
+        ``ops/edge_drop.py::bucket_uniforms`` (a vx graph's rows are its
+        samples', and a data-parallel step draws the global batch's numbers
+        for them; under spatial parallelism the draw is the uncut graph's,
+        :attr:`draw`). Without a generator (evaluation) or a sampling
+        strategy the graph itself."""
         cfg = self.config
-        if generator is None or cfg.sampling_strategy is None:
+        layout = None
+        if self.draw is not None and generator is not None \
+                and cfg.sampling_strategy is not None:
+            rows, offset, widths = self.draw
+            if widths is None:
+                raise ValueError("edge drop under spatial parallelism draws over the "
+                                 "uncut graphs: the shard needs their draw widths "
+                                 "(SpatialShard.widths)")
+            layout = (rows, offset, widths[scale])
+        draws = bucket_uniforms(graph, generator, cfg.sampling_strategy,
+                                cfg.max_neighbors, cfg.sample_ratio, layout)
+        if draws is None:
             return graph
 
-        # A vx graph's rows are its samples' (sample-major): a data-parallel
-        # step draws the global batch's numbers for them.
-        samples = graph.num_samples if isinstance(graph, FlatGraph) else None
-
-        def drop(g):
+        def drop(g, u):
             return g._replace(mask=apply_edge_drop_mask(
-                g.mask, generator, cfg.sampling_strategy, cfg.max_neighbors,
-                cfg.sample_ratio, samples))
+                g.mask, u, cfg.sampling_strategy, cfg.max_neighbors, cfg.sample_ratio))
         if isinstance(graph, (BucketedGraph, FlatGraph)):
-            return graph._replace(buckets=tuple(drop(g) for g in graph.buckets))
-        return drop(graph)
+            return graph._replace(buckets=tuple(
+                drop(g, u) for g, u in zip(graph.buckets, draws)))
+        return drop(graph, draws[0])
 
     def _agno_scale_vx(self, src_coords, dst_coords, f_src, vg: FlatGraph,
-                       generator=None):
+                       generator=None, scale: int = 0):
         """One scale of a vx batch: the AGNO transform over the flattened
         graph, the geometric embedding from the same raw coordinate rows
         (standardized per sample), recovery, then the rows back to query
@@ -99,7 +115,7 @@ class _MAGNOBase(nn.Module):
         package. src [B·n, d], dst [B·m, d], f_src [B·n, c]. Returns
         [B·m, c]."""
         cfg = self.config
-        vg = self._drop_edges(vg, generator)
+        vg = self._drop_edges(vg, generator, scale)
         x_cat = dst_coords if vg.perm is None else dst_coords.index_select(0, vg.perm)
         out, reps, queries = self.agno(src_coords, vg, x=x_cat, f_y=f_src,
                                        encode=cfg.node_embedding)
@@ -110,17 +126,17 @@ class _MAGNOBase(nn.Module):
                                                         vg.row_valid)
 
     def _agno_scale(self, src_coords, dst_coords, f_src, graph, tgraph=None,
-                    generator=None):
+                    generator=None, scale: int = 0):
         """One scale: AGNO transform + optional geometric embedding +
         recovery. src [n, d], dst [m, d], f_src [B, n, c], graph [m, K]."""
         cfg = self.config
         if isinstance(graph, BucketedGraph):
             return self._agno_scale_bucketed(src_coords, dst_coords, f_src, graph,
-                                             generator)
+                                             generator, scale)
         if f_src.dim() != 3:
             raise ValueError("fx features are [B, n, c]; a vx batch takes "
                              "_agno_scale_vx")
-        graph = self._drop_edges(graph, generator)
+        graph = self._drop_edges(graph, generator, scale)
         if cfg.node_embedding:
             src_proc, dst_proc = node_pos_encode(src_coords), node_pos_encode(dst_coords)
         else:
@@ -137,11 +153,11 @@ class _MAGNOBase(nn.Module):
         return out
 
     def _agno_scale_bucketed(self, src_coords, dst_coords, f_src,
-                             bg: BucketedGraph, generator=None):
+                             bg: BucketedGraph, generator=None, scale: int = 0):
         """One scale over a degree-bucketed graph: per-bucket transforms in
         degree-sorted order, then back to original query order."""
         cfg = self.config
-        bg = self._drop_edges(bg, generator)
+        bg = self._drop_edges(bg, generator, scale)
         dst_cat = dst_coords.index_select(0, bg.perm)
         src_proc = node_pos_encode(src_coords) if cfg.node_embedding else src_coords
         dst_proc = node_pos_encode(dst_cat) if cfg.node_embedding else dst_cat
@@ -195,12 +211,12 @@ class MAGNOEncoder(_MAGNOBase):
             src = x_coord.reshape(b * n, -1)
             dst = latent_tokens_coord.repeat(b, 1)
             f = lifted.reshape(b * n, -1)
-            per_scale = [self._agno_scale_vx(src, dst, f, vg, generator).view(b, q, -1)
-                         for vg in graphs]
+            per_scale = [self._agno_scale_vx(src, dst, f, vg, generator, si).view(b, q, -1)
+                         for si, vg in enumerate(graphs)]
             return self._combine_scales(per_scale, latent_tokens_coord)
         per_scale = [self._agno_scale(x_coord, latent_tokens_coord, lifted, g, t,
-                                      generator)
-                     for g, t in zip(graphs, tgraphs)]
+                                      generator, si)
+                     for si, (g, t) in enumerate(zip(graphs, tgraphs))]
         return self._combine_scales(per_scale, latent_tokens_coord)
 
 
@@ -230,12 +246,12 @@ class MAGNODecoder(_MAGNOBase):
             src = latent_tokens_coord.repeat(b, 1)
             dst = query_coord.reshape(b * m, -1)
             f = rndata.reshape(b * q, -1)
-            per_scale = [self._agno_scale_vx(src, dst, f, vg, generator).view(b, m, -1)
-                         for vg in graphs]
+            per_scale = [self._agno_scale_vx(src, dst, f, vg, generator, si).view(b, m, -1)
+                         for si, vg in enumerate(graphs)]
             return self.projection(self._combine_scales_vx(per_scale, query_coord))
         per_scale = [self._agno_scale(latent_tokens_coord, query_coord, rndata, g, t,
-                                      generator)
-                     for g, t in zip(graphs, tgraphs)]
+                                      generator, si)
+                     for si, (g, t) in enumerate(zip(graphs, tgraphs))]
         return self.projection(self._combine_scales(per_scale, query_coord))
 
     def _combine_scales_vx(self, per_scale, query_coord):

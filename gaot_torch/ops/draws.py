@@ -23,14 +23,20 @@ class BatchShare(NamedTuple):
     total: int
 
 
-Draws = Union[torch.Generator, BatchShare]
+Draws = Union[torch.Generator, BatchShare, torch.Tensor]
 
 
 def uniform(shape, draws: Draws, device, samples: Optional[int] = None) -> torch.Tensor:
     """``torch.rand(shape)`` for a tensor whose leading axis holds
     ``samples`` samples' rows, sample-major (None: no sample axis, the draw
     shared by the batch). From a :class:`BatchShare` the draw is the global
-    batch's, of which the caller's samples' rows are kept."""
+    batch's, of which the caller's samples' rows are kept; a tensor is a
+    draw already made, of this shape, and returns as it is."""
+    if isinstance(draws, torch.Tensor):
+        if tuple(draws.shape) != tuple(shape):
+            raise ValueError(f"uniforms of shape {tuple(draws.shape)} for a draw of "
+                             f"{tuple(shape)}")
+        return draws
     if not isinstance(draws, BatchShare):
         return torch.rand(shape, generator=draws, device=device)
     if samples is None or draws.total == samples:

@@ -365,18 +365,10 @@ def _choose_bucket_ks(deg: np.ndarray, k_max: int, max_buckets: int,
     return sorted(ks)
 
 
-def bucketize_graph(graph: PaddedGraph, num_sources: int,
-                    with_transpose: bool = True, tile: int = 128,
-                    max_buckets: int = 4, launch_penalty_rows: int = 1024,
-                    min_gain: float = 1.15,
-                    min_k: int = 12) -> Optional[BucketedGraph]:
-    """Re-pack a [Q, K] PaddedGraph into degree buckets.
-
-    Returns None when the dense layout is already within ``min_gain`` of the
-    bucketed row count (uniform-degree graphs), or when K < ``min_k``
-    (small-K graphs keep the dense layout). The decision and the layout are
-    the JAX package's, so both packages build identical graphs.
-    """
+def _bucket_layout(graph: PaddedGraph, tile: int, max_buckets: int,
+                   launch_penalty_rows: int, min_gain: float, min_k: int):
+    """The degree-bucket decision of :func:`bucketize_graph`: (the bucket
+    K values, each query's bucket), or None where the dense layout stays."""
     if graph.indices.ndim != 2 or graph.indices.shape[-1] < min_k:
         return None
     q, k = graph.indices.shape
@@ -389,7 +381,27 @@ def bucketize_graph(graph: PaddedGraph, num_sources: int,
         bucketed_rows += -(-max(n, 0) // tile) * tile * kb if n else 0
     if bucketed_rows == 0 or q * k < min_gain * bucketed_rows:
         return None
+    return ks, bid
 
+
+def bucketize_graph(graph: PaddedGraph, num_sources: int,
+                    with_transpose: bool = True, tile: int = 128,
+                    max_buckets: int = 4, launch_penalty_rows: int = 1024,
+                    min_gain: float = 1.15,
+                    min_k: int = 12) -> Optional[BucketedGraph]:
+    """Re-pack a [Q, K] PaddedGraph into degree buckets.
+
+    Returns None when the dense layout is already within ``min_gain`` of the
+    bucketed row count (uniform-degree graphs), or when K < ``min_k``
+    (small-K graphs keep the dense layout). The decision and the layout are
+    the JAX package's, so both packages build identical graphs.
+    """
+    layout = _bucket_layout(graph, tile, max_buckets, launch_penalty_rows, min_gain,
+                            min_k)
+    if layout is None:
+        return None
+    ks, bid = layout
+    q = graph.indices.shape[0]
     order = np.argsort(bid, kind="stable")
     buckets = []
     perm_parts, valid_parts = [], []
@@ -459,20 +471,10 @@ class BatchedBucketedGraph(NamedTuple):
         return tuple(g.indices.shape[-1] for g in self.buckets)
 
 
-def bucketize_graphs_stacked(graph: PaddedGraph, num_sources: int,
-                             with_transpose: bool = True, tile: int = 8,
-                             max_buckets: int = 4,
-                             launch_penalty_rows: int = 256,
-                             min_gain: float = 1.15,
-                             min_k: int = 12) -> Optional[BatchedBucketedGraph]:
-    """Degree-bucket a stacked per-sample graph [S, Q, K].
-
-    The bucket K values come from the pooled degree distribution of all
-    samples; per-sample bucket row counts are padded to the maximum over
-    samples (rounded to ``tile``), so every sample shares the layout.
-    Returns None when the padded-row win does not clear ``min_gain`` or
-    K < ``min_k``. ``num_sources`` is the per-sample source-set size.
-    The decision and the layout are the JAX package's."""
+def _stacked_bucket_layout(graph: PaddedGraph, tile: int, max_buckets: int,
+                           launch_penalty_rows: int, min_gain: float, min_k: int):
+    """The decision of :func:`bucketize_graphs_stacked`: (the kept bucket K
+    values, their row counts, each query's bucket [S, Q]), or None."""
     if graph.indices.ndim != 3 or graph.indices.shape[-1] < min_k:
         return None
     s, q, k = graph.indices.shape
@@ -490,7 +492,29 @@ def bucketize_graphs_stacked(graph: PaddedGraph, num_sources: int,
     bucketed_rows = sum(r * kk for r, kk in zip(rs, ks))
     if bucketed_rows == 0 or q * k < min_gain * bucketed_rows:
         return None
-    bid = np.searchsorted(np.asarray(ks), np.maximum(deg, 1))
+    return ks, rs, np.searchsorted(np.asarray(ks), np.maximum(deg, 1))
+
+
+def bucketize_graphs_stacked(graph: PaddedGraph, num_sources: int,
+                             with_transpose: bool = True, tile: int = 8,
+                             max_buckets: int = 4,
+                             launch_penalty_rows: int = 256,
+                             min_gain: float = 1.15,
+                             min_k: int = 12) -> Optional[BatchedBucketedGraph]:
+    """Degree-bucket a stacked per-sample graph [S, Q, K].
+
+    The bucket K values come from the pooled degree distribution of all
+    samples; per-sample bucket row counts are padded to the maximum over
+    samples (rounded to ``tile``), so every sample shares the layout.
+    Returns None when the padded-row win does not clear ``min_gain`` or
+    K < ``min_k``. ``num_sources`` is the per-sample source-set size.
+    The decision and the layout are the JAX package's."""
+    layout = _stacked_bucket_layout(graph, tile, max_buckets, launch_penalty_rows,
+                                    min_gain, min_k)
+    if layout is None:
+        return None
+    ks, rs, bid = layout
+    s, q, _ = graph.indices.shape
 
     r_total = sum(rs)
     buckets = [(np.zeros((s, r, kk), dtype=np.int32),
@@ -553,3 +577,19 @@ def graph_to_device(graph, device):
     if isinstance(graph, torch.Tensor):
         return graph.to(device)
     raise TypeError(f"cannot move {type(graph).__name__} to a device")
+
+
+def bucket_width(graph: PaddedGraph, min_k: int = 12) -> int:
+    """The K of the widest degree bucket that :func:`bucketize_graph` (a
+    [Q, K] graph) or :func:`bucketize_graphs_stacked` ([S, Q, K]) makes of
+    ``graph`` at their other defaults, or its K where it stays dense: the
+    width of edge drop's draw over the graph (``ops/edge_drop.py``), which a
+    rank of spatial parallelism takes from the uncut graph."""
+    if graph.indices.ndim == 2:
+        layout = _bucket_layout(graph, 128, 4, 1024, 1.15, min_k)
+        if layout is None:
+            return graph.k
+        ks, bid = layout
+        return max(kb for b, kb in enumerate(ks) if (bid == b).any())
+    layout = _stacked_bucket_layout(graph, 8, 4, 256, 1.15, min_k)
+    return graph.k if layout is None else max(layout[0])

@@ -21,13 +21,22 @@ each rank of the model axis:
   counts are summed over the ranks, and every parameter's gradient, partial
   on each rank, is summed over the model axis.
 
+On vx data (a mesh per sample) the output queries are each sample's padded
+nodes, which the graph build puts in Morton order, so a rank's contiguous
+range of them is a compact patch of every mesh; the stacked [S, Q, K]
+graphs are cut along their query axis before they are bucketed
+(``data/graph_builder.py``), and keep all their sources. The geometric
+embedding standardizes each sample's features over the rows of every rank
+(``models/gemb.py``). Edge drop draws what one process draws: the uncut
+graph's uniforms, of which a rank keeps its rows (``ops/edge_drop.py``).
+
 The transformer weights stay whole: tensor and sequence parallelism on one
 axis (Megatron's sequence parallelism) is not ported. The numbers are the
 one-process numbers either way; only the memory differs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +47,11 @@ from . import comm
 class SpatialShard(NamedTuple):
     """This rank's ranges: latent queries, UViT tokens and output queries
     (``nodes``, of ``node_chunk`` rows a rank, the last rank's fewer where
-    the count does not divide), and its part of the latent grid."""
+    the count does not divide; on vx data each sample's padded nodes), and
+    its part of the latent grid. ``widths``: the encoder's and the decoder's
+    edge-drop draw width per scale, taken from the uncut graphs
+    (``ops/padding.py::bucket_width``), so that a rank draws what one
+    process draws (None: no edge drop)."""
 
     group: object
     count: int
@@ -48,6 +61,7 @@ class SpatialShard(NamedTuple):
     node_chunk: int
     num_nodes: int
     grid: Tuple[int, ...]
+    widths: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None
 
 
 def spatial_shard(grid_shape: Sequence[int], patch_size: int, num_nodes: int,
@@ -75,8 +89,10 @@ def spatial_shard(grid_shape: Sequence[int], patch_size: int, num_nodes: int,
 
 
 def cut_rows(graph, lo: int, hi: int):
-    """A host PaddedGraph's query rows [lo, hi)."""
-    return graph._replace(indices=graph.indices[lo:hi], mask=graph.mask[lo:hi])
+    """A host PaddedGraph's query rows [lo, hi): of its one graph [Q, K]
+    (fx), or of each sample's graph of a stack [S, Q, K] (vx)."""
+    return graph._replace(indices=graph.indices[..., lo:hi, :],
+                          mask=graph.mask[..., lo:hi, :])
 
 
 def gather_nodes(x: torch.Tensor, shard: SpatialShard, dim: int) -> torch.Tensor:

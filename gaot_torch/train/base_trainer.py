@@ -227,8 +227,8 @@ class BaseTrainer(ABC):
         return comm.all_gather(t, self.mesh.data_group, 0)[:batch_size]
 
     def local_nodes(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's output queries of a target [B, N, C] (all of them
-        without spatial parallelism)."""
+        """This rank's output queries of a target [B, N, C] or a node mask
+        [B, N] (all of them without spatial parallelism)."""
         if self.spatial is None:
             return t
         return t[:, self.spatial.nodes[0]:self.spatial.nodes[1]]

@@ -140,8 +140,8 @@ class SequentialTrainer(StaticTrainer):
             time_indices = predict_mode_indices(mode, t_lim, cfg.time_step)
             batcher = RolloutTestBatcher(test["u"], test["c"], time_indices,
                                          self.stats, graphs=graphs)
-            layout = vx_layout(batcher.buffers, min(cfg.batch_size, len(batcher))) \
-                if vx else {}
+            layout = vx_layout(batcher.buffers, min(cfg.batch_size, len(batcher)),
+                               batcher.num_latent) if vx else {}
             loader = BatchLoader(len(batcher), cfg.batch_size,
                                  lambda idx: {**batcher.get_batch(idx), **layout})
             all_errs = []

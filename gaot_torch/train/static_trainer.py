@@ -9,6 +9,10 @@ the :class:`StaticTrainer`, in both coordinate modes:
   node mask and stacked graphs, built once per split on the host
   (``data/graph_builder.py``) and selected with the samples by the loader;
   the loss and the metric count real nodes only.
+
+Under ``spatial_parallel`` a rank's graphs hold its rows (fx: its latent
+queries and nodes; vx: its share of each sample's padded nodes), its loss
+and metric reading its nodes of the target and node mask.
 """
 from __future__ import annotations
 
@@ -19,7 +23,14 @@ import numpy as np
 import torch
 
 from ..data.data_processor import DataProcessor
-from ..data.graph_builder import GraphBuilder, prepare_fx_device_graphs, vx_flat_graphs
+from ..data.graph_builder import (
+    GraphBuilder,
+    VxCounts,
+    fx_draw_widths,
+    prepare_fx_device_graphs,
+    vx_flat_graphs,
+    vx_node_pad,
+)
 from ..data.loader import make_static_fx_loader, make_static_vx_loader
 from ..models import GAOT
 from ..ops.draws import BatchShare
@@ -208,24 +219,39 @@ class StaticTrainer(BaseTrainer):
         ``dataset.graph_cache_dir`` is set (the dataset named
         ``{name}-{coord_scaling}{cache_suffix}``, as the JAX trainers name
         it). Only the linear transforms' graphs are degree-bucketed; the
-        nonlinear ones stay dense, the JAX trainers' guard."""
-        if self.mesh.spatial:
-            raise NotImplementedError(
-                "spatial_parallel on vx data (a mesh per sample) is not ported: "
-                "ROADMAP item 13b; fx data shards its queries")
+        nonlinear ones stay dense, the JAX trainers' guard. Under spatial
+        parallelism this rank's share of each sample's padded nodes and of
+        the latent queries sets :attr:`spatial`, and the graphs are cut to
+        its rows (``GraphBuilder.build_all_vx_graphs``); of the ranks that
+        build the same cut, the first on the data axis writes the cache."""
         magno, cfg = self.model_config.args.magno, self.dataset_config
         builder = GraphBuilder.from_magno_config(magno)
+        mesh = self.mesh
         kw = dict(build_train=self.setup_config.train,
                   model_transform=self.data_processor.coord_scaler,
                   with_transpose=magno.use_transpose_backward,
                   bucketing=(magno.use_query_bucketing and magno.transform_type
                              in ("linear", "linear_kernelonly")))
+        if mesh.spatial:
+            self.spatial = spatial_shard(
+                self.model_config.latent_tokens_size,
+                self.model_config.args.transformer.patch_size,
+                vx_node_pad(splits, self.setup_config.train), mesh.model_group,
+                mesh.model_index, mesh.mp)
+            kw["rows"] = (self.spatial.latent, self.spatial.nodes)
         if cfg.graph_cache_dir:
-            return builder.build_all_vx_graphs_cached(
+            out = builder.build_all_vx_graphs_cached(
                 cfg.graph_cache_dir, f"{cfg.name}-{cfg.coord_scaling}{cache_suffix}",
-                splits, latent, magno.radius, magno.scales, **kw)
-        return builder.build_all_vx_graphs(splits, latent, magno.radius,
-                                           magno.scales, **kw)
+                splits, latent, magno.radius, magno.scales, ranks=mesh.mp,
+                write=mesh.data_index == 0 and (mesh.spatial or mesh.model_index == 0),
+                **kw)
+        else:
+            out = builder.build_all_vx_graphs(splits, latent, magno.radius,
+                                              magno.scales, **kw)
+        if mesh.spatial:
+            self.spatial = self.spatial._replace(widths=next(
+                g.draw_widths for g in out.values() if g is not None))
+        return out
 
     def _build_fx_graphs(self, x: np.ndarray, latent: np.ndarray) -> None:
         """The shared fx graphs of the nodes ``x`` [N, d] and the model's
@@ -236,11 +262,13 @@ class StaticTrainer(BaseTrainer):
             coord, latent, magno.radius, magno.scales)
         if self.mesh.spatial:
             # This rank's rows: its latent queries in the encoder, its
-            # output queries in the decoder.
+            # output queries in the decoder; edge drop draws over the uncut
+            # graphs' widths.
             self.spatial = sp = spatial_shard(
                 self.model_config.latent_tokens_size,
                 self.model_config.args.transformer.patch_size, coord.shape[0],
-                self.mesh.model_group, self.mesh.model_index, self.mesh.mp)
+                self.mesh.model_group, self.mesh.model_index, self.mesh.mp)._replace(
+                    widths=(fx_draw_widths(enc, magno), fx_draw_widths(dec, magno)))
             enc = [cut_rows(g, *sp.latent) for g in enc]
             dec = [cut_rows(g, *sp.nodes) for g in dec]
         self.coord = torch.from_numpy(coord.astype(np.float32)).to(self.device)
@@ -258,15 +286,21 @@ class StaticTrainer(BaseTrainer):
     # ------------------------------------------------------------------
     def _batch_graphs(self, batch: Dict) -> FxGraphs:
         """A vx batch's per-scale graphs, flattened over the batch, from its
-        buffers and its layout."""
+        buffers and its layout (under spatial parallelism this rank's rows
+        of them, with all their sources)."""
+        sp, counts = self.spatial, None
+        if sp is not None:
+            counts = VxCounts(sp.num_nodes, self.latent.shape[0],
+                              sp.latent[1] - sp.latent[0], sp.nodes[1] - sp.nodes[0])
         return FxGraphs(self.latent, *vx_flat_graphs(
-            batch, len(self.model_config.args.magno.scales)))
+            batch, len(self.model_config.args.magno.scales), counts))
 
     def _model_args(self, batch: Dict):
-        """(graphs, coordinates, node mask or None) of a placed batch."""
+        """(graphs, coordinates, node mask or None) of a placed batch; the
+        coordinates whole, the node mask this rank's nodes'."""
         if self.coord_mode == "fx":
             return self.graphs, self.coord, None
-        return self._batch_graphs(batch), batch["x"], batch["node_mask"]
+        return self._batch_graphs(batch), batch["x"], self.local_nodes(batch["node_mask"])
 
     def _inputs(self, batch: Dict):
         """(model input, target, time condition or None) of a placed batch."""

@@ -14,7 +14,8 @@ devices and against one process:
   process's within 1e-5 (the summation order of the sharded reductions
   differs);
 - what it refuses: a grid whose first axis is not a whole number of patches
-  per rank, and vx data.
+  per rank; vx data, refused until spatial parallelism covered it, now
+  trains a step (``tests/test_torch_spatial_vx.py`` holds it).
 """
 import os
 import sys
@@ -122,7 +123,9 @@ def test_spatial_refusals(tmp_path):
         spatial_shard((12, 8), 2, 100, None, 0, 4)
     sp = spatial_shard((8, 8), 2, 10, None, 3, 4)
     assert (sp.latent, sp.tokens, sp.nodes, sp.grid) == ((48, 64), (12, 16), (9, 10), (2, 8))
+    # vx data is no longer refused: its config trains a step on two ranks
+    # (tests/test_torch_spatial_vx.py holds it against one process).
     cfg = _vx_config(tmp_path, "vxsp", setup={"data_parallel": 1, "model_parallel": 2,
                                              "spatial_parallel": True})
-    with pytest.raises(AssertionError, match="NotImplementedError: spatial_parallel on vx"):
-        td.run_ranks(td.train_steps, 2, tmp_path, cfg, None, 1)
+    for r in td.run_ranks(td.train_steps, 2, tmp_path, cfg, None, 1):
+        assert np.isfinite(r["losses"]).all()

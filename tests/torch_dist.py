@@ -247,3 +247,94 @@ def spatial_model(rank: int, world: int, model_cfg: dict, weights: str, graphs,
         full = gather_nodes(pred.detach(), shard, 1)
     return {"pred": full.numpy(),
             "grads": {n: p.grad.numpy() for n, p in model.named_parameters()}}
+
+
+def several(rank: int, world: int, calls, metadata: dict = None):
+    """The functions of ``calls`` ((name, args) pairs, functions of this
+    module) in turn, in one start of the ranks: the list of their results.
+    ``metadata`` (name → ``Metadata`` keywords) is registered in the port's
+    registry first."""
+    from gaot_torch.core import metadata as tmeta
+
+    for name, kw in (metadata or {}).items():
+        tmeta.DATASET_METADATA[name] = tmeta.Metadata(**kw)
+    return [globals()[fn](rank, world, *args) for fn, args in calls]
+
+
+def spatial_vx_model(rank: int, world: int, model_cfg: dict, weights: str, x, lat,
+                     pndata, target, bucketing: bool):
+    """The port's vx GAOT with ``weights`` under spatial parallelism over the
+    ``world`` ranks (one process: unsharded), on the vx graphs of the raw
+    coordinates ``x`` [B, N, d] that the port's builder makes (each rank
+    its cut): the forward's full output, the masked mean squared error to
+    ``target`` over the real nodes of every rank, and every parameter's
+    gradient of it (summed over the ranks)."""
+    from gaot_torch.core.config import ModelConfig, merge_config
+    from gaot_torch.data.graph_builder import (
+        GraphBuilder,
+        VxCounts,
+        vx_flat_graphs,
+        vx_graph_buffers,
+        vx_layout,
+        vx_node_pad,
+    )
+    from gaot_torch.models import GAOT
+    from gaot_torch.parallel.mesh import make_mesh
+    from gaot_torch.parallel.spatial import gather_nodes, spatial_shard, sum_grads
+    from gaot_torch.train.static_trainer import global_masked_mse
+
+    cfg = merge_config(ModelConfig, model_cfg)
+    magno = cfg.args.magno
+    mesh = make_mesh(1, world, spatial=True)
+    splits = {"test": {"x": x}}
+    n_pad, q = vx_node_pad(splits, False), lat.shape[0]
+    shard, rows, counts = None, None, VxCounts(n_pad, q, q, n_pad)
+    if mesh.spatial:
+        shard = spatial_shard(cfg.latent_tokens_size, cfg.args.transformer.patch_size,
+                              n_pad, mesh.model_group, mesh.model_index, mesh.mp)
+        rows = (shard.latent, shard.nodes)
+        counts = VxCounts(n_pad, q, shard.latent[1] - shard.latent[0],
+                          shard.nodes[1] - shard.nodes[0])
+    split = GraphBuilder(morton=True).build_all_vx_graphs(
+        splits, lat, magno.radius, magno.scales, build_train=False,
+        with_transpose=True, bucketing=bucketing, rows=rows)["test"]
+    bufs = vx_graph_buffers(split)
+    bufs.pop("node_perm")
+    b = x.shape[0]
+    batch = {k: torch.from_numpy(v) for k, v in
+             {**bufs, **vx_layout(bufs, b, split.num_latent)}.items()}
+    enc, dec = vx_flat_graphs(batch, len(magno.scales), counts)
+    model = GAOT(pndata.shape[-1], target.shape[-1], cfg, device="cpu")
+    model.load_state_dict(torch.load(weights))
+    tgt, nmask = torch.from_numpy(target), batch["node_mask"]
+    if shard is not None:
+        model.shard_queries(shard._replace(widths=split.draw_widths))
+        tgt, nmask = tgt[:, slice(*shard.nodes)], nmask[:, slice(*shard.nodes)]
+    pred = model(torch.from_numpy(lat), batch["x"], torch.from_numpy(pndata), enc, dec)
+    objective, loss = global_masked_mse(pred, tgt, torch.ones(b, dtype=torch.bool),
+                                        nmask, mesh)
+    objective.backward()
+    sum_grads(model.parameters(), mesh.model_group)
+    with torch.no_grad():
+        full = gather_nodes(pred.detach(), shard, 1)
+    return {"pred": full.numpy(), "loss": float(loss), "coords": split.coords,
+            "node_mask": split.node_mask,
+            "grads": {n: p.grad.numpy() for n, p in model.named_parameters()}}
+
+
+def cache_runs(rank: int, world: int, cfg: dict, steps: int):
+    """Two trainers of ``cfg`` in turn (its ``dataset.graph_cache_dir``
+    set): for each, whether it hit the cache and the losses of ``steps``
+    training steps."""
+    import contextlib
+    import io
+
+    out = []
+    for _ in range(2):
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            trainer = _trainer(world, cfg)
+        it = iter(trainer.train_loader)
+        out.append({"hit": "Graph cache hit" in said.getvalue(),
+                    "losses": [float(trainer.train_step(next(it))) for _ in range(steps)]})
+    return out
