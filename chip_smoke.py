@@ -129,7 +129,7 @@ failure):
      max_neighbors 32) trained through gaot_torch.cli.main on synthetic
      data at the airfoil layout (tests/torch_synthetic.py: 6144 nodes a
      sample clustered around a NACA 0012 profile, seed 0), batch 32,
-     256 / 32 / 64 samples, 6 epochs, its fp32, under a device-only
+     128 / 16 / 32 samples, 6 epochs, its fp32, under a device-only
      profiler: launches equal to the tables of the CLI trainer's own graphs
      times its steps and evaluation batches, falling loss, finite metric,
      checkpoint, loss record, CSV row, the run's row gathers logged; then
@@ -173,8 +173,9 @@ failure):
      (card vs CPU, launch table, median both ways). Then the elasticity
      recipe with transform_type nonlinear, node_embedding and
      dataset.graph_cache_dir, twice through `python -m gaot_torch.cli -c`
-     (phase 5b's data and sizes, 2 epochs): the second run hits the cache
-     and gives the same losses bit for bit; both set-up times logged.
+     (phase 5b's data cut to 64 / 16 / 16 samples, 2 epochs): the second
+     run hits the cache and gives the same losses bit for bit; both set-up
+     times logged.
   10. multi-GPU training (gaot_torch/parallel/): (10.1) the fx recipe at
      phase 5's sizes, epochs and validation cadence through torchrun at one
      rank on NCCL with setup.distributed: a falling loss, one CSV row,
@@ -208,13 +209,42 @@ failure):
      as not run; the kernels at the ranks' shapes for the line below,
      measured in a process of their own (the fx rows) and in rank 0 (the vx
      reduces on its cut graphs of its bf16 batch).
+  11. setup.epoch_scan on the card (gaot_torch/train/graphed.py), before
+     phase 10 (the script's own process has profiled nothing after phase
+     10's ranks), "eager" the step issued from the host, "the graph" the
+     step captured once as a CUDA graph and replayed: (11.4) the fx recipe
+     at phase 5's data and sizes (bf16) and ns_gauss.json at phase 5c's
+     (bf16, 2 epochs, a validation each, its rollout) through
+     gaot_torch.cli.main with epoch_scan "always" (route steps=graph) and
+     "never" (steps=per-step): the loss records and the test metrics within
+     1e-6 relative, samples/s both ways, and on the ns_gauss trainer the
+     autoregressive rollout as a loop of forwards and as one replayed graph
+     (the same bits, ms a forward both ways); (11.1) one fx training step
+     at batch 64 with every call of its six kernels recorded, each call
+     captured alone and replayed: its outputs equal to the eager call's bit
+     for bit, timed both ways; (11.2, on the fx trainer of 11.4) two epochs
+     through the per-step path, then from the same weights, optimizer state
+     and generator through the captured epoch path: the same loss bits on
+     every step, every weight within 1e-6 of its tensor's largest entry;
+     then both ways (the step body issued from the host against its
+     replay) the step's median ms, device busy, idle share and kernels a
+     step (equal), the capture's seconds and peak memory; (11.3) the same
+     on the ns_gauss trainer (batch 64), on the vx flagship's step (phase
+     4's model, graphs and batch, 8 steps) and, inside phase 5d, on the
+     naca0012 trainer (edge drop, fp32), where each step's uniforms summed
+     must equal eager's bit for bit and change every step.
   9. prints one JSON line listing every kernel of the five paths (the fx
      main path's launches are those of the trainer's run A; the vx
      entries' those of the vx flagship's training step and forward; the
      sequential entries', @seq, those of run A; the naca0012 entries,
      @naca, the multiply-reduces on its thinned masks with its CLI run's
      launches; @dp, @tp, @sp, @sp-vx, phase 10's, with rank 0's launches in
-     one bf16 step).
+     one bf16 step; then the captured steps' entries, @graph: the fx
+     step's kernels with 11.1's replayed times, @graph-vx, @graph-seq,
+     @graph-naca: phase 2's times, launches the wrappers' count in each
+     graph run, two warm-up steps and the capture).
+The earlier phases pin setup.epoch_scan to "never", so that their launch
+counts and profiles are the per-step path's.
 The last line is {"ok": true, "device": {...}}.
 """
 import copy
@@ -1600,7 +1630,8 @@ def profile_step(run, what: str, steps: int = 10, top: int = 20, gathers: int = 
     if per_step > gathers:
         fail(f"the {what} runs PyTorch's row gather {per_step} times a step, "
              f"at most {gathers} expected")
-    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms, "kernels": kernels_per_step}
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms, "kernels": kernels_per_step,
+            "by_name": {e.key: e.count / steps for e in events}}
 
 
 def phase_rollout(path: Path):
@@ -1700,7 +1731,7 @@ def _trainer_config(folder: str, name: str, ckpt_of: str = None, **setup) -> tup
     Returns (the written config's path, the config)."""
     with open(CONFIG) as f:
         raw = json.load(f)
-    raw["setup"].update(setup)
+    raw["setup"].update({"epoch_scan": "never", **setup})
     raw["dataset"].update(TRAINER_SIZES, base_path=folder)
     raw["optimizer"]["args"]["epoch"] = TRAINER_EPOCHS
     out = lambda run, f: os.path.join(folder, run, f)
@@ -2006,6 +2037,7 @@ def phase_vx_trainer(card: str, step_ms: float):
         make_elasticity_dataset(os.path.join(folder, f"{raw['dataset']['name']}.npz"),
                                 num_samples=n, seed=0)
         raw["dataset"].update(VX_TRAINER_SIZES, base_path=folder)
+        raw["setup"]["epoch_scan"] = "never"
         raw["optimizer"]["args"]["epoch"] = VX_TRAINER_EPOCHS
         raw["path"] = {k: os.path.join(folder, "run", os.path.basename(v))
                        for k, v in raw["path"].items()}
@@ -2104,7 +2136,7 @@ def _seq_example(folder: str, config: str, run: str, sizes: dict, epochs: int,
     Returns (the written config's path, the config)."""
     with open(config) as f:
         raw = json.load(f)
-    raw["setup"].update(setup)
+    raw["setup"].update({"epoch_scan": "never", **setup})
     raw["dataset"].update(sizes, base_path=folder)
     raw["optimizer"]["args"]["epoch"] = epochs
     if eval_every is not None:
@@ -2318,7 +2350,7 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
 # these split sizes and epochs (the example: 1024 / 128 / 256 samples, 500
 # epochs).
 NACA = os.path.join(HERE, "config", "examples", "time_indep", "naca0012.json")
-NACA_SIZES = {"train_size": 256, "val_size": 32, "test_size": 64}
+NACA_SIZES = {"train_size": 128, "val_size": 16, "test_size": 32}
 NACA_EPOCHS = 6
 NACA_CHECK_BATCH = 2
 # Degree bins of the encoder's histogram.
@@ -2535,7 +2567,7 @@ def _naca_agreement(trainer, batch):
 def phase_naca(card: str, rnd):
     """Phase 5d: the naca0012 recipe through the CLI (module docstring).
     Returns (the run's launches, the multiply-reduce rows on its dropped
-    masks)."""
+    masks, phase 11.3's results on its trainer)."""
     import tempfile
 
     import torch
@@ -2555,6 +2587,7 @@ def phase_naca(card: str, rnd):
         make_naca_dataset(os.path.join(folder, f"{raw['dataset']['name']}.npz"),
                           num_samples=n, seed=0)
         raw["dataset"].update(NACA_SIZES, base_path=folder)
+        raw["setup"]["epoch_scan"] = "never"
         raw["optimizer"]["args"]["epoch"] = NACA_EPOCHS
         raw["path"] = {k: os.path.join(folder, "run", os.path.basename(v))
                        for k, v in raw["path"].items()}
@@ -2632,6 +2665,12 @@ def phase_naca(card: str, rnd):
         _naca_drop_statistics(trainer, batches, trainer.model_config.args.magno.max_neighbors)
         _naca_drop_cost(trainer, batches[0], train)
         _naca_agreement(trainer, batches[0])
+        # Phase 11.3 on this trainer: its epoch path captured, edge drop and
+        # all, against its per-step path.
+        with _Draws() as draws:
+            graph = _trainer_graph(f"naca0012 (edge drop to {magno['max_neighbors']}, "
+                                   f"fp32, batch {raw['dataset']['batch_size']})",
+                                   trainer, card, draws)
 
         # The multiply-reduces on the batch's masks with holes: ratio 0.5 on
         # every bucket, then the example's max_neighbors 32 (the rows the
@@ -2656,7 +2695,7 @@ def phase_naca(card: str, rnd):
         del trainer, graphs, batches
         torch.cuda.empty_cache()
     log(f"naca0012 phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches, rows
+    return launches, rows, graph
 
 
 # Phase 6: attention dropout at this rate on the fx main path's training step
@@ -2785,6 +2824,9 @@ VX_OPTIONS = {   # run: MAGNO overrides
     "node_embedding": {"node_embedding": True},
 }
 CACHE_EPOCHS = 2
+# The cache runs' splits: the vx trainer phase's data cut to these sizes
+# (the check is the cache's hit and the losses it repeats, not the fit).
+CACHE_SIZES = {"train_size": 64, "val_size": 16, "test_size": 16}
 
 
 def _with_magno(path: Path, name: str, **over) -> Path:
@@ -2867,7 +2909,7 @@ def _without_transpose(on: Path, off: Path, table_on: dict):
 def _cache_runs(card: str):
     """The elasticity recipe with transform_type nonlinear, node_embedding
     and dataset.graph_cache_dir, run twice through ``python -m
-    gaot_torch.cli -c`` (the vx trainer phase's data and sizes,
+    gaot_torch.cli -c`` (the vx trainer phase's data at CACHE_SIZES,
     CACHE_EPOCHS epochs, its fp32): the first builds and writes the cache,
     the second hits it; both give the same losses bit for bit. Returns the
     set-up seconds of both (to the parameter count's line, the interpreter's
@@ -2882,13 +2924,14 @@ def _cache_runs(card: str):
     with tempfile.TemporaryDirectory(prefix="gaot_cache_") as folder:
         with open(ELASTICITY) as f:
             raw = json.load(f)
-        n = sum(VX_TRAINER_SIZES.values())
+        n = sum(CACHE_SIZES.values())
         make_elasticity_dataset(os.path.join(folder, f"{raw['dataset']['name']}.npz"),
                                 num_samples=n, seed=0)
         raw["model"]["args"]["magno"].update(transform_type="nonlinear",
                                              node_embedding=True)
-        raw["dataset"].update(VX_TRAINER_SIZES, base_path=folder,
+        raw["dataset"].update(CACHE_SIZES, base_path=folder,
                               graph_cache_dir=os.path.join(folder, "cache"))
+        raw["setup"]["epoch_scan"] = "never"
         raw["optimizer"]["args"]["epoch"] = CACHE_EPOCHS
         raw["optimizer"]["args"]["eval_every_eps"] = 1
         runs = []
@@ -3020,7 +3063,7 @@ MESH_RUNS = {   # mode: setup of the two ranks
     "sp": {"data_parallel": 1, "model_parallel": 2, "spatial_parallel": True},
 }
 MESH_SIZES = {"train_size": 64, "val_size": 8, "test_size": 8}
-MESH_CHECK_BATCH, MESH_CHECK_STEPS, MESH_TIME_STEPS = 8, 3, 10
+MESH_CHECK_BATCH, MESH_CHECK_STEPS, MESH_TIME_STEPS = 8, 3, 4
 RANK_TIMEOUT = 420
 # 10.2's vx runs, spatial_parallel at mp 2 on two ranks, in one start of
 # the ranks (mode "vx"): sp-vx, the vx flagship's model (CONFIG_VX) on
@@ -3043,7 +3086,8 @@ def _mesh_config(folder: str, name: str, batch: int, bf16: bool, **setup) -> dic
     compute dtype, outputs under ``folder``/``name``."""
     with open(CONFIG) as f:
         raw = json.load(f)
-    raw["setup"].update(setup, compute_dtype="bfloat16" if bf16 else "float32")
+    raw["setup"].update({"epoch_scan": "never", **setup},
+                        compute_dtype="bfloat16" if bf16 else "float32")
     raw["dataset"].update(MESH_SIZES, base_path=folder, batch_size=batch)
     out = lambda f: os.path.join(folder, name, f)
     raw["path"] = {"ckpt_path": out("ckpt"), "loss_path": out("loss.png"),
@@ -3072,7 +3116,8 @@ def _vx_mesh_config(folder: str, run: str, name: str, batch: int, bf16: bool = F
         raw["dataset"].update(NACA_MESH_SIZES if run == "naca-sp"
                               else ELASTICITY_MESH_SIZES, base_path=folder)
         raw["optimizer"]["args"].update(epoch=ELASTICITY_MESH_EPOCHS, eval_every_eps=1)
-    raw["setup"].update(setup, compute_dtype="bfloat16" if bf16 else "float32")
+    raw["setup"].update({"epoch_scan": "never", **setup},
+                        compute_dtype="bfloat16" if bf16 else "float32")
     raw["dataset"]["batch_size"] = batch
     raw["path"] = paths
     return raw
@@ -3111,8 +3156,7 @@ def _vx_mesh_runs(rank: int, folder: str, setup: dict) -> dict:
                                                     VX_BATCH, True, **setup))
         out["cache_hit"] = "Graph cache hit" in said.getvalue()
         placed = trainer.place_batch(next(iter(trainer.train_loader)))
-        for _ in range(3):
-            trainer.train_step(placed)
+        trainer.train_step(placed)
         torch.cuda.synchronize()
         kernels.reset_launches()
         trainer.train_step(placed)
@@ -3254,8 +3298,7 @@ def _rank_child(argv) -> int:
     with _quiet():
         trainer = StaticTrainer(_mesh_config(folder, f"{mode}_time", BATCH, True, **setup))
     placed = trainer.place_batch(next(iter(trainer.train_loader)))
-    for _ in range(3):
-        trainer.train_step(placed)
+    trainer.train_step(placed)
     torch.cuda.synchronize()
     kernels.reset_launches()
     trainer.train_step(placed)
@@ -3697,6 +3740,600 @@ def _mesh_path(cfg, coord, lat, enc, dec, table) -> Path:
                 train_launches=table)
 
 
+# Phase 11: setup.epoch_scan on the card (train/graphed.py): the training
+# step captured once as a CUDA graph and replayed, against the per-step
+# path ("eager"), from the same weights, optimizer state and generators.
+# The graph must give the per-step path's loss bits on every step and, after
+# the last, every weight within GRAPH_WEIGHT_BOUND of its tensor's largest
+# entry (both routes run one step body and the same capturable AdamW:
+# equal bits are expected; the bound is what must hold). Timings: the step
+# body issued from the host ("eager") against its replay (the same
+# kernels, so the kernels a step must be equal), each with its median,
+# device busy, idle share and peak memory; the per-step path's median
+# beside them.
+GRAPH_EPOCHS = 2
+GRAPH_WEIGHT_BOUND = 1e-6
+GRAPH_STEPS = 8               # the steps of the captured steps of 11.3's paths
+GRAPH_KERNEL_SLACK = 0.005    # of the kernels a step (above)
+GRAPH_SEQ_EPOCHS = 2          # 11.4's ns_gauss fits (phase 5c's sizes)
+
+
+def _weights(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _hold(what: str, losses_g, losses_e, w_g: dict, w_e: dict) -> float:
+    """The graph's losses bit for bit the eager ones, its weights within
+    GRAPH_WEIGHT_BOUND of each tensor's largest entry. Returns the worst."""
+    import torch
+
+    losses_g, losses_e = losses_g.float().cpu(), losses_e.float().cpu()
+    if not torch.isfinite(losses_g).all() or not torch.equal(losses_g, losses_e):
+        fail(f"{what}: the graph's losses {losses_g.tolist()} are not the eager "
+             f"losses {losses_e.tolist()} bit for bit")
+    worst, name = 0.0, None
+    for k, want in w_e.items():
+        err = float((w_g[k].float() - want.float()).abs().max()
+                    / want.float().abs().max().clamp(min=1e-30))
+        if err >= worst:
+            worst, name = err, k
+    log(f"{what}: {len(losses_g)} steps, the same loss bits both ways "
+        f"({' '.join(f'{v:.6f}' for v in losses_g.tolist()[:4])} ...); weights after: "
+        f"worst {worst:.3e} of the tensor's largest entry ({name}; bound "
+        f"{GRAPH_WEIGHT_BOUND:g})")
+    if worst > GRAPH_WEIGHT_BOUND:
+        fail(f"{what}: weights after the graph's steps differ from eager's by {worst:.3e}")
+    return worst
+
+
+def _both_ways(what: str, eager, graph, batch: int, gathers: int):
+    """The step both ways: median ms of 10 synchronised steps, the profile
+    of 10 back to back (busy, idle share, kernels a step by name). Each
+    hand-written kernel must run as often a step both ways, and the
+    kernels a step in all within GRAPH_KERNEL_SLACK of each other: the
+    same ops, but PyTorch picks an element-wise kernel's vector width by
+    its buffers' alignment, which the graph's memory pool lays out
+    otherwise, so a few names differ (they are logged). A trace can lose
+    device records (from one to a few dozen in 10 steps, on the H100 with
+    either way), never add one: where the counts disagree, both ways are
+    traced again, at most twice, and each name keeps its largest count."""
+    out, names = {}, {}
+    for way, run in (("eager", eager), ("graph", graph)):
+        times = host_times(run, 10)
+        prof = profile_step(run, f"{what}, {way}", gathers=gathers, top=6)
+        out[way] = {"ms": statistics.median(times), "busy_ms": prof["busy_ms"],
+                    "idle": 1 - prof["busy_ms"] / prof["wall_ms"],
+                    "kernels": prof["kernels"], "wall_ms": prof["wall_ms"]}
+        names[way] = prof["by_name"]
+        log(f"  {what} {way}: step_ms {fmt_times(times, batch)}")
+    for trace in range(3):
+        diff = {k: (names["eager"].get(k, 0), names["graph"].get(k, 0))
+                for k in set(names["eager"]) | set(names["graph"])
+                if names["eager"].get(k, 0) != names["graph"].get(k, 0)}
+        ours = {k: v for k, v in diff.items()
+                if any(m in k for m in ("mulred", "flash", "ffn_"))}
+        e, g = (sum(names[way].values()) for way in ("eager", "graph"))
+        if diff:
+            log(f"  {what}: kernels a step by name that differ (eager, graph): "
+                + "; ".join(f"{k[:70]} {a:.1f} {b:.1f}"
+                            for k, (a, b) in sorted(diff.items())[:12]))
+        if not ours and abs(e - g) <= GRAPH_KERNEL_SLACK * e:
+            break
+        if trace == 2:
+            fail(f"{what}: {g} kernels a replayed step against {e} eager"
+                 + (f"; the hand-written kernels differ: {ours}" if ours else ""))
+        log(f"  {what}: {g} kernels a replayed step against {e} eager (trace "
+            f"{trace + 1}): both ways traced again, each name keeping its largest count")
+        for way, run in (("eager", eager), ("graph", graph)):
+            for ev in device_events(lambda: [run() for _ in range(10)], f"{what}, {way}"):
+                names[way][ev.key] = max(names[way].get(ev.key, 0), ev.count / 10)
+    for way, k in (("eager", e), ("graph", g)):
+        out[way]["kernels"] = k
+    return out
+
+
+def _per_step_epochs(trainer, mats, after_step=None):
+    """The per-step path over the epochs ``mats`` (index matrices): each
+    row's batch from the loader, ``train_step``. Returns the losses."""
+    import torch
+
+    loader, losses = trainer.train_loader, []
+    for idx, mask in mats:
+        for j in range(len(idx)):
+            batch = loader.get_batch(idx[j])
+            batch["sample_mask"] = mask[j]
+            losses.append(trainer.train_step(batch).reshape(1))
+            if after_step is not None:
+                after_step()
+    return torch.cat(losses)
+
+
+def _trainer_graph(what: str, trainer, card: str, draws=None) -> dict:
+    """11.2 / 11.3 on a trainer: GRAPH_EPOCHS epochs through the per-step
+    path, then, from the same state, through the captured epoch path;
+    ``draws`` (11.3 naca0012) a :class:`_Draws` that records each step's
+    draws both ways. Then the timings both ways. Returns the results."""
+    import torch
+
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train.graphed import EpochProgram, Snapshot
+    from gaot_torch.train.schedules import lr_table
+
+    loader = trainer.train_loader
+    snap = Snapshot(trainer.model, trainer.optimizer, [trainer.generator])
+    step0 = trainer.step
+    mats = [loader.epoch_index_matrix() for _ in range(GRAPH_EPOCHS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager = _per_step_epochs(trainer, mats, draws.step if draws is not None else None)
+    torch.cuda.synchronize()
+    peak_e = torch.cuda.max_memory_allocated()
+    w_e = _weights(trainer.model)
+    snap.restore()
+    trainer.step = step0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    program = EpochProgram(trainer, capture=True)
+    # Captured before the first epoch's replays, the draws' sink in place
+    # (the capture records its writes; the warm-up steps' are cleared
+    # before each epoch).
+    if draws is not None:
+        draws.epoch(program)
+    program.load(*mats[0], lr_table(trainer.schedule, trainer.step, len(mats[0][0])))
+    graph = []
+    for m in mats:
+        if draws is not None:
+            draws.epoch(program)
+        graph.append(trainer.train_epoch(program, m)[0])
+        if draws is not None:
+            draws.read()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_g = torch.cuda.max_memory_allocated()
+    worst = _hold(f"phase 11 {what}", torch.cat(graph), eager, _weights(trainer.model), w_e)
+    capture_s = program.captured.capture_s
+    log(f"  {what}: capture {capture_s:.3f} s (2 warm-up steps undone, then the "
+        f"capture); launches through the wrappers in the graph's run {launches} "
+        f"(the warm-up steps' and the capture's; each replay launches the "
+        f"captured step's); peak memory eager {peak_e / 2**30:.3f} GiB, graph "
+        f"{peak_g / 2**30:.3f} GiB")
+    if draws is not None:
+        draws.hold()
+    # Timings: the body issued step by step against its replay, and the
+    # per-step path on one placed batch.
+    plain = EpochProgram(trainer, capture=False)
+    idx, mask = mats[0]
+    trainer.train_epoch(plain, mats[0])
+    b = loader.batch_size
+    # Row gathers a step: the batch's selects (one a buffer) and the three
+    # tables' rows.
+    res = _both_ways(f"{what} step", plain._body, program.captured.replay, b,
+                     gathers=len(program.bufs) + 3)
+    batch = trainer.place_batch(dict(loader.get_batch(idx[0]), sample_mask=mask[0]))
+    per_step = statistics.median(host_times(lambda: trainer.train_step(batch), 10))
+    res.update(capture_s=capture_s, peak_e=peak_e, peak_g=peak_g, worst=worst,
+               launches=launches, per_step_ms=per_step,
+               replays=GRAPH_EPOCHS * len(idx))
+    log(f"phase 11 {what} ({card}): step ms eager {res['eager']['ms']:.3f} / graph "
+        f"{res['graph']['ms']:.3f} (the per-step path {per_step:.3f}); busy "
+        f"{res['eager']['busy_ms']:.3f} / {res['graph']['busy_ms']:.3f} ms; idle share "
+        f"{res['eager']['idle']:.3f} / {res['graph']['idle']:.3f}; kernels a step "
+        f"{res['eager']['kernels']:.0f} both ways; capture {capture_s:.3f} s; peak "
+        f"{peak_e / 2**30:.3f} / {peak_g / 2**30:.3f} GiB")
+    del program, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+class _Draws:
+    """Each step's edge-drop draws, summed in float64 in draw order (the
+    uniforms the masks are thinned by): eager into one sum a step
+    (:meth:`step` closes it), the graph into slot t of a [k] buffer by the
+    epoch program's step counter (:meth:`epoch` before an epoch,
+    :meth:`read` after). Installed around both ways, so the step body
+    carries the same sums in each."""
+
+    def __init__(self):
+        from gaot_torch.ops import edge_drop
+
+        self.mod, self.orig = edge_drop, edge_drop.uniform
+        self.eager, self.graph = [], []
+        self.acc = self.program = self.buf = None
+
+    def _record(self, *a, **kw):
+        import torch
+
+        u = self.orig(*a, **kw)
+        s = u.sum(dtype=torch.float64).view(1)
+        if self.program is None:
+            self.acc = s if self.acc is None else self.acc + s
+        else:
+            self.buf.index_add_(0, self.program.t, s)
+        return u
+
+    def __enter__(self):
+        self.mod.uniform = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.uniform = self.orig
+
+    def step(self):
+        if self.acc is None:
+            fail("naca0012: a training step drew no edge-drop uniforms")
+        self.eager.append(self.acc)
+        self.acc = None
+
+    def epoch(self, program):
+        import torch
+
+        self.program = program
+        if self.buf is None:
+            self.buf = torch.zeros(program.losses.shape[0], dtype=torch.float64,
+                                   device=program.losses.device)
+        self.buf.zero_()
+
+    def read(self):
+        self.graph.append(self.buf.clone())
+
+    def hold(self):
+        import torch
+
+        e, g = torch.cat(self.eager).cpu(), torch.cat(self.graph).cpu()
+        moved = bool((e[1:] != e[:-1]).all())
+        log(f"  naca0012 edge drop: each step's uniforms summed, eager "
+            f"{' '.join(f'{v:.4f}' for v in e.tolist()[:4])} ...; the replays' "
+            f"equal bit for bit: {torch.equal(e, g)}; a new draw every step: {moved}")
+        if not torch.equal(e, g):
+            fail("naca0012: the replayed steps' edge-drop draws differ from eager's")
+        if not moved:
+            fail("naca0012: the replayed steps repeat one draw")
+
+
+def _path_graph(path: Path, card: str) -> dict:
+    """11.3 on a driven path (phase 4's model, graphs and one batch, bf16):
+    GRAPH_STEPS steps of the step body (``step_update`` at the schedule's
+    first rate) issued from the host, then, from the same state, the same
+    steps captured and replayed; the timings both ways."""
+    import torch
+
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.train.graphed import CapturedStep, Snapshot
+    from gaot_torch.train.schedules import make_optimizer
+    from gaot_torch.train.static_trainer import step_update
+
+    model = _model(path, torch.bfloat16, "cuda")
+    graphs, xc, nmask = _graph_args(path, path.batch, "cuda")
+    opt, sched = make_optimizer(path.cfg.optimizer, model.parameters(),
+                                path.steps_per_epoch)
+    pndata, target = _batch(2, path)
+    xp, xt = torch.from_numpy(pndata).cuda(), torch.from_numpy(target).cuda()
+    smask = torch.ones(path.batch, dtype=torch.bool, device="cuda")
+    lr = torch.tensor(sched(0), dtype=torch.float64, device="cuda")
+    n = GRAPH_STEPS
+    losses = torch.zeros(n, device="cuda")
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def body():
+        loss = step_update(model, opt, lr, graphs, xc, xp, xt, smask, nmask)
+        losses.index_copy_(0, t, loss.float().view(1))
+        t.add_(1).remainder_(n)
+
+    snap = Snapshot(model, opt, [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        body()
+    torch.cuda.synchronize()
+    peak_e = torch.cuda.max_memory_allocated()
+    eager, w_e = losses.clone(), _weights(model)
+    snap.restore()
+    t.zero_()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step = CapturedStep(body, model, opt, reset=t.zero_)
+    capture_s = step.capture()
+    for _ in range(n):
+        step.replay()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_g = torch.cuda.max_memory_allocated()
+    what = f"{path.name} (batch {path.batch}, bf16)"
+    worst = _hold(f"phase 11 {what}", losses.clone(), eager, _weights(model), w_e)
+    res = _both_ways(f"{path.name} step", body, step.replay, path.batch,
+                     gathers=path.row_gathers)
+    res.update(capture_s=capture_s, peak_e=peak_e, peak_g=peak_g, worst=worst,
+               launches=launches, replays=n)
+    log(f"phase 11 {what} ({card}): step ms eager {res['eager']['ms']:.3f} / graph "
+        f"{res['graph']['ms']:.3f}; busy {res['eager']['busy_ms']:.3f} / "
+        f"{res['graph']['busy_ms']:.3f} ms; idle share {res['eager']['idle']:.3f} / "
+        f"{res['graph']['idle']:.3f}; kernels a step {res['eager']['kernels']:.0f} both "
+        f"ways; capture {capture_s:.3f} s; peak {peak_e / 2**30:.3f} / "
+        f"{peak_g / 2**30:.3f} GiB; launches in the graph's run {launches}")
+    del step, model, opt, graphs
+    torch.cuda.empty_cache()
+    return res
+
+
+# 11.1: the kernels of the fx step, each call captured alone. The wrappers'
+# launching functions are wrapped for one eager step to record their calls
+# (module, function, kernel name or None for the flash forward, the index
+# of the argument the kernel writes into or None where it returns its
+# outputs).
+_LAUNCHERS = (("multiply_reduce", "_launch_k", "multiply_reduce_k", 6),
+              ("multiply_reduce", "_launch_b", "multiply_reduce_b", 3),
+              ("flash_attention", "_forward_kernel", None, None),
+              ("flash_attention", "flash_attention_bwd", "flash_attention_bwd", None),
+              ("fused_ffn", "_forward_kernel", "fused_ffn_fwd", None),
+              ("fused_ffn", "fused_ffn_bwd", "fused_ffn_bwd", None))
+
+
+def _record_launches(run) -> list:
+    """The kernel calls ``run()`` makes: (kernel, function, args, kwargs,
+    output argument), their tensors kept alive."""
+    from gaot_torch.ops import cuda as kernels
+
+    mods = {m.__name__.rsplit(".", 1)[1]: m for m in kernels.WRAPPERS}
+    calls, saved = [], []
+    for mod, attr, name, out_arg in _LAUNCHERS:
+        fn = getattr(mods[mod], attr)
+        saved.append((mods[mod], attr, fn))
+
+        def wrapped(*a, _fn=fn, _name=name, _out=out_arg, **kw):
+            lse = kw.get("with_lse", a[3] if len(a) > 3 else False)
+            calls.append((_name or ("flash_attention_fwd_lse" if lse
+                                    else "flash_attention_fwd"), _fn, a, kw, _out))
+            return _fn(*a, **kw)
+
+        setattr(mods[mod], attr, wrapped)
+    try:
+        run()
+    finally:
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
+    return calls
+
+
+def _captured_call(name: str, fn, a, kw, out_arg):
+    """One recorded kernel call run eagerly and captured alone (11.1):
+    (the replay's max difference from the eager call, which must be 0, the
+    replayed ms, the eager ms)."""
+    import torch
+
+    out = a[out_arg] if out_arg is not None else None
+    if out is not None:
+        before = out.clone()
+        row_map = a[5] if name == "multiply_reduce_k" else None
+        if row_map is None:
+            before.fill_(float("nan"))
+        else:
+            before.index_fill_(0, row_map.long(), float("nan"))
+
+    def call():
+        if out is not None:
+            out.copy_(before)
+            fn(*a, **kw)
+            return [out]
+        res = fn(*a, **kw)
+        return [r for r in (res if isinstance(res, tuple) else (res,)) if r is not None]
+
+    want = [r.clone() for r in call()]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    if not same:
+        fail(f"phase 11.1: {name} captured alone differs from its eager call "
+             f"(max {err:.3e})")
+    eager_ms = time_ms(lambda: fn(*a, **kw))
+    g20 = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g20):
+        for _ in range(20):
+            fn(*a, **kw)
+    return err, time_ms(g20.replay, iters=5, warmup=1) / 20, eager_ms
+
+
+def _kernels_captured(trainer, card: str) -> dict:
+    """11.1: one eager fx training step at batch 64 with its kernel calls
+    recorded; each call then run eagerly and captured alone, its replay's
+    outputs against the eager call's bit for bit (an output the kernel
+    writes into is set to NaN where it writes, before each), and timed
+    both ways: 20 calls back to back eagerly and a graph of 20 calls
+    replayed (CUDA events). Returns, per kernel, (its max difference, the
+    replayed ms, the eager ms): summed over the step's calls for the
+    reduces, a call's mean for the rest, as phase 2's rows count them."""
+    import torch
+
+    loader = trainer.train_loader
+    idx, mask = loader.epoch_index_matrix()
+    batch = trainer.place_batch(dict(loader.get_batch(idx[0]), sample_mask=mask[0]))
+    calls = _record_launches(lambda: trainer.train_step(batch))
+    torch.cuda.synchronize()
+    per = {}
+    for name, fn, a, kw, out_arg in calls:
+        with torch.no_grad():
+            err, graph_ms, eager_ms = _captured_call(name, fn, a, kw, out_arg)
+        p = per.setdefault(name, [0.0, [], []])
+        p[0] = max(p[0], err)
+        p[1].append(graph_ms)
+        p[2].append(eager_ms)
+    out = {}
+    for name, (err, g, e) in per.items():
+        agg = sum if name.startswith("multiply_reduce") else statistics.mean
+        out[name] = (err, agg(g), agg(e), len(g))
+        log(f"phase 11.1 {name}: {len(g)} calls of one fx step (batch {BATCH}, bf16) "
+            f"captured alone, each equal to its eager call bit for bit; "
+            f"{'summed' if agg is sum else 'a call'}: replayed {agg(g):.4f} ms, eager "
+            f"{agg(e):.4f} ms ({card})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cli_kept(cfg_path: str, what: str):
+    """``_cli_in_process`` with the trainer the CLI ran kept. Returns
+    (launches, routes, seconds, output, trainer)."""
+    from gaot_torch import cli
+
+    ran, run_config = [], cli.run_config
+
+    def keep(path):
+        ran.append(run_config(path))
+        return ran[-1]
+
+    cli.run_config = keep
+    try:
+        launches, routes, secs, _, out = _cli_in_process(cfg_path, what)
+    finally:
+        cli.run_config = run_config
+    return launches, routes, secs, out, ran[0]
+
+
+def _cli_both_ways(make, what: str) -> dict:
+    """11.4: one recipe through ``gaot_torch.cli.main`` with
+    ``setup.epoch_scan`` "always" and "never" (``make(mode)`` writes its
+    config): the route line, the same loss record and test metrics within
+    GRAPH_WEIGHT_BOUND relative, samples/s both ways. Returns, per mode,
+    (the CSV row, the trainer)."""
+    import numpy as np
+
+    runs = {}
+    for mode in ("always", "never"):
+        cfg_path, raw = make(mode)
+        launches, routes, secs, out, trainer = _cli_kept(cfg_path, f"{what} {mode}")
+        rec, row = _run_record(raw)
+        first, steady = _steady_rate(out, trainer.train_loader.num_samples)
+        want = "graph" if mode == "always" else "per-step"
+        if routes.get("steps") != want:
+            fail(f"phase 11.4 {what} {mode}: route steps={routes.get('steps')}, "
+                 f"expected {want}")
+        log(f"phase 11.4 {what}, epoch_scan {mode}: steps={routes['steps']}; train "
+            f"losses {' '.join(f'{v:.6f}' for v in rec['losses'])}; samples_per_sec "
+            f"{float(row['samples_per_sec']):.1f} ({steady:.1f} after the first "
+            f"evaluation, {first:.3f} s to it); training time "
+            f"{float(row['training time']):.3f} s; {secs:.1f} s in the CLI; launches "
+            f"{launches}")
+        runs[mode] = (rec, row, trainer, first, steady)
+    (rec_g, row_g, trainer, first_g, steady_g), (rec_e, row_e, _, first_e, steady_e) = (
+        runs["always"], runs["never"])
+    # The fit's steps at which the graph's first epoch (its warm-up and
+    # capture) is repaid by its faster steps after it.
+    b = trainer.train_loader.batch_size
+    saved = b / steady_e - b / steady_g
+    log(f"phase 11.4 {what}: the graph's first epoch takes {first_g - first_e:.3f} s "
+        f"more to the first evaluation, its later steps {saved * 1e3:.3f} ms less each "
+        f"(steady rates): break-even after "
+        f"{(first_g - first_e) / saved if saved > 0 else float('inf'):.0f} steps")
+    worst = 0.0
+    for key in ("losses", "val_losses"):
+        a, b = np.asarray(rec_g[key], np.float64), np.asarray(rec_e[key], np.float64)
+        if a.shape != b.shape:
+            fail(f"phase 11.4 {what}: {key} of {a.shape} against {b.shape}")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
+    metrics = sorted(k for k in row_e if k.startswith("relative error") and row_e[k])
+    for k in metrics:
+        a, b = float(row_g[k]), float(row_e[k])
+        worst = max(worst, abs(a - b) / abs(b))
+    bitwise = all(np.array_equal(rec_g[k], rec_e[k]) for k in ("losses", "val_losses"))
+    log(f"phase 11.4 {what}: the loss records and {metrics} both ways within "
+        f"{worst:.3e} relative (bound {GRAPH_WEIGHT_BOUND:g}; loss records bit for bit: "
+        f"{bitwise}); samples_per_sec graph {float(row_g['samples_per_sec']):.1f}, "
+        f"per-step {float(row_e['samples_per_sec']):.1f}")
+    if worst > GRAPH_WEIGHT_BOUND:
+        fail(f"phase 11.4 {what}: the two routes' trajectories differ by {worst:.3e}")
+    return {m: (run[1], run[2]) for m, run in runs.items()}
+
+
+def _rollout_both_ways(trainer, card: str) -> dict:
+    """11.4: the ns_gauss trainer's autoregressive rollout on one test batch,
+    issued forward by forward and as one replayed graph: the same bits, and
+    ms a forward both ways (median of 5 synchronised rollouts)."""
+    import torch
+
+    from gaot_torch.data.loader import BatchLoader
+    from gaot_torch.data.sequential import RolloutTestBatcher
+    from gaot_torch.train import predict_mode_indices
+    from gaot_torch.train.graphed import RolloutProgram
+
+    cfg = trainer.dataset_config
+    test = trainer.splits["test"]
+    ti = predict_mode_indices("autoregressive", min(cfg.max_time_diff,
+                                                    test["u"].shape[1] - 1), cfg.time_step)
+    batcher = RolloutTestBatcher(test["u"], test["c"], ti, trainer.stats)
+    batch = next(iter(BatchLoader(len(batcher), cfg.batch_size, batcher.get_batch)))
+    placed = trainer.place_batch({k: v for k, v in batch.items() if k != "target"})
+    trainer.model.eval()
+    out, ms = {}, {}
+    for way, capture in (("loop", False), ("graph", True)):
+        program = RolloutProgram(trainer.model, ti, trainer.t_values, trainer.stats,
+                                 trainer.stepper_mode,
+                                 lambda p: trainer._model_args(p)[:2], capture=capture)
+        out[way] = program(placed)
+        ms[way] = statistics.median(host_times(lambda: program(placed), 5)) / (len(ti) - 1)
+        del program
+    if not torch.equal(out["loop"], out["graph"]):
+        fail("phase 11.4: the replayed rollout differs from the loop of forwards")
+    log(f"phase 11.4 ns_gauss rollout (autoregressive, {len(ti) - 1} forwards, batch "
+        f"{placed['input'].shape[0]}, {card}): ms a forward loop {ms['loop']:.3f} / graph "
+        f"{ms['graph']:.3f}, the same bits")
+    return ms
+
+
+def phase_graph(card: str, vx_path: Path) -> dict:
+    """Phase 11 (module docstring) but 11.3's naca0012, which runs on phase
+    5d's trainer. Returns the results."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from synthetic import make_static_fx_dataset
+    from torch_synthetic import make_poseidon_sequential_dataset
+
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="gaot_graph_") as folder:
+        with open(CONFIG) as f:
+            name = json.load(f)["dataset"]["name"]
+        make_static_fx_dataset(os.path.join(folder, f"{name}.npz"),
+                               num_samples=sum(TRAINER_SIZES.values()),
+                               num_nodes=NUM_NODES, seed=0)
+        fx = _cli_both_ways(lambda mode: _trainer_config(
+            folder, f"fx_{mode}", compute_dtype="bfloat16", epoch_scan=mode),
+            "fx recipe (phase 5's sizes, bf16)")
+        trainer = fx["always"][1]
+        del fx
+        res["kernels"] = _kernels_captured(trainer, card)
+        res["fx"] = _trainer_graph(f"fx main path (poisson_gauss, bf16, batch {BATCH})",
+                                   trainer, card)
+        del trainer
+        torch.cuda.empty_cache()
+
+        with open(SEQ_CONFIG) as f:
+            seq_name = json.load(f)["dataset"]["name"]
+        make_poseidon_sequential_dataset(os.path.join(folder, f"{seq_name}.npz"),
+                                         sum(SEQ_SIZES.values()), channels=2, seed=0)
+        seq = _cli_both_ways(lambda mode: _seq_example(
+            folder, SEQ_CONFIG, f"seq_{mode}", SEQ_SIZES, GRAPH_SEQ_EPOCHS, eval_every=1,
+            compute_dtype="bfloat16", epoch_scan=mode),
+            "ns_gauss (bf16, rollout)")
+        trainer = seq["always"][1]
+        del seq
+        res["rollout_ms"] = _rollout_both_ways(trainer, card)
+        res["seq"] = _trainer_graph(
+            f"sequential (ns_gauss, bf16, batch {trainer.train_loader.batch_size})",
+            trainer, card)
+        del trainer
+        torch.cuda.empty_cache()
+    res["vx"] = _path_graph(vx_path, card)
+    log(f"graph phase: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def _entries(rows, names, launches, path: str, suffix: str = ""):
     """Kernel-line entries for ``rows`` (check key -> row), named by
     ``names`` (check key -> kernel name in SOURCES) plus ``suffix`` and
@@ -3718,6 +4355,8 @@ def main() -> int:
 
     from gaot_torch.core.config import GAOTConfig, load_experiment_config, merge_config
 
+    t_main = time.perf_counter()
+    mark = lambda what: log(f"[{time.perf_counter() - t_main:.1f} s] {what} done")
     card = phase_card()
     phase_build()
 
@@ -3800,6 +4439,7 @@ def main() -> int:
     # all heads at once; logged only.
     check_flash(rnd, 1, 8192, h3, d3, with_eval=False)
     torch.cuda.empty_cache()
+    mark("phases 1b-2")
 
     fwd = phase_forward(main_path)
     train, step_ms = phase_train(main_path)
@@ -3813,14 +4453,24 @@ def main() -> int:
     phase_forward(seq_path)
     _, step_ms_seq = phase_train(seq_path)
     rollouts = phase_rollout(seq_path)
+    mark("phases 3-4b")
     trained, rates = phase_trainer(card, step_ms)
     trained_vx = phase_vx_trainer(card, step_ms_vx)
     trained_seq = phase_seq_trainer(card, step_ms_seq, rollouts)
-    trained_naca, checks_naca = phase_naca(card, rnd)
+    trained_naca, checks_naca, graph_naca = phase_naca(card, rnd)
+    mark("phases 5-5d")
     phase_attn_dropout(main_path, step_ms)
     phase_pointnet(main_path, vx_path, step_ms)
+    mark("phases 6-7")
     phase_options(card, main_path, vx_path, step_ms, step_ms_vx)
+    mark("phase 8")
+    # Phase 11 before phase 10: the script's own process has seen no device
+    # time in its profiles after phase 10's ranks.
+    graph = phase_graph(card, vx_path)
+    graph["naca"] = graph_naca
+    mark("phase 11")
     meshes = phase_mesh(card, rates, checks["main"], checks["vx"])
+    mark("phase 10")
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
@@ -3862,6 +4512,39 @@ def main() -> int:
         kernels_line += _entries(rows, main_names,
                                  {k: launches[main_names[k]] for k in rows},
                                  f"{path} {suffix[1:]} x 2 ranks", suffix)
+    # The captured steps' entries (phase 11): on the fx main path each
+    # kernel's calls of one step captured alone and replayed (11.1), the
+    # other paths with phase 2's kernel times; launches: the wrappers'
+    # count in the graph's run (two warm-up steps and the capture, each
+    # replay launching the captured step's kernels again).
+    step_keys = ("multiply_reduce_k", "multiply_reduce_b", "fwd_lse", "bwd",
+                 "fused_ffn_fwd", "fused_ffn_bwd")
+    for suffix, rows, run, path in (("@graph", checks["main"], graph["fx"], "fx main path"),
+                                    ("@graph-vx", checks["vx"], graph["vx"], "vx flagship"),
+                                    ("@graph-seq", checks["seq"], graph["seq"],
+                                     "sequential main path"),
+                                    ("@graph-naca", checks_naca, graph["naca"], "naca0012")):
+        picked = {}
+        for k in step_keys:
+            if k not in rows or not run["launches"][main_names[k]]:
+                continue
+            row = dict(rows[k])
+            note = (f"{run['replays']} replays of the captured step; launches: "
+                    f"2 warm-up steps and the capture")
+            if suffix == "@graph":
+                err, g_ms, e_ms, n = graph["kernels"][main_names[k]]
+                row.update(ms=g_ms, eager_ms=e_ms, graph_vs_eager_err=err)
+                note += (f"; ms: the {n} calls of one step, each captured alone and "
+                         "replayed (eager_ms: the same calls issued back to back), "
+                         "equal to the eager calls bit for bit, so max_abs_err "
+                         "against the plain version is phase 2's")
+            else:
+                note += "; ms: the eager call (phase 2), the captured kernel the same"
+            row["per"] = f"{row.get('per', '')}; {note}"
+            picked[k] = row
+        kernels_line += _entries(picked, main_names,
+                                 {k: run["launches"][main_names[k]] for k in picked},
+                                 f"{path}, captured step", suffix)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -274,9 +274,11 @@ class SetUpConfig:
     spatial_parallel: bool = False      # shard latent tokens / query points over 'model'
     #   (sequence parallelism for GAOT-3D-scale grids; fx data, and vx data, where each
     #   sample's padded nodes are cut; see parallel/spatial.py)
-    epoch_scan: str = "auto"            # the JAX package's whole-epoch scan; the
-    #   port issues its steps one by one whatever it says (kept so both
-    #   packages read the same configs)
+    epoch_scan: str = "auto"            # the epoch path, the counterpart of the JAX
+    #   package's whole-epoch scan: one training step over device-resident data
+    #   captured as a CUDA graph and replayed for every step ('always'; 'auto' where
+    #   the fit repays the capture; 'never' steps one by one; on the CPU the epoch
+    #   path runs uncaptured under 'always'; train/graphed.py)
     coordinator_address: Optional[str] = None   # rendezvous (host:port or URL);
     num_processes: Optional[int] = None         # else torchrun's environment
     process_id: Optional[int] = None

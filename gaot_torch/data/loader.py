@@ -11,7 +11,13 @@ JAX package's, computed with the same NumPy calls:
   :data:`DEVICE_DATA_BYTE_LIMIT`, and each batch is an ``index_select`` on
   the device by a [B] index tensor; above the limit, and without
   ``device_data``, batches are NumPy arrays that the trainer copies to the
-  device (:class:`PrefetchLoader` does it on a worker thread).
+  device (:class:`PrefetchLoader` does it on a worker thread);
+- a loader whose batches come from device buffers carries
+  ``device_epoch_spec`` (the buffers and the function from them and an
+  index tensor to a batch, device ops only), which the trainers' epoch
+  path (``train/graphed.py``) gathers each step's batch with, by the rows
+  of :meth:`BatchLoader.epoch_index_matrix`; a host loader carries None
+  and ``host_reason``, why.
 
 A failure to place the data on the device raises: nothing falls back to
 the host path.
@@ -53,6 +59,9 @@ class BatchLoader:
         self.get_batch = get_batch
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
+        # (buffers, batch_fn) where batches are gathered on the device.
+        self.device_epoch_spec = None
+        self.host_reason = "the loader assembles its batches on the host"
 
     def __len__(self) -> int:
         return (self.num_samples + self.batch_size - 1) // self.batch_size
@@ -60,6 +69,23 @@ class BatchLoader:
     def _epoch_order(self) -> np.ndarray:
         return (self._rng.permutation(self.num_samples) if self.shuffle
                 else np.arange(self.num_samples))
+
+    def epoch_index_matrix(self):
+        """(indices [k, B] int64, mask [k, B] bool) of one epoch: the order
+        and wrap-around padding :meth:`__iter__` gives, advancing the same
+        shuffle RNG (the port's copy of the JAX package's
+        ``BatchLoader.epoch_index_matrix``)."""
+        order = self._epoch_order()
+        bs, k = self.batch_size, len(self)
+        idx = np.empty((k, bs), dtype=np.int64)
+        mask = np.ones((k, bs), dtype=bool)
+        for j, start in enumerate(range(0, k * bs, bs)):
+            chunk = order[start:start + bs]
+            if len(chunk) < bs:
+                mask[j, len(chunk):] = False
+                chunk = np.concatenate([chunk, np.resize(order, bs - len(chunk))])
+            idx[j] = chunk
+        return idx, mask
 
     def __iter__(self) -> Iterator[Dict]:
         order = self._epoch_order()
@@ -85,20 +111,41 @@ def _buffers_loader(buffers: Dict[str, np.ndarray], num_samples: int,
     """Batches of the per-sample ``buffers``, each with the arrays of
     ``layout`` (the same in every batch) beside them."""
     layout = layout or {}
-    if device_data and sum(v.nbytes for v in buffers.values()) <= DEVICE_DATA_BYTE_LIMIT:
+    nbytes = sum(v.nbytes for v in buffers.values())
+    spec = None
+    if device_data and nbytes <= DEVICE_DATA_BYTE_LIMIT:
         dev = {k: torch.from_numpy(v).to(device) for k, v in buffers.items()}
         dev_layout = {k: torch.from_numpy(v).to(device) for k, v in layout.items()}
 
+        def batch_fn(bufs, i):
+            return {**{k: v.index_select(0, i) for k, v in bufs.items()}, **dev_layout}
+
+        spec = (dev, batch_fn)
+
         def get_batch(idx):
-            i = to_device(idx, device)
-            return {**{k: v.index_select(0, i) for k, v in dev.items()}, **dev_layout}
+            return batch_fn(dev, to_device(idx, device))
     else:
         def get_batch(idx):
             return {**{k: np.take(v, idx, axis=0) for k, v in buffers.items()}, **layout}
     loader = BatchLoader(num_samples, batch_size, get_batch, shuffle=shuffle,
                          seed=seed)
     loader.layout_keys = frozenset(layout)
+    loader.device_epoch_spec = spec
+    loader.host_reason = host_reason(device_data, nbytes)
     return loader
+
+
+def host_reason(device_data: bool, nbytes: int) -> str:
+    """Why a split's batches are assembled on the host ("" where they are
+    not): ``dataset.device_data`` off, or buffers of ``nbytes`` above
+    :data:`DEVICE_DATA_BYTE_LIMIT`."""
+    if not device_data:
+        return "dataset.device_data is false: batches are assembled on the host"
+    if nbytes > DEVICE_DATA_BYTE_LIMIT:
+        return (f"the split's buffers ({nbytes / 2**30:.2f} GiB) pass "
+                f"DEVICE_DATA_BYTE_LIMIT ({DEVICE_DATA_BYTE_LIMIT / 2**30:.0f} GiB): "
+                "batches are assembled on the host")
+    return ""
 
 
 def make_static_fx_loader(c: Optional[np.ndarray], u: np.ndarray,

@@ -36,7 +36,7 @@ import torch
 
 from .data_processor import EPSILON, POSEIDON_DATASETS, DataProcessor
 from .graph_builder import apply_node_perm, vx_graph_buffers, vx_layout
-from .loader import DEVICE_DATA_BYTE_LIMIT, BatchLoader, to_device
+from .loader import DEVICE_DATA_BYTE_LIMIT, BatchLoader, host_reason, to_device
 from .readers import read_dataset
 
 STEPPER_MODES = ("output", "residual", "time_der")
@@ -302,72 +302,89 @@ class DynamicPairBatcher:
         return (self.u.nbytes + (self.c.nbytes if self.c is not None else 0)
                 + sum(v.nbytes for v in self.buffers.values()))
 
-    def device_get_batch(self, device):
-        """The device route: u, c and the vx buffers go to ``device`` once;
-        the returned ``get_batch(flat_idx)`` selects each batch's rows there
-        and normalises them in fp32, as the JAX package's ``device_parts``
-        does. The pair tables are indexed on the host (the items come from
-        the host): the rows of u as [S·T, N, V] and the pairs' time
-        features go over as one pinned copy each. A batch selects rows with
-        one ``index_select`` for u (the input and the output steps
-        together), one for c, and one per vx buffer (:attr:`row_selects`)."""
+    def device_parts(self, device):
+        """(buffers, assemble) of the device route, the port's counterpart
+        of the JAX package's ``device_parts``: u, c and the vx buffers go
+        to ``device`` once, as do the pair tables (each pair's input and
+        output step) and the pairs' time features, and
+        ``assemble(buffers, flat_idx)`` builds a batch from a [B] index
+        tensor on the device with device ops alone (the epoch path gathers
+        its steps' batches with it inside a CUDA graph). It selects the
+        rows of u as [S·T, N, V] with one ``index_select`` for the input
+        and the output steps together, one for c and one per vx buffer
+        (:attr:`row_selects`), reads the pair tables with ``take``, and
+        normalises in fp32."""
         s, t = self.u.shape[:2]
-        u = torch.from_numpy(self.u.reshape(s * t, *self.u.shape[2:])).to(device)
-        c = (torch.from_numpy(self.c.reshape(s * t, *self.c.shape[2:])).to(device)
-             if self.c is not None else None)
-        bufs = {k: torch.from_numpy(v).to(device) for k, v in self.buffers.items()}
-        dtype = u.dtype
+        bufs = {"u": torch.from_numpy(self.u.reshape(s * t, *self.u.shape[2:])).to(device)}
+        if self.c is not None:
+            bufs["c"] = torch.from_numpy(self.c.reshape(s * t, *self.c.shape[2:])).to(device)
+        bufs.update({k: torch.from_numpy(v).to(device) for k, v in self.buffers.items()})
+        dtype = bufs["u"].dtype
+
+        def table(a, dt):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
 
         def stat(key, field):
-            return torch.as_tensor(np.asarray(self.stats[key][field]),
-                                   dtype=torch.float32).to(device)
+            return table(np.asarray(self.stats[key][field]), np.float32)
 
         u_mean, u_std = stat("u", "mean"), stat("u", "std")
         c_stats = (stat("c", "mean"), stat("c", "std")) if "c" in self.stats else None
         step = {"residual": "res", "time_der": "der"}.get(self.stepper_mode)
         step_stats = (stat(step, "mean"), stat(step, "std")) if step else None
-        start_norm = self.start_norm.astype(np.float32)
-        diff_norm = self.diff_norm.astype(np.float32)
-        time_diffs = self.time_diffs.astype(np.float32)
         num_pairs, stepper = self.num_pairs, self.stepper_mode
+        # [2, P] the pairs' input and output steps, [3, P] their normalised
+        # start time and time difference and the raw time difference; a
+        # batch reads column p of row r at r·P + p.
+        steps = table(np.stack([self.t_in, self.t_out]), np.int64)
+        feats = table(np.stack([self.start_norm, self.diff_norm, self.time_diffs]),
+                      np.float32)
+        rows3 = table(np.arange(3)[:, None] * num_pairs, np.int64)
+        extra = [k for k in bufs if k not in ("u", "c")]
 
-        def get_batch(flat_idx):
-            flat_idx = np.asarray(flat_idx)
-            b = len(flat_idx)
-            s_idx = flat_idx // num_pairs
-            p_idx = flat_idx % num_pairs
-            rows = np.concatenate([s_idx * t + self.t_in[p_idx],
-                                   s_idx * t + self.t_out[p_idx]])
-            feats = np.stack([start_norm[p_idx], diff_norm[p_idx], time_diffs[p_idx]])
-            rows_d = to_device(rows, device)
-            feats_d = to_device(feats, device)
-            sel = u.index_select(0, rows_d)
+        def assemble(bufs, flat_idx):
+            b = flat_idx.shape[0]
+            s_idx = torch.div(flat_idx, num_pairs, rounding_mode="floor")
+            p_idx = flat_idx - s_idx * num_pairs
+            pair = p_idx + rows3[:2]                                    # [2, B]
+            rows = (s_idx * t + torch.take(steps, pair)).reshape(-1)    # in, then out
+            f = torch.take(feats, p_idx + rows3)                        # [3, B]
+            sel = bufs["u"].index_select(0, rows)
             u_in, u_out = sel[:b], sel[b:]
             parts = [(u_in - u_mean) / u_std]
-            if c is not None:
-                c_in = c.index_select(0, rows_d[:b])
+            if "c" in bufs:
+                c_in = bufs["c"].index_select(0, rows[:b])
                 if c_stats is not None:
                     c_in = (c_in - c_stats[0]) / c_stats[1]
                 parts.append(c_in)
             n = u_in.shape[1]
-            ones = torch.ones((b, n, 1), dtype=dtype, device=u.device)
-            parts.append(ones * feats_d[0][:, None, None])
-            parts.append(ones * feats_d[1][:, None, None])
+            ones = torch.ones((b, n, 1), dtype=dtype, device=u_in.device)
+            parts.append(ones * f[0][:, None, None])
+            parts.append(ones * f[1][:, None, None])
             inputs = torch.cat(parts, dim=-1)
             if stepper == "output":
                 target = (u_out - u_mean) / u_std
             elif stepper == "residual":
                 target = (u_out - u_in - step_stats[0]) / step_stats[1]
             else:
-                dt = feats_d[2][:, None, None]
+                dt = f[2][:, None, None]
                 target = ((u_out - u_in) / dt - step_stats[0]) / step_stats[1]
             batch = {"input": inputs.to(dtype), "target": target.to(dtype)}
-            if bufs:
-                s_d = to_device(s_idx, device)
-                for k, v in bufs.items():
-                    batch[k] = v.index_select(0, s_d)
+            for k in extra:
+                batch[k] = bufs[k].index_select(0, s_idx)
             return batch
 
+        return bufs, assemble
+
+    def device_get_batch(self, device):
+        """The device route a batch at a time: ``get_batch(flat_idx)``
+        sends the [B] sample indices over as one pinned copy and assembles
+        the batch there (:meth:`device_parts`)."""
+        bufs, assemble = self.device_parts(device)
+
+        def get_batch(flat_idx):
+            return assemble(bufs, to_device(np.asarray(flat_idx, dtype=np.int64), device))
+
+        get_batch.device_epoch_spec = (bufs, assemble)
         return get_batch
 
     @property
@@ -383,8 +400,11 @@ def make_sequential_loader(batcher: DynamicPairBatcher, batch_size: int,
     :data:`~gaot_torch.data.loader.DEVICE_DATA_BYTE_LIMIT`) they are
     assembled on ``device`` (:meth:`DynamicPairBatcher.device_get_batch`),
     else on the host. On vx data each batch carries its ``vx_layout``,
-    placed once."""
-    if device_data and batcher.buffer_bytes() <= DEVICE_DATA_BYTE_LIMIT:
+    placed once. A device loader carries ``device_epoch_spec``, the
+    buffers and the function that assembles a batch from them and an index
+    tensor, the layout beside it."""
+    nbytes = batcher.buffer_bytes()
+    if device_data and nbytes <= DEVICE_DATA_BYTE_LIMIT:
         get_batch = batcher.device_get_batch(device)
         loader_device = device
     else:
@@ -400,6 +420,12 @@ def make_sequential_loader(batcher: DynamicPairBatcher, batch_size: int,
     loader = BatchLoader(len(batcher), batch_size, fetch, shuffle=shuffle, seed=seed)
     loader.layout_keys = frozenset(layout)
     loader.row_selects = batcher.row_selects if loader_device is not None else 0
+    loader.host_reason = host_reason(device_data, nbytes)
+    spec = getattr(get_batch, "device_epoch_spec", None)
+    if spec is not None:
+        bufs, assemble = spec
+        loader.device_epoch_spec = (bufs, (lambda b, i: {**assemble(b, i), **layout})
+                                    if layout else assemble)
     return loader
 
 

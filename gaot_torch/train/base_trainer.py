@@ -7,9 +7,15 @@ trains with validation every ``eval_every_eps`` epochs, keeps the best
 weights, checkpoints them, writes the loss record and runs ``test``.
 
 The trainer runs on the card unless ``setup.device`` is ``"cpu"``; with
-``"auto"`` or ``"cuda"`` and no card it raises. Steps are issued one by one:
-the JAX package's whole-epoch ``lax.scan`` and its compile cache are XLA
-tactics with no counterpart here, whatever ``setup.epoch_scan`` says.
+``"auto"`` or ``"cuda"`` and no card it raises. ``setup.epoch_scan`` picks
+how the steps run (``train/graphed.py::choose_route``): one by one, each
+batch from the loader (``"never"``), or through the epoch path, the
+counterpart of the JAX package's whole-epoch ``lax.scan``: the trainer's
+step over device-resident data, captured once as a CUDA graph and replayed
+for every step (``"always"``, and ``"auto"`` where the fit repays the
+capture); on the CPU the epoch path runs uncaptured. The JAX package's
+compile cache (``utils/compile_cache.py``) keeps XLA programs and has no
+counterpart.
 
 Several ranks (``setup.distributed``, launched by torchrun) form a dp × mp
 mesh (``parallel/mesh.py``): each rank takes its share of every global
@@ -55,10 +61,11 @@ from ..parallel.mesh import (
 )
 from ..parallel.spatial import gather_nodes
 from ..utils.plotting import plot_losses
-from ..utils.routing import format_routes
+from ..utils.routing import format_routes, record_route
 from ..utils.timing import force_value
 from .checkpoint import load_checkpoint, save_checkpoint
-from .schedules import make_optimizer
+from .graphed import EpochProgram, choose_route
+from .schedules import lr_table, make_capturable, make_optimizer
 
 # Compute dtypes the model takes (None: fp32); parameters stay fp32.
 _COMPUTE_DTYPES = {
@@ -128,6 +135,7 @@ class BaseTrainer(ABC):
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.schedule = None
         self.step = 0                     # updates taken; the schedule reads it
+        self.capture_rollout = False      # the test's rollout as CUDA graphs
         self.train_loader = None
         self.val_loader = None
         self.test_loader = None
@@ -237,37 +245,64 @@ class BaseTrainer(ABC):
         return to_device(batch["sample_mask"], self.device)
 
     # ------------------------------------------------------------------
+    def steps_route(self):
+        """(route, why) of this trainer's fit: "graph", "epoch" or
+        "per-step" (``train/graphed.py::choose_route``)."""
+        steps = self.optimizer_config.args.epoch * len(self.train_loader)
+        return choose_route(self.setup_config.epoch_scan, self.device, self.mesh.world,
+                            self.train_loader, steps)
+
+    def train_epoch(self, program, matrix=None):
+        """One epoch through ``program``: the loader's next index matrix
+        (or ``matrix``, one it gave before) and the schedule's values at the
+        next k updates, the k steps. Returns (the [k] losses on the device,
+        the samples the epoch trained on)."""
+        idx, mask = matrix if matrix is not None else self.train_loader.epoch_index_matrix()
+        losses = program.run(idx, mask, lr_table(self.schedule, self.step, len(idx)))
+        self.step += len(idx)
+        return losses, int(mask.sum())
+
     def fit(self, verbose: bool = True):
-        """Training loop: steps issued one by one, validation every
-        ``eval_every_eps`` epochs, best weights kept, then checkpoint, loss
-        record and test (reference base_trainer.py:196-225 +
-        optimizers.py:236-305)."""
+        """Training loop: the steps by the route of :meth:`steps_route`,
+        validation every ``eval_every_eps`` epochs, best weights kept, then
+        checkpoint, loss record and test (reference base_trainer.py:196-225
+        + optimizers.py:236-305)."""
         args = self.optimizer_config.args
         eval_every = args.eval_every_eps
         early_metric = args.early_save_metric.lower()
         best_loss, best_epoch, best_state = np.inf, -1, None
         losses, epochs, val_losses, val_epochs = [], [], [], []
 
-        # Batch assembly (and, on the host path, the copy to the device)
-        # runs on a worker thread, beside the step that consumes the last
-        # batch.
-        train_iter = PrefetchLoader(self.train_loader, place_fn=self.place_batch)
+        route, why = self.steps_route()
+        record_route("steps", route)
+        program = EpochProgram(self, route == "graph") if route != "per-step" else None
+        # Per-step: batch assembly (and, on the host path, the copy to the
+        # device) runs on a worker thread, beside the step that consumes
+        # the last batch.
+        train_iter = (PrefetchLoader(self.train_loader, place_fn=self.place_batch)
+                      if program is None else None)
         start = time.perf_counter()
         samples_done = 0
         for epoch in range(args.epoch):
             # Step losses stay on the device until an evaluation reads them.
-            epoch_losses = []
-            for batch in train_iter:
-                epoch_losses.append(self.train_step(batch))
-                samples_done += batch["global_samples"]
+            if program is not None:
+                epoch_losses, done = self.train_epoch(program)
+                samples_done += done
+            else:
+                epoch_losses = []
+                for batch in train_iter:
+                    epoch_losses.append(self.train_step(batch).reshape(1))
+                    samples_done += batch["global_samples"]
+                epoch_losses = torch.cat(epoch_losses)
             if epoch == 0 and verbose and self.rank0:
                 # The dispatch sites record their routes as they run, so
                 # after the first epoch the route set is known.
-                print(f"[gaot_torch] kernel routes: {format_routes()} "
-                      f"steps=per-step (setup.epoch_scan has no counterpart)",
+                if route == "graph":
+                    why = f"captured in {program.captured.capture_s:.3f} s"
+                print(f"[gaot_torch] kernel routes: {format_routes()} ({why})",
                       flush=True)
             if (epoch + 1) % eval_every == 0:
-                train_loss = float(torch.stack(epoch_losses).mean())
+                train_loss = float(epoch_losses.mean())
                 val_loss = self.validate(self.val_loader)
                 losses.append(train_loss)
                 epochs.append(epoch)
@@ -288,6 +323,8 @@ class BaseTrainer(ABC):
         # The device's queued steps count in the training time.
         force_value(next(self.model.parameters()))
         elapsed = time.perf_counter() - start
+        # The rollout's route follows the steps' (SequentialTrainer.test).
+        self.capture_rollout = route == "graph"
 
         # As in the JAX package, the best weights come back; the optimizer
         # state and the update count stay those of the last step.
@@ -334,5 +371,6 @@ class BaseTrainer(ABC):
         self.load_full_weights(state["model"])
         self.optimizer.load_state_dict(load_full_optimizer_state(
             state["optimizer"], optimizer_specs(self.model, self.tp_specs), self.mesh))
+        make_capturable(self.optimizer)
         self.step = state["step"]
         return self

@@ -3,8 +3,9 @@
 Counterpart of ``gaot_tpu/train/sequential_trainer.py`` (reference
 src/trainer/sequential_trainer.py:20-588): it trains on time pairs
 (``data/sequential.py``) and evaluates by autoregressive rollout
-(``models/rollout.py``) in the 'autoregressive', 'direct' and 'star'
-predict modes, with the 'final_step' or 'all_step' metric. fx and vx
+(``models/rollout.py``; each mode's rollout one CUDA graph where the fit's
+steps were graphs, ``train/graphed.py::RolloutProgram``) in the
+'autoregressive', 'direct' and 'star' predict modes, with the 'final_step' or 'all_step' metric. fx and vx
 alike: a vx trajectory keeps its mesh, so each sample's graphs are built
 from its coordinates at t = 0.
 
@@ -28,9 +29,9 @@ from ..data.sequential import (
     SequentialDataProcessor,
     make_sequential_loader,
 )
-from ..models.rollout import autoregressive_predict
 from ..utils.metrics import compute_batch_errors, compute_final_metric
 from ..utils.plotting import create_sequential_animation, plot_estimates, pyplot
+from .graphed import RolloutProgram
 from .static_trainer import StaticTrainer
 
 PREDICT_MODES = ("autoregressive", "direct", "star")
@@ -144,16 +145,19 @@ class SequentialTrainer(StaticTrainer):
                                batcher.num_latent) if vx else {}
             loader = BatchLoader(len(batcher), cfg.batch_size,
                                  lambda idx: {**batcher.get_batch(idx), **layout})
+            # The mode's rollout, captured once as a CUDA graph and replayed
+            # for each batch where the fit's steps were.
+            rollout = RolloutProgram(
+                self.model, time_indices, self.t_values, self.stats, self.stepper_mode,
+                lambda placed: self._model_args(placed)[:2],
+                use_conditional_norm=self.model_config.use_conditional_norm,
+                capture=self.capture_rollout)
             all_errs = []
             for batch in loader:
                 # The target stays on the host, where the metric is taken.
                 placed = self.place_batch({k: v for k, v in batch.items()
                                            if k != "target"})
-                graph_args, coord, _ = self._model_args(placed)
-                pred = autoregressive_predict(
-                    self.model, placed["input"], time_indices, self.t_values,
-                    self.stats, self.stepper_mode, graph_args, coord,
-                    use_conditional_norm=self.model_config.use_conditional_norm)
+                pred = rollout(placed)
                 # Each rank rolls its share out; the metric takes the batch.
                 keep = batch["sample_mask"]
                 pred = self.gather_batch(pred, len(keep)).cpu().numpy()

@@ -39,6 +39,7 @@ from ..parallel.spatial import cut_rows, spatial_shard, sum_grads
 from ..utils.metrics import compute_batch_errors, compute_final_metric
 from ..utils.plotting import plot_estimates, pyplot
 from .base_trainer import BaseTrainer
+from .schedules import set_lr
 
 
 class FxGraphs(NamedTuple):
@@ -105,17 +106,36 @@ def train_step(model, optimizer: torch.optim.Optimizer,
                condition: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                mesh=None) -> torch.Tensor:
-    """One optimizer step on one batch: the forward in training mode, the
-    masked MSE, its backward through the kernels' gradients, then the
-    update with the learning rate ``schedule(step)`` (``step`` counts the
-    updates from 0). ``condition`` [B, 1] is the time condition of a
-    conditional-norm model. ``generator`` (on the model's device) draws the
-    edge drop and the attention dropout; a model configured with either
-    needs one. On a ``mesh`` of several ranks ``model`` may be the DDP
-    wrapper, the batch is this rank's share, the draws those of the global
-    batch of which the rank keeps its samples' (so every rank's generator
-    moves as one process's) and the loss the global batch's
-    (:func:`global_masked_mse`). Returns the loss (detached, fp32)."""
+    """One optimizer step on one batch with the learning rate
+    ``schedule(step)`` (``step`` counts the updates from 0):
+    :func:`step_update` at that rate."""
+    return step_update(model, optimizer, schedule(step), graphs, coord, pndata,
+                       target, sample_mask, node_mask, condition, generator, mesh)
+
+
+def step_update(model, optimizer: torch.optim.Optimizer, lr, graphs: FxGraphs,
+                coord: torch.Tensor, pndata: torch.Tensor, target: torch.Tensor,
+                sample_mask: torch.Tensor,
+                node_mask: Optional[torch.Tensor] = None,
+                condition: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                mesh=None) -> torch.Tensor:
+    """The training step's body, which the per-step path and the epoch path
+    (``train/graphed.py``, captured as a CUDA graph on the card) both run,
+    as the JAX trainers' ``_step_update`` serves their per-step jit and
+    their epoch scan: the forward in training mode, the masked MSE, its
+    backward through the kernels' gradients, then the update at the
+    learning rate ``lr`` (a float, or a 0-dimensional device tensor read
+    from the epoch's table; :func:`~gaot_torch.train.schedules.set_lr`).
+    Nothing in it waits for the device or copies from the host.
+    ``condition`` [B, 1] is the time condition of a conditional-norm
+    model. ``generator`` (on the model's device) draws the edge drop and
+    the attention dropout; a model configured with either needs one. On a
+    ``mesh`` of several ranks ``model`` may be the DDP wrapper, the batch
+    is this rank's share, the draws those of the global batch of which the
+    rank keeps its samples' (so every rank's generator moves as one
+    process's) and the loss the global batch's (:func:`global_masked_mse`).
+    Returns the loss (detached, fp32)."""
     net = getattr(model, "module", model)
     if generator is None and (net.encoder.config.sampling_strategy is not None
                               or net.processor.config.attn_config.atten_dropout > 0):
@@ -133,9 +153,7 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     if mesh is not None and mesh.spatial:
         # Each rank's gradients are its queries' share: summed over them.
         sum_grads(net.parameters(), mesh.model_group)
-    lr = schedule(step)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
+    set_lr(optimizer, lr)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return loss
@@ -309,14 +327,20 @@ class StaticTrainer(BaseTrainer):
     def train_step(self, batch) -> torch.Tensor:
         if "global_samples" not in batch:
             batch = self.place_batch(batch)
-        graphs, coord, node_mask = self._model_args(batch)
-        pndata, target, condition = self._inputs(batch)
-        target = self.local_nodes(target)
-        loss = train_step(self.train_model, self.optimizer, self.schedule, self.step,
-                          graphs, coord, pndata, target, self.sample_mask(batch),
-                          node_mask, condition, self.generator, self.mesh)
+        loss = self.step_body(dict(batch, sample_mask=self.sample_mask(batch)),
+                              self.schedule(self.step))
         self.step += 1
         return loss
+
+    def step_body(self, batch: Dict, lr) -> torch.Tensor:
+        """The step body (:func:`step_update`) on a placed batch whose
+        ``sample_mask`` is a tensor on the device, at the learning rate
+        ``lr``: what the per-step path and the epoch path both run."""
+        graphs, coord, node_mask = self._model_args(batch)
+        pndata, target, condition = self._inputs(batch)
+        return step_update(self.train_model, self.optimizer, lr, graphs, coord, pndata,
+                           self.local_nodes(target), batch["sample_mask"], node_mask,
+                           condition, self.generator, self.mesh)
 
     def _eval(self, batch):
         """(this rank's prediction, the global batch's masked MSE) of one

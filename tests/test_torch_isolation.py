@@ -30,6 +30,11 @@ def test_sources_cover_parallel_and_tools():
         assert f"gaot_torch/{m}" in names, m
 
 
+def test_sources_cover_the_epoch_path():
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    assert "gaot_torch/train/graphed.py" in names
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
