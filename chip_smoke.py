@@ -111,14 +111,15 @@ failure):
      through gaot_torch.cli.main in this process under a device-only
      profiler, on synthetic data at the Poseidon layout (tests/
      torch_synthetic.py: u [S, 21, 16384, 2], seed 0; the 21 steps cut to
-     15), train/val/test 128 / 16 / 32 samples (3584 pairs an epoch), 4
-     epochs: launches equal to the step's table times 224 steps plus the
-     forward's times 14 validation batches and 12 rollout forwards, falling
+     15), train/val/test 128 / 16 / 32 samples (3584 pairs an epoch), 2
+     epochs with a validation each: launches equal to the step's table
+     times 112 steps plus the forward's times 14 validation batches and 12
+     rollout forwards, falling
      loss, the three rollout errors finite, checkpoint, loss record, CSV
      row, the kernels' routes, and PyTorch's row gather only in the
      loader's pair assembly (one index_select a batch). Run B, ce_crp.json
-     in its own fp32 (4 channels, time_der) through `python -m
-     gaot_torch.cli -c`, 64 / 16 / 32 samples, 2 epochs with a validation
+     in its own fp32 (4 channels, time_der) through gaot_torch.cli.main in
+     this process, 64 / 16 / 32 samples, 2 epochs with a validation
      each: falling loss, finite errors, no SwiGLU (ffn=plain). Run C, vx
      sequential through SequentialTrainer (tests/synthetic.py's layout at
      4096 nodes a sample), 48 / 8 / 8 samples, batch 16, 2 epochs, fp32:
@@ -172,13 +173,14 @@ failure):
      the d_f reduces and nothing else), then phase 4's drive of each
      (card vs CPU, launch table, median both ways). Then the elasticity
      recipe with transform_type nonlinear, node_embedding and
-     dataset.graph_cache_dir, twice through `python -m gaot_torch.cli -c`
-     (phase 5b's data cut to 64 / 16 / 16 samples, 2 epochs): the second
-     run hits the cache and gives the same losses bit for bit; both set-up
-     times logged.
+     dataset.graph_cache_dir, twice through gaot_torch.cli.main in this
+     process (phase 5b's data cut to 64 / 16 / 16 samples, 2 epochs): the
+     second run reads the cache from disk and gives the same losses bit for
+     bit; both set-up times logged.
   10. multi-GPU training (gaot_torch/parallel/): (10.1) the fx recipe at
      phase 5's sizes, epochs and validation cadence through torchrun at one
-     rank on NCCL with setup.distributed: a falling loss, one CSV row,
+     rank on NCCL with setup.distributed (in phase 12's torchrun process,
+     which runs before the rest of phase 10): a falling loss, one CSV row,
      launches equal to phase 5's tables times its steps, samples/s (the CSV
      row's and the rate after the first evaluation) beside run B's, its
      like for like (a subprocess of the CLI, no profiler); (10.4) the
@@ -189,18 +191,20 @@ failure):
      check at a global batch of 8 (the loss within 1e-6 relative of one
      process on the card, every gradient and the weights after 3 AdamW
      steps within 1e-4 of their tensor's largest entry), then a bf16 step
-     at a global batch of 64 (per-rank ms, the launch table derived from the
-     rank's graphs held exactly, from a profile the device time of NCCL's
-     kernels and of every copy in the step, gloo's round trips of the
-     all-reduces through the host among them; two ranks share the card: not
-     a multi-card speed); then on vx data (a mesh per sample), spatial_parallel
-     at mp 2 in one start of two ranks, one process's runs before them in a
-     process of its own: sp-vx, the vx flagship's model
+     at a global batch of 64 (the launch table derived from the rank's
+     graphs held exactly; at dp also per-rank ms and, from a profile, the
+     device time of NCCL's kernels and of every copy in the step, gloo's
+     round trips of the all-reduces through the host among them; two ranks
+     share the card: not a multi-card speed; tp's and sp's are not timed,
+     their gloo round trips through the host bind); then on vx data (a mesh
+     per sample), spatial_parallel at mp 2 in one start of two ranks, one
+     process's runs before them in this process: sp-vx, the vx flagship's
+     model
      through the trainer on synthetic meshes of 8192 nodes (each rank's cut
      graphs through the graph cache: its second trainer must hit it), fp32
      at a global batch of 4 against one process (the bounds above, the
-     weights under sp's), then bf16 at 16 (per-rank ms, profile, the launch
-     table derived from the rank's cut graphs held exactly); naca-sp, one
+     weights under sp's), then bf16 at 16 (the launch table derived from
+     the rank's cut graphs held exactly); naca-sp, one
      fp32 step of naca0012.json (edge drop to 32 neighbours) at a global
      batch of 4, the loss and gradients against one process; elasticity-sp,
      elasticity.json fitted 2 epochs in fp32, its train and validation
@@ -233,6 +237,27 @@ failure):
      4's model, graphs and batch, 8 steps) and, inside phase 5d, on the
      naca0012 trainer (edge drop, fp32), where each step's uniforms summed
      must equal eager's bit for bit and change every step.
+  12. the epoch path under several ranks (train/graphed.py), after phase
+     11 and before the rest of phase 10 (its process runs 10.1's fit too):
+     one card holds one NCCL rank, so the phase runs in a torchrun process
+     of one rank on NCCL (--ddp-graph): (12b) every function of
+     parallel/comm.py on that one-rank group, fp32 and bf16, forward and
+     backward, captured and replayed on new inputs: equal to its eager
+     calls bit for bit, the same NCCL kernels a call (none: over one rank
+     NCCL launches no kernel); (12c) the fx recipe through
+     gaot_torch.cli.main with setup.distributed and epoch_scan "always"
+     (route steps=graph) and "never", the model wrapped in DDP over the
+     one-rank group first (smoke code: the trainer wraps DDP only at
+     dp > 1): the loss records within 1e-6, samples/s after the first
+     evaluation beside 10.1's and 11.4's, the DDP graph's break-even;
+     (12a) on that trainer two epochs of the per-step path and, from the
+     same state, of the captured epoch path (11 warm-up steps, DDP's
+     recipe) replayed step by step: the same loss bits, every weight after
+     every step within 1e-6 of eager's, the wrappers' launches 12 times the
+     step's table, and both ways the step's ms, idle share, kernels and
+     NCCL kernels a step (equal). With two cards or more 12a
+     also at dp 2 and tp 2 (the trainer's own DDP and tensor parallelism),
+     one rank a card, before it, else logged as not run.
   9. prints one JSON line listing every kernel of the five paths (the fx
      main path's launches are those of the trainer's run A; the vx
      entries' those of the vx flagship's training step and forward; the
@@ -242,7 +267,8 @@ failure):
      one bf16 step; then the captured steps' entries, @graph: the fx
      step's kernels with 11.1's replayed times, @graph-vx, @graph-seq,
      @graph-naca: phase 2's times, launches the wrappers' count in each
-     graph run, two warm-up steps and the capture).
+     graph run, two warm-up steps and the capture; @graph-ddp, phase 12a's:
+     phase 2's times, eleven warm-up steps and the capture).
 The earlier phases pin setup.epoch_scan to "never", so that their launch
 counts and profiles are the per-step path's.
 The last line is {"ok": true, "device": {...}}.
@@ -2062,7 +2088,7 @@ def phase_vx_trainer(card: str, step_ms: float):
         fwd, train = _tables(graphs, tcfg.num_layers, ffn=False)
         per_batch = sum(isinstance(v, torch.Tensor) and v.is_cuda
                         for k, v in batch.items()
-                        if k not in probe.train_loader.layout_keys)
+                        if k not in probe.train_loader.layout)
         ds, args = probe.dataset_config, probe.optimizer_config.args
         batches = lambda k: math.ceil(k / min(ds.batch_size, k))
         steps = args.epoch * batches(ds.train_size)
@@ -2112,15 +2138,15 @@ def phase_vx_trainer(card: str, step_ms: float):
 
 # Phase 5c: the sequential trainer. Run A: ns_gauss.json in bf16, cut to
 # these split sizes and epochs (the example: 1024 / 128 / 256 samples, 500
-# epochs); run B: ce_crp.json in its own fp32, cut the same way and to a
-# validation every epoch (the example: every 2), so that its two epochs
-# give two losses; both on synthetic data at the Poseidon layout
+# epochs); run B: ce_crp.json in its own fp32, cut the same way; both with
+# a validation every epoch (the examples: every 2), so that their two
+# epochs give two losses; both on synthetic data at the Poseidon layout
 # (tests/torch_synthetic.py: 21 snapshots of the 128x128 lattice, seed 0).
 # Run C: vx sequential (tests/synthetic.py::make_sequential_vx_dataset's
 # layout, a mesh per sample, fixed over 15 steps) at the ns_gauss model's
 # full width, fp32.
 SEQ_SIZES = {"train_size": 128, "val_size": 16, "test_size": 32}
-SEQ_EPOCHS = 4
+SEQ_EPOCHS = 2        # a validation each: the example validates every 2
 CE_SIZES = {"train_size": 64, "val_size": 16, "test_size": 32}
 CE_EPOCHS = 2
 VXSEQ_SIZES = {"train_size": 48, "val_size": 8, "test_size": 8}
@@ -2204,7 +2230,7 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
         # Run A: ns_gauss.json in bf16 through gaot_torch.cli.main, in this
         # process, under a device-only profiler.
         cfg_a, raw_a = _seq_example(folder, SEQ_CONFIG, "run_a", SEQ_SIZES, SEQ_EPOCHS,
-                                    compute_dtype="bfloat16")
+                                    eval_every=1, compute_dtype="bfloat16")
         n_a = sum(SEQ_SIZES.values())
         t0 = time.perf_counter()
         make_poseidon_sequential_dataset(
@@ -2263,27 +2289,19 @@ def phase_seq_trainer(card: str, step_ms: float, rollout: dict):
             f"{BATCH / step_ms * 1e3:.1f} pairs/s; a rollout forward {fwd_ms:.3f} ms")
         os.remove(os.path.join(folder, f"{raw_a['dataset']['name']}.npz"))
 
-        # Run B: ce_crp.json in its own fp32, through the command line.
+        # Run B: ce_crp.json in its own fp32, through gaot_torch.cli.main.
         cfg_b, raw_b = _seq_example(folder, CE_CONFIG, "run_b", CE_SIZES, CE_EPOCHS,
                                     eval_every=1)
         make_poseidon_sequential_dataset(
             os.path.join(folder, f"{raw_b['dataset']['name']}.npz"),
             sum(CE_SIZES.values()), channels=4, seed=0)
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "gaot_torch.cli", "-c", cfg_b],
-                              cwd=HERE, capture_output=True, text=True, timeout=600)
-        for line in (proc.stdout + proc.stderr).splitlines()[-30:]:
-            log(f"  [seq run B] {line}")
-        if proc.returncode != 0:
-            fail(f"sequential run B: python -m gaot_torch.cli exited {proc.returncode}")
-        routes = [ln for ln in proc.stdout.splitlines()
-                  if ln.startswith("[gaot_torch] kernel routes:")]
-        routes_b = dict(kv.split("=", 1) for kv in routes[0].split(": ", 1)[1].split()
-                        if "=" in kv) if len(routes) == 1 else {}
+        # In this process: phase 5's run B and phase 8 start the CLI as a
+        # command of its own.
+        _, routes_b, secs_b, _, _ = _cli_in_process(cfg_b, "seq run B")
         rec_b, row_b = _check_run("seq run B fp32", raw_b, {}, routes_b, {}, "plain")
         _check_seq_errors("seq run B fp32", row_b)
-        log(f"sequential run B fp32 ({card}; ce_crp, 4 channels, subprocess, "
-            f"{time.perf_counter() - t0:.1f} s): samples (pairs) per s "
+        log(f"sequential run B fp32 ({card}; ce_crp, 4 channels, in process, "
+            f"{secs_b:.1f} s): samples (pairs) per s "
             f"{float(row_b['samples_per_sec']):.1f}, training time "
             f"{float(row_b['training time']):.3f} s; ffn={routes_b.get('ffn')} (no "
             f"SwiGLU launch in fp32)")
@@ -2513,7 +2531,7 @@ def _naca_agreement(trainer, batch):
 
     cb = NACA_CHECK_BATCH
     keep = [k for k, v in batch.items() if isinstance(v, torch.Tensor)
-            and k not in trainer.train_loader.layout_keys]
+            and k not in trainer.train_loader.layout]
     bufs = {k: batch[k][:cb].cpu().numpy() for k in keep}
     bufs.update(vx_layout(bufs, cb))
     nscales = len(trainer.model_config.args.magno.scales)
@@ -2908,15 +2926,16 @@ def _without_transpose(on: Path, off: Path, table_on: dict):
 
 def _cache_runs(card: str):
     """The elasticity recipe with transform_type nonlinear, node_embedding
-    and dataset.graph_cache_dir, run twice through ``python -m
-    gaot_torch.cli -c`` (the vx trainer phase's data at CACHE_SIZES,
+    and dataset.graph_cache_dir, run twice through ``gaot_torch.cli.main``
+    in this process (the vx trainer phase's data at CACHE_SIZES,
     CACHE_EPOCHS epochs, its fp32): the first builds and writes the cache,
-    the second hits it; both give the same losses bit for bit. Returns the
-    set-up seconds of both (to the parameter count's line, the interpreter's
-    start included)."""
+    the second reads it from disk; both give the same losses bit for bit.
+    Returns the set-up seconds of both (to the start of the fit)."""
     import tempfile
 
     import numpy as np
+
+    from gaot_torch.train.base_trainer import BaseTrainer
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from torch_synthetic import make_elasticity_dataset
@@ -2943,31 +2962,27 @@ def _cache_runs(card: str):
             cfg_path = os.path.join(folder, f"{run}.json")
             with open(cfg_path, "w") as f:
                 json.dump(cfg, f, indent=1)
-            t0 = time.perf_counter()
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "gaot_torch.cli", "-c", cfg_path], cwd=HERE,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                env={**os.environ, "PYTHONUNBUFFERED": "1"})
-            setup_s, lines = None, []
-            for line in proc.stdout:
-                lines.append(line.rstrip())
-                log(f"  [cache {run}] {line.rstrip()}")
-                if setup_s is None and line.startswith("Number of parameters"):
-                    setup_s = time.perf_counter() - t0
-            if proc.wait() != 0 or setup_s is None:
-                fail(f"cache run {run}: the CLI exited {proc.returncode}")
-            out = "\n".join(lines)
+            fits, fit = [], BaseTrainer.fit
+
+            def timed_fit(self, *a, **kw):
+                fits.append(time.perf_counter())
+                return fit(self, *a, **kw)
+
+            BaseTrainer.fit = timed_fit
+            try:
+                t0 = time.perf_counter()
+                _, routes, secs, _, out = _cli_in_process(cfg_path, f"cache {run}")
+            finally:
+                BaseTrainer.fit = fit
+            setup_s = fits[0] - t0
             rec, row = _run_record(cfg)
-            routes = [ln for ln in lines if ln.startswith("[gaot_torch] kernel routes:")]
             hit = "Graph cache hit" in out
-            log(f"cache run {run} ({card}): {time.perf_counter() - t0:.3f} s in all, "
-                f"set-up {setup_s:.3f} s, cache hit {hit}; losses "
-                f"{' '.join(f'{v:.6f}' for v in rec['losses'])}; relative error "
-                f"{float(row['relative error (direct)']):.5f}; {routes}")
+            log(f"cache run {run} ({card}): {secs:.3f} s in all, set-up {setup_s:.3f} s, "
+                f"cache hit {hit}; losses {' '.join(f'{v:.6f}' for v in rec['losses'])}; "
+                f"relative error {float(row['relative error (direct)']):.5f}; {routes}")
             if hit != (run == "second"):
                 fail(f"cache run {run}: cache hit {hit}")
-            if len(routes) != 1 or "agno=vx-plain" not in routes[0] \
-                    or "attn=cuda" not in routes[0]:
+            if routes.get("agno") != "vx-plain" or routes.get("attn") != "cuda":
                 fail(f"cache run {run}: routes {routes}, expected agno=vx-plain and "
                      f"attn=cuda")
             if not (np.isfinite(rec["losses"]).all()
@@ -3049,14 +3064,16 @@ def phase_options(card: str, main_path: Path, vx_path: Path, step_ms: float,
 
 
 # Phase 10: multi-GPU training (gaot_torch/parallel/). The fx recipe at
-# phase 5's sizes, epochs and cadence through torchrun at one rank on NCCL; then two ranks on the
+# phase 5's sizes, epochs and cadence through torchrun at one rank on NCCL
+# (10.1, in phase 12's torchrun process); then two ranks on the
 # one card over gloo (NCCL refuses two ranks on one device), each a
 # subprocess of this script (``--rank``) that joins the group itself, at
 # dp 2, at mp 2 (tensor parallelism) and with spatial_parallel at mp 2: an
 # fp32 check at a global batch of 8 against one process on the card, then a
-# bf16 step at a global batch of 64 (per-rank ms, launch table, the device
-# time of NCCL's kernels and every copy). With two cards or more the same runs go over
-# NCCL, one rank a card. Then the checkpoint tools' round trip.
+# bf16 step at a global batch of 64 (launch table; at dp also per-rank ms
+# and the device time of NCCL's kernels and every copy), the three modes in
+# one start of the ranks. With two cards or more the same runs go over NCCL,
+# one rank a card. Then the checkpoint tools' round trip.
 MESH_RUNS = {   # mode: setup of the two ranks
     "dp": {"data_parallel": 2, "model_parallel": 1},
     "tp": {"data_parallel": 1, "model_parallel": 2},
@@ -3064,6 +3081,10 @@ MESH_RUNS = {   # mode: setup of the two ranks
 }
 MESH_SIZES = {"train_size": 64, "val_size": 8, "test_size": 8}
 MESH_CHECK_BATCH, MESH_CHECK_STEPS, MESH_TIME_STEPS = 8, 3, 4
+# The modes whose bf16 step is timed and profiled: over gloo on one card
+# tp's and sp's times are those of their all-reduces' round trips through
+# the host (seconds a step), not of the card; their launches are counted.
+MESH_TIMED = ("dp",)
 RANK_TIMEOUT = 420
 # 10.2's vx runs, spatial_parallel at mp 2 on two ranks, in one start of
 # the ranks (mode "vx"): sp-vx, the vx flagship's model (CONFIG_VX) on
@@ -3171,15 +3192,7 @@ def _vx_mesh_runs(rank: int, folder: str, setup: dict) -> dict:
                                        sp.nodes[1] - sp.nodes[0]))
         out["buckets"] = {side: [tuple(b.indices.shape) for b in getattr(graphs, side)[0]
                                  .buckets] for side in ("encoder", "decoder")}
-        out["ms"] = time_ms(lambda: trainer.train_step(placed), iters=MESH_TIME_STEPS,
-                            warmup=1)
-        events = _profile_once(lambda: trainer.train_step(placed))
-        copies = _copy_events(events)
-        out["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
-        out["copy_ms"] = sum(e.self_device_time_total for e in copies) / 1e3
-        out["kernels"] = sum(e.count for e in events)
-        out["top"] = [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in
-                      sorted(events, key=lambda e: -e.self_device_time_total)[:6]]
+        # Not timed (MESH_TIMED): sp's step over gloo times the host.
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         # The kernels at rank 0's shapes (its cut graphs of this batch) for
         # the @sp-vx entries, while rank 1 waits: the process that ran the
@@ -3254,37 +3267,47 @@ def _copy_events(events):
 
 
 def _rank_child(argv) -> int:
-    """``chip_smoke.py --rank MODE RANK WORLD STORE FOLDER BACKEND``: one rank
-    of a phase 10 run (module comment above); writes its results to
-    FOLDER/MODE.rankR.pt (the vx runs' FOLDER/vx.rankR.worldW.pt: at world 1
-    one process's, without a process group)."""
-    mode, rank, world, store, folder, backend = argv
+    """``chip_smoke.py --rank MODES RANK WORLD STORE FOLDER BACKEND``: one
+    rank of a phase 10 run (module comment above): the MODES (a comma list:
+    the fx modes of MESH_RUNS, or "vx", the vx runs) in turn, each writing
+    its results to FOLDER/MODE.rankR.pt."""
+    modes, rank, world, store, folder, backend = argv
     rank, world = int(rank), int(world)
     sys.path.insert(0, HERE)
     import torch
     import torch.distributed as dist
 
     from gaot_torch.core.config import SetUpConfig
-    from gaot_torch.ops import cuda as kernels
     from gaot_torch.parallel import init_distributed
-    from gaot_torch.train import StaticTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if world > 1:
-        init_distributed(SetUpConfig(distributed=True, device="cuda", process_id=rank,
-                                     num_processes=world,
-                                     coordinator_address=f"file://{store}"),
-                         backend=backend)
-    out = {"device": torch.cuda.current_device()}
-    if mode == "vx":
-        out.update(_vx_mesh_runs(rank, folder,
-                                 dict(SP2, distributed=True) if world > 1 else {}))
-        torch.save(out, os.path.join(folder, f"{mode}.rank{rank}.world{world}.pt"))
-        if world > 1:
-            dist.barrier()
-            dist.destroy_process_group()
-        return 0
+    init_distributed(SetUpConfig(distributed=True, device="cuda", process_id=rank,
+                                 num_processes=world,
+                                 coordinator_address=f"file://{store}"),
+                     backend=backend)
+    for mode in modes.split(","):
+        out = (_vx_mesh_runs(rank, folder, dict(SP2, distributed=True)) if mode == "vx"
+               else _mesh_mode(mode, rank, folder))
+        torch.save(dict(out, device=torch.cuda.current_device()),
+                   os.path.join(folder, f"{mode}.rank{rank}.pt"))
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_mode(mode: str, rank: int, folder: str) -> dict:
+    """One fx mode of 10.2 / 10.3 in this rank: the fp32 check's steps, then
+    the bf16 step's launches (timed and profiled at MESH_TIMED)."""
+    import torch
+
+    from gaot_torch.ops import cuda as kernels
+    from gaot_torch.ops.cuda import fused_ffn
+    from gaot_torch.train import StaticTrainer
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
     setup = dict(MESH_RUNS[mode], distributed=True)
     with _quiet():
         trainer = StaticTrainer(_mesh_config(folder, f"{mode}_check", MESH_CHECK_BATCH,
@@ -3307,25 +3330,21 @@ def _rank_child(argv) -> int:
     layers = trainer.model_config.args.transformer.num_layers
     ffn = trainer.model.processor.encoder_layers[0].ffn
     tokens = placed["c"].shape[0] * (SEQ // (trainer.mesh.mp if trainer.spatial else 1))
-    from gaot_torch.ops.cuda import fused_ffn
-
     out["ffn_width"] = ffn.ffn_hidden_size
     out["table"] = _tables(trainer.graphs, layers, fused_ffn.supported(
         tokens, ffn.w1.weight.shape[1], ffn.ffn_hidden_size, torch.bfloat16) > 0)[1]
     out["local_batch"] = placed["c"].shape[0]
-    out["ms"] = time_ms(lambda: trainer.train_step(placed), iters=MESH_TIME_STEPS,
-                        warmup=1)
-    events = _profile_once(lambda: trainer.train_step(placed))
-    copies = _copy_events(events)
-    out["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
-    out["copy_ms"] = sum(e.self_device_time_total for e in copies) / 1e3
-    out["copy_events"] = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
-                          for e in copies]
+    if mode in MESH_TIMED:
+        out["ms"] = time_ms(lambda: trainer.train_step(placed), iters=MESH_TIME_STEPS,
+                            warmup=1)
+        events = _profile_once(lambda: trainer.train_step(placed))
+        copies = _copy_events(events)
+        out["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        out["copy_ms"] = sum(e.self_device_time_total for e in copies) / 1e3
+        out["copy_events"] = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                              for e in copies]
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    torch.save(out, os.path.join(folder, f"{mode}.rank{rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
-    return 0
+    return out
 
 
 def _quiet():
@@ -3351,25 +3370,10 @@ def _profile_once(fn):
             and e.self_device_time_total > 0]
 
 
-def _cli_rank(argv) -> int:
-    """``chip_smoke.py --cli-rank CONFIG OUT``, launched by torchrun: the
-    port's CLI (``gaot_torch.cli.main``) in this rank, then its launch
-    counts written to OUT."""
-    cfg_path, out = argv
-    sys.path.insert(0, HERE)
-    from gaot_torch import cli
-    from gaot_torch.ops import cuda as kernels
-
-    kernels.reset_launches()
-    rc = cli.main(["-c", cfg_path])
-    with open(out, "w") as f:
-        json.dump({"rc": rc, "launches": kernels.launch_counts()}, f)
-    return rc
-
-
-def _run_ranks(cmds, what: str, envs, folder: str, echo: bool = False):
+def _run_ranks(cmds, what: str, envs, folder: str, echo: bool = False,
+               timeout: float = RANK_TIMEOUT):
     """Start every command at once (output to files under ``folder``) and
-    wait for all, each within RANK_TIMEOUT seconds; a failure or a timeout
+    wait for all, each within ``timeout`` seconds; a failure or a timeout
     stops the others and fails the phase. Logs the last lines of each
     output (all of it with ``echo``)."""
     logs = [os.path.join(folder, f"{what.replace(' ', '_')}.{i}.log")
@@ -3377,14 +3381,14 @@ def _run_ranks(cmds, what: str, envs, folder: str, echo: bool = False):
     files = [open(path, "w") for path in logs]
     procs = [subprocess.Popen(c, cwd=HERE, env=e, stdout=f, stderr=subprocess.STDOUT)
              for c, e, f in zip(cmds, envs, files)]
-    deadline = time.monotonic() + RANK_TIMEOUT
+    deadline = time.monotonic() + timeout
     bad = []
     try:
         for i, p in enumerate(procs):
             try:
                 p.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                bad.append(f"process {i} timed out after {RANK_TIMEOUT} s")
+                bad.append(f"process {i} timed out after {timeout} s")
                 break
             if p.returncode != 0:
                 bad.append(f"process {i} exited {p.returncode}")
@@ -3405,36 +3409,27 @@ def _run_ranks(cmds, what: str, envs, folder: str, echo: bool = False):
         fail(f"{what}: {'; '.join(bad)}")
 
 
-def _nccl_one_rank(card: str, folder: str, rates: dict):
-    """10.1: the fx recipe at phase 5's sizes, epochs and validation
-    cadence through torchrun at one rank (NCCL), ``setup.distributed`` on;
-    its samples/s beside those of phase 5's run B (``rates``)."""
-    cfg_path, raw = _trainer_config(folder, "nccl1", compute_dtype="bfloat16",
-                                    distributed=True)
+def _nccl_one_rank(card: str, run: dict, rates: dict):
+    """10.1's checks, of the fx recipe's fit through gaot_torch.cli.main in
+    phase 12's torchrun process (``run``: its config, launches, seconds and
+    output): launches equal to phase 5's tables times its steps, a falling
+    loss, one CSV row; its samples/s beside phase 5's run B's (``rates``)."""
+    raw = run["raw"]
     want, steps, evals = _trainer_launches(raw, bf16=True)
-    out = os.path.join(folder, "nccl1.json")
-    t0 = time.perf_counter()
-    _run_ranks([[sys.executable, "-m", "torch.distributed.run", "--standalone",
-                 "--nproc_per_node=1", os.path.join(HERE, "chip_smoke.py"),
-                 "--cli-rank", cfg_path, out]], "torchrun 1 rank",
-               [dict(os.environ, PYTHONPATH=HERE)], folder)
-    with open(out) as f:
-        res = json.load(f)
-    _expect_launches("phase 10.1 (torchrun, NCCL, one rank)", res["launches"], want)
+    _expect_launches("phase 10.1 (torchrun, NCCL, one rank)", run["launches"], want)
     rec, row = _run_record(raw)
     sps = float(row["samples_per_sec"])
-    with open(os.path.join(folder, "torchrun_1_rank.0.log")) as f:
-        first, steady = _steady_rate(f.read(), TRAINER_SIZES["train_size"])
-    log(f"phase 10.1 ({card}): torchrun --nproc_per_node=1, NCCL, {steps} steps and "
-        f"{evals} evaluation batches in {time.perf_counter() - t0:.1f} s; launches "
-        f"{res['launches']} (phase 5's tables x its steps); train losses "
+    first, steady = _steady_rate(run["out"], TRAINER_SIZES["train_size"])
+    log(f"phase 10.1 ({card}): in phase 12's torchrun process (--nproc_per_node=1, "
+        f"NCCL), {steps} steps and {evals} evaluation batches in {run['secs']:.1f} s; "
+        f"launches {run['launches']} (phase 5's tables x its steps); train losses "
         f"{' '.join(f'{v:.5f}' for v in rec['losses'])}; samples_per_sec {sps:.1f}, "
         f"{first:.3f} s to the first evaluation, {steady:.1f} samples/s after it "
         f"(phase 5's run B, the same epochs and cadence in a subprocess of the CLI: "
         f"{rates['sps_b']:.1f}, {rates['first_b']:.3f} s, {rates['steady_b']:.1f})")
     if not rec["losses"][-1] < rec["losses"][0]:
         fail(f"phase 10.1: the train loss did not fall ({rec['losses']})")
-    return cfg_path, raw
+    rates["steady_nccl1"] = steady
 
 
 def _mesh_reference(folder: str):
@@ -3494,35 +3489,43 @@ def _against_one(what: str, batch: int, got, ref, sp: bool) -> None:
              f"process's; weights beyond the bound: {w_over}")
 
 
-def _mesh_run(card: str, folder: str, mode: str, ref, backend: str, cards: int):
-    """10.2 / 10.3: one mode on two ranks; the checks against ``ref``."""
+def _mesh_run(card: str, folder: str, ref, backend: str, cards: int):
+    """10.2 / 10.3: the fx modes of MESH_RUNS on two ranks, in one start of
+    them; the checks against ``ref``. Returns each mode's ranks' results."""
     import torch
 
-    store = os.path.join(folder, f"store_{mode}_{backend}")
-    cmds = [[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", mode,
+    modes = list(MESH_RUNS)
+    store = os.path.join(folder, f"store_{backend}")
+    cmds = [[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", ",".join(modes),
              str(r), "2", store, folder, backend] for r in range(2)]
     envs = [dict(os.environ, PYTHONPATH=HERE, LOCAL_RANK=str(r if cards > 1 else 0))
             for r in range(2)]
     t0 = time.perf_counter()
-    _run_ranks(cmds, f"{mode} {backend}", envs, folder)
-    res = [torch.load(os.path.join(folder, f"{mode}.rank{r}.pt"), weights_only=False)
-           for r in range(2)]
-    where = (f"two ranks on {cards} card{'s' if cards > 1 else ''} (devices "
-             f"{[r['device'] for r in res]}), {backend}")
-    got = res[0]
-    _against_one(f"{mode} ({where}, {card})", MESH_CHECK_BATCH,
-                 (got["losses"], got["grads"], got["weights"]), ref, mode == "sp")
-    for r, out in enumerate(res):
-        _expect_launches(f"{mode} rank {r} bf16 step", out["launches"], out["table"])
-        log(f"phase 10 {mode} rank {r} ({where}, {card}): bf16 step at global batch "
-            f"{BATCH} (local {out['local_batch']}, SwiGLU width {out['ffn_width']}): "
-            f"{out['ms']:.3f} ms (CUDA events, {MESH_TIME_STEPS} steps), device busy "
-            f"{out['busy_ms']:.3f} ms, peak {out['peak_gib']:.2f} GiB; launches "
-            f"{out['launches']}; NCCL kernels and all copies in the step (gloo's "
-            f"all-reduce round trips among them) {out['copy_ms']:.3f} ms device "
-            f"{out['copy_events']}")
-    log(f"phase 10 {mode} ({backend}): {time.perf_counter() - t0:.1f} s")
-    return res
+    _run_ranks(cmds, f"fx {backend}", envs, folder)
+    results = {}
+    for mode in modes:
+        res = results[mode] = [
+            torch.load(os.path.join(folder, f"{mode}.rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+        where = (f"two ranks on {cards} card{'s' if cards > 1 else ''} (devices "
+                 f"{[r['device'] for r in res]}), {backend}")
+        got = res[0]
+        _against_one(f"{mode} ({where}, {card})", MESH_CHECK_BATCH,
+                     (got["losses"], got["grads"], got["weights"]), ref, mode == "sp")
+        for r, out in enumerate(res):
+            _expect_launches(f"{mode} rank {r} bf16 step", out["launches"], out["table"])
+            timed = (f"{out['ms']:.3f} ms (CUDA events, {MESH_TIME_STEPS} steps), device "
+                     f"busy {out['busy_ms']:.3f} ms, " if "ms" in out else "")
+            copies = (f"; NCCL kernels and all copies in the step (gloo's all-reduce "
+                      f"round trips among them) {out['copy_ms']:.3f} ms device "
+                      f"{out['copy_events']}" if "ms" in out else "")
+            log(f"phase 10 {mode} rank {r} ({where}, {card}): bf16 step at global batch "
+                f"{BATCH} (local {out['local_batch']}, SwiGLU width {out['ffn_width']}): "
+                f"{timed}peak {out['peak_gib']:.2f} GiB; launches {out['launches']}"
+                f"{copies}")
+    log(f"phase 10 fx modes {modes} ({backend}, one start of two ranks): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return results
 
 
 def _vx_mesh_run(card: str, folder: str, vx_checks: dict):
@@ -3550,19 +3553,21 @@ def _vx_mesh_run(card: str, folder: str, vx_checks: dict):
         with open(config) as f:
             name = json.load(f)["dataset"]["name"]
         make(os.path.join(vx_dir, f"{name}.npz"), num_samples=sum(sizes.values()), seed=0)
-    # One process's runs, then the two ranks', each in processes of their
-    # own (this process only checks them).
-    store = os.path.join(vx_dir, "store_vx")
-    for world in (1, 2):
-        t1 = time.perf_counter()
-        _run_ranks([[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank",
-                     "vx", str(r), str(world), store, vx_dir, "gloo"]
-                    for r in range(world)], f"vx gloo {world}",
-                   [dict(os.environ, PYTHONPATH=HERE, LOCAL_RANK="0")] * world, vx_dir)
-        log(f"phase 10 vx, {world} process{'es' if world > 1 else ''}: "
-            f"{time.perf_counter() - t1:.1f} s")
-    one, *res = [torch.load(os.path.join(vx_dir, f"vx.rank{r}.world{w}.pt"),
-                            weights_only=False) for w, r in ((1, 0), (2, 0), (2, 1))]
+    # One process's runs in this process (they profile nothing), then the
+    # two ranks' in processes of their own.
+    t1 = time.perf_counter()
+    with _quiet():
+        one = _vx_mesh_runs(0, vx_dir, {})
+    torch.cuda.empty_cache()
+    log(f"phase 10 vx, 1 process (this one): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    _run_ranks([[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", "vx",
+                 str(r), "2", os.path.join(vx_dir, "store_vx"), vx_dir, "gloo"]
+                for r in range(2)], "vx gloo 2",
+               [dict(os.environ, PYTHONPATH=HERE, LOCAL_RANK="0")] * 2, vx_dir)
+    log(f"phase 10 vx, 2 processes: {time.perf_counter() - t1:.1f} s")
+    res = [torch.load(os.path.join(vx_dir, f"vx.rank{r}.pt"), weights_only=False)
+           for r in range(2)]
     where = f"two ranks on 1 card, gloo, {card}"
     _against_one(f"sp-vx ({where})", VX_MESH_CHECK_BATCH, res[0]["sp-vx"][:3],
                  one["sp-vx"], True)
@@ -3583,10 +3588,7 @@ def _vx_mesh_run(card: str, folder: str, vx_checks: dict):
         _expect_launches(f"sp-vx rank {r} bf16 step", out["launches"], out["table"])
         log(f"phase 10 sp-vx rank {r} ({where}): bf16 step at global batch {VX_BATCH} "
             f"(a rank's cut graphs: counts {out['counts']}, buckets {out['buckets']}): "
-            f"{out['ms']:.3f} ms (CUDA events, {MESH_TIME_STEPS} steps), device busy "
-            f"{out['busy_ms']:.3f} ms, {out['kernels']} kernels, all copies "
-            f"{out['copy_ms']:.3f} ms, peak {out['peak_gib']:.2f} GiB; launches "
-            f"{out['launches']}; top {out['top']}")
+            f"peak {out['peak_gib']:.2f} GiB; launches {out['launches']}")
     rows = {**res[0]["rows"],
             **{k: v for k, v in vx_checks.items() if k in ("fwd_lse", "bwd")}}
     for key, row in res[0]["rows"].items():
@@ -3628,9 +3630,11 @@ def _tools_round_trip(cfg_path: str, raw: dict, folder: str):
         "again, bit for bit, update count 0")
 
 
-def phase_mesh(card: str, rates: dict, main_checks: dict, vx_checks: dict):
-    """Phase 10 (module comment above). Returns the kernel rows and launches
-    of the @dp, @tp, @sp and @sp-vx entries: {suffix: (rows, launches)}."""
+def phase_mesh(card: str, main_checks: dict, vx_checks: dict, nccl1: dict):
+    """Phase 10 (module comment above) after 10.1, whose fit (``nccl1``,
+    phase 12's) the checkpoint tools read. Returns the kernel rows and
+    launches of the @dp, @tp, @sp and @sp-vx entries: {suffix: (rows,
+    launches)}."""
     import tempfile
 
     import torch
@@ -3643,11 +3647,7 @@ def phase_mesh(card: str, rates: dict, main_checks: dict, vx_checks: dict):
     with tempfile.TemporaryDirectory(prefix="gaot_mesh_") as folder:
         with open(CONFIG) as f:
             name = json.load(f)["dataset"]["name"]
-        make_static_fx_dataset(os.path.join(folder, f"{name}.npz"),
-                               num_samples=sum(TRAINER_SIZES.values()),
-                               num_nodes=NUM_NODES, seed=0)
-        cfg_path, raw = _nccl_one_rank(card, folder, rates)
-        _tools_round_trip(cfg_path, raw, folder)
+        _tools_round_trip(nccl1["cfg"], nccl1["raw"], folder)
 
         # The meshes read a split of MESH_SIZES from a folder of their own.
         mesh_dir = os.path.join(folder, "mesh")
@@ -3656,13 +3656,10 @@ def phase_mesh(card: str, rates: dict, main_checks: dict, vx_checks: dict):
                                num_samples=sum(MESH_SIZES.values()),
                                num_nodes=NUM_NODES, seed=0)
         ref, (coord, lat) = _mesh_reference(mesh_dir)
-        results = {}
-        for mode in MESH_RUNS:
-            torch.cuda.empty_cache()
-            results[mode] = _mesh_run(card, mesh_dir, mode, ref, "gloo", 1)
+        torch.cuda.empty_cache()
+        results = _mesh_run(card, mesh_dir, ref, "gloo", 1)
         if cards >= 2:
-            for mode in MESH_RUNS:
-                _mesh_run(card, mesh_dir, mode, ref, "nccl", 2)
+            _mesh_run(card, mesh_dir, ref, "nccl", 2)
         else:
             log(f"phase 10.3: {cards} card on this machine: the two-card NCCL runs "
                 "did not run (a limit of the machine; the two-rank runs above ran)")
@@ -3828,7 +3825,7 @@ def _both_ways(what: str, eager, graph, batch: int, gathers: int):
             for ev in device_events(lambda: [run() for _ in range(10)], f"{what}, {way}"):
                 names[way][ev.key] = max(names[way].get(ev.key, 0), ev.count / 10)
     for way, k in (("eager", e), ("graph", g)):
-        out[way]["kernels"] = k
+        out[way].update(kernels=k, by_name=names[way])
     return out
 
 
@@ -3848,11 +3845,14 @@ def _per_step_epochs(trainer, mats, after_step=None):
     return torch.cat(losses)
 
 
-def _trainer_graph(what: str, trainer, card: str, draws=None) -> dict:
-    """11.2 / 11.3 on a trainer: GRAPH_EPOCHS epochs through the per-step
-    path, then, from the same state, through the captured epoch path;
-    ``draws`` (11.3 naca0012) a :class:`_Draws` that records each step's
-    draws both ways. Then the timings both ways. Returns the results."""
+def _trainer_graph(what: str, trainer, card: str, draws=None,
+                   phase: str = "11") -> dict:
+    """11.2 / 11.3 (and 12a) on a trainer: GRAPH_EPOCHS epochs through the
+    per-step path, the weights kept after every step, then, from the same
+    state, through the captured epoch path replayed step by step: its loss
+    bits and its weights after every step held against eager's; ``draws``
+    (11.3 naca0012) a :class:`_Draws` that records each step's draws both
+    ways. Then the timings both ways. Returns the results."""
     import torch
 
     from gaot_torch.ops import cuda as kernels
@@ -3863,12 +3863,18 @@ def _trainer_graph(what: str, trainer, card: str, draws=None) -> dict:
     snap = Snapshot(trainer.model, trainer.optimizer, [trainer.generator])
     step0 = trainer.step
     mats = [loader.epoch_index_matrix() for _ in range(GRAPH_EPOCHS)]
+    kept = []
+
+    def after_step():
+        kept.append(_weights(trainer.model))
+        if draws is not None:
+            draws.step()
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eager = _per_step_epochs(trainer, mats, draws.step if draws is not None else None)
+    eager = _per_step_epochs(trainer, mats, after_step)
     torch.cuda.synchronize()
     peak_e = torch.cuda.max_memory_allocated()
-    w_e = _weights(trainer.model)
     snap.restore()
     trainer.step = step0
     torch.cuda.empty_cache()
@@ -3881,23 +3887,36 @@ def _trainer_graph(what: str, trainer, card: str, draws=None) -> dict:
     if draws is not None:
         draws.epoch(program)
     program.load(*mats[0], lr_table(trainer.schedule, trainer.step, len(mats[0][0])))
-    graph = []
-    for m in mats:
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    graph, steps, worst = [], iter(kept), 0.0
+    for idx, mask in mats:
         if draws is not None:
             draws.epoch(program)
-        graph.append(trainer.train_epoch(program, m)[0])
+        program.load(idx, mask, lr_table(trainer.schedule, trainer.step, len(idx)))
+        for _ in range(len(idx)):
+            program.captured.replay()
+            want = next(steps)
+            for k, v in _weights(trainer.model).items():
+                worst = max(worst, float((v.float() - want[k].float()).abs().max()
+                                         / want[k].float().abs().max().clamp(min=1e-30)))
+        trainer.step += len(idx)
+        graph.append(program.losses.clone())
         if draws is not None:
             draws.read()
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
     peak_g = torch.cuda.max_memory_allocated()
-    worst = _hold(f"phase 11 {what}", torch.cat(graph), eager, _weights(trainer.model), w_e)
-    capture_s = program.captured.capture_s
-    log(f"  {what}: capture {capture_s:.3f} s (2 warm-up steps undone, then the "
-        f"capture); launches through the wrappers in the graph's run {launches} "
-        f"(the warm-up steps' and the capture's; each replay launches the "
-        f"captured step's); peak memory eager {peak_e / 2**30:.3f} GiB, graph "
-        f"{peak_g / 2**30:.3f} GiB")
+    if worst > GRAPH_WEIGHT_BOUND:
+        fail(f"phase {phase} {what}: a replayed step's weights differ from eager's by "
+             f"{worst:.3e}")
+    _hold(f"phase {phase} {what}", torch.cat(graph), eager, _weights(trainer.model),
+          kept[-1])
+    capture_s, warmup = program.captured.capture_s, program.captured.warmup
+    log(f"  {what}: every weight after every replayed step within {worst:.3e} of "
+        f"eager's; capture {capture_s:.3f} s ({warmup} warm-up steps undone, then the "
+        f"capture); launches through the wrappers in the warm-up steps and the "
+        f"capture {launches} (each replay launches the captured step's); peak memory "
+        f"eager {peak_e / 2**30:.3f} GiB, graph {peak_g / 2**30:.3f} GiB")
     if draws is not None:
         draws.hold()
     # Timings: the body issued step by step against its replay, and the
@@ -3912,10 +3931,13 @@ def _trainer_graph(what: str, trainer, card: str, draws=None) -> dict:
                      gathers=len(program.bufs) + 3)
     batch = trainer.place_batch(dict(loader.get_batch(idx[0]), sample_mask=mask[0]))
     per_step = statistics.median(host_times(lambda: trainer.train_step(batch), 10))
-    res.update(capture_s=capture_s, peak_e=peak_e, peak_g=peak_g, worst=worst,
-               launches=launches, per_step_ms=per_step,
-               replays=GRAPH_EPOCHS * len(idx))
-    log(f"phase 11 {what} ({card}): step ms eager {res['eager']['ms']:.3f} / graph "
+    res.update(capture_s=capture_s, warmup=warmup, peak_e=peak_e, peak_g=peak_g,
+               worst=worst, launches=launches, per_step_ms=per_step, replays=len(kept))
+    # Freed now (CapturedStep.release): the program and its step refer to
+    # each other, and NCCL's communicator is not destroyed while a graph
+    # that captured it lives.
+    program.captured.release()
+    log(f"phase {phase} {what} ({card}): step ms eager {res['eager']['ms']:.3f} / graph "
         f"{res['graph']['ms']:.3f} (the per-step path {per_step:.3f}); busy "
         f"{res['eager']['busy_ms']:.3f} / {res['graph']['busy_ms']:.3f} ms; idle share "
         f"{res['eager']['idle']:.3f} / {res['graph']['idle']:.3f}; kernels a step "
@@ -4198,7 +4220,9 @@ def _cli_both_ways(make, what: str) -> dict:
     ``setup.epoch_scan`` "always" and "never" (``make(mode)`` writes its
     config): the route line, the same loss record and test metrics within
     GRAPH_WEIGHT_BOUND relative, samples/s both ways. Returns, per mode,
-    (the CSV row, the trainer)."""
+    (the CSV row, the trainer, seconds to the first evaluation, samples/s
+    after it), and the steps after which the graph has repaid its first
+    epoch."""
     import numpy as np
 
     runs = {}
@@ -4224,10 +4248,10 @@ def _cli_both_ways(make, what: str) -> dict:
     # capture) is repaid by its faster steps after it.
     b = trainer.train_loader.batch_size
     saved = b / steady_e - b / steady_g
+    even = (first_g - first_e) / saved if saved > 0 else float("inf")
     log(f"phase 11.4 {what}: the graph's first epoch takes {first_g - first_e:.3f} s "
         f"more to the first evaluation, its later steps {saved * 1e3:.3f} ms less each "
-        f"(steady rates): break-even after "
-        f"{(first_g - first_e) / saved if saved > 0 else float('inf'):.0f} steps")
+        f"(steady rates): break-even after {even:.0f} steps")
     worst = 0.0
     for key in ("losses", "val_losses"):
         a, b = np.asarray(rec_g[key], np.float64), np.asarray(rec_e[key], np.float64)
@@ -4245,7 +4269,9 @@ def _cli_both_ways(make, what: str) -> dict:
         f"per-step {float(row_e['samples_per_sec']):.1f}")
     if worst > GRAPH_WEIGHT_BOUND:
         fail(f"phase 11.4 {what}: the two routes' trajectories differ by {worst:.3e}")
-    return {m: (run[1], run[2]) for m, run in runs.items()}
+    # Per mode: (the CSV row, the trainer, seconds to the first evaluation,
+    # samples/s after it); the break-even in steps.
+    return {m: run[1:] for m, run in runs.items()}, even
 
 
 def _rollout_both_ways(trainer, card: str) -> dict:
@@ -4302,9 +4328,10 @@ def phase_graph(card: str, vx_path: Path) -> dict:
         make_static_fx_dataset(os.path.join(folder, f"{name}.npz"),
                                num_samples=sum(TRAINER_SIZES.values()),
                                num_nodes=NUM_NODES, seed=0)
-        fx = _cli_both_ways(lambda mode: _trainer_config(
+        fx, res["fx_break_even"] = _cli_both_ways(lambda mode: _trainer_config(
             folder, f"fx_{mode}", compute_dtype="bfloat16", epoch_scan=mode),
             "fx recipe (phase 5's sizes, bf16)")
+        res["fx_steady"] = {m: run[3] for m, run in fx.items()}
         trainer = fx["always"][1]
         del fx
         res["kernels"] = _kernels_captured(trainer, card)
@@ -4317,7 +4344,7 @@ def phase_graph(card: str, vx_path: Path) -> dict:
             seq_name = json.load(f)["dataset"]["name"]
         make_poseidon_sequential_dataset(os.path.join(folder, f"{seq_name}.npz"),
                                          sum(SEQ_SIZES.values()), channels=2, seed=0)
-        seq = _cli_both_ways(lambda mode: _seq_example(
+        seq, _ = _cli_both_ways(lambda mode: _seq_example(
             folder, SEQ_CONFIG, f"seq_{mode}", SEQ_SIZES, GRAPH_SEQ_EPOCHS, eval_every=1,
             compute_dtype="bfloat16", epoch_scan=mode),
             "ns_gauss (bf16, rollout)")
@@ -4332,6 +4359,279 @@ def phase_graph(card: str, vx_path: Path) -> dict:
     res["vx"] = _path_graph(vx_path, card)
     log(f"graph phase: {time.perf_counter() - t_phase:.1f} s")
     return res
+
+
+# Phase 12: the epoch path under several ranks on the card (train/graphed.py):
+# the training step captured with its NCCL collectives inside the graph.
+# One card holds one NCCL rank (NCCL refuses two ranks on one device, and a
+# gloo collective cannot be captured), so the phase runs in a torchrun
+# process of one rank on NCCL (``--ddp-graph``): (12b) every function of
+# parallel/comm.py on that one-rank group, forward and backward, captured
+# and replayed against eager calls bit for bit, the NCCL kernels of one
+# call each way; (12c) the fx recipe through gaot_torch.cli.main with
+# setup.distributed and epoch_scan "always" and "never", the model wrapped
+# in DDP over the one-rank group before the fit (smoke code: at one rank
+# the trainer does not wrap it): the route line, the same loss records,
+# samples/s after the first evaluation and the DDP graph's break-even
+# (phase 11.4's method); (12a) on that trainer GRAPH_EPOCHS epochs of the
+# per-step path (DDP eager), then from the same state the captured epoch
+# path, replayed step by step: the loss bits and every weight after every
+# step within GRAPH_WEIGHT_BOUND of eager's; the wrappers' launches in the
+# graph's run (the DDP warm-up steps and the capture); then both ways the
+# step's ms, busy, idle share and kernels a step, the NCCL kernels a step
+# equal (over one rank NCCL launches none, eager or captured: a one-rank
+# sum in place runs no kernel on the H100's NCCL 2.28). The process also
+# runs 10.1's fit, between 12c and 12a. With two
+# cards or more, 12a also on two ranks, one a card, at dp 2 and tp 2 (the
+# trainer's own DDP and tensor parallelism).
+DDP_GRAPH_MODES = {"dp": MESH_RUNS["dp"], "tp": MESH_RUNS["tp"]}
+DDP_GRAPH_TIMEOUT = 300       # a torchrun start of phase 12 (about 80 s at one rank)
+
+
+def _nccl_kernels(by_name: dict) -> float:
+    return sum(v for k, v in by_name.items() if "nccl" in k.lower())
+
+
+def _comm_captured() -> dict:
+    """12b on the world group (one NCCL rank): each function of
+    parallel/comm.py, fp32 and bf16, captured once (forward and, for the
+    autograd ones, the backward of a fixed upstream gradient) on a static
+    input and replayed on a new one, against the eager call on that input
+    bit for bit. Returns {name: (NCCL kernels of the eager call, of the
+    replay)}."""
+    import torch
+    import torch.distributed as dist
+
+    from gaot_torch.parallel import comm
+
+    group = dist.group.WORLD
+    fns = {"all_reduce": (lambda x: comm.all_reduce(x, group), False),
+           "all_gather": (lambda x: comm.all_gather(x, group, 1), False),
+           "copy_to_group": (lambda x: comm.copy_to_group(x, group), True),
+           "reduce_from_group": (lambda x: comm.reduce_from_group(x, group), True),
+           "gather_along": (lambda x: comm.gather_along(x, group, 1), True),
+           "sum_over": (lambda x: comm.sum_over(x, group), True)}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda dtype: torch.randn(8, 256, 64, generator=gen, device="cuda").to(dtype)
+    out = {}
+    for name, (fn, grad) in fns.items():
+        counts = []
+        for dtype in (torch.float32, torch.bfloat16):
+            up = rnd(dtype)
+
+            def call(x):
+                x = x.detach().requires_grad_(grad)
+                y = fn(x)
+                return [y] + ([torch.autograd.grad(y, x, up)[0]] if grad else [])
+
+            static = rnd(dtype)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                call(static)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                got = call(static)
+            x = rnd(dtype)
+            static.copy_(x)
+            graph.replay()
+            want = call(x)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"phase 12b: {name} ({dtype}) replayed differs from its eager call")
+            counts.append(tuple(_nccl_kernels({e.key: e.count for e in device_events(
+                run, f"{name} {way}")}) for way, run in (("eager", lambda: call(x)),
+                                                         ("graph", graph.replay))))
+            del graph
+        out[name] = counts
+        log(f"phase 12b {name}: fp32 and bf16, forward{' and backward' if grad else ''} "
+            f"captured on the one-rank NCCL group and replayed on new inputs: equal to "
+            f"the eager calls bit for bit; NCCL kernels a call (eager, replay) {counts}")
+        if any(e != g for e, g in counts):
+            fail(f"phase 12b: {name}'s replay runs other NCCL kernels than its eager call")
+    return out
+
+
+def _graph_on_ranks(trainer, what: str, card: str) -> dict:
+    """12a on a trainer whose step runs collectives: ``_trainer_graph``
+    (eager and the captured epoch path, the loss bits and weights after
+    every step, both ways traced), the wrappers' launches in the warm-up
+    steps and the capture, and the NCCL kernels a step, which must be equal
+    both ways. Returns the results."""
+    res = _trainer_graph(what, trainer, card, phase="12a")
+    launches, warmup = res["launches"], res["warmup"]
+    for k, v in TRAIN_LAUNCHES.items():
+        if launches.get(k, 0) != (warmup + 1) * v:
+            fail(f"phase 12a {what}: {k} launched {launches.get(k, 0)} times in the "
+                 f"warm-up and the capture, {(warmup + 1) * v} expected")
+    nccl = {way: _nccl_kernels(res[way].pop("by_name")) for way in ("eager", "graph")}
+    log(f"phase 12a {what}: NCCL kernels a step eager {nccl['eager']:.1f} / replayed "
+        f"{nccl['graph']:.1f}")
+    if nccl["eager"] != nccl["graph"]:
+        fail(f"phase 12a {what}: {nccl['graph']} NCCL kernels a replayed step against "
+             f"{nccl['eager']} eager")
+    res["nccl"] = nccl
+    return res
+
+
+def _ddp_fit(fit):
+    """``BaseTrainer.fit`` that first wraps a model no DDP wraps in DDP over
+    the world group (one NCCL rank), built on a side stream as the trainer
+    builds its own where it captures (smoke code)."""
+    def wrapped(self, *a, **kw):
+        import torch
+        import torch.distributed as dist
+        from torch.nn.parallel import DistributedDataParallel
+
+        if self.train_model is self.model:
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                self.train_model = DistributedDataParallel(
+                    self.model, process_group=dist.group.WORLD, broadcast_buffers=False,
+                    static_graph=True)
+            torch.cuda.current_stream().wait_stream(side)
+        return fit(self, *a, **kw)
+    return wrapped
+
+
+def _ddp_graph_child(argv) -> int:
+    """``chip_smoke.py --ddp-graph FOLDER OUT MODE``, launched by torchrun:
+    phase 12 in this rank (MODE "one": 12b, 12c and 12a over one NCCL rank;
+    "dp" or "tp": 12a on the trainer's own mesh of two ranks, one a card);
+    rank 0 writes the results to OUT."""
+    folder, out_path, mode = argv
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from gaot_torch.core.config import SetUpConfig
+    from gaot_torch.parallel import init_distributed
+    from gaot_torch.train import StaticTrainer
+    from gaot_torch.train.base_trainer import BaseTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(SetUpConfig(distributed=True, device="cuda"))
+    res = {"nccl_version": torch.cuda.nccl.version(), "torch": torch.__version__,
+           "world": dist.get_world_size(), "device": torch.cuda.current_device()}
+    log(f"phase 12 ({mode}): rank {dist.get_rank()} of {res['world']} on device "
+        f"{res['device']}, NCCL {res['nccl_version']}, torch {res['torch']}")
+    if mode == "one":
+        res["comm"] = _comm_captured()
+        fit = BaseTrainer.fit
+        BaseTrainer.fit = _ddp_fit(fit)
+        try:
+            runs, res["break_even"] = _cli_both_ways(lambda m: _trainer_config(
+                folder, f"ddp_{m}", compute_dtype="bfloat16", distributed=True,
+                epoch_scan=m), "fx recipe, DDP over one NCCL rank")
+        finally:
+            BaseTrainer.fit = fit
+        res["steady"] = {m: run[3] for m, run in runs.items()}
+        trainer = runs["always"][1]
+        del runs
+        # 10.1: the fx recipe as a user runs it here (at one rank no DDP).
+        cfg_path, raw = _trainer_config(folder, "nccl1", compute_dtype="bfloat16",
+                                        distributed=True)
+        launches, _, secs, _, out = _cli_in_process(cfg_path, "torchrun 1 rank")
+        res["nccl1"] = {"cfg": cfg_path, "raw": raw, "launches": launches, "secs": secs,
+                        "out": out}
+        what = f"fx main path, DDP over one NCCL rank (bf16, batch {BATCH})"
+    else:
+        with _quiet():
+            trainer = StaticTrainer(_trainer_config(
+                folder, f"graph_{mode}", compute_dtype="bfloat16", distributed=True,
+                epoch_scan="always", **DDP_GRAPH_MODES[mode])[1])
+        if trainer.steps_route()[0] != "graph":
+            fail(f"phase 12a {mode}: route {trainer.steps_route()}")
+        what = f"fx main path at {mode} 2 (bf16, global batch {BATCH})"
+    torch.cuda.empty_cache()
+    res["graph"] = _graph_on_ranks(trainer, what, torch.cuda.get_device_name())
+    if dist.get_rank() == 0:
+        torch.save(res, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _cli_two_cards(card: str, folder: str) -> None:
+    """12c at dp 2 on two cards: ``torchrun --nproc_per_node=2 -m
+    gaot_torch.cli`` of the fx recipe with epoch_scan "always": it exits 0
+    (its process group, joined by the run, destroyed after the graph is
+    released), its route line reads steps=graph, its loss falls."""
+    cfg_path, raw = _trainer_config(folder, "cli_dp2", compute_dtype="bfloat16",
+                                    distributed=True, epoch_scan="always",
+                                    **DDP_GRAPH_MODES["dp"])
+    t0 = time.perf_counter()
+    _run_ranks([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node=2", "-m", "gaot_torch.cli", "-c", cfg_path]],
+               "torchrun cli dp2", [dict(os.environ, PYTHONPATH=HERE)], folder,
+               echo=True, timeout=DDP_GRAPH_TIMEOUT)
+    with open(os.path.join(folder, "torchrun_cli_dp2.0.log")) as f:
+        out = f.read()
+    rec, row = _run_record(raw)
+    first, steady = _steady_rate(out, TRAINER_SIZES["train_size"])
+    log(f"phase 12c dp 2 ({card}, two cards): torchrun of the CLI in "
+        f"{time.perf_counter() - t0:.1f} s; {float(row['samples_per_sec']):.1f} samples/s, "
+        f"{steady:.1f} after the first evaluation ({first:.3f} s to it)")
+    if "steps=graph" not in out or not rec["losses"][-1] < rec["losses"][0]:
+        fail("phase 12c dp 2: no steps=graph route line, or the loss did not fall")
+
+
+def phase_ddp_graph(card: str, rates: dict, graph: dict, folder: str) -> dict:
+    """Phase 12 (comment above) in ``folder``, which keeps 10.1's outputs for
+    phase 10: the torchrun process of one NCCL rank (and 10.1's checks of
+    the fit it ran), then with two cards or more the two-rank runs. Returns
+    the one-rank results."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from synthetic import make_static_fx_dataset
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    with open(CONFIG) as f:
+        name = json.load(f)["dataset"]["name"]
+    make_static_fx_dataset(os.path.join(folder, f"{name}.npz"),
+                           num_samples=sum(TRAINER_SIZES.values()),
+                           num_nodes=NUM_NODES, seed=0)
+    runs = ([(m, 2) for m in DDP_GRAPH_MODES] if cards >= 2 else []) + [("one", 1)]
+    out = {}
+    for mode, world in runs:
+        path = os.path.join(folder, f"ddp_graph_{mode}.pt")
+        _run_ranks([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     f"--nproc_per_node={world}", os.path.join(HERE, "chip_smoke.py"),
+                     "--ddp-graph", folder, path, mode]], f"torchrun {mode}",
+                   [dict(os.environ, PYTHONPATH=HERE)], folder, echo=True,
+                   timeout=DDP_GRAPH_TIMEOUT)
+        out[mode] = torch.load(path, weights_only=False)
+    if cards >= 2:
+        _cli_two_cards(card, folder)
+    one = out["one"]
+    _nccl_one_rank(card, one["nccl1"], rates)
+    g = one["graph"]
+    log(f"phase 12 ({card}; NCCL {one['nccl_version']}, torch {one['torch']}): the fx "
+        f"recipe's DDP-captured step over one NCCL rank {g['graph']['ms']:.3f} ms (idle "
+        f"share {g['graph']['idle']:.3f}) against eager {g['eager']['ms']:.3f} "
+        f"(idle {g['eager']['idle']:.3f}) and phase 11.2's one-process graph "
+        f"{graph['fx']['graph']['ms']:.3f}; capture {g['capture_s']:.3f} s with "
+        f"{g['warmup']} warm-up steps; NCCL kernels a step {g['nccl']}; samples/s "
+        f"after the first evaluation through torchrun: DDP graph "
+        f"{one['steady']['always']:.1f}, DDP per-step {one['steady']['never']:.1f}, "
+        f"10.1's per-step {rates['steady_nccl1']:.1f}, 11.4's one-process graph "
+        f"{graph['fx_steady']['always']:.1f}; break-even of the DDP graph "
+        f"{one['break_even']:.0f} steps (11.4's one-process graph in this run: "
+        f"{graph['fx_break_even']:.0f})")
+    for mode in DDP_GRAPH_MODES:
+        if mode in out:
+            g = out[mode]["graph"]
+            log(f"phase 12a {mode} 2 (two cards): step ms eager {g['eager']['ms']:.3f} / "
+                f"graph {g['graph']['ms']:.3f}, NCCL kernels a step {g['nccl']}")
+        else:
+            log(f"phase 12a {mode} 2: {cards} card on this machine: the two-rank "
+                "captured runs did not run (a limit of the machine)")
+    log(f"DDP graph phase: {time.perf_counter() - t_phase:.1f} s")
+    return one
 
 
 def _entries(rows, names, launches, path: str, suffix: str = ""):
@@ -4351,6 +4651,8 @@ def main() -> int:
         fail("gaot_torch/ not found next to chip_smoke.py: run it from a "
              "checkout of the repository")
     sys.path.insert(0, HERE)
+    import tempfile
+
     import torch
 
     from gaot_torch.core.config import GAOTConfig, load_experiment_config, merge_config
@@ -4469,8 +4771,13 @@ def main() -> int:
     graph = phase_graph(card, vx_path)
     graph["naca"] = graph_naca
     mark("phase 11")
-    meshes = phase_mesh(card, rates, checks["main"], checks["vx"])
-    mark("phase 10")
+    # Phase 12 before the rest of phase 10: its torchrun process runs 10.1's
+    # fit, whose checkpoint 10.4 reads.
+    with tempfile.TemporaryDirectory(prefix="gaot_torchrun_") as folder:
+        ddp_graph = phase_ddp_graph(card, rates, graph, folder)
+        mark("phase 12 (with 10.1)")
+        meshes = phase_mesh(card, checks["main"], checks["vx"], ddp_graph["nccl1"])
+        mark("phase 10")
 
     main_names = {k: k for k in SOURCES}
     main_names.update(fwd="flash_attention_fwd", fwd_lse="flash_attention_fwd_lse",
@@ -4545,6 +4852,20 @@ def main() -> int:
         kernels_line += _entries(picked, main_names,
                                  {k: run["launches"][main_names[k]] for k in picked},
                                  f"{path}, captured step", suffix)
+    # The DDP-captured step's entries (phase 12a, one NCCL rank): phase 2's
+    # rows at the fx shapes, launches the wrappers' count in the graph's run
+    # (the DDP warm-up steps and the capture).
+    g = ddp_graph["graph"]
+    picked = {}
+    for k in step_keys:
+        row = dict(checks["main"][k])
+        row["per"] = (f"{row.get('per', '')}; {g['replays']} replays of the step captured "
+                      f"under DDP over one NCCL rank; launches: {g['warmup']} warm-up "
+                      "steps and the capture; ms: the eager call (phase 2)")
+        picked[k] = row
+    kernels_line += _entries(picked, main_names,
+                             {k: g["launches"][main_names[k]] for k in picked},
+                             "fx main path, DDP-captured step", "@graph-ddp")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4555,8 +4876,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(_rank_child(sys.argv[2:]))
-    if sys.argv[1:2] == ["--cli-rank"]:
-        sys.exit(_cli_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--mesh-rows"]:
         sys.exit(_mesh_rows(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ddp-graph"]:
+        sys.exit(_ddp_graph_child(sys.argv[2:]))
     sys.exit(main())

@@ -17,7 +17,11 @@ JAX package's, computed with the same NumPy calls:
   index tensor to a batch, device ops only), which the trainers' epoch
   path (``train/graphed.py``) gathers each step's batch with, by the rows
   of :meth:`BatchLoader.epoch_index_matrix`; a host loader carries None
-  and ``host_reason``, why.
+  and ``host_reason``, why;
+- the static loaders keep their split's arrays as ``host_buffers`` (the
+  JAX package's loaders too): under several ranks the epoch path places
+  them itself where the loader assembles its batches on the host
+  (:func:`epoch_path_reason`, :func:`device_spec`).
 
 A failure to place the data on the device raises: nothing falls back to
 the host path.
@@ -62,6 +66,10 @@ class BatchLoader:
         # (buffers, batch_fn) where batches are gathered on the device.
         self.device_epoch_spec = None
         self.host_reason = "the loader assembles its batches on the host"
+        # The split's per-sample arrays, where the batches are rows of them,
+        # and the arrays every batch carries beside them.
+        self.host_buffers: Optional[Dict[str, np.ndarray]] = None
+        self.layout: Dict = {}
 
     def __len__(self) -> int:
         return (self.num_samples + self.batch_size - 1) // self.batch_size
@@ -104,6 +112,20 @@ class BatchLoader:
             yield batch
 
 
+def device_spec(buffers: Dict[str, np.ndarray], layout: Dict[str, np.ndarray],
+                device):
+    """(the per-sample ``buffers`` on ``device``, batch_fn): ``batch_fn(bufs,
+    i)`` selects the rows ``i`` (an index tensor on the device) of every
+    buffer, the ``layout`` beside them (placed once)."""
+    dev = {k: torch.from_numpy(v).to(device) for k, v in buffers.items()}
+    dev_layout = {k: torch.from_numpy(v).to(device) for k, v in layout.items()}
+
+    def batch_fn(bufs, i):
+        return {**{k: v.index_select(0, i) for k, v in bufs.items()}, **dev_layout}
+
+    return dev, batch_fn
+
+
 def _buffers_loader(buffers: Dict[str, np.ndarray], num_samples: int,
                     batch_size: int, shuffle: bool, seed: int,
                     device_data: bool, device,
@@ -114,13 +136,7 @@ def _buffers_loader(buffers: Dict[str, np.ndarray], num_samples: int,
     nbytes = sum(v.nbytes for v in buffers.values())
     spec = None
     if device_data and nbytes <= DEVICE_DATA_BYTE_LIMIT:
-        dev = {k: torch.from_numpy(v).to(device) for k, v in buffers.items()}
-        dev_layout = {k: torch.from_numpy(v).to(device) for k, v in layout.items()}
-
-        def batch_fn(bufs, i):
-            return {**{k: v.index_select(0, i) for k, v in bufs.items()}, **dev_layout}
-
-        spec = (dev, batch_fn)
+        spec = dev, batch_fn = device_spec(buffers, layout, device)
 
         def get_batch(idx):
             return batch_fn(dev, to_device(idx, device))
@@ -129,10 +145,29 @@ def _buffers_loader(buffers: Dict[str, np.ndarray], num_samples: int,
             return {**{k: np.take(v, idx, axis=0) for k, v in buffers.items()}, **layout}
     loader = BatchLoader(num_samples, batch_size, get_batch, shuffle=shuffle,
                          seed=seed)
-    loader.layout_keys = frozenset(layout)
+    loader.layout = layout
+    loader.host_buffers = buffers
     loader.device_epoch_spec = spec
     loader.host_reason = host_reason(device_data, nbytes)
     return loader
+
+
+def epoch_path_reason(loader, world: int) -> str:
+    """Why the epoch path cannot gather ``loader``'s batches on the device
+    ("" where it can), as the JAX package's ``_build_epoch_fn`` decides:
+    with the loader's device buffers; under several ranks also with its
+    ``host_buffers``, which each rank then places on its device
+    (:func:`device_spec`; the JAX package places them replicated over its
+    mesh), where they fit :data:`DEVICE_DATA_BYTE_LIMIT`; else (one rank, a
+    loader without them, as the sequential one, or a split above the
+    limit) not: the steps go one by one."""
+    if loader.device_epoch_spec is not None:
+        return ""
+    if world > 1 and loader.host_buffers is not None:
+        return host_reason(True, sum(v.nbytes for v in loader.host_buffers.values()))
+    if world > 1:
+        return f"{loader.host_reason}, and the loader keeps no host buffers to place"
+    return loader.host_reason
 
 
 def host_reason(device_data: bool, nbytes: int) -> str:

@@ -418,7 +418,7 @@ def make_sequential_loader(batcher: DynamicPairBatcher, batch_size: int,
             layout = {k: torch.from_numpy(v).to(loader_device) for k, v in layout.items()}
     fetch = (lambda idx: {**get_batch(idx), **layout}) if layout else get_batch
     loader = BatchLoader(len(batcher), batch_size, fetch, shuffle=shuffle, seed=seed)
-    loader.layout_keys = frozenset(layout)
+    loader.layout = layout
     loader.row_selects = batcher.row_selects if loader_device is not None else 0
     loader.host_reason = host_reason(device_data, nbytes)
     spec = getattr(get_batch, "device_epoch_spec", None)

@@ -21,8 +21,11 @@ device), so this one code path runs on every backend; NCCL's
 ``all_gather_into_tensor`` would move half the bytes of a two-rank gather
 and is not used. bf16 tensors are summed in fp32 (gloo's CPU all-reduce
 has no bf16 on every build) and cast back: a gather's sum of zeros and one
-value is exact either way. With no group (one process) every function
-returns its input.
+value is exact either way. With no group (an axis of one rank: the mesh
+makes none) every function returns its input; a group of one rank runs
+the collective, as on the card's NCCL group of one process. Nothing here
+reads a device value on the host, so a step that calls them can be
+captured in a CUDA graph with its NCCL collectives.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def group_rank(group) -> int:
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over ``group``, as a new tensor (``t`` is not
     written); ``t`` itself without a group."""
-    if group_size(group) == 1:
+    if group is None:
         return t
     wide = t.dtype in (torch.bfloat16, torch.float16, torch.bool)
     out = t.float() if wide else t.clone()
@@ -52,9 +55,9 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim`` in rank order (every
     rank's ``t`` of one shape), by one all-reduce of zero-filled slots."""
-    size = group_size(group)
-    if size == 1:
+    if group is None:
         return t
+    size = group_size(group)
     dim = dim % t.dim()
     n = t.shape[dim]
     shape = list(t.shape)
@@ -114,24 +117,23 @@ class _SumOver(torch.autograd.Function):
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradient summed over ``group``."""
-    return x if group_size(group) == 1 else _CopyToGroup.apply(x, group)
+    return x if group is None else _CopyToGroup.apply(x, group)
 
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` forward; the gradient passed through."""
-    return x if group_size(group) == 1 else _ReduceFromGroup.apply(x, group)
+    return x if group is None else _ReduceFromGroup.apply(x, group)
 
 
 def gather_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """All-gather along ``dim`` (rank order); the backward keeps this
     rank's slice of the gradient summed over ``group``."""
-    if group_size(group) == 1:
+    if group is None:
         return x
     return _GatherAlong.apply(x, group, dim % x.dim())
-
 
 
 def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` forward and backward: every rank reads the
     sum, so each part's gradient is the ranks' gradients summed."""
-    return x if group_size(group) == 1 else _SumOver.apply(x, group)
+    return x if group is None else _SumOver.apply(x, group)

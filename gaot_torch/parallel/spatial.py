@@ -114,7 +114,7 @@ def sum_grads(params, group) -> None:
     """Sum the parameters' gradients over ``group`` (one all-reduce of all
     of them flattened)."""
     grads = [p.grad for p in params if p.grad is not None]
-    if not grads or comm.group_size(group) == 1:
+    if not grads or group is None:
         return
     flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):

@@ -13,7 +13,8 @@ batch from the loader (``"never"``), or through the epoch path, the
 counterpart of the JAX package's whole-epoch ``lax.scan``: the trainer's
 step over device-resident data, captured once as a CUDA graph and replayed
 for every step (``"always"``, and ``"auto"`` where the fit repays the
-capture); on the CPU the epoch path runs uncaptured. The JAX package's
+capture), on one rank or several; on the CPU the epoch path runs
+uncaptured. The JAX package's
 compile cache (``utils/compile_cache.py``) keeps XLA programs and has no
 counterpart.
 
@@ -153,17 +154,26 @@ class BaseTrainer(ABC):
         self.tp_specs = shard_model(self.model, self.mesh)
         self.train_model = self.model
         if self.mesh.dp > 1:
+            import contextlib
             import warnings
 
             from torch.nn.parallel import DistributedDataParallel
 
+            # Where the fit captures its step, DDP is built on a side
+            # stream, as PyTorch's CUDA-graph notes ask (the gradient
+            # accumulators it holds keep their stream); elsewhere on the
+            # current one, the backward's own.
+            side = torch.cuda.Stream() if self.steps_route()[0] == "graph" else None
             # The buffers (the absolute positions) are constants: no
             # broadcast a step (newer PyTorch renames the switch).
-            with warnings.catch_warnings():
+            with warnings.catch_warnings(), (torch.cuda.stream(side) if side
+                                             else contextlib.nullcontext()):
                 warnings.simplefilter("ignore", FutureWarning)
                 self.train_model = DistributedDataParallel(
                     self.model, process_group=self.mesh.data_group,
                     broadcast_buffers=False, static_graph=True)
+            if side is not None:
+                torch.cuda.current_stream().wait_stream(side)
         self.init_optimizer(self.optimizer_config)
         self._print_model_stats()
 
@@ -323,6 +333,10 @@ class BaseTrainer(ABC):
         # The device's queued steps count in the training time.
         force_value(next(self.model.parameters()))
         elapsed = time.perf_counter() - start
+        if route == "graph":
+            # Now, not when the program and its step (which refer to each
+            # other) are collected: before the process group goes.
+            program.captured.release()
         # The rollout's route follows the steps' (SequentialTrainer.test).
         self.capture_rollout = route == "graph"
 

@@ -3,15 +3,17 @@
 Counterpart of the JAX trainers' whole-epoch scan
 (``gaot_tpu/train/base_trainer.py::_build_epoch_fn``, ``train_epoch_scan``
 and the decision in ``fit``). There, with device-resident data, one
-dispatch runs a whole epoch: each step gathers its batch from the split's
-buffers on the device, runs the forward, the backward and the update. On
-one card under PyTorch the same is one training step captured once as a
-CUDA graph and replayed for every step of every epoch:
+dispatch runs a whole epoch on any mesh: each step gathers its batch from
+the split's buffers on the device, runs the forward, the backward and the
+update. Under PyTorch the same is, on each rank's card, one training step
+captured once as a CUDA graph, with its NCCL collectives under several
+ranks, and replayed for every step of every epoch:
 
 - :class:`CapturedStep` captures a step that reads its inputs from static
   tensors: a few steps first on a side stream (the recipe of PyTorch's
   whole-network capture: the kernels are built and loaded, the optimizer's
-  state and the caching allocator's blocks exist), whose effects on the
+  state and the caching allocator's blocks exist; where DDP wraps the
+  model, the eleven its recipe asks for), whose effects on the
   weights, the optimizer state and the generators are then undone, so a
   fit that takes the graph trains as the per-step fit does; the step's
   draws (edge drop, attention dropout) come from generators registered
@@ -21,8 +23,10 @@ CUDA graph and replayed for every step of every epoch:
   [k, B] sample indices and mask of
   :meth:`~gaot_torch.data.loader.BatchLoader.epoch_index_matrix`, the [k]
   schedule values (:func:`~gaot_torch.train.schedules.lr_table`) and a
-  step counter on the device; each step reads row t, gathers the batch
-  (the loader's ``device_epoch_spec``), runs the trainer's step body
+  step counter on the device; each step reads row t (under several ranks
+  this rank's columns of it), gathers the batch (the loader's
+  ``device_epoch_spec``, or under several ranks its ``host_buffers``
+  placed on the card), runs the trainer's step body
   (``StaticTrainer.step_body``, the one the per-step path runs) and writes
   its loss into slot t of a [k] buffer. The host copies the tables in
   once an epoch and replays k times. With ``setup.device: cpu`` the same
@@ -42,45 +46,48 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..data.loader import device_spec, epoch_path_reason
 from ..models.rollout import rollout_constants, rollout_steps
+from ..parallel.mesh import shard_batch
 
 # Steps a fit must take before ``epoch_scan: "auto"`` captures its step:
 # what the graph's first epoch (two warm-up steps and the capture) costs
 # over the per-step route's, over what each later replayed step saves,
 # measured by ``chip_smoke.py`` phase 11.4 on the fx recipe through the CLI
 # in a fresh process (82 and 114 steps in two runs on an H100 80GB HBM3 at
-# 700 W; PERF.md §6): the larger.
+# 700 W; PERF.md §6): the larger. The same measure of the step captured
+# under DDP (phase 12c, eleven warm-up steps) read 113, 24 and 84 steps in
+# three fresh torchrun processes: within it, so several ranks share it.
 GRAPH_BREAK_EVEN_STEPS = 114
 # Eager steps before a capture (PyTorch's whole-network recipe warms up on
 # a side stream).
 WARMUP_STEPS = 2
-MULTI_RANK_ITEM = "ROADMAP §1 item 17, the multi-rank graph"
+# The same where DDP wraps the model: PyTorch's CUDA-graph notes ("Usage
+# with DistributedDataParallel") ask for at least 11 DDP iterations before
+# a full-backward capture (DDP's reducer times its first 10 iterations with
+# CUDA events, which a capture cannot hold).
+DDP_WARMUP_STEPS = 11
 
 
 def choose_route(epoch_scan, device: torch.device, world: int, loader,
                  steps: int) -> Tuple[str, str]:
-    """(route, why) of a fit of ``steps`` training steps: "graph" (the
-    epoch path captured on the card), "epoch" (the epoch path uncaptured:
-    ``setup.device: cpu`` under "always") or "per-step"; ``why`` says why
-    not the graph ("" where it is taken). "never" steps one by one;
-    "always" takes the epoch path and raises where it cannot (several
-    ranks, batches assembled on the host); "auto" takes the graph where it
-    can and where the fit is long enough to repay the capture
+    """(route, why) of a fit of ``steps`` training steps over ``world``
+    ranks: "graph" (the epoch path captured on the card), "epoch" (the
+    epoch path uncaptured: ``setup.device: cpu`` under "always") or
+    "per-step"; ``why`` says why not the graph ("" where it is taken).
+    "never" steps one by one; "always" takes the epoch path wherever its
+    batches can be gathered on the device
+    (:func:`~gaot_torch.data.loader.epoch_path_reason`; the JAX package's
+    scan where ``_build_epoch_fn`` builds one) and else steps one by one,
+    as the JAX package's ``fit`` does; "auto" takes the graph where it can
+    and where the fit is long enough to repay the capture
     (:data:`GRAPH_BREAK_EVEN_STEPS`), else steps one by one."""
     mode = str(epoch_scan).lower()
     mode = {"true": "always", "false": "never"}.get(mode, mode)   # the JAX spellings
     if mode == "never":
         return "per-step", "setup.epoch_scan never"
-    why = ""
-    if world > 1:
-        why = (f"{world} ranks: a graph of the DDP step over NCCL is not ported "
-               f"({MULTI_RANK_ITEM})")
-    elif getattr(loader, "device_epoch_spec", None) is None:
-        why = getattr(loader, "host_reason", "") or "no device-resident batches"
+    why = epoch_path_reason(loader, world)
     if why:
-        if mode == "always":
-            raise RuntimeError(f"setup.epoch_scan 'always' cannot take the epoch path: "
-                               f"{why}; set it to 'never' or 'auto' to step one by one")
         return "per-step", why
     if device.type != "cuda":
         if mode == "always":
@@ -163,7 +170,9 @@ class CapturedStep:
                                "draws cannot be captured; set setup.epoch_scan 'never'")
         for g in self.generators:
             register(g)
-        with torch.cuda.graph(graph):
+        # Thread-local: under several ranks NCCL's watchdog thread queries
+        # the events of earlier collectives while this thread captures.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.step()
         # The capture ran nothing; the generators are put back all the same.
         snap.restore()
@@ -175,37 +184,57 @@ class CapturedStep:
     def replay(self) -> None:
         self.graph.replay()
 
+    def release(self) -> None:
+        """Free the graph. One that captured NCCL collectives holds
+        resources of their communicator, which is not destroyed while the
+        graph lives: release it before the process group goes."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
 
 class EpochProgram:
     """The trainer's training step over one epoch's tables, on the card a
     :class:`CapturedStep` (``capture``), else the body issued step by step
-    (module docstring)."""
+    (module docstring). Under several ranks every rank holds the whole
+    tables and each step keeps its row's columns of this rank's share of
+    the batch (``parallel/mesh.py::shard_batch``'s rows, the JAX package's
+    ``P(None, "data")`` shard of the table); the batches come from the
+    loader's device buffers or, where it assembles them on the host, from
+    its ``host_buffers`` placed on this rank's device here."""
 
     def __init__(self, trainer, capture: bool):
-        loader = trainer.train_loader
-        spec = loader.device_epoch_spec
-        if spec is None:
-            raise RuntimeError(f"the epoch path needs device-resident batches: "
-                               f"{loader.host_reason}")
+        loader, mesh = trainer.train_loader, trainer.mesh
+        why = epoch_path_reason(loader, mesh.world)
+        if why:
+            raise RuntimeError(f"the epoch path needs batches gathered on the device: {why}")
         self.trainer = trainer
-        self.bufs, self.batch_fn = spec
+        self.bufs, self.batch_fn = (loader.device_epoch_spec or device_spec(
+            loader.host_buffers, loader.layout, trainer.device))
         dev = trainer.device
         k, b = len(loader), loader.batch_size
+        self.share = (mesh.data_index * (b // mesh.dp), b // mesh.dp)
         self.idx = torch.zeros((k, b), dtype=torch.int64, device=dev)
         self.mask = torch.zeros((k, b), dtype=torch.bool, device=dev)
         self.lr = torch.zeros(k, dtype=torch.float64, device=dev)
         self.losses = torch.zeros(k, dtype=torch.float32, device=dev)
         self.t = torch.zeros(1, dtype=torch.int64, device=dev)
+        ddp = trainer.train_model is not trainer.model
         self.captured = (CapturedStep(self._body, trainer.model, trainer.optimizer,
-                                      [trainer.generator], reset=self.t.zero_)
+                                      [trainer.generator], reset=self.t.zero_,
+                                      warmup=DDP_WARMUP_STEPS if ddp else WARMUP_STEPS)
                          if capture else None)
 
     def _body(self) -> None:
         """Step t of the epoch, t read on the device: its row of the
-        tables, its batch, the step body, its loss into slot t, t + 1."""
-        t = self.t
-        batch = self.batch_fn(self.bufs, self.idx.index_select(0, t).view(-1))
-        batch["sample_mask"] = self.mask.index_select(0, t).view(-1)
+        tables (this rank's columns), its batch, the step body, its loss
+        into slot t, t + 1."""
+        t, (lo, n) = self.t, self.share
+        row = lambda table: table.index_select(0, t).view(-1).narrow(0, lo, n)
+        batch = self.batch_fn(self.bufs, row(self.idx))
+        batch["sample_mask"] = row(self.mask)
+        # A vx layout's row maps: this rank's samples' (whole on one rank).
+        batch = shard_batch(batch, self.trainer.mesh, self.idx.shape[1])
         loss = self.trainer.step_body(batch, self.lr.index_select(0, t).view(()))
         self.losses.index_copy_(0, t, loss.float().view(1))
         # Past the last row the counter wraps to the first: a replay is

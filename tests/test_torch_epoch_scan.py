@@ -17,10 +17,16 @@ replayed (``chip_smoke.py`` phase 11 holds that against the per-step path).
   the losses within rtol 1e-5, as ``tests/test_epoch_scan.py`` holds the
   JAX package's scan against its per-step path.
 - The route: "never", "always" and "auto" on the CPU and (decided without
-  a card) on the card, batches assembled on the host (``device_data``
-  off, or the split above ``DEVICE_DATA_BYTE_LIMIT``), several ranks
-  (``always`` raises, ``auto`` steps one by one), and the route line a fit
-  prints.
+  a card) on the card, on one rank and on several, with batches gathered
+  on the device, assembled on the host (``device_data`` off, or the split
+  above ``DEVICE_DATA_BYTE_LIMIT``) from host buffers or (the sequential
+  loader) without them: "always" steps one by one exactly where
+  ``gaot_tpu`` does (one rank with host batches; several ranks with no
+  host buffers or above the limit), with the reason; and the route line a
+  fit prints. A one-rank fit under "always" with ``device_data`` off
+  against ``gaot_tpu``'s fit of the same config (both step by step): the
+  loss records within rtol 1e-5. The epoch path under several ranks:
+  ``tests/test_torch_epoch_ranks.py``.
 - The rollout through ``RolloutProgram`` (uncaptured on the CPU) against
   the loop of ``autoregressive_predict`` (bit for bit) and ``gaot_tpu``'s
   rollout (each step within 1e-5 of its largest entry), every predict
@@ -179,46 +185,61 @@ def test_epoch_path_matches_jax_scan(jax_scan):
 
 # ---------------------------------------------------------------------------
 class _Loader:
-    def __init__(self, spec=True, reason=""):
+    def __init__(self, spec=True, reason="", nbytes=None):
         self.device_epoch_spec = ({}, None) if spec else None
         self.host_reason = reason
+        self.host_buffers = None if nbytes is None else {"u": np.zeros(nbytes, np.uint8)}
 
 
-def test_route_decision():
+def test_route_decision(monkeypatch):
+    from gaot_torch.data import loader as loader_mod
     from gaot_torch.train.graphed import GRAPH_BREAK_EVEN_STEPS, choose_route
 
+    monkeypatch.setattr(loader_mod, "DEVICE_DATA_BYTE_LIMIT", 1024)
     cpu, card = torch.device("cpu"), torch.device("cuda")
     dev, host = _Loader(), _Loader(False, "dataset.device_data is false: ...")
+    placed = _Loader(False, "dataset.device_data is false: ...", nbytes=1024)
+    big = _Loader(False, "dataset.device_data is false: ...", nbytes=1025)
     many = 10 * GRAPH_BREAK_EVEN_STEPS
-    assert choose_route("never", card, 1, dev, many) == ("per-step", "setup.epoch_scan never")
-    assert choose_route("false", card, 1, dev, many)[0] == "per-step"
-    for mode in ("always", "true", "auto"):
-        assert choose_route(mode, card, 1, dev, many) == ("graph", "")
-    assert choose_route("always", card, 1, dev, 1) == ("graph", "")
-    route, why = choose_route("auto", card, 1, dev, GRAPH_BREAK_EVEN_STEPS - 1)
-    assert route == "per-step" and "break-even" in why
-    assert choose_route("auto", card, 1, dev, GRAPH_BREAK_EVEN_STEPS)[0] == "graph"
-    assert choose_route("always", cpu, 1, dev, many)[0] == "epoch"
-    assert choose_route("auto", cpu, 1, dev, many) == ("per-step",
-                                                       "setup.device cpu: no CUDA graph")
+    for world, loaders in ((1, (dev,)), (2, (dev, placed))):
+        # Batches gathered on the device (or, under several ranks, from
+        # host buffers each rank places): the epoch path.
+        for ld in loaders:
+            assert choose_route("never", card, world, ld, many) == ("per-step",
+                                                                    "setup.epoch_scan never")
+            assert choose_route("false", card, world, ld, many)[0] == "per-step"
+            for mode in ("always", "true", "auto"):
+                assert choose_route(mode, card, world, ld, many) == ("graph", "")
+            assert choose_route("always", card, world, ld, 1) == ("graph", "")
+            route, why = choose_route("auto", card, world, ld, GRAPH_BREAK_EVEN_STEPS - 1)
+            assert route == "per-step" and "break-even" in why
+            assert choose_route("auto", card, world, ld, GRAPH_BREAK_EVEN_STEPS)[0] == "graph"
+            assert choose_route("always", cpu, world, ld, many)[0] == "epoch"
+            assert choose_route("auto", cpu, world, ld, many) == (
+                "per-step", "setup.device cpu: no CUDA graph")
     for device in (cpu, card):
-        assert choose_route("auto", device, 1, host, many) == ("per-step", host.host_reason)
-        with pytest.raises(RuntimeError, match="device_data is false"):
-            choose_route("always", device, 1, host, many)
-        route, why = choose_route("auto", device, 2, dev, many)
-        assert route == "per-step" and "multi-rank graph" in why
-        with pytest.raises(RuntimeError, match="2 ranks.*ROADMAP"):
-            choose_route("always", device, 2, dev, many)
+        for mode in ("auto", "always"):
+            # One rank with host batches: step by step, as gaot_tpu's fit.
+            for ld in (host, placed, big):
+                assert choose_route(mode, device, 1, ld, many) == ("per-step",
+                                                                   host.host_reason)
+            # Several ranks: the buffers above the limit, or none to place.
+            route, why = choose_route(mode, device, 2, big, many)
+            assert route == "per-step" and "DEVICE_DATA_BYTE_LIMIT" in why
+            route, why = choose_route(mode, device, 2, host, many)
+            assert route == "per-step" and why.startswith(host.host_reason)
+            assert "no host buffers" in why
 
 
 def test_route_of_host_batches(tmp_path, monkeypatch):
     """A split above DEVICE_DATA_BYTE_LIMIT, and device_data off, leave the
-    loader on the host: "always" raises with the reason, "auto" steps one
-    by one."""
+    loader on the host: one rank steps one by one, under "always" too, with
+    the reason."""
     from gaot_torch.data import loader as loader_mod
 
     off = _trainer(_config(tmp_path, "fx", "off", "auto", device_data=False))
     assert off.train_loader.device_epoch_spec is None
+    assert off.train_loader.host_buffers is not None
     assert off.steps_route() == ("per-step", off.train_loader.host_reason)
     monkeypatch.setattr(loader_mod, "DEVICE_DATA_BYTE_LIMIT", 1024)
     big = _trainer(_config(tmp_path, "fx", "big", "auto"))
@@ -226,8 +247,46 @@ def test_route_of_host_batches(tmp_path, monkeypatch):
     route, why = big.steps_route()
     assert route == "per-step" and "DEVICE_DATA_BYTE_LIMIT" in why
     big.setup_config.epoch_scan = "always"
-    with pytest.raises(RuntimeError, match="DEVICE_DATA_BYTE_LIMIT"):
-        big.steps_route()
+    assert big.steps_route() == (route, why)
+
+
+def test_always_with_host_batches_fits_as_jax(tmp_path, capsys):
+    """``epoch_scan: "always"`` with ``device_data`` off on one rank: the
+    port's fit steps one by one and says why in its route line, and its
+    loss record equals ``gaot_tpu``'s fit of the same config (whose
+    ``_build_epoch_fn`` returns None there, so it steps one by one too)
+    from JAX's initial weights within rtol 1e-5."""
+    from gaot_torch.utils.routing import reset_routes
+    from gaot_torch.utils.torch_interop import load_flax_params
+    from gaot_tpu.train import StaticTrainer as JStaticTrainer
+
+    trainers = {}
+    for side in ("jax", "torch"):
+        (tmp_path / side).mkdir()
+        cfg = _config(tmp_path, "fx", "fit", device_data=False)
+        cfg["path"] = _paths(tmp_path / side, "fit")
+        if side == "jax":
+            cfg["setup"].update(data_parallel=1)
+            del cfg["setup"]["device"]
+            trainers[side] = JStaticTrainer(cfg)
+        else:
+            trainers[side] = _trainer(cfg)
+    jt, pt = trainers["jax"], trainers["torch"]
+    assert not jt._scan_available()
+    load_flax_params(pt.model, jax.tree.map(np.asarray, jt.params))
+    jt.fit(verbose=False)
+    reset_routes()
+    capsys.readouterr()
+    pt.fit(verbose=True)
+    routes = [ln for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("[gaot_torch] kernel routes:")]
+    assert len(routes) == 1, routes
+    assert routes[0].endswith(f"steps=per-step ({pt.train_loader.host_reason})")
+    got = np.load(tmp_path / "torch" / "fit_loss.npz")
+    want = np.load(tmp_path / "jax" / "fit_loss.npz")
+    np.testing.assert_array_equal(got["epochs"], want["epochs"])
+    for key in ("losses", "val_losses"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5, err_msg=key)
 
 
 @pytest.mark.parametrize("mode,line", [

@@ -14,8 +14,8 @@
   through ``python -m gaot_torch.cli`` subprocesses, ``setup.profile_dir``.
 - What was refused: a mesh that does not fit the processes and a
   distributed run without a rendezvous raise what they need; the vx options
-  that were refused build, and the sequential trainer with edge drop and
-  with attention dropout, which are ported, trains through the CLI.
+  that were refused build; the sequential trainer with edge drop, and with
+  attention dropout, trains through the CLI.
 """
 import copy
 import csv
@@ -215,8 +215,34 @@ def test_cli_folder_runs_subprocesses(tmp_path):
         assert (tmp_path / f"{name}_loss.npz").exists()
 
 
-@pytest.mark.parametrize("what", ["vx", "sequential", "distributed", "model_parallel",
-                                  "device"])
+@pytest.mark.parametrize("option", ["edge drop", "attention dropout"])
+def test_sequential_trains_with_draws_through_the_cli(tmp_path, option):
+    """The sequential trainer with edge drop, and with attention dropout,
+    which it once refused, trains through the CLI: a loss record of two
+    finite evaluations. Two training samples and two epochs keep the fit
+    short (the tiny model and the trajectories' shapes are the toy's)."""
+    from gaot_torch.cli import main
+    from synthetic import make_sequential_fx_dataset
+
+    make_sequential_fx_dataset(str(tmp_path / "seq.npz"))
+    name = option.replace(" ", "_")
+    cfg = _config(tmp_path, name, data=False, setup={"trainer_name": "sequential"},
+                  dataset={"name": "seq", "metaname": "incompressible_fluids/NS-Gauss",
+                           "train_size": 2})
+    cfg["optimizer"]["args"].update(epoch=2, eval_every_eps=1)
+    args = cfg["model"]["args"]
+    if option == "edge drop":
+        args["magno"].update(sampling_strategy="ratio", sample_ratio=0.5)
+    else:
+        args["transformer"]["attn_config"]["atten_dropout"] = 0.1
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    assert main(["-c", str(path)]) == 0
+    rec = np.load(tmp_path / f"{name}_loss.npz")
+    assert len(rec["losses"]) == 2 and np.isfinite(rec["losses"]).all()
+
+
+@pytest.mark.parametrize("what", ["vx", "distributed", "model_parallel", "device"])
 def test_refuses_what_is_not_ported(tmp_path, what):
     from gaot_torch.cli import main
     from gaot_torch.train import StaticTrainer
@@ -245,29 +271,6 @@ def test_refuses_what_is_not_ported(tmp_path, what):
         trainer = StaticTrainer(cfg)
         assert not any("_tg" in k or "_tinv_" in k or "_tpos_" in k
                        for k in next(iter(trainer.train_loader)))
-    elif what == "sequential":
-        # The sequential trainer trains (tests/test_torch_seq_*.py), with
-        # edge drop and with attention dropout too (both ported): each
-        # trains through the CLI, its loss record finite.
-        from synthetic import make_sequential_fx_dataset
-
-        make_sequential_fx_dataset(str(tmp_path / "seq.npz"))
-        for option in ("edge drop", "attention dropout"):
-            name = option.replace(" ", "_")
-            cfg = _config(tmp_path, name, data=False,
-                          setup={"trainer_name": "sequential"},
-                          dataset={"name": "seq",
-                                   "metaname": "incompressible_fluids/NS-Gauss"})
-            args = cfg["model"]["args"]
-            if option == "edge drop":
-                args["magno"].update(sampling_strategy="ratio", sample_ratio=0.5)
-            else:
-                args["transformer"]["attn_config"]["atten_dropout"] = 0.1
-            path = tmp_path / f"{name}.json"
-            path.write_text(json.dumps(cfg))
-            assert main(["-c", str(path)]) == 0
-            rec = np.load(tmp_path / f"{name}_loss.npz")
-            assert len(rec["losses"]) == 2 and np.isfinite(rec["losses"]).all()
     elif what == "device":
         if torch.cuda.is_available():
             pytest.skip("a card is present: 'auto' takes it")

@@ -338,3 +338,27 @@ def cache_runs(rank: int, world: int, cfg: dict, steps: int):
         out.append({"hit": "Graph cache hit" in said.getvalue(),
                     "losses": [float(trainer.train_step(next(it))) for _ in range(steps)]})
     return out
+
+
+def epoch_and_per_step(rank: int, world: int, cfg: dict, weights=None, epochs: int = 2):
+    """Two trainers of ``cfg`` (``setup.epoch_scan`` "always", on the CPU)
+    from ``weights`` (else the seed's, the same in both): ``epochs`` epochs
+    through the epoch path (``EpochProgram``, uncaptured), and through the
+    per-step path (``train_step`` on each batch of the loader). Returns the
+    route, whether the loader had device buffers, and each way's losses,
+    full weights after and generator state."""
+    from gaot_torch.train.graphed import EpochProgram
+
+    a = _trainer(world, cfg, weights)
+    b = _trainer(world, cfg, weights)
+    out = {"route": a.steps_route(), "device_buffers": a.train_loader.device_epoch_spec
+           is not None}
+    program = EpochProgram(a, capture=False)
+    epoch, step = [], []
+    for _ in range(epochs):
+        epoch += a.train_epoch(program)[0].tolist()
+        step += [float(b.train_step(batch)) for batch in b.train_loader]
+    for way, trainer, losses in (("epoch", a, epoch), ("step", b, step)):
+        out[way] = {"losses": losses, "weights": trainer.full_state(),
+                    "rng": trainer.generator.get_state(), "updates": trainer.step}
+    return out
