@@ -36,13 +36,21 @@
 //   ex2.approx.ftz per score (exp2(s c - m c) with c = scale log2 e); only
 //   the ragged last tile is masked. P is rounded to bf16 before P V and the
 //   output is divided by the fp32 denominator once at the end.
-// fp32 (flash_fwd_f32): one thread per query row on the CUDA cores, looping
-// over D; tiles of 64 keys (32 above D = 64), an online softmax over chunks
-// of 8 keys.
+// fp32 (flash_fwd_f32). What bounds it: the 4 B H S^2 D fp32 operations
+// on the CUDA cores (fp32 products stay fp32: no TF32), one exp2 a score
+// beside them. The design (flash_f32.cuh): one block per (batch * q-head,
+// ROWS queries), Q staged once in shared memory, K and V streamed in tiles
+// of BT keys through a two-stage cp.async ring; per tile each warp builds
+// S for its rows as register micro-tiles (8 queries x 8 keys a lane at
+// D <= 32) from 16-byte shared-memory loads, runs the online softmax per
+// row over the lanes that hold it (xor shuffles for the max; the
+// denominator summed once at the end), and O += P V again as register
+// micro-tiles, P passing through a shared tile of the warp's own.
 // The wgmma, cp.async and descriptor helpers live in wgmma.cuh, shared with
 // fused_ffn.cu. Plain C interface; each entry returns cudaGetLastError()
 // after its launch.
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -271,84 +279,118 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// fp32 (the tiles and micro-tiles of flash_f32.cuh): one block per
+// (batch * q-head, ROWS queries), the blocks of one head neighbours in the
+// grid. Per tile of BT keys, each warp: S = Q K^T for its RW queries as
+// R x KC micro-tiles, scaled by c = scale log2 e, the ragged last tile
+// masked; the online softmax per row over the LC lanes that hold it
+// (running max m of the scaled scores, rescale of O and of the per-lane
+// partial denominator, p = exp2(s c - m) by ex2.approx: exp2f differs
+// only where a result falls below 2^-126, too small to move a sum whose
+// largest term is 1); P to the warp's shared tile;
+// O += P V as R x D / LC micro-tiles. The epilogue sums the denominator
+// over the row's lanes, divides once and writes the base-2 LSE
+// m + log2(l).
 template <int D>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(F32Tile<D>::Fwd::THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int S, int H, int Hkv, Strides qs,
               Strides ks, Strides vs, float scale_log2) {
-  constexpr int KT = D > 64 ? 32 : BK;   // keys per tile: static shared memory
-  __shared__ __align__(16) float Ks[KT][D];
-  __shared__ __align__(16) float Vs[KT][D];
+  using G = typename F32Tile<D>::Fwd;
+  constexpr int LD = G::LD, BT = G::BT, R = G::R, KC = G::KC, VW = G::VW;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                          // [ROWS][LD]
+  float* ring = Qs + G::ROWS * LD;          // two stages of K, V [BT][LD]
+  float* Pw = ring + 4 * BT * LD;           // a warp's P [RW][LP]
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int row = blockIdx.y * BQ + threadIdx.x;
-  const bool valid = row < S;
+  const int nqb = (S + G::ROWS - 1) / G::ROWS;
+  const int bh = blockIdx.x / nqb, q0 = blockIdx.x % nqb * G::ROWS;
+  const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane / G::LC, c = lane % G::LC;
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
+  const int ntiles = (S + BT - 1) / BT;
+  auto load = [&](int t) {
+    float* st = ring + (t & 1) * 2 * BT * LD;
+    f32_copy_rows<D, BT>(st, kb, ks.s, t * BT, S);
+    f32_copy_rows<D, BT>(st + BT * LD, vb, vs.s, t * BT, S);
+  };
+  f32_copy_rows<D, G::ROWS>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  load(0);
+  hopper::cp_async_commit();
 
-  float qr[D], o[D];
+  const int wrow = warp * G::RW + r;        // this lane's first row in the block
+  const float* qrow = Qs + wrow * LD;
+  float* pw = Pw + warp * G::RW * G::LP + r * G::LP;
+  float o[R][G::NO], m[R], l[R];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = valid ? q[b * qs.b + row * qs.s + h * qs.h + d] : 0.f;
-    o[d] = 0.f;
+  for (int i = 0; i < R; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int x = 0; x < G::NO; ++x) o[i][x] = 0.f;
   }
-  float m = -CUDART_INF_F, l = 0.f;
 
-  for (int kt = 0; kt < S; kt += KT) {
+  for (int t = 0; t < ntiles; ++t) {
+    hopper::cp_async_wait_all();
+    // Tile t is in shared memory, and every warp is done with tile t - 1,
+    // whose stage the next copy overwrites.
     __syncthreads();
-    for (int i = threadIdx.x; i < KT * (D / 4); i += blockDim.x) {
-      const int key = i / (D / 4), ch = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (kt + key < S) {
-        kv = *reinterpret_cast<const float4*>(kb + (kt + key) * ks.s + ch);
-        vv = *reinterpret_cast<const float4*>(vb + (kt + key) * vs.s + ch);
-      }
-      *reinterpret_cast<float4*>(&Ks[key][ch]) = kv;
-      *reinterpret_cast<float4*>(&Vs[key][ch]) = vv;
+    if (t + 1 < ntiles) load(t + 1);
+    hopper::cp_async_commit();
+    const float* kt = ring + (t & 1) * 2 * BT * LD;
+    const float* vt = kt + BT * LD;
+
+    float s[R][KC];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int x = 0; x < KC; ++x) s[i][x] = 0.f;
+    f32_dots<G, D>(s, qrow, kt + c * LD);
+#pragma unroll
+    for (int x = 0; x < KC; ++x) {
+      const bool in = t * BT + c + G::LC * x < S;   // the ragged last tile
+#pragma unroll
+      for (int i = 0; i < R; ++i) s[i][x] = in ? s[i][x] * scale_log2 : -CUDART_INF_F;
     }
-    __syncthreads();
-
-    // Online softmax over chunks of 8 keys: the chunk loop stays rolled, so
-    // the code does not grow with the tile.
-    const int kn = min(KT, S - kt);
-#pragma unroll 1
-    for (int j0 = 0; j0 < kn; j0 += 8) {
-      float s[8];
-      float mx = -CUDART_INF_F;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        float dot = 0.f;
+    for (int i = 0; i < R; ++i) {
+      float mx = s[i][0];
 #pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j0 + jj][d], dot);
-        s[jj] = j0 + jj < kn ? dot * scale_log2 : -CUDART_INF_F;
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float mn = fmaxf(m, mx);
-      const float alpha = exp2f(m - mn);
+      for (int x = 1; x < KC; ++x) mx = fmaxf(mx, s[i][x]);
+      const float mn = fmaxf(m[i], f32_row_max<G::LC>(mx));   // finite: a tile holds a key
+      const float alpha = ex2(m[i] - mn);
       float sum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        s[jj] = exp2f(s[jj] - mn);
-        sum += s[jj];
+      for (int x = 0; x < KC; ++x) {
+        s[i][x] = ex2(s[i][x] - mn);
+        sum += s[i][x];
       }
-      l = l * alpha + sum;
-      m = mn;
+      l[i] = l[i] * alpha + sum;
+      m[i] = mn;
 #pragma unroll
-      for (int d = 0; d < D; ++d) o[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-        for (int d = 0; d < D; ++d) o[d] = fmaf(s[jj], Vs[j0 + jj][d], o[d]);
+      for (int x = 0; x < G::NO; ++x) o[i][x] *= alpha;
     }
+    f32_store_tile<G>(pw + c, s);
+    f32_accumulate<G, D>(o, pw, vt, c);
   }
-  if (valid) {
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + wrow + G::LR * i;
+    const float den = f32_row_sum<G::LC>(l[i]);
+    if (row >= S) continue;
     float* orow = out + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = o[d] / l;
-    if (lse != nullptr) lse[(long long)bh * S + row] = m + log2f(l);
+    for (int mm = 0; mm < G::NV; ++mm) {
+      float x[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) x[w] = o[i][mm * VW + w] / den;
+      st_vec<VW>(orow + f32_col<G>(c, mm), x);
+    }
+    if (lse != nullptr && c == 0) lse[(long long)bh * S + row] = m[i] + log2f(den);
   }
 }
 
@@ -519,8 +561,14 @@ struct LaunchFwd {
           static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, Hkv,
           qs, ks, vs, scale_log2);
     } else {
-      const dim3 grid(B * H, (S + BQ - 1) / BQ);
-      flash_fwd_f32<D><<<grid, BQ, 0, st>>>(
+      using G = typename F32Tile<D>::Fwd;
+      constexpr int smem = G::FWD_SMEM;
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      const long long blocks = (long long)B * H * ((S + G::ROWS - 1) / G::ROWS);
+      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      flash_fwd_f32<D><<<(unsigned)blocks, G::THREADS, smem, st>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, Hkv,
           qs, ks, vs, scale_log2);

@@ -58,23 +58,26 @@
 // - delta is computed by the dQ kernel, four threads a row, from O and dO,
 //   and written for the dK/dV kernel, which runs after it: no launch of its
 //   own.
-// fp32 (flash_bwd_delta, flash_bwd_dq_f32, flash_bwd_dkv_f32): one thread
-// per query row (dQ) or per key row (dK/dV) on the CUDA cores, the other
-// side streamed through shared memory in tiles of F32Tile<D>::ROWS rows
-// (32 above D = 64, so that their shared memory stays static).
+// fp32 (flash_bwd_dq_f32, which also writes delta, then flash_bwd_dkv_f32).
+// What bounds it: 10 B H S^2 D fp32 operations on the CUDA cores (fp32
+// products stay fp32: no TF32); the two deterministic kernels do 14, S and
+// dP in both, so at most 5 / 7 = 71% of that bound. The design
+// (flash_f32.cuh): the resident side (Q and dO, or K and V) staged once in
+// shared memory, the other side streamed through a two-stage cp.async ring;
+// each warp builds S and dP for its rows as register micro-tiles from
+// 16-byte shared-memory loads, p = exp2(s c - lse) (one FFMA and
+// ex2.approx) and dS = p (dP - delta) in registers, then P and dS pass
+// through a shared tile of the warp's own into dQ += dS K, or dV += P^T dO
+// and dK += dS^T Q, again register micro-tiles. delta is computed by the
+// dQ kernel (no launch of its own), over d in the order of dP's sums.
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 using namespace flash;
 using namespace hopper;
-
-// Rows of the streamed tiles of the fp32 kernels.
-template <int D>
-struct F32Tile {
-  static constexpr int ROWS = D > 64 ? 32 : 64;
-};
 
 // ---------------------------------------------------------------------------
 // bf16 on wgmma. A tile of R rows of the head dim, padded to DP, in wgmma's
@@ -212,27 +215,6 @@ __device__ __forceinline__ void fence_all(uint32_t (*a)[4]) {
   for (int kk = 0; kk < N; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) reg_fence(a[kk][e]);
-}
-
-// delta[b, h, s] = sum_d dout[b, s, h, d] * o[b, s, h, d]; rows in [B, S, H]
-// order, dout and o contiguous (the fp32 route).
-template <typename T, int D>
-__global__ void flash_bwd_delta(const T* __restrict__ dout,
-                                const T* __restrict__ o,
-                                float* __restrict__ delta, int S, int H,
-                                long long rows) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const T* a = dout + i * D;
-  const T* c = o + i * D;
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc += to_f(a[d]) * to_f(c[d]);
-  const long long bs = i / H;
-  const int h = (int)(i % H);
-  const long long b = bs / S;
-  const int s = (int)(bs % S);
-  delta[(b * H + h) * S + s] = acc;
 }
 
 // dQ, and delta for the dK/dV kernel: one block per (batch * q-head, ROWS
@@ -487,147 +469,232 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// fp32 backward on the CUDA cores: one thread per query row (dQ) or per key
-// row (dK/dV), the other side streamed through shared memory in tiles of
-// F32Tile<D>::ROWS rows.
+// fp32 (the tiles and micro-tiles of flash_f32.cuh). dQ, and delta for the
+// dK/dV kernel: one block per (batch * q-head, ROWS queries), the blocks of
+// one head neighbours in the grid. delta = rowsum(dO O) of its rows first,
+// summed over d in order as dP's terms are (at S = 1, O = V and dS is 0);
+// then per tile of BT keys, each warp: S = Q K^T and dP = dO V^T for its
+// RW queries as R x KC micro-tiles, p = exp2(s c - lse), dS = p (dP - delta)
+// (zero for keys past S), dS to the warp's shared tile, dQ += dS K as
+// R x D / LC micro-tiles; dQ times the scale at the end.
 template <int D>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(F32Tile<D>::Dq::THREADS)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq, int S, int H, int Hkv, Strides qs,
-                 Strides ks, Strides vs, float scale_log2, float scale) {
-  constexpr int KT = F32Tile<D>::ROWS;
-  __shared__ __align__(16) float Ks[KT][D];
-  __shared__ __align__(16) float Vs[KT][D];
+                 const float* __restrict__ o, const float* __restrict__ lse,
+                 float* __restrict__ delta, float* __restrict__ dq, int S, int H,
+                 int Hkv, Strides qs, Strides ks, Strides vs, float scale_log2,
+                 float scale) {
+  using G = typename F32Tile<D>::Dq;
+  constexpr int LD = G::LD, BT = G::BT, R = G::R, KC = G::KC, VW = G::VW;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                          // [ROWS][LD]
+  float* Ds = Qs + G::ROWS * LD;            // dO [ROWS][LD]
+  float* ring = Ds + G::ROWS * LD;          // two stages of K, V [BT][LD]
+  float* Sw = ring + 4 * BT * LD;           // a warp's dS [RW][LP]
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int row = blockIdx.y * BQ + threadIdx.x;
-  const bool valid = row < S;
+  const int nqb = (S + G::ROWS - 1) / G::ROWS;
+  const int bh = blockIdx.x / nqb, q0 = blockIdx.x % nqb * G::ROWS;
+  const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane / G::LC, c = lane % G::LC;
+  const long long drs = (long long)H * D;   // row stride of dout and o
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
-  const float* drow = dout + (((long long)b * S + row) * H + h) * D;
+  const float* db = dout + ((long long)b * S * H + h) * D;
+  const float* ob = o + ((long long)b * S * H + h) * D;
+  const int ntiles = (S + BT - 1) / BT;
+  auto load = [&](int t) {
+    float* st = ring + (t & 1) * 2 * BT * LD;
+    f32_copy_rows<D, BT>(st, kb, ks.s, t * BT, S);
+    f32_copy_rows<D, BT>(st + BT * LD, vb, vs.s, t * BT, S);
+  };
+  f32_copy_rows<D, G::ROWS>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  f32_copy_rows<D, G::ROWS>(Ds, db, drs, q0, S);
+  load(0);
+  hopper::cp_async_commit();
 
-  float qr[D], dr[D], acc[D];
+  // This lane's rows: their LSE, and delta from device memory, under the
+  // copies (every lane of a row sums the whole row).
+  const int wrow = warp * G::RW + r;
+  float ls[R], dl[R];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = valid ? q[b * qs.b + row * qs.s + h * qs.h + d] : 0.f;
-    dr[d] = valid ? drow[d] : 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + wrow + G::LR * i;
+    float acc = 0.f;
+    ls[i] = 0.f;
+    if (row < S) {
+      ls[i] = lse[(long long)bh * S + row];
+      const float* x = db + row * drs;
+      const float* y = ob + row * drs;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(x + d);
+        const float4 e = *reinterpret_cast<const float4*>(y + d);
+        acc = fmaf(a.x, e.x, acc);
+        acc = fmaf(a.y, e.y, acc);
+        acc = fmaf(a.z, e.z, acc);
+        acc = fmaf(a.w, e.w, acc);
+      }
+      if (c == 0) delta[(long long)bh * S + row] = acc;
+    }
+    dl[i] = acc;
   }
-  const float lse_r = valid ? lse[(long long)bh * S + row] : 0.f;
-  const float dl = valid ? delta[(long long)bh * S + row] : 0.f;
 
-  for (int kt = 0; kt < S; kt += KT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < KT * (D / 4); i += blockDim.x) {
-      const int key = i / (D / 4), ch = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (kt + key < S) {
-        kv = *reinterpret_cast<const float4*>(kb + (kt + key) * ks.s + ch);
-        vv = *reinterpret_cast<const float4*>(vb + (kt + key) * vs.s + ch);
-      }
-      *reinterpret_cast<float4*>(&Ks[key][ch]) = kv;
-      *reinterpret_cast<float4*>(&Vs[key][ch]) = vv;
-    }
-    __syncthreads();
-    const int kn = min(KT, S - kt);
-    for (int j = 0; j < kn; ++j) {
-      float sd = 0.f, pd = 0.f;
+  const float* qrow = Qs + wrow * LD;
+  const float* drow = Ds + wrow * LD;
+  float* sw = Sw + warp * G::RW * G::LP + r * G::LP;
+  float acc[R][G::NO];
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        sd = fmaf(qr[d], Ks[j][d], sd);
-        pd = fmaf(dr[d], Vs[j][d], pd);
-      }
-      const float p = exp2f(sd * scale_log2 - lse_r);
-      const float ds = p * (pd - dl);
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, Ks[j][d], acc[d]);
+    for (int x = 0; x < G::NO; ++x) acc[i][x] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    hopper::cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < ntiles) load(t + 1);
+    hopper::cp_async_commit();
+    const float* kt = ring + (t & 1) * 2 * BT * LD;
+    const float* vt = kt + BT * LD;
+
+    float s[R][KC], dp[R][KC];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int x = 0; x < KC; ++x) s[i][x] = dp[i][x] = 0.f;
+    f32_dots<G, D>(s, qrow, kt + c * LD);
+    f32_dots<G, D>(dp, drow, vt + c * LD);
+#pragma unroll
+    for (int x = 0; x < KC; ++x) {
+      const bool in = t * BT + c + G::LC * x < S;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float p = ex2(fmaf(s[i][x], scale_log2, -ls[i]));
+        s[i][x] = in ? p * (dp[i][x] - dl[i]) : 0.f;
+      }
     }
+    f32_store_tile<G>(sw + c, s);
+    f32_accumulate<G, D>(acc, sw, kt, c);
   }
-  if (valid) {
-    float* o = dq + (((long long)b * S + row) * H + h) * D;
+
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = acc[d] * scale;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + wrow + G::LR * i;
+    if (row >= S) continue;
+    float* orow = dq + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int mm = 0; mm < G::NV; ++mm) {
+      float x[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) x[w] = acc[i][mm * VW + w] * scale;
+      st_vec<VW>(orow + f32_col<G>(c, mm), x);
+    }
   }
 }
 
+// dK, dV: one block per (batch * kv-head, ROWS keys), looping over the
+// group's q-heads and every tile of BT queries (one ring across them), so
+// the GQA group sum stays in fp32 registers. Per tile, each warp:
+// S^T = K Q^T and dP^T = V dO^T for its RW keys, p from the queries' LSE,
+// dS = p (dP - delta); then P to the warp's shared tile and dV += P^T dO,
+// then dS to the same tile and dK += dS^T Q. Queries past S are zero rows
+// with LSE and delta zero, whose terms vanish.
 template <int D>
-__global__ void __launch_bounds__(BK)
+__global__ void __launch_bounds__(F32Tile<D>::Dkv::THREADS)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   float* __restrict__ dk, float* __restrict__ dv, int S, int H,
                   int Hkv, Strides qs, Strides ks, Strides vs,
                   float scale_log2, float scale) {
-  constexpr int QT = F32Tile<D>::ROWS;
-  __shared__ __align__(16) float Qs[QT][D];
-  __shared__ __align__(16) float Ds[QT][D];
-  __shared__ float Ls[QT], Dl[QT];
+  using G = typename F32Tile<D>::Dkv;
+  constexpr int LD = G::LD, BT = G::BT, R = G::R, KC = G::KC, VW = G::VW;
+  constexpr int STAGE = 2 * BT * LD + 2 * BT;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                          // [ROWS][LD]
+  float* Vs = Ks + G::ROWS * LD;
+  float* ring = Vs + G::ROWS * LD;          // two stages of Q, dO [BT][LD], LSE, delta [BT]
+  float* Pw = ring + 2 * STAGE;             // a warp's P, then dS [RW][LP]
 
-  const int bkv = blockIdx.x;
-  const int b = bkv / Hkv, hk = bkv % Hkv;
-  const int group = H / Hkv;
-  const int row = blockIdx.y * BK + threadIdx.x;   // key row
-  const bool valid = row < S;
+  const int nkb = (S + G::ROWS - 1) / G::ROWS;
+  const int bkv = blockIdx.x / nkb, k0 = blockIdx.x % nkb * G::ROWS;
+  const int b = bkv / Hkv, hk = bkv % Hkv, group = H / Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane / G::LC, c = lane % G::LC;
   const long long drs = (long long)H * D;
+  const int ntiles = (S + BT - 1) / BT, total = group * ntiles;
+  auto load = [&](int t) {
+    const int h = hk * group + t / ntiles, r0 = t % ntiles * BT;
+    float* st = ring + (t & 1) * STAGE;
+    f32_copy_rows<D, BT>(st, q + b * qs.b + h * qs.h, qs.s, r0, S);
+    f32_copy_rows<D, BT>(st + BT * LD, dout + ((long long)b * S * H + h) * D, drs, r0, S);
+    f32_copy_vals(st + 2 * BT * LD, lse + ((long long)b * H + h) * S, r0, BT, S);
+    f32_copy_vals(st + 2 * BT * LD + BT, delta + ((long long)b * H + h) * S, r0, BT, S);
+  };
+  f32_copy_rows<D, G::ROWS>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, S);
+  f32_copy_rows<D, G::ROWS>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, S);
+  load(0);
+  hopper::cp_async_commit();
 
-  float kr[D], vr[D], dka[D], dva[D];
+  const int wrow = warp * G::RW + r;
+  const float* krow = Ks + wrow * LD;
+  const float* vrow = Vs + wrow * LD;
+  float* pw = Pw + warp * G::RW * G::LP + r * G::LP;
+  float dka[R][G::NO], dva[R][G::NO];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = valid ? k[b * ks.b + row * ks.s + hk * ks.h + d] : 0.f;
-    vr[d] = valid ? v[b * vs.b + row * vs.s + hk * vs.h + d] : 0.f;
-    dka[d] = dva[d] = 0.f;
-  }
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const float* qb = q + b * qs.b + h * qs.h;
-    const float* db = dout + ((long long)b * S * H + h) * D;
-    const float* lrow = lse + ((long long)b * H + h) * S;
-    const float* drow = delta + ((long long)b * H + h) * S;
-    for (int qt = 0; qt < S; qt += QT) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < QT * (D / 4); i += blockDim.x) {
-        const int r = i / (D / 4), ch = (i % (D / 4)) * 4;
-        float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), dv4 = qv;
-        if (qt + r < S) {
-          qv = *reinterpret_cast<const float4*>(qb + (qt + r) * qs.s + ch);
-          dv4 = *reinterpret_cast<const float4*>(db + (qt + r) * drs + ch);
-        }
-        *reinterpret_cast<float4*>(&Qs[r][ch]) = qv;
-        *reinterpret_cast<float4*>(&Ds[r][ch]) = dv4;
-      }
-      for (int i = threadIdx.x; i < QT; i += blockDim.x) {
-        Ls[i] = qt + i < S ? lrow[qt + i] : 0.f;
-        Dl[i] = qt + i < S ? drow[qt + i] : 0.f;
-      }
-      __syncthreads();
-      const int qn = min(QT, S - qt);
-      for (int j = 0; j < qn; ++j) {
-        float sd = 0.f, pd = 0.f;
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          sd = fmaf(Qs[j][d], kr[d], sd);
-          pd = fmaf(Ds[j][d], vr[d], pd);
-        }
-        const float p = exp2f(sd * scale_log2 - Ls[j]);
-        const float ds = p * (pd - Dl[j]);
+    for (int x = 0; x < G::NO; ++x) dka[i][x] = dva[i][x] = 0.f;
+
+  for (int t = 0; t < total; ++t) {
+    hopper::cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < total) load(t + 1);
+    hopper::cp_async_commit();
+    const float* qt = ring + (t & 1) * STAGE;
+    const float* dt = qt + BT * LD;
+    const float* lt = dt + BT * LD;
+    const float* et = lt + BT;
+
+    float s[R][KC], dp[R][KC];
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          dva[d] = fmaf(p, Ds[j][d], dva[d]);
-          dka[d] = fmaf(ds, Qs[j][d], dka[d]);
-        }
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int x = 0; x < KC; ++x) s[i][x] = dp[i][x] = 0.f;
+    f32_dots<G, D>(s, krow, qt + c * LD);
+    f32_dots<G, D>(dp, vrow, dt + c * LD);
+#pragma unroll
+    for (int x = 0; x < KC; ++x) {
+      const float lq = lt[c + G::LC * x], eq = et[c + G::LC * x];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float p = ex2(fmaf(s[i][x], scale_log2, -lq));
+        s[i][x] = p;
+        dp[i][x] = p * (dp[i][x] - eq);
       }
     }
+    f32_store_tile<G>(pw + c, s);
+    f32_accumulate<G, D>(dva, pw, dt, c);
+    f32_store_tile<G>(pw + c, dp);
+    f32_accumulate<G, D>(dka, pw, qt, c);
   }
-  if (valid) {
-    const long long o = (((long long)b * S + row) * Hkv + hk) * D;
+
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk[o + d] = dka[d] * scale;
-      dv[o + d] = dva[d];
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + wrow + G::LR * i;
+    if (row >= S) continue;
+    const long long off = (((long long)b * S + row) * Hkv + hk) * D;
+#pragma unroll
+    for (int mm = 0; mm < G::NV; ++mm) {
+      float x[VW], y[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) {
+        x[w] = dka[i][mm * VW + w] * scale;
+        y[w] = dva[i][mm * VW + w];
+      }
+      st_vec<VW>(dk + off + f32_col<G>(c, mm), x);
+      st_vec<VW>(dv + off + f32_col<G>(c, mm), y);
     }
   }
 }
@@ -659,23 +726,27 @@ int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
         qb, kb, vb, db, l, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv,
         qs, ks, vs, scale_log2, scale);
   } else {
-    const long long rows = (long long)B * S * H;
-    const dim3 gq(B * H, (S + BQ - 1) / BQ), gk(B * Hkv, (S + BK - 1) / BK);
-    flash_bwd_delta<float, D><<<(int)((rows + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(dout), static_cast<const float*>(o), dl, S, H, rows);
-    cudaError_t err = cudaGetLastError();
+    using T = F32Tile<D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::Dq::DQ_SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32<D><<<gq, BQ, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dq), S, H, Hkv, qs, ks, vs, scale_log2, scale);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::Dkv::DKV_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const long long bq = (S + T::Dq::ROWS - 1) / T::Dq::ROWS;
+    const long long bk = (S + T::Dkv::ROWS - 1) / T::Dkv::ROWS;
+    if ((long long)B * H * bq > 0x7fffffffLL || (long long)B * Hkv * bk > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+    flash_bwd_dq_f32<D><<<(unsigned)(B * H * bq), T::Dq::THREADS, T::Dq::DQ_SMEM, st>>>(
+        qf, kf, vf, df, static_cast<const float*>(o), l, dl, static_cast<float*>(dq), S, H,
+        Hkv, qs, ks, vs, scale_log2, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_f32<D><<<gk, BK, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, qs, ks, vs,
-        scale_log2, scale);
+    flash_bwd_dkv_f32<D><<<(unsigned)(B * Hkv * bk), T::Dkv::THREADS, T::Dkv::DKV_SMEM, st>>>(
+        qf, kf, vf, df, l, dl, static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv,
+        qs, ks, vs, scale_log2, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,6 @@
 
 namespace flash {
 
-constexpr int BQ = 64;       // queries per block (fp32 forward and backward)
-constexpr int BK = 64;       // keys per block (fp32 backward)
 constexpr int MAX_D = 128;   // the largest head dim of the templated kernels
 
 using bf16 = __nv_bfloat16;

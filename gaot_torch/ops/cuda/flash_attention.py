@@ -32,11 +32,17 @@ ragged last tile masked, P rounded to V's dtype before P·V (as the TPU
 kernel does), the output divided by the fp32 denominator once at the end.
 For training it also writes the base-2 row LSE m + log2(l), as
 ``_attn_kernel_lse`` defines it. What bounds it is the exp2 of the
-special-function units; the tensor cores come second. fp32 runs the same
-online softmax on the CUDA cores, one thread per query row. The TPU kernel
-keeps all of K/V resident instead; in fp32 that is 256 KB per head at
-S=1024, above a block's 227 KB of shared memory, and 3D grids reach
-S = 32k. Any S is taken (the ragged last tile is
+special-function units; the tensor cores come second. fp32 (the dtype
+every example config trains in) stays in fp32 FFMA on the CUDA cores, no
+TF32, so the card's fp32 rate bounds it: Q is staged once in shared
+memory, K and V stream through a two-stage ``cp.async`` ring, and each
+warp builds S and then O += P·V as register micro-tiles (8 queries × 8
+keys a lane at D ≤ 32) from 16-byte shared-memory loads, the same online
+softmax per row over the lanes that hold it, P through a shared tile of
+the warp's own (``csrc/flash_f32.cuh`` holds the tile table by D). The
+TPU kernel keeps all of K/V resident instead; in fp32 that is 256 KB per
+head at S=1024, above a block's 227 KB of shared memory, and 3D grids
+reach S = 32k. Any S is taken (the ragged last tile is
 masked). D may be any multiple of 8 (``supports_head_dim``), as the JAX
 gates take it: the kernels above are templates built for every D from 8 to
 128 (``TEMPLATED_HEAD_DIMS``; at D % 16 == 8 the products over D pad the
@@ -71,7 +77,10 @@ does. Its arithmetic is ``_flash_backward_long``'s (p from the LSE, the
 scale applied at the end of dQ and dK); the plain backward keeps
 ``_bwd_core``'s. In bf16 the two stay within half of the CPU tests' bound
 (rtol 8e-3, atol 1e-2) at S = 384, so one plain backward serves every
-regime. fp32 runs δ, dQ and dK/dV kernels on the CUDA cores.
+regime. fp32 runs the same two kernels' arithmetic in fp32 FFMA on the
+CUDA cores, S, dP and the products whose N is D as register micro-tiles,
+δ folded into the dQ kernel; with S and dP in both kernels they do 7 of
+the products the bound counts as 5, so at most 71% of it.
 """
 from __future__ import annotations
 

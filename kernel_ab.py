@@ -6,6 +6,7 @@ side in one run on one NVIDIA card.
     python3 kernel_ab.py --build ROOT [ROOT ...]
     python3 kernel_ab.py --only fused_ffn --kernels-only ROOT [ROOT ...]
     python3 kernel_ab.py --only agno --kernels-only ROOT [ROOT ...]
+    python3 kernel_ab.py --examples ROOT [ROOT ...]
 
 ROOT is the root of a checkout (its gaot_torch/, chip_smoke.py and config/
 are enough). Each ROOT runs in a process of its own, in the order given, so
@@ -17,7 +18,9 @@ and times, on tensors made from one seed:
   - the bf16 flash forward, without and with the LSE, and the backward
     (dQ, dK, dV from the forward's output and LSE) at each path's shape,
     the backward with its largest error against the plain version where
-    that fits the card (not at S = 32768);
+    that fits the card (not at S = 32768); the same three in fp32 (the
+    dtype the example configs train in) at the fx shape and at naca0012's
+    (B = 32), with TF32 off;
   - the bf16 SwiGLU forward and backward at the fx shape (R = 65536,
     M = 256, F = 1024) and at the other fused width (M = 128, F = 512),
     with their largest error against the plain versions;
@@ -27,8 +30,11 @@ and times, on tensors made from one seed:
     fx main path's bucketed encoder, ``gather_multiply_reduce_nbc``
     otherwise): the public functions, so every checkout times its own
     route through them;
+  - with the flash cases, one fp32 SGEMM (8192^3, TF32 off): the rate the
+    card reaches in fp32 products;
   - the PyTorch library call that computes the same function (einsum; SDPA,
-    or its aten entry that also returns the LSE, and SDPA's autograd; the
+    or its aten entry that also returns the LSE (the flash entry in bf16,
+    the memory-efficient one in fp32), and SDPA's autograd; the
     SwiGLU's three products, and autograd of them);
 each on three yardsticks:
   single   median of 20 calls, each timed alone between two CUDA events:
@@ -48,6 +54,12 @@ paths' drive.
 
 --build compiles each ROOT's kernels from nothing, one ROOT after another,
 and reports the seconds each took.
+
+--examples trains the example configs as shipped, in fp32, through each
+ROOT's own chip_smoke.py (its phases 5, 5b and 5d, on their synthetic
+data): the fx recipe (run C), elasticity and naca0012, whose training step
+is also timed eager and captured as a CUDA graph; it reports each run's
+samples/s after its first evaluation and naca0012's step ms both ways.
 
 Prints each process's log, then a table of every number by ROOT and run;
 writes them to chiprun_out/kernel_ab.json.
@@ -72,6 +84,8 @@ MULRED_B = {"fx": (64, 64, [(5, 1536), (8, 1664), (12, 1024), (24, 128), (8, 819
             "long": (1, 16, [(8, 262144), (8, 32768)])}
 # path: (B, S, H = Hkv, D) of its flash calls
 FLASH = {"fx": (64, 1024, 8, 32), "3d": (4, 4096, 8, 24), "long": (1, 32768, 8, 24)}
+# path: (B, S, H = Hkv, D) of the fp32 flash cases
+FLASH_F32 = {"fx": (64, 1024, 8, 32), "naca": (32, 1024, 8, 32)}
 # (R, M, F) of the fx path's SwiGLU calls, and of the other fused width
 SWIGLU = {"fx": (65536, 256, 1024), "M128": (65536, 128, 512)}
 ITERS = 20
@@ -164,21 +178,29 @@ def kernel_times(only=None):
                     total[who][y] += v
         res[f"multiply_reduce_b {path} (sum of {len(shapes)} shapes)"] = total
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for path, (bb, s, h, d) in FLASH.items() if only in (None, "flash") else ():
-        qkv = rnd(bb, s, 3, h, d).bfloat16()          # q, k, v: views of one buffer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [(path, shape, torch.bfloat16) for path, shape in FLASH.items()]
+    cases += [(path, shape, torch.float32) for path, shape in FLASH_F32.items()]
+    for path, (bb, s, h, d), dtype in cases if only in (None, "flash") else ():
+        qkv = rnd(bb, s, 3, h, d).to(dtype)           # q, k, v: views of one buffer
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         shape = f"B={bb} S={s} H={h} D={d}"
+        if dtype == torch.float32:
+            shape = "fp32 " + shape
+            lib_lse = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                qh, kh, vh, None, True)
+        else:
+            lib_lse = lambda: torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh)
         if path != "long":
             res[f"flash fwd {path} {shape}"] = {
                 "kernel": yardsticks(lambda: fa.flash_attention(q, k, v)),
                 "library": yardsticks(lambda: sdpa(qh, kh, vh))}
         res[f"flash fwd+LSE {path} {shape}"] = {
             "kernel": yardsticks(lambda: fa.flash_attention_lse(q, k, v)),
-            "library": yardsticks(
-                lambda: torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh))}
+            "library": yardsticks(lib_lse)}
         out, lse = fa.flash_attention_lse(q, k, v)
-        dout = rnd(bb, s, h, d).bfloat16()
+        dout = rnd(bb, s, h, d).to(dtype)
         case = {"kernel": yardsticks(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse))}
         leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
         o_l, g_l = sdpa(*leaves), dout.transpose(1, 2).contiguous()
@@ -196,6 +218,12 @@ def kernel_times(only=None):
         res[f"flash bwd {path} {shape}"] = case
         del qkv, q, k, v, qh, kh, vh, out, lse, dout
         torch.cuda.empty_cache()
+    if only in (None, "flash"):
+        # The rate the card reaches in fp32 products without TF32: one
+        # cuBLAS SGEMM, a yardstick for the fp32 flash kernels.
+        a, b = rnd(8192, 8192), rnd(8192, 8192)
+        res["sgemm fp32 8192^3 (TF32 off)"] = {"library": yardsticks(lambda: a @ b)}
+        del a, b
     from gaot_torch.ops.cuda import fused_ffn as ff
 
     silu = torch.nn.functional.silu
@@ -325,7 +353,20 @@ def drive_paths(root):
         cs.phase_train(path)
 
 
-def child(root, build_only, only, kernels_only):
+def examples(root):
+    """Phase 5 (runs A to C), 5b and 5d of ROOT's chip_smoke.py."""
+    import torch
+
+    cs = _load_chip_smoke(root)
+    card = cs.phase_card()
+    cs.phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cs.phase_trainer(card, float("nan"))
+    cs.phase_vx_trainer(card, float("nan"))
+    cs.phase_naca(card, lambda *s: torch.randn(*s, generator=gen, device="cuda"))
+
+
+def child(root, build_only, only, kernels_only, with_examples=False):
     sys.path.insert(0, root)
     import torch
 
@@ -336,6 +377,9 @@ def child(root, build_only, only, kernels_only):
         raise RuntimeError(f"imported {gaot_torch.__file__}, not the gaot_torch of {root}")
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
+    if with_examples:
+        examples(root)
+        return
     if build_only:
         shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
@@ -351,13 +395,26 @@ def child(root, build_only, only, kernels_only):
 
 
 TIMES = re.compile(r"(forward_ms|step_ms) median=([\d.]+) min=([\d.]+) max=([\d.]+)")
+EXAMPLES = {   # what: the chip_smoke.py log line that holds it
+    "run C fp32 samples/s": re.compile(r"trainer run C fp32 .* ([\d.]+) samples/s after it"),
+    "elasticity fp32 samples/s": re.compile(
+        r"vx trainer elasticity fp32 .* ([\d.]+) samples/s after it"),
+    "naca0012 step ms eager": re.compile(r"phase 11 naca0012 .*: step ms eager ([\d.]+) /"),
+    "naca0012 step ms graph": re.compile(r"phase 11 naca0012 .*: step ms eager [\d.]+ / "
+                                         r"graph ([\d.]+)"),
+}
 PIPE = re.compile(r"pipelined (.*) \(\d+ back to back\): wall_ms=([\d.]+) "
                   r"device_busy_ms=([\d.]+) idle_share=([\d.]+)")
 
 
 def parse(out):
-    """The child's RESULT line and its paths' timings."""
+    """The child's RESULT line and its paths' timings, or (--examples) the
+    examples' numbers."""
     result = None
+    found = {what: float(m[1]) for line in out.splitlines()
+             for what, rx in EXAMPLES.items() for m in [rx.search(line)] if m}
+    if found:
+        return {"examples": found}
     for line in out.splitlines():
         if line.startswith("RESULT "):
             result = json.loads(line[len("RESULT "):])
@@ -382,11 +439,13 @@ def main():
                     help="time this kernel's cases alone")
     ap.add_argument("--kernels-only", action="store_true",
                     help="time the kernels, without driving the paths")
+    ap.add_argument("--examples", action="store_true",
+                    help="train the fp32 example configs through each ROOT's chip_smoke.py")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     if args.child:
-        child(roots[0], args.build, args.only, args.kernels_only)
+        child(roots[0], args.build, args.only, args.kernels_only, args.examples)
         return 0
     runs = []
     for i, root in enumerate(roots):
@@ -397,6 +456,8 @@ def main():
             cmd += ["--only", args.only]
         if args.kernels_only:
             cmd.append("--kernels-only")
+        if args.examples:
+            cmd.append("--examples")
         print(f"=== run {i}: {root}", flush=True)
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         print(proc.stdout, flush=True)
@@ -407,8 +468,15 @@ def main():
             return 1
         runs.append({"root": root, **parse(proc.stdout)})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT + (".build" if args.build else ""), "w") as f:
+    with open(OUT + (".build" if args.build else ".examples" if args.examples else ""),
+              "w") as f:
         json.dump(runs, f, indent=1)
+    if args.examples:
+        print("=== examples (one column per run, in order)")
+        for what in EXAMPLES:
+            print(f"{what}: " + " ".join(f"{r['examples'].get(what, float('nan')):.3f}"
+                                         for r in runs))
+        return 0
     print("=== table (ms; one column per run, in order)")
     for i, r in enumerate(runs):
         print(f"run {i}: {r['root']}: build wall {r['build_wall_s']:.1f}s "

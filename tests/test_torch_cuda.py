@@ -11,8 +11,8 @@ and an all-masked row of a transpose graph; the gradients of every kernel;
 the SwiGLU width the JAX gate sends to the plain route; the models' auto
 routes at widths above the templated kernels; what the wrappers refuse; and
 the small fx forward and training step against the CPU plain route; the
-flash backward at the edges of its tiles, and two of its bf16 calls bitwise
-identical; the fx StaticTrainer's fit on the card against the CPU, with the
+flash backward at the edges of its bf16 and fp32 tiles, and two of its
+calls bitwise identical in each dtype; the fx StaticTrainer's fit on the card against the CPU, with the
 splits on the card and on the host; the sequential loader's device route
 against its host route, and the fx (with and without the conditional
 norm) and vx SequentialTrainers' fits and rollouts against the CPU; the
@@ -231,12 +231,15 @@ def test_flash_attention(dtype, b, s, h, hkv, d):
 # dK are zero (the kernel gives exact zeros) and the plain version's bf16
 # rounding alone reaches 1.4e-2 at D = 104, above the bound's atol.
 _FLASH_BWD_SHAPES = [x for x in _FLASH_SHAPES if x[4] in (24, 32) or x[1] > 1]
-# The edges of the bf16 backward's tiles: blocks of 128 resident rows,
+# The edges of the backward's tiles: in bf16 blocks of 128 resident rows,
 # streamed sub-tiles of 64 rows (32 queries in dK/dV at D > 64) in stages of
-# up to 256, so S one below, at and one above each; the smallest head dim
-# and the largest templated one, GQA 4:1.
-_FLASH_BWD_EDGES = [(1, s, 4, 1, d) for d in (8, 128)
-                    for s in (31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257)]
+# up to 256; in fp32 (csrc/flash_f32.cuh) blocks of 128 or 64 rows, streamed
+# tiles of 16, 32 or 64; so S one below, at and one above each; the smallest
+# head dim, the largest templated one and one of each line of the fp32
+# tile table, GQA 4:1.
+_FLASH_BWD_EDGES = [(1, s, 4, 1, d) for d in (8, 24, 32, 48, 64, 72, 128)
+                    for s in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256,
+                              257)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -269,16 +272,17 @@ def test_flash_attention_backward(dtype, b, s, h, hkv, d):
         _close_scaled(leaf.grad, w, rel, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,s,h,hkv,d", [(64, 1024, 8, 8, 32), (2, 1000, 8, 2, 24)])
-def test_flash_attention_backward_is_deterministic(b, s, h, hkv, d):
+def test_flash_attention_backward_is_deterministic(dtype, b, s, h, hkv, d):
     """No float atomics: two calls on the same inputs give the same bits, at
     the fx path's shape and at a GQA shape."""
     from gaot_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(s + d)
-    q, k, v = _qkv(gen, torch.bfloat16, b, s, h, hkv, d)
+    q, k, v = _qkv(gen, dtype, b, s, h, hkv, d)
     out, lse = fa.flash_attention_lse(q, k, v)
-    dout = _rnd(gen, b, s, h, d).bfloat16()
+    dout = _rnd(gen, b, s, h, d).to(dtype)
     first = fa.flash_attention_bwd(q, k, v, out, dout, lse)
     second = fa.flash_attention_bwd(q, k, v, out, dout, lse)
     for a, c in zip(first, second):
