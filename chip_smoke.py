@@ -564,7 +564,7 @@ def phase_card():
 # M = 128 and 256, the producer and the GEMM that serve every other width)
 # may not spill.
 PTXAS_LOGGED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
-                "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+                "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_wide_",
                 "mulred_k_kernel", "mulred_b_kernel", "ffn_")
 NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_produce")
 
@@ -604,15 +604,19 @@ def phase_widths(rnd):
     """The widths the kernels take beyond the paths' own, against their
     plain versions at the tolerances of the per-kernel checks: the flash
     forward (with and without the LSE) and backward at every templated head
-    dim and at 136, 256, 1024 and, at S = 128, 8192 (the route with D at
-    run time); the SwiGLU forward and backward at the tuned widths besides
-    256, at widths of the general route (640-1024, M 4096 with F 896, F
-    29056 at M 128), in bf16, and in fp32 at M = 256 and 640; the fp32 flash
-    kernels at the edges of their tiles (FP32_FLASH_EDGES)."""
+    dim and at 136, 256, 264, 520, 1024 and, at S = 128, 8192 (the routes
+    with D at run time; two backward calls there give the same bits), the
+    bf16 route at 136 and 264 also at the edges of its tiles; the SwiGLU
+    forward and backward at the tuned widths besides 256, at widths of the
+    general route (640-1024, M 4096 with F 896, F 29056 at M 128), in bf16,
+    and in fp32 at M = 256 and 640; the fp32 flash kernels at the edges of
+    their tiles (FP32_FLASH_EDGES)."""
     import torch
 
     from gaot_torch.ops.cuda import flash_attention as fa
     from gaot_torch.ops.cuda import fused_ffn as ff
+
+    t_phase = time.perf_counter()
 
     def flash(b, s, h, hkv, d, dtype, quiet=False):
         bf16 = dtype == torch.bfloat16
@@ -631,13 +635,21 @@ def phase_widths(rnd):
         want = fa.attention_bwd_plain(q, k, v, out, dout)
         for n, g, wt in zip("qkv", got, want):
             # At S = 1, dQ and dK are zero up to rounding (dS = p (dP - delta)
-            # with O = V): the card tests' absolute floor of 1e-5.
+            # with O = V): the card tests' absolute floor of 1e-5. In bf16 they
+            # are held to the exact zero: the plain version rounds dO times the
+            # scale to bf16 before dP, which leaves up to 1e-2 there.
             floor = 1e-5 if s == 1 and n != "v" else 0.0
+            if floor and bf16:
+                wt = torch.zeros_like(wt)
             compare_grad(f"widths flash bwd {name} d{n}", g, wt, 3e-2 if bf16 else 1e-4,
                          atol=floor, quiet=quiet)
+        if d > fa.TEMPLATED_HEAD_DIMS[-1]:
+            again = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"widths flash bwd {name}: two calls differ")
 
     b, s, h, hkv = 2, 257, 6, 3          # ragged S, GQA 6:3
-    wide = (136, 256, 1024)
+    wide = (136, 256, 264, 520, 1024)
     log(f"widths: flash attention at head dims {fa.TEMPLATED_HEAD_DIMS[0]}.."
         f"{fa.TEMPLATED_HEAD_DIMS[-1]} and {wide}, B={b} S={s} H={h} Hkv={hkv}, "
         f"and D=8192 at B=1 S=128 H=2 Hkv=1:")
@@ -653,32 +665,44 @@ def phase_widths(rnd):
     log(f"widths: fp32 flash at head dims {fa.TEMPLATED_HEAD_DIMS[0]}.."
         f"{fa.TEMPLATED_HEAD_DIMS[-1]}, S in {FP32_FLASH_EDGES}, B=1 H=4 Hkv=2: forward, "
         f"LSE and backward within their bounds ({time.perf_counter() - t0:.1f} s)")
-    # The route with D at run time, timed at two head dims (bf16, B=1, H=4,
-    # S=4096) beside SDPA and its autograd; its bound counts the work the
-    # function needs, not the scores the route recomputes per 128 columns.
+    # The bf16 route above 128 at the edges of its tiles (128 queries, 128
+    # keys and 64-key tiles, 64-query tiles in dK/dV), one slice (136) and a
+    # ragged second one (264).
+    t0 = time.perf_counter()
+    edges = FP32_FLASH_EDGES + (255, 257)
+    for d in (136, 264):
+        for s_edge in edges:
+            flash(1, s_edge, 4, 2, d, torch.bfloat16, quiet=True)
+    log(f"widths: bf16 flash at head dims 136 and 264, S in {edges}, B=1 H=4 Hkv=2: "
+        f"forward, LSE and backward within their bounds, backward bit for bit twice "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # The routes with D at run time, timed (20 calls back to back) at four
+    # shapes (B=1, H=4), bf16 and fp32, beside SDPA and its autograd; the
+    # bound counts the work the function needs, not the scores the routes
+    # recompute for each output slice.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for d in (256, 1024):
-        bb, ss, hh = 1, 4096, 4
-        qkv = rnd(bb, ss, 3, hh, d).bfloat16()
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        out, lse = fa.flash_attention_lse(q, k, v)
-        dout = rnd(bb, ss, hh, d).bfloat16()
-        ops, exps = 4.0 * bb * hh * ss * ss * d, float(bb * hh * ss * ss)
-        bnd = bound_ms(4 * bb * ss * hh * d * 2, ops, PEAK_BF16, exps)
-        bnd_b = bound_ms(8 * bb * ss * hh * d * 2, 2.5 * ops, PEAK_BF16, exps)
-        t_f = time_ms(lambda: fa.flash_attention(q, k, v), iters=3, warmup=1)
-        t_b = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse), iters=3,
-                      warmup=1)
-        leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
-        o_l = sdpa(*leaves)
-        g_l = dout.transpose(1, 2).contiguous()
-        t_lf = time_ms(lambda: sdpa(*leaves), iters=3, warmup=1)
-        t_lb = time_ms(lambda: torch.autograd.grad(o_l, leaves, g_l, retain_graph=True),
-                       iters=3, warmup=1)
-        log(f"    wide flash D={d} B={bb} S={ss} H={hh} bf16: fwd kernel_ms={t_f:.4f} "
-            f"(SDPA {t_lf:.4f}, bound {bnd[0]:.4f}); bwd kernel_ms={t_b:.4f} "
-            f"(SDPA autograd {t_lb:.4f}, bound {bnd_b[0]:.4f})")
-        del qkv, q, k, v, out, lse, dout, leaves, o_l, g_l
+    for d, ss in ((256, 4096), (512, 2048), (1024, 4096), (1024, 1024)):
+        for dtype in (torch.bfloat16, torch.float32):
+            bb, hh = 1, 4
+            qkv = rnd(bb, ss, 3, hh, d).to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            out, lse = fa.flash_attention_lse(q, k, v)
+            dout = rnd(bb, ss, hh, d).to(dtype)
+            ops, exps = 4.0 * bb * hh * ss * ss * d, float(bb * hh * ss * ss)
+            peak, size = (PEAK_BF16, 2) if dtype == torch.bfloat16 else (PEAK_FP32, 4)
+            bnd = bound_ms(4 * bb * ss * hh * d * size, ops, peak, exps)
+            bnd_b = bound_ms(8 * bb * ss * hh * d * size, 2.5 * ops, peak, exps)
+            t_f = time_ms(lambda: fa.flash_attention(q, k, v))
+            t_b = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse))
+            leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+            o_l = sdpa(*leaves)
+            g_l = dout.transpose(1, 2).contiguous()
+            t_lf = time_ms(lambda: sdpa(*leaves))
+            t_lb = time_ms(lambda: torch.autograd.grad(o_l, leaves, g_l, retain_graph=True))
+            log(f"    wide flash D={d} B={bb} S={ss} H={hh} {str(dtype)[6:]}: fwd "
+                f"kernel_ms={t_f:.4f} (SDPA {t_lf:.4f}, bound {bnd[0]:.4f}); bwd "
+                f"kernel_ms={t_b:.4f} (SDPA autograd {t_lb:.4f}, bound {bnd_b[0]:.4f})")
+            del qkv, q, k, v, out, lse, dout, leaves, o_l, g_l
 
     r = 200
     cases = [(m, 256, torch.bfloat16) for m in (128, 384, 512, 640, 768, 896, 1024)]
@@ -702,6 +726,7 @@ def phase_widths(rnd):
         for n, g, wt in zip(("dx", "dw1", "dw3", "dw2"), got, want):
             compare_grad(f"widths fused_ffn bwd {name} {n}", g, wt, 2e-2 if bf16 else 1e-4)
     torch.cuda.synchronize()
+    log(f"widths phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def _lattice(shape):

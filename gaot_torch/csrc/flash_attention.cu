@@ -5,7 +5,8 @@
 // and _attn_kernel_lse of gaot_tpu/ops/pallas/flash_attention.py
 // (_flash_forward). Every kernel below flash_fwd_wide is a template on the
 // head dim D, built for every multiple of 8 from 8 to 128; head dims above
-// 128 take flash_fwd_wide, with D at run time (flash_common.cuh).
+// 128 take flash_fwd_wide in fp32 and flash_wide.cu's wgmma forward in bf16,
+// with D at run time (flash_common.cuh).
 //
 // bf16 (flash_fwd_bf16). What bounds it: one exp2 per score on the
 // special-function units (16 per clock per SM), then the two products on
@@ -395,17 +396,17 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// Head dims above 128 (flash_common.cuh): one block per (batch * q-head, 64
+// Head dims above 128 in fp32 (flash_common.cuh; bf16 takes flash_wide.cu):
+// one block per (batch * q-head, 64
 // queries, 128 output columns), 256 threads. Per tile of 64 keys: the scores
 // over the full D, streamed in slices of 64 (each thread 4 queries x 4
-// keys); the online softmax (four threads a row); P rounded to T; then
+// keys); the online softmax (four threads a row); then
 // O += P V for the block's 128 columns (each thread 4 queries x 8 columns).
 constexpr int WIDE_FWD_SMEM = (2 * WR * WSP + WR * WSP + 3 * WR) * 4;
 
-template <typename T>
 __global__ void __launch_bounds__(256)
-flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
                float* __restrict__ lse, int S, int H, int Hkv, int D, Strides qs,
                Strides ks, Strides vs, float scale_log2) {
   extern __shared__ float wsm[];
@@ -420,9 +421,9 @@ flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
   const int q0 = blockIdx.y * WR, c0 = blockIdx.z * WO;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
   if (threadIdx.x < WR) {
     ms[threadIdx.x] = -CUDART_INF_F;
     ls[threadIdx.x] = 0.f;
@@ -479,7 +480,7 @@ flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 16; ++j) {
         const float p = exp2f(pr[j] - mnew);
         sum += p;
-        pr[j] = round_to(p, T());
+        pr[j] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -518,28 +519,27 @@ flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + 4 * ty + u;
     if (row >= S) continue;
     const float inv = 1.f / ls[4 * ty + u];
-    T* orow = out + (((long long)b * S + row) * H + h) * D;
+    float* orow = out + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
       const int c = c0 + tx + 16 * w;
-      if (c < D) orow[c] = T(o[u][w] * inv);
+      if (c < D) orow[c] = o[u][w] * inv;
     }
   }
   if (lse != nullptr && blockIdx.z == 0 && threadIdx.x < WR && q0 + threadIdx.x < S)
     lse[(long long)bh * S + q0 + threadIdx.x] = ms[threadIdx.x] + log2f(ls[threadIdx.x]);
 }
 
-template <typename T>
 int launch_fwd_wide(const void* q, const void* k, const void* v, void* out, float* lse,
                     int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
                     Strides vs, float scale_log2, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_FWD_SMEM);
+      flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (S + WR - 1) / WR, (D + WO - 1) / WO);
-  flash_fwd_wide<T><<<grid, 256, WIDE_FWD_SMEM, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, S, H, Hkv, D, qs, ks, vs, scale_log2);
+  flash_fwd_wide<<<grid, 256, WIDE_FWD_SMEM, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, S, H, Hkv, D, qs, ks, vs, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -593,13 +593,9 @@ extern "C" int gaot_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D > MAX_D && D % 8 == 0) {
-    float* l = static_cast<float*>(lse);
-    return dtype == 1 ? launch_fwd_wide<bf16>(q, k, v, out, l, B, S, H, Hkv, D, qs, ks, vs,
-                                              scale_log2, st)
-                      : launch_fwd_wide<float>(q, k, v, out, l, B, S, H, Hkv, D, qs, ks,
-                                               vs, scale_log2, st);
-  }
+  if (D > MAX_D && D % 8 == 0 && dtype == 0)   // bf16 takes flash_wide.cu
+    return launch_fwd_wide(q, k, v, out, static_cast<float*>(lse), B, S, H, Hkv, D, qs, ks,
+                           vs, scale_log2, st);
   return dispatch_head_dim<LaunchFwd>(D, q, k, v, out, static_cast<float*>(lse),
                                       B, S, H, Hkv, qs, ks, vs, scale_log2, dtype, st);
 }

@@ -4,8 +4,9 @@
 // S <= 1024 and at S <= 4096, _flash_backward_long beyond). Every kernel
 // but the *_wide ones is a template on the head dim D, instantiated for
 // every multiple of 8 from 8 to 128 (flash_common.cuh); head dims above 128
-// take the *_wide kernels, with D at run time. Plain C interface; the entry
-// returns cudaGetLastError() after its launches.
+// take the *_wide kernels in fp32 and flash_wide.cu's wgmma backward in
+// bf16, with D at run time. Plain C interface; the entry returns
+// cudaGetLastError() after its launches.
 //
 // The arithmetic (the kv-tiled flash backward):
 //   p = exp2(s * scale_log2 - lse)     normalised probabilities
@@ -140,12 +141,6 @@ struct BwdTile {
   }
 };
 
-// The dynamic shared memory rounded up to a 1024-byte boundary (the swizzle
-// atoms'); the kernels ask for 1024 bytes more than they use.
-__device__ __forceinline__ uint32_t smem_base_1k(const unsigned char* smem) {
-  return (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
-}
-
 // cp.async of rows r0 .. r0 + R - 1 of a [*, D] operand (row stride rs) into
 // a tile; rows past S and the pad chunks past D are zero-filled.
 template <int D, int R>
@@ -189,32 +184,6 @@ __device__ __forceinline__ void mma_n_dp(float* acc, const uint32_t (*a)[4], uin
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
     Wgmma<T::NDP, 1>::run(acc, a[kk], T::mndesc(tile, R, k0 + 16 * kk), 1);
-}
-
-// The accumulator of a 64 x N product, rounded to bf16, as the register A
-// fragments of the N / 16 k-steps of a product that contracts over its N.
-template <int N>
-__device__ __forceinline__ void to_a_frags(uint32_t (*a)[4], const float* acc) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(acc[8 * kk], acc[8 * kk + 1]);
-    a[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
-    a[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
-    a[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) reg_fence(r[i]);
-}
-template <int N>
-__device__ __forceinline__ void fence_all(uint32_t (*a)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < N; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) reg_fence(a[kk][e]);
 }
 
 // dQ, and delta for the dK/dV kernel: one block per (batch * q-head, ROWS
@@ -751,19 +720,19 @@ int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// ---- Head dims above 128 (flash_common.cuh), D at run time.
+// ---- Head dims above 128 in fp32 (flash_common.cuh), D at run time; bf16
+// takes flash_wide.cu.
 // delta[b, h, s] = sum_d dout * o: one warp per row.
-template <typename T>
-__global__ void flash_bwd_delta_wide(const T* __restrict__ dout, const T* __restrict__ o,
+__global__ void flash_bwd_delta_wide(const float* __restrict__ dout, const float* __restrict__ o,
                                      float* __restrict__ delta, int S, int H, int D,
                                      long long rows) {
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (i >= rows) return;
-  const T* a = dout + i * D;
-  const T* c = o + i * D;
+  const float* a = dout + i * D;
+  const float* c = o + i * D;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += to_f(a[d]) * to_f(c[d]);
+  for (int d = lane; d < D; d += 32) acc += a[d] * c[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -809,15 +778,14 @@ __device__ __forceinline__ void wide_accumulate(float acc[4][8], const float* L,
 
 // dQ: one block per (batch * q-head, 64 queries, 128 columns of dQ). Per
 // tile of 64 keys: S = Q K^T and dP = dO V^T over the full D in slices,
-// dS = p (dP - delta) with p from the LSE, rounded to T; dQ += dS K.
+// dS = p (dP - delta) with p from the LSE; dQ += dS K.
 constexpr int WIDE_DQ_SMEM = (4 * WR * WSP + WR * WSP + 2 * WR) * 4;
 
-template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_wide(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  T* __restrict__ dq, int S, int H, int Hkv, int D, Strides qs,
+                  float* __restrict__ dq, int S, int H, int Hkv, int D, Strides qs,
                   Strides ks, Strides vs, float scale_log2, float scale) {
   extern __shared__ float wsm[];
   float *Qs = wsm, *Ks = Qs + WR * WSP, *Ds = Ks + WR * WSP, *Vs = Ds + WR * WSP;
@@ -827,10 +795,10 @@ flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
   const int q0 = blockIdx.y * WR, c0 = blockIdx.z * WO;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-  const T* db = dout + ((long long)b * S * H + h) * D;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  const float* db = dout + ((long long)b * S * H + h) * D;
   if (threadIdx.x < WR) {
     const bool ok = q0 + threadIdx.x < S;
     Ls[threadIdx.x] = ok ? lse[(long long)bh * S + q0 + threadIdx.x] : 0.f;
@@ -865,7 +833,7 @@ flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
       for (int w = 0; w < 4; ++w) {
         const int key = kt + 4 * tx + w;
         const float p = key < S ? exp2f(s[u][w] * scale_log2 - Ls[r]) : 0.f;
-        Ss[r * WSP + 4 * tx + w] = round_to(p * (dp[u][w] - Dl[r]), T());
+        Ss[r * WSP + 4 * tx + w] = p * (dp[u][w] - Dl[r]);
       }
     }
     __syncthreads();
@@ -877,11 +845,11 @@ flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
   for (int u = 0; u < 4; ++u) {
     const int row = q0 + 4 * ty + u;
     if (row >= S) continue;
-    T* o = dq + (((long long)b * S + row) * H + h) * D;
+    float* o = dq + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
       const int c = c0 + tx + 16 * w;
-      if (c < D) o[c] = T(acc[u][w] * scale);
+      if (c < D) o[c] = acc[u][w] * scale;
     }
   }
 }
@@ -889,15 +857,14 @@ flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
 // dK, dV: one block per (batch * kv-head, 64 keys, 128 columns of dK and
 // dV), looping over the group's q-heads and every tile of 64 queries:
 // S^T = K Q^T and dP^T = V dO^T over the full D in slices, p from the LSE
-// and dS = p (dP - delta), both rounded to T; dV += P^T dO, dK += dS^T Q.
+// and dS = p (dP - delta); dV += P^T dO, dK += dS^T Q.
 constexpr int WIDE_DKV_SMEM = (4 * WR * WSP + 2 * WR * WSP + 2 * WR) * 4;
 
-template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv,
+                   float* __restrict__ dk, float* __restrict__ dv, int S, int H, int Hkv,
                    int D, Strides qs, Strides ks, Strides vs, float scale_log2,
                    float scale) {
   extern __shared__ float wsm[];
@@ -909,8 +876,8 @@ flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
   const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv % Hkv, group = H / Hkv;
   const int k0 = blockIdx.y * WR, c0 = blockIdx.z * WO;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
   float dka[4][8], dva[4][8];
 #pragma unroll
   for (int u = 0; u < 4; ++u)
@@ -919,8 +886,8 @@ flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int hh = 0; hh < group; ++hh) {
     const int h = hk * group + hh;
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* db = dout + ((long long)b * S * H + h) * D;
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* db = dout + ((long long)b * S * H + h) * D;
     const float* lrow = lse + ((long long)b * H + h) * S;
     const float* drow = delta + ((long long)b * H + h) * S;
     for (int qt = 0; qt < S; qt += WR) {
@@ -951,8 +918,8 @@ flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
         for (int w = 0; w < 4; ++w) {
           const int col = 4 * tx + w;
           const float p = exp2f(s[u][w] * scale_log2 - Ls[col]);
-          Pt[r * WSP + col] = round_to(p, T());
-          St[r * WSP + col] = round_to(p * (dp[u][w] - Dl[col]), T());
+          Pt[r * WSP + col] = p;
+          St[r * WSP + col] = p * (dp[u][w] - Dl[col]);
         }
       }
       __syncthreads();
@@ -972,40 +939,39 @@ flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < 8; ++w) {
       const int c = c0 + tx + 16 * w;
       if (c < D) {
-        dk[o + c] = T(dka[u][w] * scale);
-        dv[o + c] = T(dva[u][w]);
+        dk[o + c] = dka[u][w] * scale;
+        dv[o + c] = dva[u][w];
       }
     }
   }
 }
 
-template <typename T>
 int launch_bwd_wide(const void* q, const void* k, const void* v, const void* o,
                     const void* dout, const float* l, float* dl, void* dq, void* dk,
                     void* dv, int B, int S, int H, int Hkv, int D, Strides qs,
                     Strides ks, Strides vs, float scale_log2, float scale,
                     cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_DQ_SMEM);
+      flash_bwd_dq_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_wide<T>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wide,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_DKV_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-          *vt = static_cast<const T*>(v), *dt = static_cast<const T*>(dout);
+  const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
+              *vt = static_cast<const float*>(v), *dt = static_cast<const float*>(dout);
   const long long rows = (long long)B * S * H;
-  flash_bwd_delta_wide<T><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      dt, static_cast<const T*>(o), dl, S, H, D, rows);
+  flash_bwd_delta_wide<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      dt, static_cast<const float*>(o), dl, S, H, D, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nd = (D + WO - 1) / WO, ns = (S + WR - 1) / WR;
-  flash_bwd_dq_wide<T><<<dim3(B * H, ns, nd), 256, WIDE_DQ_SMEM, st>>>(
-      qt, kt, vt, dt, l, dl, static_cast<T*>(dq), S, H, Hkv, D, qs, ks, vs, scale_log2,
+  flash_bwd_dq_wide<<<dim3(B * H, ns, nd), 256, WIDE_DQ_SMEM, st>>>(
+      qt, kt, vt, dt, l, dl, static_cast<float*>(dq), S, H, Hkv, D, qs, ks, vs, scale_log2,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_wide<T><<<dim3(B * Hkv, ns, nd), 256, WIDE_DKV_SMEM, st>>>(
-      qt, kt, vt, dt, l, dl, static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D, qs,
+  flash_bwd_dkv_wide<<<dim3(B * Hkv, ns, nd), 256, WIDE_DKV_SMEM, st>>>(
+      qt, kt, vt, dt, l, dl, static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, D, qs,
       ks, vs, scale_log2, scale);
   return (int)cudaGetLastError();
 }
@@ -1034,11 +1000,9 @@ extern "C" int gaot_flash_bwd(const void* q, const void* k, const void* v,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (D > MAX_D && D % 8 == 0)
-    return dtype == 1 ? launch_bwd_wide<bf16>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H,
-                                              Hkv, D, qs, ks, vs, scale_log2, scale, st)
-                      : launch_bwd_wide<float>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S,
-                                               H, Hkv, D, qs, ks, vs, scale_log2, scale, st);
+  if (D > MAX_D && D % 8 == 0 && dtype == 0)   // bf16 takes flash_wide.cu
+    return launch_bwd_wide(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs,
+                           scale_log2, scale, st);
   return dispatch_head_dim<LaunchBwd>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B,
                                       S, H, Hkv, qs, ks, vs, scale_log2, scale,
                                       dtype, st);

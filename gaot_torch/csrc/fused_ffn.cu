@@ -167,12 +167,6 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t base, int mn0, int st) {
   return desc_mn_sw(base, 16 * st, mn0, 8192);
 }
 
-// The dynamic shared memory of a kernel, rounded up to a 1024-byte boundary
-// (the swizzle atoms'); kernels ask for 1024 bytes more than they use.
-__device__ __forceinline__ uint32_t smem_base_1k(const unsigned char* smem) {
-  return (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
-}
-
 // Waits until this thread's cp.async groups but the newest N have landed,
 // makes them visible to wgmma, then a block barrier: every thread's have.
 template <int N>

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels that run
 // their products on wgmma (flash_attention.cu, flash_attention_bwd.cu,
-// fused_ffn.cu): the wgmma issue with A from registers (Wgmma) or from
-// shared memory (WgmmaSS), the shared-memory matrix descriptor of the
+// flash_wide.cu, fused_ffn.cu): the wgmma issue with A from registers (Wgmma)
+// or from shared memory (WgmmaSS), the shared-memory matrix descriptor of the
 // no-swizzle core-matrix layout, the wgmma fences and waits, 16- and 4-byte
-// cp.async with its groups, the proxy fence between them, and ex2.approx.
+// cp.async with its groups, the proxy fence between them, ex2.approx and the
+// 1024-byte-aligned dynamic shared memory of the swizzled layouts.
 //
 // The no-swizzle core-matrix layout: a core matrix is 8 rows of 16 bytes,
 // contiguous (128 bytes). A K-major tile (K contiguous in each row) keeps the
@@ -288,6 +289,26 @@ struct WgmmaSS<256, TA, TB> {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// reg_fence over an accumulator of N values, or over N k-steps of A fragments.
+template <int N>
+__device__ __forceinline__ void fence_all(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(a[kk][e]);
+}
+
+// The dynamic shared memory of a kernel, rounded up to a 1024-byte boundary
+// (the swizzle atoms'); kernels ask for 1024 bytes more than they use.
+__device__ __forceinline__ uint32_t smem_base_1k(const unsigned char* smem) {
+  return (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
 }
 
 }  // namespace hopper

@@ -25,7 +25,8 @@ from typing import Dict, Sequence
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build", "kernels")
-KERNELS = ("multiply_reduce", "flash_attention", "flash_attention_bwd", "fused_ffn")
+KERNELS = ("multiply_reduce", "flash_attention", "flash_attention_bwd", "flash_wide",
+           "fused_ffn")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

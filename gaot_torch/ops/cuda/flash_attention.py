@@ -47,11 +47,19 @@ masked). D may be any multiple of 8 (``supports_head_dim``), as the JAX
 gates take it: the kernels above are templates built for every D from 8 to
 128 (``TEMPLATED_HEAD_DIMS``; at D % 16 == 8 the products over D pad the
 last k-step of 16 with zeros); above 128 a route with D at run time takes
-over, forward and backward, bf16 and fp32, on the CUDA cores: a block owns
-64 rows and one slice of 128 columns of its outputs' head dim (a grid
-dimension) and recomputes the full-D scores, and dP, by streaming both sides
-through shared memory in head-dim slices of 64, with the arithmetic of the
-templated kernels. It is right first and slow at large D (PERF.md).
+over, forward and backward, with the arithmetic of the templated kernels.
+In bf16 (``gaot_torch/csrc/flash_wide.cu``) every product runs on
+``wgmma``: a block of two warpgroups owns 128 rows and one slice of its
+outputs' head dim (a grid dimension; 256 columns in the forward and dQ,
+128 in dK/dV) and recomputes the full-D scores, and dP, for it, the
+operands streaming through a ``cp.async`` ring in 64-column chunks of the
+head dim in the no-swizzle core-matrix layout (K-major over D, MN-major
+through the transpose bit where N is D), the resident side kept in shared
+memory while it fits (the forward's queries up to D = 512, the backward's
+up to 256); the backward is two launches, dQ with δ, then dK/dV. In fp32
+the route stays on the CUDA cores (no TF32): a block owns 64 rows and a
+slice of 128 columns and streams both sides through shared memory in
+head-dim slices of 64 (PERF.md has both routes' times).
 
 Backward design (``gaot_torch/csrc/flash_attention_bwd.cu``): the TPU kernel
 holds a head's whole [S, S] row block in VMEM; on the card the tiled flash
@@ -195,6 +203,13 @@ def _check_kernel_inputs(q, k, v):
                              "16-byte aligned rows and strides")
 
 
+def _wide_bf16(q) -> bool:
+    """bf16 above the templated head dims: the wgmma route of
+    ``csrc/flash_wide.cu`` (fp32 keeps the CUDA-core route of
+    ``flash_attention.cu`` and ``flash_attention_bwd.cu``)."""
+    return q.shape[-1] > TEMPLATED_HEAD_DIMS[-1] and q.dtype == torch.bfloat16
+
+
 def _strides(*ts):
     return [st for t in ts for st in (t.stride(0), t.stride(1), t.stride(2))]
 
@@ -209,7 +224,9 @@ def _forward_kernel(q, k, v, with_lse: bool):
            if with_lse else None)
     if b * s * h == 0:
         return out, lse
-    fn = entry("flash_attention", "gaot_flash_fwd",
+    lib, sym = (("flash_wide", "gaot_flash_wide_fwd") if _wide_bf16(q)
+                else ("flash_attention", "gaot_flash_fwd"))
+    fn = entry(lib, sym,
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -248,7 +265,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * s * h == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = entry("flash_attention_bwd", "gaot_flash_bwd",
+    lib, sym = (("flash_wide", "gaot_flash_wide_bwd") if _wide_bf16(q)
+                else ("flash_attention_bwd", "gaot_flash_bwd"))
+    fn = entry(lib, sym,
                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
                + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream

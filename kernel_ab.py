@@ -20,7 +20,9 @@ and times, on tensors made from one seed:
     the backward with its largest error against the plain version where
     that fits the card (not at S = 32768); the same three in fp32 (the
     dtype the example configs train in) at the fx shape and at naca0012's
-    (B = 32), with TF32 off;
+    (B = 32), with TF32 off; the same three, bf16 and fp32, of the route
+    above head dim 128 at B 1, H 4 and (D, S) = (256, 4096), (512, 2048),
+    (1024, 1024), (1024, 4096);
   - the bf16 SwiGLU forward and backward at the fx shape (R = 65536,
     M = 256, F = 1024) and at the other fused width (M = 128, F = 512),
     with their largest error against the plain versions;
@@ -86,6 +88,9 @@ MULRED_B = {"fx": (64, 64, [(5, 1536), (8, 1664), (12, 1024), (24, 128), (8, 819
 FLASH = {"fx": (64, 1024, 8, 32), "3d": (4, 4096, 8, 24), "long": (1, 32768, 8, 24)}
 # path: (B, S, H = Hkv, D) of the fp32 flash cases
 FLASH_F32 = {"fx": (64, 1024, 8, 32), "naca": (32, 1024, 8, 32)}
+# (B, S, H = Hkv, D) of the route above head dim 128, bf16 and fp32 (no path
+# runs it)
+FLASH_WIDE = [(1, 4096, 4, 256), (1, 2048, 4, 512), (1, 1024, 4, 1024), (1, 4096, 4, 1024)]
 # (R, M, F) of the fx path's SwiGLU calls, and of the other fused width
 SWIGLU = {"fx": (65536, 256, 1024), "M128": (65536, 128, 512)}
 ITERS = 20
@@ -181,6 +186,8 @@ def kernel_times(only=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [(path, shape, torch.bfloat16) for path, shape in FLASH.items()]
     cases += [(path, shape, torch.float32) for path, shape in FLASH_F32.items()]
+    cases += [("wide", shape, dtype) for shape in FLASH_WIDE
+              for dtype in (torch.bfloat16, torch.float32)]
     for path, (bb, s, h, d), dtype in cases if only in (None, "flash") else ():
         qkv = rnd(bb, s, 3, h, d).to(dtype)           # q, k, v: views of one buffer
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -188,6 +195,7 @@ def kernel_times(only=None):
         shape = f"B={bb} S={s} H={h} D={d}"
         if dtype == torch.float32:
             shape = "fp32 " + shape
+        if dtype == torch.float32 or d > 256:   # the flash entry takes bf16 up to D 256
             lib_lse = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
                 qh, kh, vh, None, True)
         else:

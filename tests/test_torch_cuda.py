@@ -199,11 +199,14 @@ def test_gather_multiply_reduce_is_deterministic():
 
 
 # GQA and ragged S at every templated head dim (8 to 128; the 3D flagship's
-# 24 and the fx path's 32 first) and two of the route with D at run time
-# (136, 256); head dim 24 also at S = 4096 (the regime of the TPU's q-tiled
-# backward) and 8192 (its two-kernel long backward). At D % 16 == 8 the bf16
-# products over D take a last k-step of 16 whose upper half is zero.
-_FLASH_DIMS = [24, 32] + [d for d in range(8, 129, 8) if d not in (24, 32)] + [136, 256]
+# 24 and the fx path's 32 first) and five of the routes with D at run time
+# (136, 256; 264 with a ragged last output slice of 8 columns, 512 and 1024
+# with several slices, the bf16 forward's queries resident at 512 and
+# streamed at 1024); head dim 24 also at S = 4096 (the regime of the TPU's
+# q-tiled backward) and 8192 (its two-kernel long backward). At D % 16 == 8
+# the bf16 products over D take a last k-step of 16 whose upper half is zero.
+_FLASH_DIMS = ([24, 32] + [d for d in range(8, 129, 8) if d not in (24, 32)]
+               + [136, 256, 264, 512, 1024])
 _FLASH_SHAPES = [(b, s, h, hkv, d) for d in _FLASH_DIMS
                  for b, s, h, hkv in ((2, 100, 8, 2), (1, 1, 4, 4), (3, 257, 6, 3))]
 _FLASH_3D = [(2, 4096, 8, 8, 24), (1, 8192, 4, 2, 24)]
@@ -273,10 +276,12 @@ def test_flash_attention_backward(dtype, b, s, h, hkv, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,hkv,d", [(64, 1024, 8, 8, 32), (2, 1000, 8, 2, 24)])
+@pytest.mark.parametrize("b,s,h,hkv,d", [(64, 1024, 8, 8, 32), (2, 1000, 8, 2, 24),
+                                         (2, 257, 6, 3, 264)])
 def test_flash_attention_backward_is_deterministic(dtype, b, s, h, hkv, d):
     """No float atomics: two calls on the same inputs give the same bits, at
-    the fx path's shape and at a GQA shape."""
+    the fx path's shape, at a GQA shape and at a GQA shape of the route above
+    head dim 128."""
     from gaot_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(s + d)

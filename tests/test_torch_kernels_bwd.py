@@ -135,12 +135,14 @@ def test_flash_lse_plain_matches_pallas(dtype, h, hkv):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("d", [8, 16, 64, 128, 136, 256])
+@pytest.mark.parametrize("d", [8, 16, 64, 128, 136, 256, 512, 1024])
 def test_flash_lse_plain_matches_pallas_head_dims(dtype, d):
     """The output and base-2 row LSE of the plain forward against
     ``_flash_forward(..., with_lse=True)`` at head dims besides 24 and 32,
-    those of the templated kernels and, above 128, of the route with D at
-    run time (GQA 4:2); the tolerances of the module, the LSE at 1e-5."""
+    those of the templated kernels and, above 128, of the routes with D at
+    run time (the bf16 one streams D in chunks of 64 and owns output slices
+    of 256, so 512 and 1024 take several of each; GQA 4:2); the tolerances
+    of the module, the LSE at 1e-5."""
     from gaot_tpu.ops.pallas.flash_attention import _flash_forward
 
     jdt, tdt, rtol, atol = DTYPES[dtype]
@@ -178,11 +180,13 @@ def test_flash_backward_plain_matches_pallas(dtype, h, hkv):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("d", [136, 256])
+@pytest.mark.parametrize("d", [136, 256, 512, 1024])
 def test_flash_backward_plain_matches_pallas_head_dims(dtype, d):
     """dQ, dK, dV of the plain backward against ``_flash_backward`` at
-    S = 128 at head dims above 128 (the route with D at run time), GQA 4:2,
-    with the tolerances of :func:`test_flash_backward_plain_matches_pallas`."""
+    S = 128 at head dims above 128 (the routes with D at run time; in bf16
+    dQ owns slices of 256 and dK/dV slices of 128, so 512 and 1024 take
+    several), GQA 4:2, with the tolerances of
+    :func:`test_flash_backward_plain_matches_pallas`."""
     from gaot_tpu.ops.pallas.flash_attention import _flash_backward, _flash_forward
 
     jdt, tdt, rtol, atol = DTYPES[dtype]
