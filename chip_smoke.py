@@ -38,7 +38,15 @@ failure):
      F 29056) in bf16 and M = 256, 640 in fp32, each against its plain
      version on the card at a small shape; then the fp32 flash kernels at
      every templated head dim at the edges of their tiles (S = 1 and one
-     below and above 16, 32, 64 and 128 rows, GQA 4:2).
+     below and above 16, 32, 64 and 128 rows, GQA 4:2), and the routes
+     above 128 (bf16 on wgmma, fp32 as split-TF32 wgmmas) at D = 136 and
+     264 at theirs; the routes above 128 timed at four (D, S) beside SDPA
+     (fp32 with its FFMA and split-TF32 bound shares), at D = 256,
+     S = 4096 held against the plain versions, two kernels a backward. In
+     phase 2 the fx path's reduces and the SwiGLU are timed in fp32 too
+     (the example's dtype; the SwiGLU at M = 256 and 640 beside the three
+     fp32 products). Just before the kernels line, a line of each phase's
+     seconds (also on standard error).
   2. per-kernel checks at each path's shapes, forward and backward kernels:
      each kernel against its plain PyTorch version on the card (bf16 and
      fp32), with CUDA-event timings of the kernel, the plain version and one
@@ -296,6 +304,9 @@ CONFIG = os.path.join(HERE, "config", "examples", "time_indep", "poisson_gauss.j
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+# TF32 tensor-core rate (dense), which the split-TF32 products of the fp32
+# flash route above head dim 128 run at, three passes a product.
+PEAK_TF32 = 495e12
 # exp2 on the special-function units: 16 results per clock per SM at compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), 132 SMs at the 1.98 GHz boost clock of the H100 SXM data sheet.
@@ -605,8 +616,10 @@ def phase_widths(rnd):
     plain versions at the tolerances of the per-kernel checks: the flash
     forward (with and without the LSE) and backward at every templated head
     dim and at 136, 256, 264, 520, 1024 and, at S = 128, 8192 (the routes
-    with D at run time; two backward calls there give the same bits), the
-    bf16 route at 136 and 264 also at the edges of its tiles; the SwiGLU
+    with D at run time; two backward calls there give the same bits), those
+    routes at 136 and 264 also at the edges of their tiles, bf16 and fp32,
+    and timed at four shapes (at D = 256, S = 4096 also held against the
+    plain versions, two kernels a backward); the SwiGLU
     forward and backward at the tuned widths besides 256, at widths of the
     general route (640-1024, M 4096 with F 896, F 29056 at M 128), in bf16,
     and in fp32 at M = 256 and 640; the fp32 flash kernels at the edges of
@@ -665,31 +678,56 @@ def phase_widths(rnd):
     log(f"widths: fp32 flash at head dims {fa.TEMPLATED_HEAD_DIMS[0]}.."
         f"{fa.TEMPLATED_HEAD_DIMS[-1]}, S in {FP32_FLASH_EDGES}, B=1 H=4 Hkv=2: forward, "
         f"LSE and backward within their bounds ({time.perf_counter() - t0:.1f} s)")
-    # The bf16 route above 128 at the edges of its tiles (128 queries, 128
-    # keys and 64-key tiles, 64-query tiles in dK/dV), one slice (136) and a
-    # ragged second one (264).
+    # The routes above 128 at the edges of their tiles (bf16: 128 queries,
+    # 128 keys and 64-key tiles, 64-query tiles in dK/dV; fp32: blocks of 128
+    # rows, tiles of 64), one slice (136) and a ragged second one (264).
     t0 = time.perf_counter()
     edges = FP32_FLASH_EDGES + (255, 257)
     for d in (136, 264):
-        for s_edge in edges:
-            flash(1, s_edge, 4, 2, d, torch.bfloat16, quiet=True)
-    log(f"widths: bf16 flash at head dims 136 and 264, S in {edges}, B=1 H=4 Hkv=2: "
-        f"forward, LSE and backward within their bounds, backward bit for bit twice "
-        f"({time.perf_counter() - t0:.1f} s)")
+        for dtype in (torch.bfloat16, torch.float32):
+            for s_edge in edges:
+                flash(1, s_edge, 4, 2, d, dtype, quiet=True)
+    log(f"widths: bf16 and fp32 flash at head dims 136 and 264, S in {edges}, B=1 H=4 "
+        f"Hkv=2: forward, LSE and backward within their bounds, backward bit for bit "
+        f"twice ({time.perf_counter() - t0:.1f} s)")
     # The routes with D at run time, timed (20 calls back to back) at four
     # shapes (B=1, H=4), bf16 and fp32, beside SDPA and its autograd; the
     # bound counts the work the function needs, not the scores the routes
-    # recompute for each output slice.
+    # recompute for each output slice. fp32 states two bounds: the FFMA one
+    # (the fp32 rate of the CUDA cores) and the split-TF32 one (three TF32
+    # tensor-core passes a product), which its kernels run at. At the first
+    # shape the forward, LSE and backward are held against the plain
+    # versions (the longest sums), and each backward is two kernels (the
+    # profiler's count of one call).
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for d, ss in ((256, 4096), (512, 2048), (1024, 4096), (1024, 1024)):
         for dtype in (torch.bfloat16, torch.float32):
             bb, hh = 1, 4
+            bf16 = dtype == torch.bfloat16
+            name = f"D={d} B={bb} S={ss} H={hh} {str(dtype)[6:]}"
             qkv = rnd(bb, ss, 3, hh, d).to(dtype)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             out, lse = fa.flash_attention_lse(q, k, v)
             dout = rnd(bb, ss, hh, d).to(dtype)
+            if (d, ss) == (256, 4096):
+                tol = (1e-2, 2e-3) if bf16 else (1e-4, 1e-5)
+                want_out, want_lse = fa.attention_plain(q, k, v, with_lse=True)
+                compare(f"wide flash fwd {name}", fa.flash_attention(q, k, v), want_out, *tol)
+                compare(f"wide flash fwd+LSE {name} out", out, want_out, *tol)
+                compare(f"wide flash fwd+LSE {name} lse", lse, want_lse, 1e-5, 1e-4)
+                got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+                for n, g, wt in zip("qkv", got, fa.attention_bwd_plain(q, k, v, out, dout)):
+                    compare_grad(f"wide flash bwd {name} d{n}", g, wt, 3e-2 if bf16 else 1e-4)
+                # A trace can lose records, never add them: the largest of three.
+                n_kernels = max(sum(e.count for e in device_events(
+                    lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
+                    f"wide flash bwd {name}")) for _ in range(3))
+                log(f"  wide flash bwd {name}: {n_kernels} kernels a call")
+                if n_kernels != 2:
+                    fail(f"wide flash bwd {name}: {n_kernels} kernels a call, not 2")
+                del want_out, want_lse, got
             ops, exps = 4.0 * bb * hh * ss * ss * d, float(bb * hh * ss * ss)
-            peak, size = (PEAK_BF16, 2) if dtype == torch.bfloat16 else (PEAK_FP32, 4)
+            peak, size = (PEAK_BF16, 2) if bf16 else (PEAK_FP32, 4)
             bnd = bound_ms(4 * bb * ss * hh * d * size, ops, peak, exps)
             bnd_b = bound_ms(8 * bb * ss * hh * d * size, 2.5 * ops, peak, exps)
             t_f = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -699,9 +737,17 @@ def phase_widths(rnd):
             g_l = dout.transpose(1, 2).contiguous()
             t_lf = time_ms(lambda: sdpa(*leaves))
             t_lb = time_ms(lambda: torch.autograd.grad(o_l, leaves, g_l, retain_graph=True))
-            log(f"    wide flash D={d} B={bb} S={ss} H={hh} {str(dtype)[6:]}: fwd "
+            split = ""
+            if not bf16:
+                sf = bound_ms(4 * bb * ss * hh * d * size, 3 * ops, PEAK_TF32, exps)[0]
+                sb = bound_ms(8 * bb * ss * hh * d * size, 7.5 * ops, PEAK_TF32, exps)[0]
+                split = (f"; split-TF32 bounds fwd {sf:.4f} ({sf / t_f:.1%}) bwd {sb:.4f} "
+                         f"({sb / t_b:.1%}), FFMA shares {bnd[0] / t_f:.1%} "
+                         f"{bnd_b[0] / t_b:.1%}")
+            log(f"    wide flash {name}: fwd "
                 f"kernel_ms={t_f:.4f} (SDPA {t_lf:.4f}, bound {bnd[0]:.4f}); bwd "
-                f"kernel_ms={t_b:.4f} (SDPA autograd {t_lb:.4f}, bound {bnd_b[0]:.4f})")
+                f"kernel_ms={t_b:.4f} (SDPA autograd {t_lb:.4f}, bound {bnd_b[0]:.4f})"
+                + split)
             del qkv, q, k, v, out, lse, dout, leaves, o_l, g_l
 
     r = 200
@@ -869,7 +915,7 @@ def _distinct_rows(idx, mask=None) -> int:
     return int(torch.unique(idx if mask is None else idx[mask]).numel())
 
 
-def check_multiply_reduce(rnd, b, c, cases, what):
+def check_multiply_reduce(rnd, b, c, cases, what, fp32_rows=None):
     """The index-reading multiply_reduce_k (the forward over each graph the
     step reduces, d_f over each transpose graph or in-degree group) and
     multiply_reduce_b (d_coef of each forward) on the path's real graphs
@@ -882,18 +928,20 @@ def check_multiply_reduce(rnd, b, c, cases, what):
     nothing): coefficients (valid slots × C; C for a coefficient of one
     broadcast over every slot, as the row reorders take it), indices of
     those slots and the masks, the output, and each distinct source row
-    once. multiply_reduce_b reads every slot."""
+    once. multiply_reduce_b reads every slot. With ``fp32_rows``, a dict,
+    the fp32 calls are timed too (beside the library pair and the plain
+    version) and that dict takes their rows."""
     import torch
 
     from gaot_torch.ops.cuda import multiply_reduce as mr
 
     w = b * c
     keys = ("ms", "parent_pair_ms", "library_ms", "plain_ms", "bytes", "ops", "err")
-    agg = {name: dict.fromkeys(keys, 0.0) for name in ("multiply_reduce_k",
-                                                        "multiply_reduce_b")}
+    agg = {(name, dt): dict.fromkeys(keys, 0.0)
+           for name in ("multiply_reduce_k", "multiply_reduce_b") for dt in ("bf16", "fp32")}
 
-    def record(name, label, err, times=None, nbytes=0.0, ops=0.0):
-        a = agg[name]
+    def record(name, dt, label, err, times=None, nbytes=0.0, ops=0.0):
+        a = agg[name, dt]
         a["err"] = max(a["err"], err)
         if times is None:
             return
@@ -902,14 +950,22 @@ def check_multiply_reduce(rnd, b, c, cases, what):
         a["bytes"] += nbytes
         a["ops"] += ops
         bnd = bound_ms(nbytes, ops, PEAK_FP32)[0]
-        log(f"    {label}: kernel_ms={times['ms']:.4f} parent_pair_ms="
-            f"{times['parent_pair_ms']:.4f} library_ms={times['library_ms']:.4f} "
-            f"plain_ms={times['plain_ms']:.4f} bound_ms={bnd:.4f} "
-            f"({nbytes / times['ms'] / 1e6:.0f} GB/s)")
+        parent = (f" parent_pair_ms={times['parent_pair_ms']:.4f}"
+                  if "parent_pair_ms" in times else "")
+        log(f"    {label}: kernel_ms={times['ms']:.4f}{parent} "
+            f"library_ms={times['library_ms']:.4f} plain_ms={times['plain_ms']:.4f} "
+            f"bound_ms={bnd:.4f} ({nbytes / times['ms'] / 1e6:.0f} GB/s)")
 
     def same_bits(label, fn):
         if not torch.equal(fn(), fn()):
             fail(f"{label}: two calls on the same inputs differ")
+
+    def pair_ms(fn_k, fn_parent, fn_lib, fn_plain, bf16):
+        # fp32 (no parent pair): the kernel, the library pair, the plain version.
+        if bf16:
+            return _pair_ms(fn_k, fn_parent, fn_lib, fn_plain)
+        return {key: time_ms(fn) for key, fn in (("ms", fn_k), ("library_ms", fn_lib),
+                                                 ("plain_ms", fn_plain))}
 
     log(f"multiply_reduce_k / multiply_reduce_b ({what}), W = {b}·{c}, on the "
         f"path's graphs:")
@@ -917,6 +973,8 @@ def check_multiply_reduce(rnd, b, c, cases, what):
         bf16 = dtype == torch.bfloat16
         size = 2 if bf16 else 4
         dt = str(dtype)[6:]
+        kind = "bf16" if bf16 else "fp32"
+        timed = bf16 or fp32_rows is not None
         for case in cases["forward"]:
             idx, n_src = case["idx"], case["n_src"]
             # vx: masked slots load nothing. The row reorders have no d_coef
@@ -943,10 +1001,10 @@ def check_multiply_reduce(rnd, b, c, cases, what):
                                 mr.gather_multiply_reduce_b_plain(src, idx, dout, b),
                                 *tol_b)
                 same_bits(f"mulred_b {label}", kern_b)
-            if not bf16:
-                record("multiply_reduce_k", label, err)
+            if not timed:
+                record("multiply_reduce_k", kind, label, err)
                 if d_coef:
-                    record("multiply_reduce_b", label, err_b)
+                    record("multiply_reduce_b", kind, label, err_b)
                 continue
             idx_t = idx.t().reshape(-1)
             # The parent's pre-gathered kernel takes a dense coefficient.
@@ -962,18 +1020,19 @@ def check_multiply_reduce(rnd, b, c, cases, what):
             nbytes = (((c if case.get("ones") else valid * c) + q * w
                        + _distinct_rows(idx, mask) * w) * size
                       + valid * isz + (q * k if mask is not None else 0))
-            times = _pair_ms(kern, lambda: mr.multiply_reduce_k(coef_km, gath_km(), b),
-                             lambda: torch.einsum("qkc,qkbc->qbc", c4, rows()),
-                             lambda: mr.gather_multiply_reduce_k_plain(src, idx, coef, b,
-                                                                       mask=mask))
-            record("multiply_reduce_k", f"fwd {label}", err, times, nbytes,
+            times = pair_ms(kern, lambda: mr.multiply_reduce_k(coef_km, gath_km(), b),
+                            lambda: torch.einsum("qkc,qkbc->qbc", c4, rows()),
+                            lambda: mr.gather_multiply_reduce_k_plain(src, idx, coef, b,
+                                                                      mask=mask), bf16)
+            record("multiply_reduce_k", kind, f"fwd {label}", err, times, nbytes,
                    2.0 * valid * w)
             if not d_coef:
                 continue
-            times = _pair_ms(kern_b, lambda: mr.multiply_reduce_b(gath_km(), dout, b),
-                             lambda: torch.einsum("qkbc,qbc->qkc", rows(), d3),
-                             lambda: mr.gather_multiply_reduce_b_plain(src, idx, dout, b))
-            record("multiply_reduce_b", f"d_coef {label}", err_b, times,
+            times = pair_ms(kern_b, lambda: mr.multiply_reduce_b(gath_km(), dout, b),
+                            lambda: torch.einsum("qkbc,qbc->qkc", rows(), d3),
+                            lambda: mr.gather_multiply_reduce_b_plain(src, idx, dout, b),
+                            bf16)
+            record("multiply_reduce_b", kind, f"d_coef {label}", err_b, times,
                    (q * w + q * k * c + _distinct_rows(idx) * w) * size + q * k * isz,
                    2.0 * q * k * w)
         for case in cases["d_f"]:
@@ -996,8 +1055,8 @@ def check_multiply_reduce(rnd, b, c, cases, what):
                 got = got[row_map]
             err = compare(f"mulred_k d_f {label}", got, want, *tol)
             same_bits(f"mulred_k d_f {label}", lambda: kern().clone())
-            if not bf16:
-                record("multiply_reduce_k", label, err)
+            if not timed:
+                record("multiply_reduce_k", kind, label, err)
                 continue
             tm_km = tm.t()[..., None]
             ep_t, tq_t = ep.t().reshape(-1), tq.t().reshape(-1)
@@ -1016,10 +1075,10 @@ def check_multiply_reduce(rnd, b, c, cases, what):
             isz = tq.element_size()
             nbytes = ((valid * c + q * w + _distinct_rows(tq, tm) * w) * size
                       + valid * 2 * isz + q * k + (q * isz if row_map is not None else 0))
-            times = _pair_ms(kern, parent, library,
-                             lambda: mr.gather_multiply_reduce_k_plain(
-                                 dout2, tq, table, b, coef_idx=ep, mask=tm))
-            record("multiply_reduce_k",
+            times = pair_ms(kern, parent, library,
+                            lambda: mr.gather_multiply_reduce_k_plain(
+                                dout2, tq, table, b, coef_idx=ep, mask=tm), bf16)
+            record("multiply_reduce_k", kind,
                    f"d_f {label} (valid slots {valid / (q * k):.2f})", err, times,
                    nbytes, 2.0 * valid * w)
         torch.cuda.empty_cache()
@@ -1028,18 +1087,24 @@ def check_multiply_reduce(rnd, b, c, cases, what):
     rows = {}
     for name, per in (("multiply_reduce_k",
                        f"sum of the {nf + nd} calls of one training step (the "
-                       f"forward runs {cases.get('forward_calls', nf)}); "
-                       f"parent_pair_ms: the row gathers and the pre-gathered kernel"),
-                      ("multiply_reduce_b",
-                       f"sum of the {nb} calls of one training step; "
-                       f"parent_pair_ms: the row gather and the pre-gathered kernel")):
-        a = agg[name]
-        rows[name] = _row(a["err"], a["ms"], a["plain_ms"], a["library_ms"],
-                          bound_ms(a["bytes"], a["ops"], PEAK_FP32), per,
-                          parent_pair_ms=a["parent_pair_ms"])
-        log(f"  {name} ({what}), all calls: kernel_ms={a['ms']:.4f} "
-            f"parent_pair_ms={a['parent_pair_ms']:.4f} library_ms={a['library_ms']:.4f} "
-            f"plain_ms={a['plain_ms']:.4f} bound_ms={rows[name]['bound_ms']:.4f}")
+                       f"forward runs {cases.get('forward_calls', nf)})"),
+                      ("multiply_reduce_b", f"sum of the {nb} calls of one training step")):
+        for kind, out_rows in (("bf16", rows), ("fp32", fp32_rows)):
+            if out_rows is None:
+                continue
+            a = agg[name, kind]
+            extra = {}
+            if kind == "bf16":
+                extra["parent_pair_ms"] = a["parent_pair_ms"]
+            pair = ("; parent_pair_ms: the row gather(s) and the pre-gathered kernel"
+                    if kind == "bf16" else "")
+            out_rows[name] = _row(a["err"], a["ms"], a["plain_ms"], a["library_ms"],
+                                  bound_ms(a["bytes"], a["ops"], PEAK_FP32), per + pair,
+                                  kind, **extra)
+            parent = (f" parent_pair_ms={a['parent_pair_ms']:.4f}" if kind == "bf16" else "")
+            log(f"  {name} ({what}, {kind}), all calls: kernel_ms={a['ms']:.4f}{parent} "
+                f"library_ms={a['library_ms']:.4f} plain_ms={a['plain_ms']:.4f} "
+                f"bound_ms={out_rows[name]['bound_ms']:.4f}")
     return rows
 
 
@@ -1175,7 +1240,8 @@ def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
     default), M = 256, F (1024 by default), bf16: against the plain versions, timed 20
     back to back and by profiler device time per call, beside the library's
     three products (and autograd of them); then, with ``extras``, the fp32
-    kernels at the same shape (times logged), and the general route's
+    kernels at the same rows, M = 256 and 640, beside the three fp32
+    products and their autograd (times logged), and the general route's
     forward and backward at M = 1024, F = 3584."""
     import torch
 
@@ -1237,17 +1303,28 @@ def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
         torch.cuda.empty_cache()
         return rows
 
-    # fp32 (exact FMA on the CUDA cores) at the same shape, and the general
-    # route at a width the tuned forward does not take: times logged.
-    x32 = x.float()
-    w32 = [w.float() for w in (w1, w3, w2)]
-    d32 = rnd(r, m)
-    t_f = time_ms(lambda: ff.fused_ffn(x32, *w32), iters=3, warmup=1)
-    t_fb = time_ms(lambda: ff.fused_ffn_bwd(x32, *w32, d32), iters=3, warmup=1)
-    log(f"    fp32: fwd kernel_ms={t_f:.4f} bound_ms="
-        f"{bound_ms(0, ops, PEAK_FP32)[0]:.4f}; bwd kernel_ms={t_fb:.4f} bound_ms="
-        f"{bound_ms(0, ops_b, PEAK_FP32)[0]:.4f}")
-    del x32, w32, d32, x, w1, w3, w2
+    # fp32 (exact FMA on the CUDA cores) at the same rows, M = 256 and 640,
+    # beside the three fp32 products (TF32 off) and autograd of them, and
+    # the general route at a width the tuned forward does not take: times
+    # logged.
+    del x, w1, w3, w2
+    for m32 in (256, 640):
+        x32, d32 = rnd(r, m32), rnd(r, m32)
+        w32 = weights(m32, f, torch.float32)
+        ops32 = 6.0 * r * m32 * f
+        bnd32 = bound_ms((2 * r * m32 + 3 * m32 * f) * 4, ops32, PEAK_FP32)
+        bnd32_b = bound_ms(3 * r * m32 * 4 + 3 * m32 * f * 8, 16.0 * r * m32 * f, PEAK_FP32)
+        t_f = time_ms(lambda: ff.fused_ffn(x32, *w32))
+        t_fl = time_ms(lambda: (silu(x32 @ w32[0].t()) * (x32 @ w32[1].t())) @ w32[2].t())
+        t_fb = time_ms(lambda: ff.fused_ffn_bwd(x32, *w32, d32))
+        leaves = [t.detach().requires_grad_(True) for t in (x32, *w32)]
+        xl, w1l, w3l, w2l = leaves
+        out = (silu(xl @ w1l.t()) * (xl @ w3l.t())) @ w2l.t()
+        t_fbl = time_ms(lambda: torch.autograd.grad(out, leaves, d32, retain_graph=True))
+        log(f"    fp32 R={r} M={m32} F={f}: fwd kernel_ms={t_f:.4f} library_ms={t_fl:.4f} "
+            f"bound_ms={bnd32[0]:.4f}; bwd kernel_ms={t_fb:.4f} library_ms={t_fbl:.4f} "
+            f"bound_ms={bnd32_b[0]:.4f}")
+        del x32, d32, w32, leaves, out
     m, f = 1024, 3584
     x = rnd(r, m).bfloat16()
     w1, w3, w2 = weights(m, f, torch.bfloat16)
@@ -4714,9 +4791,15 @@ def main() -> int:
     from gaot_torch.core.config import GAOTConfig, load_experiment_config, merge_config
 
     t_main = time.perf_counter()
-    mark = lambda what: log(f"[{time.perf_counter() - t_main:.1f} s] {what} done")
+    marks = []
+
+    def mark(what):
+        marks.append((what, time.perf_counter() - t_main))
+        log(f"[{marks[-1][1]:.1f} s] {what} done")
+
     card = phase_card()
     phase_build()
+    mark("phase 1 (card, build)")
 
     cfg = load_experiment_config(CONFIG)
     main_path = Path("fx main path", cfg,
@@ -4770,13 +4853,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     phase_widths(rnd)
+    mark("phase 1b (widths)")
     tcfg3 = cfg3.model.args.transformer
     h3 = tcfg3.attn_config.num_heads
     d3 = tcfg3.hidden_size // h3
     c3 = cfg3.model.args.magno.lifting_channels
     fp32_fx = {}   # the fp32 flash rows at the fx shape (the @fp32 entries)
     checks = {
-        "main": {**check_multiply_reduce(rnd, BATCH, 64, cases, "fx main path"),
+        "main": {**check_multiply_reduce(rnd, BATCH, 64, cases, "fx main path",
+                                         fp32_rows=fp32_fx),
                  **check_flash(rnd, BATCH, SEQ, 8, 32, fp32_rows=fp32_fx), **check_ffn(rnd)},
         "3d": {**check_multiply_reduce(rnd, BATCH_3D, c3, cases3, "3D flagship"),
                **check_flash(rnd, BATCH_3D, SEQ_3D, h3, d3)},
@@ -4798,7 +4883,7 @@ def main() -> int:
     # all heads at once; logged only.
     check_flash(rnd, 1, 8192, h3, d3, with_eval=False)
     torch.cuda.empty_cache()
-    mark("phases 1b-2")
+    mark("phase 2")
 
     fwd = phase_forward(main_path)
     train, step_ms = phase_train(main_path)
@@ -4928,6 +5013,15 @@ def main() -> int:
     kernels_line += _entries(picked, main_names,
                              {k: g["launches"][main_names[k]] for k in picked},
                              "fx main path, DDP-captured step", "@graph-ddp")
+    # Each phase's seconds (from the marks) on one line, also on standard
+    # error: the kernels line alone passes the 24 KB that the end of a
+    # standard-output log may keep.
+    mark("the kernel entries")
+    ends = [0.0] + [t for _, t in marks]
+    secs = "phase seconds: " + "; ".join(
+        f"{what} {t - t0:.1f}" for (what, t), t0 in zip(marks, ends)) + f"; total {ends[-1]:.1f}"
+    log(secs)
+    print(secs, file=sys.stderr, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,10 @@
 // with an optional base-2 row log-sum-exp m + log2(l) [B, H, S] for the
 // backward (flash_attention_bwd.cu). Replaces the TPU kernels _attn_kernel
 // and _attn_kernel_lse of gaot_tpu/ops/pallas/flash_attention.py
-// (_flash_forward). Every kernel below flash_fwd_wide is a template on the
-// head dim D, built for every multiple of 8 from 8 to 128; head dims above
-// 128 take flash_fwd_wide in fp32 and flash_wide.cu's wgmma forward in bf16,
-// with D at run time (flash_common.cuh).
+// (_flash_forward). Every kernel below is a template on the head dim D,
+// built for every multiple of 8 from 8 to 128; head dims above 128 take
+// flash_wide.cu's wgmma forward in bf16 and flash_wide_f32.cu's split-TF32
+// one in fp32, with D at run time.
 //
 // bf16 (flash_fwd_bf16). What bounds it: one exp2 per score on the
 // special-function units (16 per clock per SM), then the two products on
@@ -396,153 +396,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// Head dims above 128 in fp32 (flash_common.cuh; bf16 takes flash_wide.cu):
-// one block per (batch * q-head, 64
-// queries, 128 output columns), 256 threads. Per tile of 64 keys: the scores
-// over the full D, streamed in slices of 64 (each thread 4 queries x 4
-// keys); the online softmax (four threads a row); then
-// O += P V for the block's 128 columns (each thread 4 queries x 8 columns).
-constexpr int WIDE_FWD_SMEM = (2 * WR * WSP + WR * WSP + 3 * WR) * 4;
-
-__global__ void __launch_bounds__(256)
-flash_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ out,
-               float* __restrict__ lse, int S, int H, int Hkv, int D, Strides qs,
-               Strides ks, Strides vs, float scale_log2) {
-  extern __shared__ float wsm[];
-  float* Qs = wsm;                  // [WR][WSP]   (scores phase)
-  float* Ks = Qs + WR * WSP;        // [WR][WSP]
-  float* Vs = wsm;                  // [WR][WOP]   (P V phase, over Qs and Ks)
-  float* Ps = wsm + 2 * WR * WSP;   // [WR][WSP]   scores, then P
-  float* ms = Ps + WR * WSP;        // running max (scaled), per query
-  float* ls = ms + WR;              // running denominator
-  float* as = ls + WR;              // this tile's rescale
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int q0 = blockIdx.y * WR, c0 = blockIdx.z * WO;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + hk * ks.h;
-  const float* vb = v + b * vs.b + hk * vs.h;
-  if (threadIdx.x < WR) {
-    ms[threadIdx.x] = -CUDART_INF_F;
-    ls[threadIdx.x] = 0.f;
-  }
-  float o[4][8];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int w = 0; w < 8; ++w) o[u][w] = 0.f;
-
-  for (int kt = 0; kt < S; kt += WR) {
-    float s[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) s[u][w] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += WS) {
-      __syncthreads();
-      load_rows_f32(Qs, WSP, qb, qs.s, q0, S, d0, D, WS);
-      load_rows_f32(Ks, WSP, kb, ks.s, kt, S, d0, D, WS);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < WS; ++d) {
-        float a[4], c[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          a[u] = Qs[(4 * ty + u) * WSP + d];
-          c[u] = Ks[(4 * tx + u) * WSP + d];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int w = 0; w < 4; ++w) s[u][w] = fmaf(a[u], c[w], s[u][w]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w)
-        Ps[(4 * ty + u) * WSP + 4 * tx + w] =
-            kt + 4 * tx + w < S ? s[u][w] * scale_log2 : -CUDART_INF_F;
-    __syncthreads();
-    {   // online softmax: four neighbouring threads per query row
-      const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
-      float* pr = Ps + row * WSP + 16 * part;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, pr[j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mold = ms[row], mnew = fmaxf(mold, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float p = exp2f(pr[j] - mnew);
-        sum += p;
-        pr[j] = p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = exp2f(mold - mnew);
-        ls[row] = ls[row] * alpha + sum;
-        ms[row] = mnew;
-        as[row] = alpha;
-      }
-    }
-    load_rows_f32(Vs, WOP, vb, vs.s, kt, S, c0, D, WO);
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float al = as[4 * ty + u];
-#pragma unroll
-      for (int w = 0; w < 8; ++w) o[u][w] *= al;
-    }
-#pragma unroll 4
-    for (int j = 0; j < WR; ++j) {
-      float vv[8];
-#pragma unroll
-      for (int w = 0; w < 8; ++w) vv[w] = Vs[j * WOP + tx + 16 * w];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float p = Ps[(4 * ty + u) * WSP + j];
-#pragma unroll
-        for (int w = 0; w < 8; ++w) o[u][w] = fmaf(p, vv[w], o[u][w]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int row = q0 + 4 * ty + u;
-    if (row >= S) continue;
-    const float inv = 1.f / ls[4 * ty + u];
-    float* orow = out + (((long long)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const int c = c0 + tx + 16 * w;
-      if (c < D) orow[c] = o[u][w] * inv;
-    }
-  }
-  if (lse != nullptr && blockIdx.z == 0 && threadIdx.x < WR && q0 + threadIdx.x < S)
-    lse[(long long)bh * S + q0 + threadIdx.x] = ms[threadIdx.x] + log2f(ls[threadIdx.x]);
-}
-
-int launch_fwd_wide(const void* q, const void* k, const void* v, void* out, float* lse,
-                    int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
-                    Strides vs, float scale_log2, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (S + WR - 1) / WR, (D + WO - 1) / WO);
-  flash_fwd_wide<<<grid, 256, WIDE_FWD_SMEM, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, S, H, Hkv, D, qs, ks, vs, scale_log2);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 struct LaunchFwd {
   static int run(const void* q, const void* k, const void* v, void* out,
@@ -593,9 +446,6 @@ extern "C" int gaot_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D > MAX_D && D % 8 == 0 && dtype == 0)   // bf16 takes flash_wide.cu
-    return launch_fwd_wide(q, k, v, out, static_cast<float*>(lse), B, S, H, Hkv, D, qs, ks,
-                           vs, scale_log2, st);
   return dispatch_head_dim<LaunchFwd>(D, q, k, v, out, static_cast<float*>(lse),
                                       B, S, H, Hkv, qs, ks, vs, scale_log2, dtype, st);
 }

@@ -2,10 +2,10 @@
 // the forward's base-2 row LSE; replaces the three regimes of the TPU
 // backward in gaot_tpu/ops/pallas/flash_attention.py (_flash_backward at
 // S <= 1024 and at S <= 4096, _flash_backward_long beyond). Every kernel
-// but the *_wide ones is a template on the head dim D, instantiated for
-// every multiple of 8 from 8 to 128 (flash_common.cuh); head dims above 128
-// take the *_wide kernels in fp32 and flash_wide.cu's wgmma backward in
-// bf16, with D at run time. Plain C interface; the entry returns
+// is a template on the head dim D, instantiated for every multiple of 8
+// from 8 to 128 (flash_common.cuh); head dims above 128 take flash_wide.cu's
+// wgmma backward in bf16 and flash_wide_f32.cu's split-TF32 one in fp32,
+// with D at run time. Plain C interface; the entry returns
 // cudaGetLastError() after its launches.
 //
 // The arithmetic (the kv-tiled flash backward):
@@ -720,262 +720,6 @@ int launch_bwd_d(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// ---- Head dims above 128 in fp32 (flash_common.cuh), D at run time; bf16
-// takes flash_wide.cu.
-// delta[b, h, s] = sum_d dout * o: one warp per row.
-__global__ void flash_bwd_delta_wide(const float* __restrict__ dout, const float* __restrict__ o,
-                                     float* __restrict__ delta, int S, int H, int D,
-                                     long long rows) {
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= rows) return;
-  const float* a = dout + i * D;
-  const float* c = o + i * D;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += a[d] * c[d];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const long long bs = i / H;
-    delta[(bs / S * H + i % H) * S + bs % S] = acc;
-  }
-}
-
-// s[u][w] += sum over one head-dim slice of A[4 ty + u] . B[4 tx + w].
-__device__ __forceinline__ void wide_dots(float s[4][4], const float* A, const float* B,
-                                          int ty, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < WS; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      a[u] = A[(4 * ty + u) * WSP + d];
-      c[u] = B[(4 * tx + u) * WSP + d];
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) s[u][w] = fmaf(a[u], c[w], s[u][w]);
-  }
-}
-
-// acc[u][w] += sum_j L[4 ty + u][j] R[j][tx + 16 w] over the WR rows j.
-__device__ __forceinline__ void wide_accumulate(float acc[4][8], const float* L,
-                                                const float* R, int ty, int tx) {
-#pragma unroll 4
-  for (int j = 0; j < WR; ++j) {
-    float rv[8];
-#pragma unroll
-    for (int w = 0; w < 8; ++w) rv[w] = R[j * WOP + tx + 16 * w];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float l = L[(4 * ty + u) * WSP + j];
-#pragma unroll
-      for (int w = 0; w < 8; ++w) acc[u][w] = fmaf(l, rv[w], acc[u][w]);
-    }
-  }
-}
-
-// dQ: one block per (batch * q-head, 64 queries, 128 columns of dQ). Per
-// tile of 64 keys: S = Q K^T and dP = dO V^T over the full D in slices,
-// dS = p (dP - delta) with p from the LSE; dQ += dS K.
-constexpr int WIDE_DQ_SMEM = (4 * WR * WSP + WR * WSP + 2 * WR) * 4;
-
-__global__ void __launch_bounds__(256)
-flash_bwd_dq_wide(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dq, int S, int H, int Hkv, int D, Strides qs,
-                  Strides ks, Strides vs, float scale_log2, float scale) {
-  extern __shared__ float wsm[];
-  float *Qs = wsm, *Ks = Qs + WR * WSP, *Ds = Ks + WR * WSP, *Vs = Ds + WR * WSP;
-  float* Kv = wsm;                        // [WR][WOP], over the slices
-  float* Ss = wsm + 4 * WR * WSP;         // dS [query][key]
-  float *Ls = Ss + WR * WSP, *Dl = Ls + WR;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int q0 = blockIdx.y * WR, c0 = blockIdx.z * WO;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + hk * ks.h;
-  const float* vb = v + b * vs.b + hk * vs.h;
-  const float* db = dout + ((long long)b * S * H + h) * D;
-  if (threadIdx.x < WR) {
-    const bool ok = q0 + threadIdx.x < S;
-    Ls[threadIdx.x] = ok ? lse[(long long)bh * S + q0 + threadIdx.x] : 0.f;
-    Dl[threadIdx.x] = ok ? delta[(long long)bh * S + q0 + threadIdx.x] : 0.f;
-  }
-  float acc[4][8];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int w = 0; w < 8; ++w) acc[u][w] = 0.f;
-
-  for (int kt = 0; kt < S; kt += WR) {
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) s[u][w] = dp[u][w] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += WS) {
-      __syncthreads();
-      load_rows_f32(Qs, WSP, qb, qs.s, q0, S, d0, D, WS);
-      load_rows_f32(Ks, WSP, kb, ks.s, kt, S, d0, D, WS);
-      load_rows_f32(Ds, WSP, db, (long long)H * D, q0, S, d0, D, WS);
-      load_rows_f32(Vs, WSP, vb, vs.s, kt, S, d0, D, WS);
-      __syncthreads();
-      wide_dots(s, Qs, Ks, ty, tx);
-      wide_dots(dp, Ds, Vs, ty, tx);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int r = 4 * ty + u;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int key = kt + 4 * tx + w;
-        const float p = key < S ? exp2f(s[u][w] * scale_log2 - Ls[r]) : 0.f;
-        Ss[r * WSP + 4 * tx + w] = p * (dp[u][w] - Dl[r]);
-      }
-    }
-    __syncthreads();
-    load_rows_f32(Kv, WOP, kb, ks.s, kt, S, c0, D, WO);
-    __syncthreads();
-    wide_accumulate(acc, Ss, Kv, ty, tx);
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int row = q0 + 4 * ty + u;
-    if (row >= S) continue;
-    float* o = dq + (((long long)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const int c = c0 + tx + 16 * w;
-      if (c < D) o[c] = acc[u][w] * scale;
-    }
-  }
-}
-
-// dK, dV: one block per (batch * kv-head, 64 keys, 128 columns of dK and
-// dV), looping over the group's q-heads and every tile of 64 queries:
-// S^T = K Q^T and dP^T = V dO^T over the full D in slices, p from the LSE
-// and dS = p (dP - delta); dV += P^T dO, dK += dS^T Q.
-constexpr int WIDE_DKV_SMEM = (4 * WR * WSP + 2 * WR * WSP + 2 * WR) * 4;
-
-__global__ void __launch_bounds__(256)
-flash_bwd_dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, int S, int H, int Hkv,
-                   int D, Strides qs, Strides ks, Strides vs, float scale_log2,
-                   float scale) {
-  extern __shared__ float wsm[];
-  float *Ks = wsm, *Vs = Ks + WR * WSP, *Qs = Vs + WR * WSP, *Ds = Qs + WR * WSP;
-  float *Qv = wsm, *Dv = wsm + WR * WOP;  // [WR][WOP] each, over the slices
-  float* Pt = wsm + 4 * WR * WSP;         // P^T [key][query]
-  float* St = Pt + WR * WSP;              // dS^T
-  float *Ls = St + WR * WSP, *Dl = Ls + WR;
-  const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv % Hkv, group = H / Hkv;
-  const int k0 = blockIdx.y * WR, c0 = blockIdx.z * WO;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* kb = k + b * ks.b + hk * ks.h;
-  const float* vb = v + b * vs.b + hk * vs.h;
-  float dka[4][8], dva[4][8];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int w = 0; w < 8; ++w) dka[u][w] = dva[u][w] = 0.f;
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const float* qb = q + b * qs.b + h * qs.h;
-    const float* db = dout + ((long long)b * S * H + h) * D;
-    const float* lrow = lse + ((long long)b * H + h) * S;
-    const float* drow = delta + ((long long)b * H + h) * S;
-    for (int qt = 0; qt < S; qt += WR) {
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) s[u][w] = dp[u][w] = 0.f;
-      for (int d0 = 0; d0 < D; d0 += WS) {
-        __syncthreads();
-        load_rows_f32(Ks, WSP, kb, ks.s, k0, S, d0, D, WS);
-        load_rows_f32(Vs, WSP, vb, vs.s, k0, S, d0, D, WS);
-        load_rows_f32(Qs, WSP, qb, qs.s, qt, S, d0, D, WS);
-        load_rows_f32(Ds, WSP, db, (long long)H * D, qt, S, d0, D, WS);
-        if (d0 == 0 && threadIdx.x < WR) {
-          const bool ok = qt + threadIdx.x < S;
-          Ls[threadIdx.x] = ok ? lrow[qt + threadIdx.x] : CUDART_INF_F;   // p = 0
-          Dl[threadIdx.x] = ok ? drow[qt + threadIdx.x] : 0.f;
-        }
-        __syncthreads();
-        wide_dots(s, Ks, Qs, ty, tx);
-        wide_dots(dp, Vs, Ds, ty, tx);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = 4 * ty + u;
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const int col = 4 * tx + w;
-          const float p = exp2f(s[u][w] * scale_log2 - Ls[col]);
-          Pt[r * WSP + col] = p;
-          St[r * WSP + col] = p * (dp[u][w] - Dl[col]);
-        }
-      }
-      __syncthreads();
-      load_rows_f32(Qv, WOP, qb, qs.s, qt, S, c0, D, WO);
-      load_rows_f32(Dv, WOP, db, (long long)H * D, qt, S, c0, D, WO);
-      __syncthreads();
-      wide_accumulate(dva, Pt, Dv, ty, tx);
-      wide_accumulate(dka, St, Qv, ty, tx);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int row = k0 + 4 * ty + u;
-    if (row >= S) continue;
-    const long long o = (((long long)b * S + row) * Hkv + hk) * D;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const int c = c0 + tx + 16 * w;
-      if (c < D) {
-        dk[o + c] = dka[u][w] * scale;
-        dv[o + c] = dva[u][w];
-      }
-    }
-  }
-}
-
-int launch_bwd_wide(const void* q, const void* k, const void* v, const void* o,
-                    const void* dout, const float* l, float* dl, void* dq, void* dk,
-                    void* dv, int B, int S, int H, int Hkv, int D, Strides qs,
-                    Strides ks, Strides vs, float scale_log2, float scale,
-                    cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_wide,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
-              *vt = static_cast<const float*>(v), *dt = static_cast<const float*>(dout);
-  const long long rows = (long long)B * S * H;
-  flash_bwd_delta_wide<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      dt, static_cast<const float*>(o), dl, S, H, D, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nd = (D + WO - 1) / WO, ns = (S + WR - 1) / WR;
-  flash_bwd_dq_wide<<<dim3(B * H, ns, nd), 256, WIDE_DQ_SMEM, st>>>(
-      qt, kt, vt, dt, l, dl, static_cast<float*>(dq), S, H, Hkv, D, qs, ks, vs, scale_log2,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_wide<<<dim3(B * Hkv, ns, nd), 256, WIDE_DKV_SMEM, st>>>(
-      qt, kt, vt, dt, l, dl, static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, D, qs,
-      ks, vs, scale_log2, scale);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 struct LaunchBwd {
   template <typename... A>
@@ -1000,9 +744,6 @@ extern "C" int gaot_flash_bwd(const void* q, const void* k, const void* v,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (D > MAX_D && D % 8 == 0 && dtype == 0)   // bf16 takes flash_wide.cu
-    return launch_bwd_wide(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, Hkv, D, qs, ks, vs,
-                           scale_log2, scale, st);
   return dispatch_head_dim<LaunchBwd>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B,
                                       S, H, Hkv, qs, ks, vs, scale_log2, scale,
                                       dtype, st);

@@ -1,8 +1,8 @@
 // Helpers shared by the flash-attention forward (flash_attention.cu) and
-// backward (flash_attention_bwd.cu) and the bf16 route for head dims above
-// 128 (flash_wide.cu): the head-dim limits, the strides of q, k and v, the
-// register A fragments of the forward's Q and of accumulators, and the
-// tiles of the fp32 route for head dims above 128.
+// backward (flash_attention_bwd.cu) and the routes for head dims above 128
+// (flash_wide.cu in bf16, flash_wide_f32.cu in fp32): the head-dim limits,
+// the strides of q, k and v, and the register A fragments of the forward's
+// Q and of accumulators.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,33 +53,6 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const bf16* p0,
   a[1] = ok1 && lo ? ld32(p1 + c) : 0u;
   a[2] = ok0 && hi ? ld32(p0 + c + 8) : 0u;
   a[3] = ok1 && hi ? ld32(p1 + c + 8) : 0u;
-}
-
-// ---- Head dims above 128 (any multiple of 8), D at run time, fp32: the
-// wide route of flash_attention.cu (flash_fwd_wide) and
-// flash_attention_bwd.cu (flash_bwd_*_wide), on the CUDA cores (fp32
-// products stay fp32: no TF32). bf16 takes flash_wide.cu, every product on
-// wgmma. A block owns WR rows (queries, or keys in dK/dV) and one slice of
-// WO columns of its outputs' head dim (a grid dimension); it recomputes the
-// full-D scores (and dP) by streaming both sides through shared memory in
-// head-dim slices of WS. The arithmetic is the 8-128 kernels': fp32 scores
-// and softmax, exp2, the base-2 LSE.
-constexpr int WR = 64;        // rows of a block and of a streamed tile
-constexpr int WS = 64;        // head-dim slice of the score products
-constexpr int WO = 128;       // head-dim slice of a block's outputs
-constexpr int WSP = WS + 1;   // padded rows of the shared tiles
-constexpr int WOP = WO + 1;
-
-// dst[r][c] (row stride ld) = row r0 + r of a [*, S, *, D] tensor (base at
-// its head, row stride rs), columns c0 + c, for c < width; zero past S or D.
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* base,
-                                              long long rs, int r0, int S,
-                                              int c0, int D, int width) {
-  for (int i = threadIdx.x; i < WR * width; i += blockDim.x) {
-    const int r = i / width, c = i % width;
-    const bool ok = r0 + r < S && c0 + c < D;
-    dst[r * ld + c] = ok ? base[(long long)(r0 + r) * rs + c0 + c] : 0.f;
-  }
 }
 
 }  // namespace flash

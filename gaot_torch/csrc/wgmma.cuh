@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels that run
 // their products on wgmma (flash_attention.cu, flash_attention_bwd.cu,
-// flash_wide.cu, fused_ffn.cu): the wgmma issue with A from registers (Wgmma)
-// or from shared memory (WgmmaSS), the shared-memory matrix descriptor of the
+// flash_wide.cu, flash_wide_f32.cu, fused_ffn.cu): the wgmma issue with A from
+// registers (Wgmma) or from shared memory (WgmmaSS; WgmmaTF32 for tf32), the
+// shared-memory matrix descriptor of the
 // no-swizzle core-matrix layout, the wgmma fences and waits, 16- and 4-byte
 // cp.async with its groups, the proxy fence between them, ex2.approx and the
 // 1024-byte-aligned dynamic shared memory of the swizzled layouts.
@@ -282,6 +283,29 @@ struct WgmmaSS<256, TA, TB> {
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+// ---- tf32 wgmma, both operands in shared memory and K-major (PTX has the
+// transpose bits for 16-bit types only): d[64 x N] (+)= A[64 x 8] . B[8 x N],
+// fp32 accumulators; the tensor cores read the top 19 bits of each fp32.
+template <int N>
+struct WgmmaTF32;
+
+template <>
+struct WgmmaTF32<64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

@@ -26,7 +26,7 @@ _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 SRC_DIR = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build", "kernels")
 KERNELS = ("multiply_reduce", "flash_attention", "flash_attention_bwd", "flash_wide",
-           "fused_ffn")
+           "flash_wide_f32", "fused_ffn")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -57,9 +57,16 @@ head dim in the no-swizzle core-matrix layout (K-major over D, MN-major
 through the transpose bit where N is D), the resident side kept in shared
 memory while it fits (the forward's queries up to D = 512, the backward's
 up to 256); the backward is two launches, dQ with δ, then dK/dV. In fp32
-the route stays on the CUDA cores (no TF32): a block owns 64 rows and a
-slice of 128 columns and streams both sides through shared memory in
-head-dim slices of 64 (PERF.md has both routes' times).
+(``gaot_torch/csrc/flash_wide_f32.cu``) every product runs on the tensor
+cores as split TF32: each operand x is held as hi = tf32(x) and
+lo = tf32(x − hi), and each product as three ``wgmma``s (lo·hi, hi·lo,
+hi·hi) with fp32 accumulators, which keeps the results to fp32's own
+rounding with TF32 left off. A tf32 ``wgmma`` reads both shared-memory
+operands K-major, so the operands whose product has N = D (V, K, dO, Q) are
+written transposed by the threads that split them; slices of 256 columns
+in the forward and dQ, 128 in dK/dV, everything streamed through a
+three-stage ``cp.async`` ring; two launches a backward (PERF.md has both
+routes' times).
 
 Backward design (``gaot_torch/csrc/flash_attention_bwd.cu``): the TPU kernel
 holds a head's whole [S, S] row block in VMEM; on the card the tiled flash
@@ -203,11 +210,16 @@ def _check_kernel_inputs(q, k, v):
                              "16-byte aligned rows and strides")
 
 
-def _wide_bf16(q) -> bool:
-    """bf16 above the templated head dims: the wgmma route of
-    ``csrc/flash_wide.cu`` (fp32 keeps the CUDA-core route of
-    ``flash_attention.cu`` and ``flash_attention_bwd.cu``)."""
-    return q.shape[-1] > TEMPLATED_HEAD_DIMS[-1] and q.dtype == torch.bfloat16
+def _entries(q):
+    """(library, entry) of the forward and of the backward for q's head dim
+    and dtype: the templated kernels up to D = 128, above it the route with
+    D at run time, ``csrc/flash_wide.cu`` in bf16 and
+    ``csrc/flash_wide_f32.cu`` in fp32."""
+    if q.shape[-1] <= TEMPLATED_HEAD_DIMS[-1]:
+        return (("flash_attention", "gaot_flash_fwd"),
+                ("flash_attention_bwd", "gaot_flash_bwd"))
+    lib = "flash_wide" if q.dtype == torch.bfloat16 else "flash_wide_f32"
+    return (lib, f"gaot_{lib}_fwd"), (lib, f"gaot_{lib}_bwd")
 
 
 def _strides(*ts):
@@ -224,8 +236,7 @@ def _forward_kernel(q, k, v, with_lse: bool):
            if with_lse else None)
     if b * s * h == 0:
         return out, lse
-    lib, sym = (("flash_wide", "gaot_flash_wide_fwd") if _wide_bf16(q)
-                else ("flash_attention", "gaot_flash_fwd"))
+    lib, sym = _entries(q)[0]
     fn = entry(lib, sym,
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -265,8 +276,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * s * h == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib, sym = (("flash_wide", "gaot_flash_wide_bwd") if _wide_bf16(q)
-                else ("flash_attention_bwd", "gaot_flash_bwd"))
+    lib, sym = _entries(q)[1]
     fn = entry(lib, sym,
                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
                + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])

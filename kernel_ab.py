@@ -33,7 +33,9 @@ and times, on tensors made from one seed:
     otherwise): the public functions, so every checkout times its own
     route through them;
   - with the flash cases, one fp32 SGEMM (8192^3, TF32 off): the rate the
-    card reaches in fp32 products;
+    card reaches in fp32 products, with the precision settings it ran
+    under and the name of the kernel cuBLAS chose; and the kernels one
+    backward call of the route above head dim 128 launches;
   - the PyTorch library call that computes the same function (einsum; SDPA,
     or its aten entry that also returns the LSE (the flash entry in bf16,
     the memory-efficient one in fp32), and SDPA's autograd; the
@@ -149,6 +151,28 @@ def device_ms(fn):
     return us / ITERS / 1e3
 
 
+def kernel_names(fn, tries=3):
+    """{device kernel name: launches} of one call (torch.profiler): the
+    fullest of ``tries`` traces, since a trace can lose records (the device
+    yardstick of a process whose traces lose them reads short)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+        if sum(names.values()) > sum(best.values()):
+            best = names
+    return best
+
+
 def yardsticks(fn):
     return {"single": single_ms(fn), "batched": batched_ms(fn), "device": device_ms(fn)}
 
@@ -210,6 +234,9 @@ def kernel_times(only=None):
         out, lse = fa.flash_attention_lse(q, k, v)
         dout = rnd(bb, s, h, d).to(dtype)
         case = {"kernel": yardsticks(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse))}
+        if path == "wide":   # the kernels one backward call launches
+            case["kernels_per_call"] = sum(kernel_names(
+                lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse)).values())
         leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
         o_l, g_l = sdpa(*leaves), dout.transpose(1, 2).contiguous()
         case["library"] = yardsticks(
@@ -228,9 +255,17 @@ def kernel_times(only=None):
         torch.cuda.empty_cache()
     if only in (None, "flash"):
         # The rate the card reaches in fp32 products without TF32: one
-        # cuBLAS SGEMM, a yardstick for the fp32 flash kernels.
+        # cuBLAS SGEMM, a yardstick for the fp32 flash kernels, with the
+        # precision settings it ran under and the kernel cuBLAS chose (its
+        # name says whether the products ran in fp32, TF32 or split).
         a, b = rnd(8192, 8192), rnd(8192, 8192)
-        res["sgemm fp32 8192^3 (TF32 off)"] = {"library": yardsticks(lambda: a @ b)}
+        matmul = torch.backends.cuda.matmul
+        info = {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+                "allow_tf32": matmul.allow_tf32,
+                "fp32_precision": getattr(matmul, "fp32_precision", "(not in this torch)"),
+                "kernels": kernel_names(lambda: a @ b)}
+        res["sgemm fp32 8192^3 (TF32 off)"] = {"library": yardsticks(lambda: a @ b),
+                                               "info": info}
         del a, b
     from gaot_torch.ops.cuda import fused_ffn as ff
 
@@ -498,11 +533,14 @@ def main():
             for y in ("single", "batched", "device"):
                 vals = " ".join(f"{r['kernels'][case][who][y]:.4f}" for r in runs)
                 print(f"{case} | {who} | {y}: {vals}")
-        for key in ("max_abs_err", "max_rel_err"):
+        for key in ("max_abs_err", "max_rel_err", "kernels_per_call"):
             if key in runs[0]["kernels"][case]:
                 vals = " ".join(f"{r['kernels'][case].get(key, float('nan')):.3g}"
                                 for r in runs)
                 print(f"{case} | {key}: {vals}")
+        for r in runs:
+            if "info" in r["kernels"][case]:
+                print(f"{case} | info: {json.dumps(r['kernels'][case]['info'])}")
     for j, h in enumerate(runs[0].get("host", [])):
         for key in ("median", "wall", "busy", "idle"):
             vals = " ".join(f"{r['host'][j][key]:.3f}" for r in runs)

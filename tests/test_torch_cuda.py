@@ -239,8 +239,10 @@ _FLASH_BWD_SHAPES = [x for x in _FLASH_SHAPES if x[4] in (24, 32) or x[1] > 1]
 # up to 256; in fp32 (csrc/flash_f32.cuh) blocks of 128 or 64 rows, streamed
 # tiles of 16, 32 or 64; so S one below, at and one above each; the smallest
 # head dim, the largest templated one and one of each line of the fp32
-# tile table, GQA 4:1.
-_FLASH_BWD_EDGES = [(1, s, 4, 1, d) for d in (8, 24, 32, 48, 64, 72, 128)
+# tile table, GQA 4:1; and the routes above 128 (blocks of 128 rows, tiles
+# of 64; in fp32 chunks of 32 and pieces of 64 columns) at one slice (136)
+# and a ragged second one (264).
+_FLASH_BWD_EDGES = [(1, s, 4, 1, d) for d in (8, 24, 32, 48, 64, 72, 128, 136, 264)
                     for s in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256,
                               257)]
 
