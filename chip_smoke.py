@@ -571,13 +571,14 @@ def phase_card():
 
 # The kernels whose ptxas report the build logs, beside that of every kernel
 # that spills: the flash forward and backward, the multiply-reduces and
-# the SwiGLU kernels; the bf16 SwiGLU kernels (the forward and backward rows fused at
-# M = 128 and 256, the producer and the GEMM that serve every other width)
-# may not spill.
+# the SwiGLU kernels; the SwiGLU kernels may not spill: bf16 (the forward
+# and backward rows fused at M = 128 and 256, the producer and the GEMM that
+# serve every other width) and fp32 (ffn_tf32_*: the split-TF32 producer,
+# GEMM and transposes).
 PTXAS_LOGGED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
                 "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_wide_",
                 "mulred_k_kernel", "mulred_b_kernel", "ffn_")
-NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_produce")
+NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_produce", "ffn_tf32_")
 
 
 def phase_build():
@@ -622,7 +623,8 @@ def phase_widths(rnd):
     plain versions, two kernels a backward); the SwiGLU
     forward and backward at the tuned widths besides 256, at widths of the
     general route (640-1024, M 4096 with F 896, F 29056 at M 128), in bf16,
-    and in fp32 at M = 256 and 640; the fp32 flash kernels at the edges of
+    and in fp32 at M 128-1024, R 1, 129 and 200, F 128 and 29056 (two
+    backward calls bit for bit); the fp32 flash kernels at the edges of
     their tiles (FP32_FLASH_EDGES)."""
     import torch
 
@@ -750,15 +752,21 @@ def phase_widths(rnd):
                 + split)
             del qkv, q, k, v, out, lse, dout, leaves, o_l, g_l
 
-    r = 200
-    cases = [(m, 256, torch.bfloat16) for m in (128, 384, 512, 640, 768, 896, 1024)]
-    cases += [(4096, 896, torch.bfloat16), (128, 29056, torch.bfloat16),
-              (256, 256, torch.float32), (640, 256, torch.float32)]
-    log(f"widths: fused SwiGLU, R={r}, (M, F, dtype) in "
-        f"{[(m, f, str(dt)[6:]) for m, f, dt in cases]}:")
-    for m, f, dtype in cases:
+    # bf16 at R 200; fp32 (the split-TF32 kernels: 128-row tiles, 64
+    # columns of F a producer tile, K in chunks of 32, the transposed K = R
+    # operands padded to 32 rows) at ragged R, one row and one row past a
+    # tile, every M from 128 to 1024, F 128 and the gate's widest, 29056;
+    # two fp32 backward calls give the same bits.
+    cases = [(m, 256, torch.bfloat16, 200) for m in (128, 384, 512, 640, 768, 896, 1024)]
+    cases += [(4096, 896, torch.bfloat16, 200), (128, 29056, torch.bfloat16, 200)]
+    cases += [(m, 256, torch.float32, 200) for m in (128, 256, 384, 512, 640, 1024)]
+    cases += [(128, 256, torch.float32, 1), (256, 256, torch.float32, 129),
+              (128, 128, torch.float32, 200), (128, 29056, torch.float32, 200)]
+    log(f"widths: fused SwiGLU, (M, F, dtype, R) in "
+        f"{[(m, f, str(dt)[6:], r) for m, f, dt, r in cases]}:")
+    for m, f, dtype, r in cases:
         bf16 = dtype == torch.bfloat16
-        name = f"M={m} F={f} {str(dtype)[6:]}"
+        name = f"M={m} F={f} {str(dtype)[6:]} R={r}"
         x = rnd(r, m).to(dtype)
         w1 = (rnd(f, m) / m ** 0.5).to(dtype)
         w3 = (rnd(f, m) / m ** 0.5).to(dtype)
@@ -771,6 +779,10 @@ def phase_widths(rnd):
         want = ff.fused_ffn_bwd_plain(x, w1, w3, w2, dout)
         for n, g, wt in zip(("dx", "dw1", "dw3", "dw2"), got, want):
             compare_grad(f"widths fused_ffn bwd {name} {n}", g, wt, 2e-2 if bf16 else 1e-4)
+        if not bf16:
+            again = ff.fused_ffn_bwd(x, w1, w3, w2, dout)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"widths fused_ffn bwd {name}: two calls differ")
     torch.cuda.synchronize()
     log(f"widths phase: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1239,10 +1251,9 @@ def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
     """The SwiGLU forward and backward at R tokens (the fx shape by
     default), M = 256, F (1024 by default), bf16: against the plain versions, timed 20
     back to back and by profiler device time per call, beside the library's
-    three products (and autograd of them); then, with ``extras``, the fp32
-    kernels at the same rows, M = 256 and 640, beside the three fp32
-    products and their autograd (times logged), and the general route's
-    forward and backward at M = 1024, F = 3584."""
+    three products (and autograd of them); then, with ``extras``, the
+    general route's forward and backward at M = 1024, F = 3584 (the fp32
+    kernels: :func:`check_ffn_f32`)."""
     import torch
 
     from gaot_torch.ops.cuda import fused_ffn as ff
@@ -1303,28 +1314,9 @@ def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
         torch.cuda.empty_cache()
         return rows
 
-    # fp32 (exact FMA on the CUDA cores) at the same rows, M = 256 and 640,
-    # beside the three fp32 products (TF32 off) and autograd of them, and
-    # the general route at a width the tuned forward does not take: times
+    # The general route at a width the tuned forward does not take: times
     # logged.
     del x, w1, w3, w2
-    for m32 in (256, 640):
-        x32, d32 = rnd(r, m32), rnd(r, m32)
-        w32 = weights(m32, f, torch.float32)
-        ops32 = 6.0 * r * m32 * f
-        bnd32 = bound_ms((2 * r * m32 + 3 * m32 * f) * 4, ops32, PEAK_FP32)
-        bnd32_b = bound_ms(3 * r * m32 * 4 + 3 * m32 * f * 8, 16.0 * r * m32 * f, PEAK_FP32)
-        t_f = time_ms(lambda: ff.fused_ffn(x32, *w32))
-        t_fl = time_ms(lambda: (silu(x32 @ w32[0].t()) * (x32 @ w32[1].t())) @ w32[2].t())
-        t_fb = time_ms(lambda: ff.fused_ffn_bwd(x32, *w32, d32))
-        leaves = [t.detach().requires_grad_(True) for t in (x32, *w32)]
-        xl, w1l, w3l, w2l = leaves
-        out = (silu(xl @ w1l.t()) * (xl @ w3l.t())) @ w2l.t()
-        t_fbl = time_ms(lambda: torch.autograd.grad(out, leaves, d32, retain_graph=True))
-        log(f"    fp32 R={r} M={m32} F={f}: fwd kernel_ms={t_f:.4f} library_ms={t_fl:.4f} "
-            f"bound_ms={bnd32[0]:.4f}; bwd kernel_ms={t_fb:.4f} library_ms={t_fbl:.4f} "
-            f"bound_ms={bnd32_b[0]:.4f}")
-        del x32, d32, w32, leaves, out
     m, f = 1024, 3584
     x = rnd(r, m).bfloat16()
     w1, w3, w2 = weights(m, f, torch.bfloat16)
@@ -1337,6 +1329,109 @@ def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
         f"bwd kernel_ms={t_gb:.4f} (bound {bound_ms(0, 16.0 * r * m * f, PEAK_BF16)[0]:.4f})")
     del x, w1, w3, w2, dout
     torch.cuda.empty_cache()
+    return rows
+
+
+def check_ffn_f32(rnd, r: int = BATCH * SEQ, f: int = 1024) -> dict:
+    """The fp32 SwiGLU kernels (split-TF32 products on the tensor cores) at
+    the fx shape's R rows, M = 256 and 640, F: against the plain versions
+    (the three fp32 products, TF32 off) at the fp32 bounds of the widths
+    phase (forward rtol 1e-4, atol 1e-5; gradients 1e-4 of each largest
+    entry), two backward calls bit for bit, the kernels one call launches
+    (2 forward, 4 backward: the fullest of up to five traces, whose
+    kernels' device ms are logged and summed), and timed (20 calls back to
+    back) beside the library's three fp32 products and their autograd and
+    the plain versions (no other profile: late in this script's process
+    traces have lost records, and this check adds as few as it can), with the
+    FFMA bound (the CUDA cores' fp32 rate) and the split-TF32 one (three
+    TF32 passes a product, the kernels' route) and each one's share. Returns
+    the M = 256 rows (the fx width) for the kernels line; their bound_ms is
+    the split-TF32 one."""
+    import torch
+
+    from gaot_torch.ops.cuda import fused_ffn as ff
+
+    silu = torch.nn.functional.silu
+    rows = {}
+    for m in (256, 640):
+        name = f"fp32 R={r} M={m} F={f}"
+        log(f"fused SwiGLU, {name}:")
+        x, dout = rnd(r, m), rnd(r, m)
+        w = (rnd(f, m) / m ** 0.5, rnd(f, m) / m ** 0.5, rnd(m, f) / f ** 0.5)
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail("the fp32 SwiGLU's plain versions would run their products in TF32")
+        err = compare(f"fused_ffn fwd {name}", ff.fused_ffn(x, *w),
+                      ff.fused_ffn_plain(x, *w), 1e-4, 1e-5)
+        got = ff.fused_ffn_bwd(x, *w, dout)
+        want = ff.fused_ffn_bwd_plain(x, *w, dout)
+        err_b = max(compare_grad(f"fused_ffn bwd {name} {n}", g, wt, 1e-4)
+                    for n, g, wt in zip(("dx", "dw1", "dw3", "dw2"), got, want))
+        del want
+        again = ff.fused_ffn_bwd(x, *w, dout)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"fused_ffn bwd {name}: two calls differ")
+        del got, again
+        kern = lambda: ff.fused_ffn(x, *w)
+        kern_b = lambda: ff.fused_ffn_bwd(x, *w, dout)
+        # A trace can lose records, never add them: the fullest of up to
+        # five, with each kernel's device ms. A small kernel leads each
+        # trace: late in this script's process the profiler has lost the
+        # first kernel of every trace of a call (a fresh process recorded
+        # them all).
+        def traced(fn):
+            def calls():
+                torch.ones(1, device="cuda").add_(1)
+                fn()
+            return [e for e in device_events(calls, f"fused_ffn {name}") if "ffn_" in e.key]
+
+        n_calls, dev = {}, {}
+        for what, fn, want in (("forward", kern, 2), ("backward", kern_b, 4)):
+            best = []
+            for _ in range(5):
+                evs = traced(fn)
+                if sum(e.count for e in evs) > sum(e.count for e in best):
+                    best = evs
+                if sum(e.count for e in best) >= want:
+                    break
+            n_calls[what] = sum(e.count for e in best)
+            dev[what] = sum(e.self_device_time_total for e in best) / 1e3
+            log(f"  fused_ffn {name}: {n_calls[what]} kernels a {what} call: " + "; ".join(
+                f"{e.key[:48]} {e.self_device_time_total / 1e3:.4f} ms" for e in best))
+        n_f, n_b = n_calls["forward"], n_calls["backward"]
+        if (n_f, n_b) != (2, 4):
+            fail(f"fused_ffn {name}: {n_f} and {n_b} kernels a call, not 2 and 4")
+        leaves = [t.detach().requires_grad_(True) for t in (x, *w)]
+        xl, w1l, w3l, w2l = leaves
+        out = (silu(xl @ w1l.t()) * (xl @ w3l.t())) @ w2l.t()
+        lib = lambda: (silu(x @ w[0].t()) * (x @ w[1].t())) @ w[2].t()
+        lib_b = lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        t_k, t_l, t_kb, t_lb = (time_ms(fn) for fn in (kern, lib, kern_b, lib_b))
+        t_p = time_ms(lambda: ff.fused_ffn_plain(x, *w), iters=5)
+        t_pb = time_ms(lambda: ff.fused_ffn_bwd_plain(x, *w, dout), iters=5)
+        ops = 6.0 * r * m * f
+        nbytes, nbytes_b = (2 * r * m + 3 * m * f) * 4, 3 * r * m * 4 + 3 * m * f * 8
+        bounds = {}
+        for what, o, nb, t, d, tl, tp in (("fwd", ops, nbytes, t_k, dev["forward"], t_l, t_p),
+                                          ("bwd", 16 / 6 * ops, nbytes_b, t_kb,
+                                           dev["backward"], t_lb, t_pb)):
+            ffma, split = bound_ms(nb, o, PEAK_FP32), bound_ms(nb, 3 * o, PEAK_TF32)
+            bounds[what] = (ffma, split)
+            log(f"    {name} {what}: kernel_ms={t:.4f} (device {d:.4f}) library_ms={tl:.4f} "
+                f"plain_ms={tp:.4f}; FFMA bound {ffma[0]:.4f} "
+                f"({ffma[0] / t:.1%}), split-TF32 bound {split[0]:.4f} ({split[0] / t:.1%}); "
+                f"{o / t / 1e9:.1f} TFLOP/s of fp32 work; "
+                f"{'below' if t < tl else 'above'} the library by {max(t, tl) / min(t, tl):.2f}x")
+        if m == 256:
+            rows["fused_ffn_fwd"] = _row(err, t_k, t_p, t_l, bounds["fwd"][1], "one call",
+                                         "fp32", device_ms=dev["forward"],
+                                         ffma_bound_ms=bounds["fwd"][0][0],
+                                         kernels_per_call=n_f)
+            rows["fused_ffn_bwd"] = _row(err_b, t_kb, t_pb, t_lb, bounds["bwd"][1], "one call",
+                                         "fp32", device_ms=dev["backward"],
+                                         ffma_bound_ms=bounds["bwd"][0][0],
+                                         kernels_per_call=n_b)
+        del x, dout, w, leaves, out
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4146,19 +4241,23 @@ class _Draws:
             fail("naca0012: the replayed steps repeat one draw")
 
 
-def _path_graph(path: Path, card: str) -> dict:
-    """11.3 on a driven path (phase 4's model, graphs and one batch, bf16):
-    GRAPH_STEPS steps of the step body (``step_update`` at the schedule's
-    first rate) issued from the host, then, from the same state, the same
-    steps captured and replayed; the timings both ways."""
+def _path_graph(path: Path, card: str, dtype=None, profile: bool = True) -> dict:
+    """11.3 on a driven path (phase 4's model, graphs and one batch, in
+    ``dtype``, bf16 by default): GRAPH_STEPS steps of the step body
+    (``step_update`` at the schedule's first rate) issued from the host,
+    then, from the same state, the same steps captured and replayed; the
+    timings both ways (with ``profile``, :func:`_both_ways`'s profiles;
+    else the medians of 10 synchronised steps alone)."""
     import torch
+
+    dtype = dtype or torch.bfloat16
 
     from gaot_torch.ops import cuda as kernels
     from gaot_torch.train.graphed import CapturedStep, Snapshot
     from gaot_torch.train.schedules import make_optimizer
     from gaot_torch.train.static_trainer import step_update
 
-    model = _model(path, torch.bfloat16, "cuda")
+    model = _model(path, dtype, "cuda")
     graphs, xc, nmask = _graph_args(path, path.batch, "cuda")
     opt, sched = make_optimizer(path.cfg.optimizer, model.parameters(),
                                 path.steps_per_epoch)
@@ -4195,8 +4294,19 @@ def _path_graph(path: Path, card: str) -> dict:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     peak_g = torch.cuda.max_memory_allocated()
-    what = f"{path.name} (batch {path.batch}, bf16)"
+    what = f"{path.name} (batch {path.batch}, {str(dtype)[6:]})"
     worst = _hold(f"phase 11 {what}", losses.clone(), eager, _weights(model), w_e)
+    if not profile:
+        res = {way: {"ms": statistics.median(host_times(run, 10))}
+               for way, run in (("eager", body), ("graph", step.replay))}
+        res.update(capture_s=capture_s, launches=launches, replays=n)
+        log(f"phase 11 {what} ({card}): step ms eager {res['eager']['ms']:.3f} / graph "
+            f"{res['graph']['ms']:.3f}; capture {capture_s:.3f} s; peak "
+            f"{peak_e / 2**30:.3f} / {peak_g / 2**30:.3f} GiB; launches in the graph's run "
+            f"{launches}")
+        del step, model, opt, graphs
+        torch.cuda.empty_cache()
+        return res
     res = _both_ways(f"{path.name} step", body, step.replay, path.batch,
                      gathers=path.row_gathers)
     res.update(capture_s=capture_s, peak_e=peak_e, peak_g=peak_g, worst=worst,
@@ -4210,6 +4320,63 @@ def _path_graph(path: Path, card: str) -> dict:
     del step, model, opt, graphs
     torch.cuda.empty_cache()
     return res
+
+
+def phase_ffn_on(path: Path, card: str) -> dict:
+    """The fx main path's fp32 training step at its batch with
+    transformer.fused_ffn "on" (the fp32 SwiGLU kernels) beside "auto" (the
+    route every example takes: fp32 runs the plain three products, as
+    gaot_tpu routes it). One step each from the same weights and batch: the
+    loss and every gradient within 1e-3 of each tensor's largest entry (the
+    fp32 step bound of PERF.md's agreement metric), 3 forward and 3
+    backward SwiGLU launches a step under "on" and none under "auto". Then
+    each setting's step eager and captured (:func:`_path_graph` in fp32:
+    the graph's loss bits and weights against eager's, its SwiGLU launches
+    by the wrappers' counts; no profile, whose traces lose records late in
+    this process), the ms on a line of their own. This measures the kernels on a model path;
+    it changes no route. Returns the "on" step's launches."""
+    import torch
+
+    layers = path.cfg.model.args.transformer.num_layers
+    paths, steps = {}, {}
+    for mode in ("auto", "on"):
+        cfg = copy.deepcopy(path.cfg)
+        cfg.model.args.transformer.fused_ffn = mode
+        paths[mode] = path._replace(name=f"{path.name}, fused_ffn {mode}", cfg=cfg)
+        steps[mode] = _step_grads(paths[mode], path.batch, torch.float32)
+    (loss_a, grads_a, launches_a), (loss_o, grads_o, launches_o) = steps["auto"], steps["on"]
+    for mode, launches, want in (("auto", launches_a, 0), ("on", launches_o, layers)):
+        got = (launches.get("fused_ffn_fwd", 0), launches.get("fused_ffn_bwd", 0))
+        if got != (want, want):
+            fail(f"phase 11b fused_ffn {mode}: SwiGLU launches {got} a step, not "
+                 f"({want}, {want})")
+    rel = abs(loss_o - loss_a) / max(abs(loss_a), 1e-30)
+    worst, name = 0.0, None
+    for k, want in grads_a.items():
+        compare_grad(f"phase 11b fp32 step, fused_ffn on vs auto, {k}", grads_o[k], want,
+                     1e-3, quiet=True)
+        err = float((grads_o[k] - want).abs().max() / want.abs().max().clamp(min=1e-30))
+        if err >= worst:
+            worst, name = err, k
+    log(f"phase 11b fx fp32 step (batch {path.batch}), fused_ffn on vs auto: loss "
+        f"{loss_o:.6f} / {loss_a:.6f} (relative {rel:.2e}, bound 1e-3); gradients worst "
+        f"{worst:.3e} of the tensor's largest entry ({name}; bound 1e-3); SwiGLU launches "
+        f"a step {launches_o.get('fused_ffn_fwd')} + {launches_o.get('fused_ffn_bwd')} on, "
+        f"0 + 0 auto")
+    if not rel <= 1e-3:
+        fail(f"phase 11b: the fp32 step's loss under fused_ffn on differs from auto's by {rel:.2e}")
+    ms = {mode: _path_graph(paths[mode], card, torch.float32, profile=False)
+          for mode in ("auto", "on")}
+    for mode, per_step in (("auto", 0), ("on", layers)):
+        # Two warm-up steps and the capture launch the kernels; replays do not.
+        got = tuple(ms[mode]["launches"][k] for k in ("fused_ffn_fwd", "fused_ffn_bwd"))
+        if got != (3 * per_step,) * 2:
+            fail(f"phase 11b fused_ffn {mode}: SwiGLU launches {got} in the graph's run, "
+                 f"not {3 * per_step} each")
+    log(f"phase 11b fx fp32 step ms (batch {path.batch}; {card}), eager / graph: fused_ffn "
+        + ", ".join(f"{mode} {ms[mode]['eager']['ms']:.3f} / {ms[mode]['graph']['ms']:.3f}"
+                    for mode in ("on", "auto")))
+    return launches_o
 
 
 # 11.1: the kernels of the fx step, each call captured alone. The wrappers'
@@ -4853,7 +5020,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     phase_widths(rnd)
-    mark("phase 1b (widths)")
+    fp32_ffn = check_ffn_f32(rnd)
+    mark("phase 1b (widths, the fp32 SwiGLU)")
     tcfg3 = cfg3.model.args.transformer
     h3 = tcfg3.attn_config.num_heads
     d3 = tcfg3.hidden_size // h3
@@ -4863,6 +5031,7 @@ def main() -> int:
         "main": {**check_multiply_reduce(rnd, BATCH, 64, cases, "fx main path",
                                          fp32_rows=fp32_fx),
                  **check_flash(rnd, BATCH, SEQ, 8, 32, fp32_rows=fp32_fx), **check_ffn(rnd)},
+        "fp32-on": fp32_ffn,
         "3d": {**check_multiply_reduce(rnd, BATCH_3D, c3, cases3, "3D flagship"),
                **check_flash(rnd, BATCH_3D, SEQ_3D, h3, d3)},
         "long": {**check_multiply_reduce(rnd, BATCH_LONG, c3, cases3, "3D long"),
@@ -4913,6 +5082,8 @@ def main() -> int:
     graph = phase_graph(card, vx_path)
     graph["naca"] = graph_naca
     mark("phase 11")
+    ffn_on = phase_ffn_on(main_path, card)
+    mark("phase 11b (fp32 step, fused_ffn on)")
     # Phase 12 before the rest of phase 10: its torchrun process runs 10.1's
     # fit, whose checkpoint 10.4 reads.
     with tempfile.TemporaryDirectory(prefix="gaot_torchrun_") as folder:
@@ -4958,7 +5129,13 @@ def main() -> int:
                     # launches of the trainer's run C (the example's fp32).
                     + _entries(fp32_fx, main_names,
                                {k: rates["launches_c"][main_names[k]] for k in fp32_fx},
-                               "fx main path, run C (fp32)", "@fp32"))
+                               "fx main path, run C (fp32)", "@fp32")
+                    # The fp32 SwiGLU kernels at the fx shape, with the
+                    # launches of phase 11b's eager fp32 step under
+                    # fused_ffn "on" (no example sets it).
+                    + _entries(checks["fp32-on"], main_names,
+                               {k: ffn_on[k] for k in checks["fp32-on"]},
+                               "fx main path, fp32 step, fused_ffn on", "@fp32-on"))
     # The multi-GPU entries: the kernels at a rank's shapes, with rank 0's
     # launches in one bf16 training step of its mesh run (phase 10).
     for suffix, (rows, launches) in meshes.items():

@@ -54,14 +54,33 @@
 //   backward: dh1 | dh3 and z to the scratches, dx = [dh1 dh3] [W1; W3], then
 //     the weight gradients as above.
 //
-// fp32 (exact FMA on the CUDA cores, as the JAX package computes an fp32
-// SwiGLU): the same products by one tiled SIMT GEMM with arbitrary strides
-// (ffn_sgemm) and element-wise passes for z and for dh1, dh3, z.
+// fp32 (every width): the same products on the tensor cores as split TF32
+// (tf32_split.cuh): each operand x as hi = tf32(x) and lo = tf32(x - hi),
+// each product as A_lo B_hi + A_hi B_lo + A_hi B_hi, three tf32 wgmmas with
+// fp32 accumulators, which keeps fp32's accuracy (TF32 stays off) at
+// 3 x 16 R M F operations on a 495 TFLOP/s unit instead of 16 R M F at the
+// CUDA cores' 67. A tf32 wgmma reads both operands K-major, so the kernels
+// take every operand K-major: a producer (ffn_tf32_produce: h1 | h3 over a
+// 128-row x 64-column tile of F, and dz, the SwiGLU in fp32 in its
+// epilogue) and a GEMM with runtime shapes (ffn_tf32_gemm: 128 x 128 tiles,
+// up to three products a launch), both streaming 32-column chunks of their
+// operands through a three-stage cp.async ring, split in shared memory by
+// the threads that copied them, each chunk's products in a fresh
+// accumulator added to the running sums in fp32:
+//   forward (2 launches): z to an fp32 scratch, then out = z W2^T;
+//   backward (4 launches): W2^T, [W1; W3]^T, x^T and dout^T transposed in
+//     device memory (ffn_tf32_transpose; 2 R M + 3 F M floats); dh1 | dh3
+//     to [R, 2F] and, transposed, with z to [2F, R] and [F, R]; then dx and
+//     the weight gradients' row-split partials in one GEMM launch; then
+//     their fixed-order sum (deterministic, no float atomics).
 //
-// silu(h) = h / (1 + 2^(-h log2 e)) by ex2.approx and rcp.approx (relative
-// error about 2^-21 against the plain version's exact sigmoid, far below the
-// bf16 rounding of z). Plain C interface; each entry returns
-// cudaGetLastError() after its launches.
+// bf16: silu(h) = h / (1 + 2^(-h log2 e)) by ex2.approx and rcp.approx
+// (relative error about 2^-21 against the plain version's exact sigmoid, far
+// below the bf16 rounding of z); fp32: 1 / (1 + expf(-h)). Plain C
+// interface; each entry returns cudaGetLastError() after its launches.
+#include <climits>
+
+#include "tf32_split.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -801,106 +820,285 @@ ffn_bwd_rows(const bf16* __restrict__ x, const bf16* __restrict__ dout,
 using Bwd128 = BwdRows<128, 32, 4>;
 using Bwd256 = BwdRows<256, 32, 2>;
 
-// ---- fp32: exact FMA on the CUDA cores.
-// C[i, j] = sum_k A(i, k) B(k, j) with A(i, k) = a[i sai + k sak] and
-// B(k, j) = b[k sbk + j sbn] (b_hi[(k - k_split) sbk + j sbn] from k_split
-// on), over one 64 x 64 tile of C and the K range of split blockIdx.z; C (or
-// the split's partial) at c + split * split_stride.
-struct SgemmArgs {
+// ---- fp32: every product as three tf32 wgmmas of split operands
+// (tf32_split.cuh: hi = tf32(x), lo = tf32(x - hi), A B = A_lo B_hi +
+// A_hi B_lo + A_hi B_hi), both operands K-major in shared memory. A tile
+// has 128 rows; an item is a 32-column chunk of K of an A tile and a B tile,
+// hi and lo of each (64 KB), streamed through a three-stage ring; each item's
+// products go to a fresh accumulator that one rounded fp32 add takes into
+// the running sums (a wgmma's own additions are not rounded to nearest, and
+// the weight gradients sum over all R rows).
+namespace f32 {
+
+using namespace tf32;
+
+constexpr int TR = 128;                  // rows of an A, B or C tile
+constexpr int TILE = TR * ROW_BYTES;     // 16 KB: a 32-column chunk of 128 rows
+constexpr int ITEM = 4 * TILE;           // A hi, A lo, B hi, B lo
+constexpr int SMEM = 3 * ITEM + 1024;
+static_assert(SMEM <= kSmemMax, "the fp32 stages exceed shared memory");
+constexpr int FC = 64;                   // columns of F a producer tile owns
+
+// part (64 x N a warpgroup: rows 64 wg .. of the item's A tile against the
+// first N rows of its B tile) = A B over the item's 32 columns.
+template <int N>
+__device__ __forceinline__ void mma_item(float* part, uint32_t st, int wg) {
+  const uint32_t ah = st, al = st + TILE, bh = st + 2 * TILE, bl = st + 3 * TILE;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    WgmmaTF32<N>::run(part, kmajor(al, 64 * wg, kk), kmajor(bh, 0, kk), kk > 0);
+    WgmmaTF32<N>::run(part, kmajor(ah, 64 * wg, kk), kmajor(bl, 0, kk), 1);
+    WgmmaTF32<N>::run(part, kmajor(ah, 64 * wg, kk), kmajor(bh, 0, kk), 1);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void add_part(float* acc, float* part) {
+  fence_all<V>(part);
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] += part[i];
+}
+
+template <int V>
+__device__ __forceinline__ void zero(float* acc) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// ---- the GEMM: C[i, j] = sum_k A[i, k] B[j, k] over one 128 x 128 tile of
+// C and the K range of one split (a multiple of 32 long, but for the last);
+// A [rows, k] and B [cols, k] K-major, row strides lda and ldb; C at
+// c + split * split_stride, row stride ldc. cols is a multiple of 128.
+struct Prod {
   const float* a;
-  long long sai, sak;
+  long long lda;
   const float* b;
-  long long sbk, sbn;
+  long long ldb;
   float* c;
   long long ldc, split_stride;
-  int rows, cols, k, k_per_split;
-  const float* b_hi = nullptr;
-  int k_split = 1 << 30;
+  int rows, cols, k, k_per_split, splits;
+};
+// Up to three products in one launch: blocks from start[q] on take product
+// q's tiles, one split after another; neighbouring blocks share a row of C
+// tiles, so its A comes from device memory once.
+struct Prods {
+  Prod p[3];
+  int start[3];
 };
 
-__global__ void __launch_bounds__(256) ffn_sgemm(SgemmArgs g) {
-  __shared__ float As[16][64 + 4];   // [k][i]
-  __shared__ float Bs[16][64 + 4];   // [k][j]
-  const int i0 = blockIdx.y * 64, j0 = blockIdx.x * 64;
-  const int kb = blockIdx.z * g.k_per_split;
-  const int ke = min(g.k, kb + g.k_per_split);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+__global__ void __launch_bounds__(256, 1) ffn_tf32_gemm(Prods ps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = smem_base_1k(smem);
+  const int bx = blockIdx.x;
+  Prod g = ps.p[0];
+  int local = bx;
+  if (bx >= ps.start[2]) {
+    g = ps.p[2];
+    local = bx - ps.start[2];
+  } else if (bx >= ps.start[1]) {
+    g = ps.p[1];
+    local = bx - ps.start[1];
+  }
+  const int tn = g.cols / TR, tiles = (g.rows + TR - 1) / TR * tn;
+  const int split = local / tiles, tile = local % tiles;
+  const int i0 = tile / tn * TR, j0 = tile % tn * TR;
+  const int kb = split * g.k_per_split, ke = min(g.k, kb + g.k_per_split);
+  const int n = ke > kb ? (ke - kb + 31) / 32 : 0;
+  const int wg = threadIdx.x >> 7;
 
-  for (int k0 = kb; k0 < ke; k0 += 16) {
-    // Consecutive threads walk the operand's contiguous dimension.
-    for (int e = threadIdx.x; e < 1024; e += 256) {
-      const int ai = g.sak == 1 ? e >> 4 : e & 63, ak = g.sak == 1 ? e & 15 : e >> 6;
-      const int i = i0 + ai, k = k0 + ak;
-      As[ak][ai] = i < g.rows && k < ke ? g.a[(long long)i * g.sai + (long long)k * g.sak] : 0.f;
-      const int bj = g.sbk == 1 ? e >> 4 : e & 63, bk = g.sbk == 1 ? e & 15 : e >> 6;
-      const int j = j0 + bj, kk = k0 + bk;
-      const float* bp = kk < g.k_split ? g.b + (long long)kk * g.sbk
-                                       : g.b_hi + (long long)(kk - g.k_split) * g.sbk;
-      Bs[bk][bj] = j < g.cols && kk < ke ? bp[(long long)j * g.sbn] : 0.f;
+  float acc[64], part[64];
+  zero<64>(acc);
+  zero<64>(part);
+  auto load = [&](int i, uint32_t st) {
+    const int k0 = kb + 32 * i;
+    copy_chunk<TR>(st, g.a + (long long)i0 * g.lda + k0, g.lda, g.rows - i0, ke - k0);
+    copy_chunk<TR>(st + 2 * TILE, g.b + (long long)j0 * g.ldb + k0, g.ldb, g.cols - j0,
+                   ke - k0);
+  };
+  auto split_item = [&](int, uint32_t st) {
+    split_chunk<TR>(st, st + TILE);
+    split_chunk<TR>(st + 2 * TILE, st + 3 * TILE);
+  };
+  if (n > 0) {   // an empty split writes zeros
+    auto rg = make_ring(sbase, ITEM, n, load, split_item);
+    rg.start();
+    for (int i = 0; i < n; ++i)
+      rg.step([&](uint32_t st) { mma_item<TR>(part, st, wg); },
+              [&](uint32_t) { add_part<64>(acc, part); });
+  }
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r0 = i0 + 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  float* c = g.c + (long long)split * g.split_stride;
+#pragma unroll
+  for (int nn = 0; nn < TR / 8; ++nn) {
+    const int col = j0 + 8 * nn + 2 * (lane & 3);
+    if (r0 < g.rows)
+      *reinterpret_cast<float2*>(c + (long long)r0 * g.ldc + col) =
+          make_float2(acc[4 * nn], acc[4 * nn + 1]);
+    if (r1 < g.rows)
+      *reinterpret_cast<float2*>(c + (long long)r1 * g.ldc + col) =
+          make_float2(acc[4 * nn + 2], acc[4 * nn + 3]);
+  }
+}
+
+// ---- the producer: for a block's 128 rows of x and `tiles` tiles of FC
+// columns of F from tile blockIdx.x * tiles on, h1 | h3 = x [W1; W3]^T (one
+// product of N = 128: the tile's 64 rows of W1, then of W3) over K = M,
+// then, backward, dz = dout W2 (the tile's 64 rows of W2^T, N = 64). The
+// SwiGLU runs in fp32 in the epilogue. Forward: z = silu(h1) h3 to z [R, F].
+// Backward: dh1 | dh3 to dh [R, 2F] (the dx product's A), and dh1 | dh3 and
+// z transposed to dht [2F, Rp] and zt [F, Rp] (the weight gradients' K = R
+// operands; rows R .. Rp - 1 are zero, as x's and dout's rows past R are
+// zero-filled). A warp's transposed stores fill whole 32-byte sectors.
+template <int BWD>
+__global__ void __launch_bounds__(256, 1)
+ffn_tf32_produce(const float* __restrict__ x, const float* __restrict__ dout,
+                 const float* __restrict__ w1, const float* __restrict__ w3,
+                 const float* __restrict__ w2t, float* __restrict__ z,
+                 float* __restrict__ dh, float* __restrict__ dht, float* __restrict__ zt,
+                 int R, int Rp, int M, int F, int tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = smem_base_1k(smem);
+  const int i0 = blockIdx.y * TR, t0 = blockIdx.x * tiles;
+  const int nt = min(tiles, F / FC - t0);
+  const int nk = M / 32, per = BWD ? 2 * nk : nk;   // items of a tile
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int r0 = i0 + 64 * wg + 16 * warp + (lane >> 2);
+  constexpr int DZ = BWD ? 32 : 1;
+
+  float h[64], dz[DZ], part[64];
+  zero<64>(h);
+  zero<DZ>(dz);
+  zero<64>(part);
+  auto load = [&](int i, uint32_t st) {
+    const int r = i % per, f0 = (t0 + i / per) * FC;
+    const int k0 = 32 * (r < nk ? r : r - nk);
+    copy_chunk<TR>(st, (r < nk ? x : dout) + (long long)i0 * M + k0, M, R - i0, 32);
+    if (r < nk) {
+      copy_chunk<FC>(st + 2 * TILE, w1 + (long long)f0 * M + k0, M, FC, 32);
+      copy_chunk<FC>(st + 2 * TILE + FC * ROW_BYTES, w3 + (long long)f0 * M + k0, M, FC, 32);
+    } else {
+      copy_chunk<FC>(st + 2 * TILE, w2t + (long long)f0 * M + k0, M, FC, 32);
     }
-    __syncthreads();
+  };
+  // split_chunk<TR> splits the pieces the two copy_chunk<FC> of W1 and W3
+  // gave this thread: rows r and r + 32 of each are its rows r + 32 m.
+  auto split_item = [&](int i, uint32_t st) {
+    split_chunk<TR>(st, st + TILE);
+    if (i % per < nk)
+      split_chunk<TR>(st + 2 * TILE, st + 3 * TILE);
+    else
+      split_chunk<FC>(st + 2 * TILE, st + 3 * TILE);
+  };
+  // n-tile nn of h1 and nn + 8 of h3 (and nn of dz) hold the same (row, f).
+  auto epilogue = [&](int f0) {
 #pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      float a[4], b[4];
+    for (int nn = 0; nn < FC / 8; ++nn) {
+      const int f = f0 + 8 * nn + 2 * t;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        a[u] = As[kk][4 * ty + u];
-        b[u] = Bs[kk][4 * tx + u];
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 8 * half, e = 4 * nn + 2 * half;
+        if constexpr (BWD) {
+          float d1[2], d3[2], zz[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float h1 = h[e + u], h3 = h[e + 32 + u], d = dz[e + u];
+            const float sg = sigmoid(h1);
+            d1[u] = d * h3 * (sg * (1.f + h1 * (1.f - sg)));
+            d3[u] = d * h1 * sg;
+            zz[u] = h1 * sg * h3;
+          }
+          if (r < R) {
+            float* row = dh + (long long)r * 2 * F;
+            *reinterpret_cast<float2*>(row + f) = make_float2(d1[0], d1[1]);
+            *reinterpret_cast<float2*>(row + F + f) = make_float2(d3[0], d3[1]);
+          }
+          if (r < Rp) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              dht[(long long)(f + u) * Rp + r] = d1[u];
+              dht[(long long)(F + f + u) * Rp + r] = d3[u];
+              zt[(long long)(f + u) * Rp + r] = zz[u];
+            }
+          }
+        } else if (r < R) {
+          *reinterpret_cast<float2*>(z + (long long)r * F + f) =
+              make_float2(h[e] * sigmoid(h[e]) * h[e + 32],
+                          h[e + 1] * sigmoid(h[e + 1]) * h[e + 33]);
+        }
       }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
     }
-    __syncthreads();
+  };
+
+  const int n = nt * per;
+  auto rg = make_ring(sbase, ITEM, n, load, split_item);
+  rg.start();
+  for (int i = 0; i < n; ++i) {
+    const int r = i % per;
+    rg.step(
+        [&](uint32_t st) {
+          if (r < nk)
+            mma_item<2 * FC>(part, st, wg);
+          else if constexpr (BWD)
+            mma_item<FC>(part, st, wg);
+        },
+        [&](uint32_t) {
+          if (r < nk)
+            add_part<64>(h, part);
+          else if constexpr (BWD)
+            add_part<32>(dz, part);
+          if (r == per - 1) {
+            epilogue((t0 + i / per) * FC);
+            zero<64>(h);
+            zero<DZ>(dz);
+          }
+        });
   }
-  float* c = g.c + blockIdx.z * g.split_stride;
+}
+
+// ---- dst[c, r] = src[r, c] for c < cols and r < rows_pad (zero from
+// rows on), a 32 x 32 tile a block through shared memory; up to five jobs a
+// launch, blocks from start[q] on taking job q's tiles.
+struct TJob {
+  const float* src;
+  float* dst;
+  long long lds, ldd;
+  int rows, rows_pad, cols;
+};
+struct TJobs {
+  TJob j[5];
+  int start[5];
+};
+
+__global__ void __launch_bounds__(256) ffn_tf32_transpose(TJobs js) {
+  __shared__ float tile[32][33];
+  TJob jb = js.j[0];
+  int local = blockIdx.x;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = i0 + 4 * ty + u;
-    if (i >= g.rows) continue;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int j = j0 + 4 * tx + v;
-      if (j < g.cols) c[(long long)i * g.ldc + j] = acc[u][v];
+  for (int q = 1; q < 5; ++q)
+    if ((int)blockIdx.x >= js.start[q]) {
+      jb = js.j[q];
+      local = blockIdx.x - js.start[q];
     }
+  const int tc = (jb.cols + 31) / 32;
+  const int r0 = local / tc * 32, c0 = local % tc * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    tile[i][tx] = r < jb.rows && c < jb.cols ? jb.src[(long long)r * jb.lds + c] : 0.f;
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + tx;
+    if (c < jb.cols && r < jb.rows_pad) jb.dst[(long long)c * jb.ldd + r] = tile[tx][i];
   }
 }
 
-__device__ __forceinline__ float sigmoid_exact(float x) { return 1.f / (1.f + expf(-x)); }
-
-// z[r, f] = silu(h1) h3 from h = [h1 h3] ([R, 2F]).
-__global__ void ffn_swiglu_f32(const float* __restrict__ h, float* __restrict__ z,
-                               long long n, int F) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / F;
-    const int f = (int)(i % F);
-    const float h1 = h[r * 2 * F + f], h3 = h[r * 2 * F + F + f];
-    z[i] = h1 * sigmoid_exact(h1) * h3;
-  }
-}
-
-// In place: h = [h1 h3] becomes [dh1 dh3], dz becomes z.
-__global__ void ffn_swiglu_bwd_f32(float* __restrict__ h, float* __restrict__ dz,
-                                   long long n, int F) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / F;
-    const int f = (int)(i % F);
-    float* row = h + r * 2 * F;
-    const float h1 = row[f], h3 = row[F + f], d = dz[i];
-    const float sg = sigmoid_exact(h1);
-    row[f] = d * h3 * (sg * (1.f + h1 * (1.f - sg)));
-    row[F + f] = d * h1 * sg;
-    dz[i] = h1 * sg * h3;
-  }
-}
+}  // namespace f32
 
 // out[i] = sum over the splits of part[split][i], in split order.
 __global__ void ffn_bwd_reduce(const float* __restrict__ part,
@@ -945,11 +1143,63 @@ cudaError_t gemm(GemmArgs g0, int splits, cudaStream_t s, GemmArgs g1 = GemmArgs
               : gemm_bn<AMN, BMN, F32OUT, 128>(g0, g1, splits, s);
 }
 
-cudaError_t sgemm(SgemmArgs g, int splits, cudaStream_t s) {
-  g.k_per_split = k_per_split(g.k, splits, 16);
-  ffn_sgemm<<<dim3((g.cols + 63) / 64, (g.rows + 63) / 64, splits), 256, 0, s>>>(g);
+// fp32: up to three products in one launch, each split p.splits ways
+// along K in multiples of 32.
+cudaError_t tf32_gemm(f32::Prod* p, int np, cudaStream_t s) {
+  f32::Prods ps{};
+  int blocks = 0;
+  for (int q = 0; q < 3; ++q) {
+    ps.start[q] = q < np ? blocks : INT_MAX;
+    if (q >= np) continue;
+    p[q].k_per_split = k_per_split(p[q].k, p[q].splits, 32);
+    ps.p[q] = p[q];
+    blocks += (p[q].rows + f32::TR - 1) / f32::TR * (p[q].cols / f32::TR) * p[q].splits;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      f32::ffn_tf32_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, f32::SMEM);
+  if (err != cudaSuccess) return err;
+  f32::ffn_tf32_gemm<<<blocks, 256, f32::SMEM, s>>>(ps);
   return cudaGetLastError();
 }
+
+// fp32 producer: a block walks `tiles` tiles of F, as many as leave about
+// four blocks an SM.
+template <int BWD>
+cudaError_t tf32_produce(const float* x, const float* dout, const float* w1, const float* w3,
+                         const float* w2t, float* z, float* dh, float* dht, float* zt, int R,
+                         int Rp, int M, int F, cudaStream_t s) {
+  int dev = 0, sms = 132;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int nft = F / f32::FC, rt = (R + f32::TR - 1) / f32::TR;
+  int tiles = nft;
+  while (tiles > 1 && (long long)rt * ((nft + tiles - 1) / tiles) < 4LL * sms)
+    tiles = (tiles + 1) / 2;
+  err = cudaFuncSetAttribute(f32::ffn_tf32_produce<BWD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, f32::SMEM);
+  if (err != cudaSuccess) return err;
+  f32::ffn_tf32_produce<BWD><<<dim3((nft + tiles - 1) / tiles, rt), 256, f32::SMEM, s>>>(
+      x, dout, w1, w3, w2t, z, dh, dht, zt, R, Rp, M, F, tiles);
+  return cudaGetLastError();
+}
+
+cudaError_t tf32_transpose(const f32::TJob* jobs, int nj, cudaStream_t s) {
+  f32::TJobs js{};
+  int blocks = 0;
+  for (int q = 0; q < 5; ++q) {
+    js.start[q] = q < nj ? blocks : INT_MAX;
+    if (q >= nj) continue;
+    js.j[q] = jobs[q];
+    blocks += (jobs[q].rows_pad + 31) / 32 * ((jobs[q].cols + 31) / 32);
+  }
+  f32::ffn_tf32_transpose<<<blocks, 256, 0, s>>>(js);
+  return cudaGetLastError();
+}
+
+// Rows of the transposed K = R operands: R rounded up to 32 (128 bytes).
+long long rows_padded(int R) { return (R + 31LL) / 32 * 32; }
 
 template <int BWD>
 cudaError_t produce(const bf16* x, const bf16* dout, const bf16* w1, const bf16* w3,
@@ -1006,10 +1256,16 @@ bool fused(int M) { return M == 128 || M == 256; }
 // Scratch the forward (bwd = 0) or backward needs, in bytes: the bf16
 // fused forward keeps the packed weights (3 F M), the general one z [R, F];
 // the bf16 backward dh1|dh3 [R, 2F] and z [R, F], then at the fused widths
-// the packed weights; fp32 h1|h3 [R, 2F] and z or dz [R, F].
+// the packed weights. fp32 forward: z [R, F]; fp32 backward: dh1|dh3
+// [R, 2F], its transpose [2F, Rp] and z's [F, Rp], x's and dout's
+// transposes [M, Rp], W2^T [F, M] and [W1; W3]^T [M, 2F] (Rp: R rounded up
+// to 32).
 extern "C" long long gaot_fused_ffn_scratch_bytes(int R, int M, int F, int dtype, int bwd) {
   const long long rf = (long long)R * F, packed = fused(M) ? 3LL * F * M * 2 : 0;
-  if (dtype == 0) return 3 * rf * 4;
+  if (dtype == 0) {
+    const long long rp = rows_padded(R);
+    return (bwd ? 2 * rf + (3LL * F + 2LL * M) * rp + 3LL * F * M : rf) * 4;
+  }
   if (bwd) return 3 * rf * 2 + packed;
   return fused(M) ? packed : rf * 2;
 }
@@ -1019,7 +1275,7 @@ extern "C" long long gaot_fused_ffn_scratch_bytes(int R, int M, int F, int dtype
 extern "C" int gaot_fused_ffn_bwd_splits(int R, int M, int F, int dtype, int sms) {
   int tiles;
   if (dtype == 0) {
-    tiles = 3 * (F / 64) * (M / 64);
+    tiles = 3 * (F / f32::TR) * (M / f32::TR);
   } else {
     const int bn = M % 256 == 0 ? 256 : 128;
     tiles = 3 * (F / GT) * (M / bn);
@@ -1051,14 +1307,12 @@ extern "C" int gaot_fused_ffn_fwd(const void* x, const void* w1, const void* w3,
   }
   const float *xf = static_cast<const float*>(x), *w1f = static_cast<const float*>(w1),
               *w3f = static_cast<const float*>(w3), *w2f = static_cast<const float*>(w2);
-  float* h = static_cast<float*>(scratch);
-  float* z = h + (long long)R * 2 * F;
-  RETURN_IF(sgemm({xf, M, 1, w1f, 1, M, h, 2LL * F, 0, R, F, M, 0}, 1, s));
-  RETURN_IF(sgemm({xf, M, 1, w3f, 1, M, h + F, 2LL * F, 0, R, F, M, 0}, 1, s));
-  const long long n = (long long)R * F;
-  ffn_swiglu_f32<<<grid_1d(n), 256, 0, s>>>(h, z, n, F);
-  RETURN_IF(cudaGetLastError());
-  return (int)sgemm({z, F, 1, w2f, 1, F, static_cast<float*>(out), M, 0, R, M, F, 0}, 1, s);
+  float* z = static_cast<float*>(scratch);
+  RETURN_IF(tf32_produce<0>(xf, nullptr, w1f, w3f, nullptr, z, nullptr, nullptr, nullptr, R, R,
+                            M, F, s));
+  // out = z W2^T: W2 [M, F] is the K-major B.
+  f32::Prod p{z, F, w2f, F, static_cast<float*>(out), M, 0, R, M, F, 0, 1};
+  return (int)tf32_gemm(&p, 1, s);
 }
 
 // dout and dx [R, M]; part: [splits][3 F M] fp32 scratch; dw: [3 F M] fp32
@@ -1098,18 +1352,31 @@ extern "C" int gaot_fused_ffn_bwd(const void* x, const void* w1, const void* w3,
     const float *xf = static_cast<const float*>(x), *df = static_cast<const float*>(dout);
     const float *w1f = static_cast<const float*>(w1), *w3f = static_cast<const float*>(w3),
                 *w2f = static_cast<const float*>(w2);
-    float* h = static_cast<float*>(scratch);         // [R, 2F]: h1|h3, then dh1|dh3
-    float* dz = h + (long long)R * 2 * F;            // [R, F]: dz, then z
-    RETURN_IF(sgemm({xf, M, 1, w1f, 1, M, h, 2LL * F, 0, R, F, M, 0}, 1, s));
-    RETURN_IF(sgemm({xf, M, 1, w3f, 1, M, h + F, 2LL * F, 0, R, F, M, 0}, 1, s));
-    RETURN_IF(sgemm({df, M, 1, w2f, F, 1, dz, F, 0, R, F, M, 0}, 1, s));
-    const long long n = (long long)R * F;
-    ffn_swiglu_bwd_f32<<<grid_1d(n), 256, 0, s>>>(h, dz, n, F);
-    RETURN_IF(cudaGetLastError());
-    RETURN_IF(sgemm({h, 2LL * F, 1, w1f, M, 1, static_cast<float*>(dx), M, 0, R, M, 2 * F, 0,
-                     w3f, F}, 1, s));
-    RETURN_IF(sgemm({h, 1, 2LL * F, xf, M, 1, pf, M, 3 * fm, 2 * F, M, R, 0}, splits, s));
-    RETURN_IF(sgemm({df, 1, M, dz, F, 1, pf + 2 * fm, F, 3 * fm, M, F, R, 0}, splits, s));
+    const long long rp = rows_padded(R);
+    float* dh = static_cast<float*>(scratch);        // [R, 2F]: dh1 | dh3
+    float* dht = dh + (long long)R * 2 * F;           // [2F, Rp]
+    float* zt = dht + 2LL * F * rp;                   // [F, Rp]
+    float* xt = zt + (long long)F * rp;               // [M, Rp]
+    float* dt = xt + (long long)M * rp;               // [M, Rp]
+    float* w2t = dt + (long long)M * rp;              // [F, M]
+    float* w13t = w2t + fm;                           // [M, 2F]
+    // The operands the products read transposed, K-major: W2^T for dz,
+    // [W1; W3]^T for dx, x^T and dout^T for the weight gradients.
+    const f32::TJob jobs[5] = {{w2f, w2t, F, M, M, M, F},
+                               {w1f, w13t, M, 2LL * F, F, F, M},
+                               {w3f, w13t + F, M, 2LL * F, F, F, M},
+                               {xf, xt, M, rp, R, (int)rp, M},
+                               {df, dt, M, rp, R, (int)rp, M}};
+    RETURN_IF(tf32_transpose(jobs, 5, s));
+    RETURN_IF(tf32_produce<1>(xf, df, w1f, w3f, w2t, nullptr, dh, dht, zt, R, (int)rp, M, F,
+                              s));
+    // dW1|dW3 = [dh1 dh3]^T x and dW2 = dout^T z (row-split partials), and
+    // dx = [dh1 dh3] [W1; W3], in one launch.
+    f32::Prod p[3] = {{dht, rp, xt, rp, pf, M, 3 * fm, 2 * F, M, R, 0, splits},
+                      {dt, rp, zt, rp, pf + 2 * fm, F, 3 * fm, M, F, R, 0, splits},
+                      {dh, 2LL * F, w13t, 2LL * F, static_cast<float*>(dx), M, 0, R, M, 2 * F,
+                       0, 1}};
+    RETURN_IF(tf32_gemm(p, 3, s));
   }
   const long long n = 3 * fm;
   ffn_bwd_reduce<<<grid_1d(n), 256, 0, s>>>(pf, static_cast<float*>(dw), n, splits);

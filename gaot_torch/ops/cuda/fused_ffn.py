@@ -36,9 +36,17 @@ no transposed copy:
   kernel writes z (forward) or dh1 | dh3 and z (backward) to a scratch, and
   a GEMM kernel with runtime shapes does the rest (z·W2ᵀ; dx; the weight
   gradients as above).
-- fp32 (every M): the same products by a tiled fp32 GEMM on the CUDA
-  cores (exact FMA, no TF32) and element-wise passes, as the Pallas
-  kernel computes in x.dtype.
+- fp32 (every M): every product on the tensor cores as split TF32, each
+  fp32 operand held as hi = tf32(x) and lo = tf32(x − hi) and each product
+  as lo·hi + hi·lo + hi·hi (three tf32 ``wgmma``s, fp32 accumulators, a
+  fresh one per 32 of K added to the running sums in fp32), which keeps
+  fp32's accuracy with TF32 off, the SwiGLU itself in fp32, as the Pallas
+  kernel computes in x.dtype. A tf32 ``wgmma`` reads both operands K-major,
+  so a producer writes z (forward) or dh1 | dh3, and their transposes with
+  z's (backward), and one GEMM with runtime shapes does the rest: two
+  launches forward; four backward (the weights, x and dout transposed in
+  device memory, the producer, dx with the weight gradients' row-split
+  partials, their fixed-order sum).
 
 The TPU kernel pads R to its row tile; here ragged R is masked. The
 weights are taken in torch's Linear layout: w1, w3 [F, M] and w2 [M, F].
@@ -169,8 +177,9 @@ def fused_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                   w2: torch.Tensor, dout: torch.Tensor):
     """(dx in x.dtype, dw1, dw3, dw2 in fp32) of the fused SwiGLU. CPU
     tensors take the plain backward; CUDA tensors launch the backward
-    kernels (producer, dx, the row-split dW partials, their fixed-order
-    sum)."""
+    kernels (bf16: the rows kernel or producer and dx, the row-split dW
+    partials, their fixed-order sum; fp32: the transposes, the producer, dx
+    with the dW partials, their sum)."""
     _check(x, w1, w3, w2)
     if dout.shape != x.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must match x {tuple(x.shape)}")

@@ -7,6 +7,7 @@ side in one run on one NVIDIA card.
     python3 kernel_ab.py --only fused_ffn --kernels-only ROOT [ROOT ...]
     python3 kernel_ab.py --only agno --kernels-only ROOT [ROOT ...]
     python3 kernel_ab.py --examples ROOT [ROOT ...]
+    python3 kernel_ab.py --ffn-on ROOT [ROOT ...]
 
 ROOT is the root of a checkout (its gaot_torch/, chip_smoke.py and config/
 are enough). Each ROOT runs in a process of its own, in the order given, so
@@ -25,7 +26,9 @@ and times, on tensors made from one seed:
     (1024, 1024), (1024, 4096);
   - the bf16 SwiGLU forward and backward at the fx shape (R = 65536,
     M = 256, F = 1024) and at the other fused width (M = 128, F = 512),
-    with their largest error against the plain versions;
+    and in fp32 (TF32 off for the library's products) at the fx rows,
+    M = 256 and 640, F = 1024, with their largest error against the plain
+    versions;
   - the AGNO apply, forward and forward + backward (d_coef, d_f), of each
     path's encoder and decoder graph at its batch and channels, on the
     graphs the model is given (``bucketed_gather_multiply_reduce`` for the
@@ -58,6 +61,12 @@ paths' drive.
 
 --build compiles each ROOT's kernels from nothing, one ROOT after another,
 and reports the seconds each took.
+
+--ffn-on times the fx main path's fp32 training step (batch 64) with
+transformer.fused_ffn "on" (the SwiGLU kernels) and "auto" (the plain three
+products), eager and captured, through this checkout's
+chip_smoke.py::phase_ffn_on run on each ROOT's gaot_torch (one step each
+way held against the other first); it reports the four step ms.
 
 --examples trains the example configs as shipped, in fp32, through each
 ROOT's own chip_smoke.py (its phases 5, 5b and 5d, on their synthetic
@@ -93,8 +102,10 @@ FLASH_F32 = {"fx": (64, 1024, 8, 32), "naca": (32, 1024, 8, 32)}
 # (B, S, H = Hkv, D) of the route above head dim 128, bf16 and fp32 (no path
 # runs it)
 FLASH_WIDE = [(1, 4096, 4, 256), (1, 2048, 4, 512), (1, 1024, 4, 1024), (1, 4096, 4, 1024)]
-# (R, M, F) of the fx path's SwiGLU calls, and of the other fused width
-SWIGLU = {"fx": (65536, 256, 1024), "M128": (65536, 128, 512)}
+# (R, M, F, dtype) of the fx path's SwiGLU calls, of the other fused width,
+# and of the fp32 kernels (split-TF32 products) at the fx rows, M 256 and 640
+SWIGLU = {"fx": (65536, 256, 1024, "bfloat16"), "M128": (65536, 128, 512, "bfloat16"),
+          "fx fp32": (65536, 256, 1024, "float32"), "M640 fp32": (65536, 640, 1024, "float32")}
 ITERS = 20
 
 
@@ -270,11 +281,13 @@ def kernel_times(only=None):
     from gaot_torch.ops.cuda import fused_ffn as ff
 
     silu = torch.nn.functional.silu
-    for what, (r, m, f) in SWIGLU.items() if only in (None, "fused_ffn") else ():
+    torch.backends.cuda.matmul.allow_tf32 = False   # the fp32 library products in fp32
+    for what, (r, m, f, dt) in SWIGLU.items() if only in (None, "fused_ffn") else ():
         shape = f"{what} R={r} M={m} F={f}"
-        x, dout = rnd(r, m).bfloat16(), rnd(r, m).bfloat16()
-        w1, w3 = (rnd(f, m) / m ** 0.5).bfloat16(), (rnd(f, m) / m ** 0.5).bfloat16()
-        w2 = (rnd(m, f) / f ** 0.5).bfloat16()
+        dt = getattr(torch, dt)
+        x, dout = rnd(r, m).to(dt), rnd(r, m).to(dt)
+        w1, w3 = (rnd(f, m) / m ** 0.5).to(dt), (rnd(f, m) / m ** 0.5).to(dt)
+        w2 = (rnd(m, f) / f ** 0.5).to(dt)
         err = float((ff.fused_ffn(x, w1, w3, w2).float()
                      - ff.fused_ffn_plain(x, w1, w3, w2).float()).abs().max())
         res[f"fused_ffn fwd {shape}"] = {
@@ -409,7 +422,22 @@ def examples(root):
     cs.phase_naca(card, lambda *s: torch.randn(*s, generator=gen, device="cuda"))
 
 
-def child(root, build_only, only, kernels_only, with_examples=False):
+def ffn_on(root):
+    """This checkout's chip_smoke.py::phase_ffn_on on ROOT's gaot_torch."""
+    cs = _load_chip_smoke(HERE)
+    from gaot_torch.core.config import load_experiment_config
+
+    card = cs.phase_card()
+    cfg = load_experiment_config(cs.CONFIG)
+    path = cs.Path("fx main path", cfg, *cs._host_graphs(cfg, cs.NUM_NODES, cs.LATENT,
+                                                         "fx main path"),
+                   seq=cs.SEQ, check_batch=0, check_dtypes=(), batch=cs.BATCH,
+                   steps_per_epoch=cs.STEPS_PER_EPOCH, forward_launches={},
+                   train_launches={})
+    cs.phase_ffn_on(path, card)
+
+
+def child(root, build_only, only, kernels_only, with_examples=False, with_ffn_on=False):
     sys.path.insert(0, root)
     import torch
 
@@ -422,6 +450,10 @@ def child(root, build_only, only, kernels_only, with_examples=False):
         raise RuntimeError("torch.cuda.is_available() is false")
     if with_examples:
         examples(root)
+        return
+    if with_ffn_on:
+        build.build_all()
+        ffn_on(root)
         return
     if build_only:
         shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
@@ -446,6 +478,9 @@ EXAMPLES = {   # what: the chip_smoke.py log line that holds it
     "naca0012 step ms graph": re.compile(r"phase 11 naca0012 .*: step ms eager [\d.]+ / "
                                          r"graph ([\d.]+)"),
 }
+FFN_ON = re.compile(r"phase 11b fx fp32 step ms .*: fused_ffn on ([\d.]+) / ([\d.]+), "
+                    r"auto ([\d.]+) / ([\d.]+)")
+FFN_ON_KEYS = ("on eager", "on graph", "auto eager", "auto graph")
 PIPE = re.compile(r"pipelined (.*) \(\d+ back to back\): wall_ms=([\d.]+) "
                   r"device_busy_ms=([\d.]+) idle_share=([\d.]+)")
 
@@ -458,6 +493,10 @@ def parse(out):
              for what, rx in EXAMPLES.items() for m in [rx.search(line)] if m}
     if found:
         return {"examples": found}
+    for line in out.splitlines():
+        m = FFN_ON.search(line)
+        if m:
+            return {"ffn_on": dict(zip(FFN_ON_KEYS, map(float, m.groups())))}
     for line in out.splitlines():
         if line.startswith("RESULT "):
             result = json.loads(line[len("RESULT "):])
@@ -484,11 +523,13 @@ def main():
                     help="time the kernels, without driving the paths")
     ap.add_argument("--examples", action="store_true",
                     help="train the fp32 example configs through each ROOT's chip_smoke.py")
+    ap.add_argument("--ffn-on", action="store_true",
+                    help="time the fx fp32 step with fused_ffn on and auto on each ROOT")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     if args.child:
-        child(roots[0], args.build, args.only, args.kernels_only, args.examples)
+        child(roots[0], args.build, args.only, args.kernels_only, args.examples, args.ffn_on)
         return 0
     runs = []
     for i, root in enumerate(roots):
@@ -501,6 +542,8 @@ def main():
             cmd.append("--kernels-only")
         if args.examples:
             cmd.append("--examples")
+        if args.ffn_on:
+            cmd.append("--ffn-on")
         print(f"=== run {i}: {root}", flush=True)
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         print(proc.stdout, flush=True)
@@ -511,9 +554,14 @@ def main():
             return 1
         runs.append({"root": root, **parse(proc.stdout)})
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT + (".build" if args.build else ".examples" if args.examples else ""),
-              "w") as f:
+    with open(OUT + (".build" if args.build else ".examples" if args.examples
+                     else ".ffn_on" if args.ffn_on else ""), "w") as f:
         json.dump(runs, f, indent=1)
+    if args.ffn_on:
+        print("=== fx fp32 step ms, fused_ffn on / auto (one column per run, in order)")
+        for what in FFN_ON_KEYS:
+            print(f"{what}: " + " ".join(f"{r['ffn_on'][what]:.3f}" for r in runs))
+        return 0
     if args.examples:
         print("=== examples (one column per run, in order)")
         for what in EXAMPLES:
