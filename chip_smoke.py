@@ -45,8 +45,13 @@ failure):
      S = 4096 held against the plain versions, two kernels a backward. In
      phase 2 the fx path's reduces and the SwiGLU are timed in fp32 too
      (the example's dtype; the SwiGLU at M = 256 and 640 beside the three
-     fp32 products). Just before the kernels line, a line of each phase's
-     seconds (also on standard error).
+     fp32 products), and the bf16 general SwiGLU route (every width but
+     M = 128, 256) is held at M = 1024, F = 3584 against the plain
+     versions (two backward calls bit for bit, 2 and 3 kernels a call),
+     timed beside the library's three products and their autograd, and
+     driven through one bf16 training step of the fx path at UViT hidden
+     512 against the plain products' step. Just before the kernels line, a
+     line of each phase's seconds (also on standard error).
   2. per-kernel checks at each path's shapes, forward and backward kernels:
      each kernel against its plain PyTorch version on the card (bf16 and
      fp32), with CUDA-event timings of the kernel, the plain version and one
@@ -476,20 +481,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(calls, what: str):
+def device_events(calls, what: str, warm=None):
     """The device kernels (``key_averages``, user annotations left out)
-    that ``calls()`` runs under torch.profiler, synchronised at the end. A
-    trace that holds no device event is taken again, at most twice more
+    that ``calls()`` runs under torch.profiler, synchronised at the end.
+    The profiler runs a warm-up cycle (``warm()``, by default ``calls()``)
+    before the traced one (a schedule of one warm-up and one active step):
+    late in this script's process, traces begun cold lost the records of
+    their first kernels.
+    A trace that holds no device event is taken again, at most twice more
     (the profiler's device tracing now and then delivers none on the
     H100), a second after the last; a third empty trace fails."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            calls()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for run in (warm or calls, calls):   # the warm-up cycle, then the traced one
+                run()
+                torch.cuda.synchronize()
+                prof.step()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation
                   and e.self_device_time_total > 0]
@@ -508,7 +520,7 @@ def device_ms(fn, iters: int = 10) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    events = device_events(lambda: [fn() for _ in range(iters)], "timed calls")
+    events = device_events(lambda: [fn() for _ in range(iters)], "timed calls", warm=fn)
     return sum(e.self_device_time_total for e in events) / iters / 1e3
 
 
@@ -572,13 +584,13 @@ def phase_card():
 # The kernels whose ptxas report the build logs, beside that of every kernel
 # that spills: the flash forward and backward, the multiply-reduces and
 # the SwiGLU kernels; the SwiGLU kernels may not spill: bf16 (the forward
-# and backward rows fused at M = 128 and 256, the producer and the GEMM that
-# serve every other width) and fp32 (ffn_tf32_*: the split-TF32 producer,
-# GEMM and transposes).
+# and backward rows fused at M = 128 and 256 with their weight-gradient
+# GEMM, and the warp-specialized kernel that serves every other width) and
+# fp32 (ffn_tf32_*: the split-TF32 producer, GEMM and transposes).
 PTXAS_LOGGED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
                 "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_wide_",
                 "mulred_k_kernel", "mulred_b_kernel", "ffn_")
-NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_produce", "ffn_tf32_")
+NO_SPILL = ("ffn_fwd_fused", "ffn_bwd_rows", "ffn_gemm", "ffn_ws", "ffn_tf32_")
 
 
 def phase_build():
@@ -1247,13 +1259,12 @@ def check_flash(rnd, bb, s, h, d, with_eval=True, row_dtype="bfloat16", fp32_row
     return rows
 
 
-def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
+def check_ffn(rnd, r: int = BATCH * SEQ, f: int = 1024):
     """The SwiGLU forward and backward at R tokens (the fx shape by
     default), M = 256, F (1024 by default), bf16: against the plain versions, timed 20
     back to back and by profiler device time per call, beside the library's
-    three products (and autograd of them); then, with ``extras``, the
-    general route's forward and backward at M = 1024, F = 3584 (the fp32
-    kernels: :func:`check_ffn_f32`)."""
+    three products (and autograd of them). The general route:
+    :func:`check_ffn_general`; the fp32 kernels: :func:`check_ffn_f32`."""
     import torch
 
     from gaot_torch.ops.cuda import fused_ffn as ff
@@ -1308,28 +1319,156 @@ def check_ffn(rnd, r: int = BATCH * SEQ, extras: bool = True, f: int = 1024):
         f"binds; {ops_b / t_kb / 1e9:.1f} TFLOP/s)")
     rows["fused_ffn_bwd"] = _row(err_bwd, t_kb, t_pb, t_lb, bnd_b, "one call",
                                  device_ms=d_kb, library_device_ms=d_lb)
-    del out, leaves, dout
-    if not extras:
-        del x, w1, w3, w2
-        torch.cuda.empty_cache()
-        return rows
-
-    # The general route at a width the tuned forward does not take: times
-    # logged.
-    del x, w1, w3, w2
-    m, f = 1024, 3584
-    x = rnd(r, m).bfloat16()
-    w1, w3, w2 = weights(m, f, torch.bfloat16)
-    dout = rnd(r, m).bfloat16()
-    t_g = time_ms(lambda: ff.fused_ffn(x, w1, w3, w2), iters=5, warmup=1)
-    t_gb = time_ms(lambda: ff.fused_ffn_bwd(x, w1, w3, w2, dout), iters=5, warmup=1)
-    t_gl = time_ms(lambda: (silu(x @ w1.t()) * (x @ w3.t())) @ w2.t(), iters=5, warmup=1)
-    log(f"    general route, R={r} M={m} F={f} bf16: fwd kernel_ms={t_g:.4f} "
-        f"(library {t_gl:.4f}, bound {bound_ms(0, 6.0 * r * m * f, PEAK_BF16)[0]:.4f}); "
-        f"bwd kernel_ms={t_gb:.4f} (bound {bound_ms(0, 16.0 * r * m * f, PEAK_BF16)[0]:.4f})")
-    del x, w1, w3, w2, dout
+    del out, leaves, dout, x, w1, w3, w2
     torch.cuda.empty_cache()
     return rows
+
+
+def _ffn_kernels(fn, what: str, want: int):
+    """The SwiGLU kernels one ``fn()`` launches: the fullest of up to five
+    traces (a trace can lose records, never add them), each led by a small
+    kernel (late in this script's process the profiler has lost the first
+    kernel of a trace of one call). Returns (their count, their device ms,
+    the events)."""
+    import torch
+
+    def calls():
+        torch.ones(1, device="cuda").add_(1)
+        fn()
+
+    best = []
+    for _ in range(5):
+        evs = [e for e in device_events(calls, what) if "ffn_" in e.key]
+        if sum(e.count for e in evs) > sum(e.count for e in best):
+            best = evs
+        if sum(e.count for e in best) >= want:
+            break
+    return (sum(e.count for e in best), sum(e.self_device_time_total for e in best) / 1e3, best)
+
+
+def check_ffn_general(rnd, r: int = BATCH * SEQ, m: int = 1024, f: int = 3584) -> dict:
+    """The bf16 general SwiGLU route (every width the gate takes but M = 128,
+    256: csrc/fused_ffn.cu's warp-specialized producer and GEMM, ffn_ws) at R
+    rows, M 1024, F 3584: the forward and the four gradients against the
+    plain versions at check_ffn's bf16 tolerances (forward rtol 1e-2, atol
+    1e-2; gradients 2e-2 of each largest entry), two backward calls bit for
+    bit, the kernels a call launches (2 forward, 3 backward: the fullest of
+    up to five traces), and timed (20 calls back to back) beside the
+    library's three products and their autograd, with the bound and the
+    share of it each reaches. The plain versions run their fp32 products
+    with TF32 allowed: every operand of theirs holds bf16 values, which TF32
+    holds exactly, so the products are fp32's (in FFMA they would take
+    about a minute at this shape). Returns the rows of the @general
+    entries."""
+    import torch
+
+    from gaot_torch.ops.cuda import fused_ffn as ff
+
+    silu = torch.nn.functional.silu
+    name = f"bf16 general route R={r} M={m} F={f}"
+    log(f"fused SwiGLU, {name}:")
+    x, dout = rnd(r, m).bfloat16(), rnd(r, m).bfloat16()
+    w = ((rnd(f, m) / m ** 0.5).bfloat16(), (rnd(f, m) / m ** 0.5).bfloat16(),
+         (rnd(m, f) / f ** 0.5).bfloat16())
+    kern = lambda: ff.fused_ffn(x, *w)
+    kern_b = lambda: ff.fused_ffn_bwd(x, *w, dout)
+    plain = lambda: ff.fused_ffn_plain(x, *w)
+    plain_b = lambda: ff.fused_ffn_bwd_plain(x, *w, dout)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        want = plain()
+        t_p = time_ms(plain, iters=3, warmup=0)
+        err = compare(f"fused_ffn fwd {name}", kern(), want, 1e-2, 1e-2)
+        del want
+        got, want = kern_b(), plain_b()
+        t_pb = time_ms(plain_b, iters=3, warmup=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err_b = max(compare_grad(f"fused_ffn bwd {name} {n}", g, wt, 2e-2)
+                for n, g, wt in zip(("dx", "dw1", "dw3", "dw2"), got, want))
+    del want
+    again = kern_b()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"fused_ffn bwd {name}: two calls differ")
+    del got, again
+    n_f, d_f, evs_f = _ffn_kernels(kern, f"fused_ffn {name}", 2)
+    n_b, d_b, evs_b = _ffn_kernels(kern_b, f"fused_ffn {name}", 3)
+    for what, n, evs in (("forward", n_f, evs_f), ("backward", n_b, evs_b)):
+        log(f"  fused_ffn {name}: {n} kernels a {what} call: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms" for e in evs))
+    if (n_f, n_b) != (2, 3):
+        fail(f"fused_ffn {name}: {n_f} and {n_b} kernels a call, not 2 and 3")
+    leaves = [t.detach().requires_grad_(True) for t in (x, *w)]
+    xl, w1l, w3l, w2l = leaves
+    out = (silu(xl @ w1l.t()) * (xl @ w3l.t())) @ w2l.t()
+    lib = lambda: (silu(x @ w[0].t()) * (x @ w[1].t())) @ w[2].t()
+    lib_b = lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    t_k, t_l, t_kb, t_lb = (time_ms(fn) for fn in (kern, lib, kern_b, lib_b))
+    ops = 6.0 * r * m * f
+    rows = {}
+    for key, what, o, nb, t, d, tl, tp, e, n in (
+            ("fused_ffn_fwd", "fwd", ops, (2 * r * m + 3 * m * f) * 2, t_k, d_f, t_l, t_p, err,
+             n_f),
+            ("fused_ffn_bwd", "bwd", 16 / 6 * ops, 3 * r * m * 2 + 3 * m * f * (2 + 4), t_kb, d_b,
+             t_lb, t_pb, err_b, n_b)):
+        bnd = bound_ms(nb, o, PEAK_BF16, exps=float(r * f))
+        log(f"    {name} {what}: kernel_ms={t:.4f} (device {d:.4f}) library_ms={tl:.4f} "
+            f"plain_ms={tp:.4f} (TF32 on bf16 operands) bound_ms={bnd[0]:.4f} ({bnd[2]} binds; "
+            f"{bnd[0] / t:.1%} of it; {o / t / 1e9:.1f} TFLOP/s); "
+            f"{'below' if t < tl else 'above'} the library by {max(t, tl) / min(t, tl):.2f}x")
+        rows[key] = _row(e, t, tp, tl, bnd, "one call", device_ms=d, kernels_per_call=n,
+                         shape=f"R={r} M={m} F={f}",
+                         plain="fp32 products with TF32 allowed (exact on bf16 operands)")
+    del x, dout, w, leaves, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The fx main path's UViT at a width of the general SwiGLU route: hidden 512
+# (M 512, F 2048, which the JAX gate sends to the kernel and the fused
+# kernels do not take; 8 heads of dim 64), one bf16 step at this batch.
+GENERAL_HIDDEN, GENERAL_BATCH = 512, 8
+
+
+def phase_general_ffn(path: Path) -> dict:
+    """The bf16 general SwiGLU route on a model path: ``path`` (the fx main
+    path) with its UViT at hidden GENERAL_HIDDEN, one bf16 training step at
+    batch GENERAL_BATCH with transformer.fused_ffn "auto" (the kernels)
+    beside "off" (the plain three products), from the same weights and
+    batch: 3 forward and 3 backward SwiGLU launches a step under auto and
+    none under off, the losses within 1e-2 of each other and all gradients
+    within a relative L2 of 5e-2 (the bf16 step bound of PERF.md's
+    agreement metric; both sides round to bf16, at other places). Returns
+    the auto step's launches."""
+    import torch
+
+    layers = path.cfg.model.args.transformer.num_layers
+    steps = {}
+    for mode in ("auto", "off"):
+        cfg = copy.deepcopy(path.cfg)
+        cfg.model.args.transformer.hidden_size = GENERAL_HIDDEN
+        cfg.model.args.transformer.fused_ffn = mode
+        steps[mode] = _step_grads(path._replace(name=f"{path.name}, hidden {GENERAL_HIDDEN}, "
+                                                f"fused_ffn {mode}", cfg=cfg),
+                                  GENERAL_BATCH, torch.bfloat16)
+    (loss_a, grads_a, launches_a), (loss_o, grads_o, launches_o) = steps["auto"], steps["off"]
+    for mode, launches, want in (("auto", launches_a, layers), ("off", launches_o, 0)):
+        got = (launches.get("fused_ffn_fwd", 0), launches.get("fused_ffn_bwd", 0))
+        if got != (want, want):
+            fail(f"general SwiGLU step, fused_ffn {mode}: launches {got} a step, not "
+                 f"({want}, {want})")
+    rel = abs(loss_a - loss_o) / max(abs(loss_o), 1e-30)
+    ga = torch.cat([grads_a[k].reshape(-1) for k in sorted(grads_o)])
+    go = torch.cat([grads_o[k].reshape(-1) for k in sorted(grads_o)])
+    l2 = float((ga - go).norm() / go.norm())
+    log(f"general SwiGLU step (fx main path, UViT hidden {GENERAL_HIDDEN}: M "
+        f"{GENERAL_HIDDEN}, F {4 * GENERAL_HIDDEN}; batch {GENERAL_BATCH}, bf16), fused_ffn auto "
+        f"vs off: loss {loss_a:.6f} / {loss_o:.6f} (relative {rel:.2e}, bound 1e-2); gradients "
+        f"relative L2 {l2:.3e} (bound 5e-2); SwiGLU launches a step "
+        f"{launches_a.get('fused_ffn_fwd')} + {launches_a.get('fused_ffn_bwd')} auto, 0 + 0 off")
+    if not (rel <= 1e-2 and l2 <= 5e-2):
+        fail("general SwiGLU step: the kernels' step disagrees with the plain products'")
+    return launches_a
 
 
 def check_ffn_f32(rnd, r: int = BATCH * SEQ, f: int = 1024) -> dict:
@@ -1373,28 +1512,9 @@ def check_ffn_f32(rnd, r: int = BATCH * SEQ, f: int = 1024) -> dict:
         del got, again
         kern = lambda: ff.fused_ffn(x, *w)
         kern_b = lambda: ff.fused_ffn_bwd(x, *w, dout)
-        # A trace can lose records, never add them: the fullest of up to
-        # five, with each kernel's device ms. A small kernel leads each
-        # trace: late in this script's process the profiler has lost the
-        # first kernel of every trace of a call (a fresh process recorded
-        # them all).
-        def traced(fn):
-            def calls():
-                torch.ones(1, device="cuda").add_(1)
-                fn()
-            return [e for e in device_events(calls, f"fused_ffn {name}") if "ffn_" in e.key]
-
         n_calls, dev = {}, {}
         for what, fn, want in (("forward", kern, 2), ("backward", kern_b, 4)):
-            best = []
-            for _ in range(5):
-                evs = traced(fn)
-                if sum(e.count for e in evs) > sum(e.count for e in best):
-                    best = evs
-                if sum(e.count for e in best) >= want:
-                    break
-            n_calls[what] = sum(e.count for e in best)
-            dev[what] = sum(e.self_device_time_total for e in best) / 1e3
+            n_calls[what], dev[what], best = _ffn_kernels(fn, f"fused_ffn {name}", want)
             log(f"  fused_ffn {name}: {n_calls[what]} kernels a {what} call: " + "; ".join(
                 f"{e.key[:48]} {e.self_device_time_total / 1e3:.4f} ms" for e in best))
         n_f, n_b = n_calls["forward"], n_calls["backward"]
@@ -1860,7 +1980,7 @@ def profile_step(run, what: str, steps: int = 10, top: int = 20, gathers: int = 
     # Device-side kernels only: the host ops that launched them, and the
     # device ranges of user annotations (such as the optimizer's step), carry
     # the same device time again.
-    events = device_events(lambda: [run() for _ in range(steps)], what)
+    events = device_events(lambda: [run() for _ in range(steps)], what, warm=run)
     busy_ms = sum(e.self_device_time_total for e in events) / steps / 1e3
     kernels_per_step = sum(e.count for e in events) / steps
     log(f"  pipelined {what} ({steps} back to back): wall_ms={wall * 1e3:.3f} "
@@ -3436,7 +3556,7 @@ def _vx_mesh_runs(rank: int, folder: str, setup: dict) -> dict:
                                        rows=(counts.enc_rows, counts.dec_rows))
             out["rows"] = {**check_multiply_reduce(
                 rnd, 1, trainer.model_config.args.magno.lifting_channels, cases, what),
-                **check_ffn(rnd, VX_BATCH * SEQ // 2, extras=False)}
+                **check_ffn(rnd, VX_BATCH * SEQ // 2)}
         torch.distributed.barrier()
         del trainer, placed, graphs
         torch.cuda.empty_cache()
@@ -3944,16 +4064,16 @@ def _mesh_rows(argv) -> int:
     rows = {"dp": {**check_multiply_reduce(rnd, BATCH // 2, 64, _reduce_cases(
         _mesh_path(cfg, coord, lat, enc, dec, tables["dp"]), "fx @dp"), "fx @dp"),
         **check_flash(rnd, BATCH // 2, SEQ, 8, 32, with_eval=False),
-        **check_ffn(rnd, BATCH // 2 * SEQ, extras=False)}}
+        **check_ffn(rnd, BATCH // 2 * SEQ)}}
     rows["tp"] = {**check_flash(rnd, BATCH, SEQ, 8 // 2, 32, with_eval=False),
-                  **check_ffn(rnd, BATCH * SEQ, extras=False, f=got["ffn_width"])}
+                  **check_ffn(rnd, BATCH * SEQ, f=got["ffn_width"])}
     shard = spatial_shard(cfg.model.latent_tokens_size,
                           cfg.model.args.transformer.patch_size, coord.shape[0], None, 0, 2)
     sp_path = _mesh_path(cfg, coord, lat, [cut_rows(g, *shard.latent) for g in enc],
                          [cut_rows(g, *shard.nodes) for g in dec], tables["sp"])
     rows["sp"] = {**check_multiply_reduce(rnd, BATCH, 64, _reduce_cases(sp_path, "fx @sp"),
                                           "fx @sp rank 0"),
-                  **check_ffn(rnd, BATCH * SEQ // 2, extras=False)}
+                  **check_ffn(rnd, BATCH * SEQ // 2)}
     torch.save(rows, inputs + ".rows")
     return 0
 
@@ -4050,7 +4170,8 @@ def _both_ways(what: str, eager, graph, batch: int, gathers: int):
         log(f"  {what}: {g} kernels a replayed step against {e} eager (trace "
             f"{trace + 1}): both ways traced again, each name keeping its largest count")
         for way, run in (("eager", eager), ("graph", graph)):
-            for ev in device_events(lambda: [run() for _ in range(10)], f"{what}, {way}"):
+            for ev in device_events(lambda: [run() for _ in range(10)], f"{what}, {way}",
+                                    warm=run):
                 names[way][ev.key] = max(names[way].get(ev.key, 0), ev.count / 10)
     for way, k in (("eager", e), ("graph", g)):
         out[way].update(kernels=k, by_name=names[way])
@@ -5039,8 +5160,12 @@ def main() -> int:
         "vx": {**check_multiply_reduce(rnd, 1, cfg_vx.model.args.magno.lifting_channels,
                                        cases_vx, "vx flagship"),
                **check_flash(rnd, VX_BATCH, SEQ, 8, 32),
-               **check_ffn(rnd, VX_BATCH * SEQ, extras=False)},
+               **check_ffn(rnd, VX_BATCH * SEQ)},
     }
+    # The bf16 general SwiGLU route: its kernels at M 1024, F 3584, and a
+    # model step through them (the fx main path at UViT hidden 512).
+    checks["general"] = check_ffn_general(rnd)
+    general_launches = phase_general_ffn(main_path)
     # The sequential path's reduces on its own graphs; its flash and SwiGLU
     # shapes are the fx main path's (B 64, S 1024, D 32; M 256, F 1024), so
     # its rows share those times.
@@ -5135,7 +5260,14 @@ def main() -> int:
                     # fused_ffn "on" (no example sets it).
                     + _entries(checks["fp32-on"], main_names,
                                {k: ffn_on[k] for k in checks["fp32-on"]},
-                               "fx main path, fp32 step, fused_ffn on", "@fp32-on"))
+                               "fx main path, fp32 step, fused_ffn on", "@fp32-on")
+                    # The bf16 general route at M 1024, F 3584, with the
+                    # launches of its model step (UViT hidden 512; no example
+                    # runs this route).
+                    + _entries(checks["general"], main_names,
+                               {k: general_launches[k] for k in checks["general"]},
+                               f"fx main path at UViT hidden {GENERAL_HIDDEN}, bf16 step",
+                               "@general"))
     # The multi-GPU entries: the kernels at a rank's shapes, with rank 0's
     # launches in one bf16 training step of its mesh run (phase 10).
     for suffix, (rows, launches) in meshes.items():

@@ -45,14 +45,15 @@
 //
 // Every other width the JAX gate takes (M % 128 == 0, F % 128 == 0), where a
 // warpgroup's 64 x M fp32 output or the resident x and dout pass the chip,
-// goes through a producer kernel (ffn_produce: h1 | h3, and dz, over a
-// 128-row x 64-column tile of F, K = M streamed) and the GEMM kernel with
-// runtime shapes (ffn_gemm: 128 x 256 or 128 x 128 tiles, two consumer
-// warpgroups, K in slices of 64 through a four-stage ring filled by 16-byte
-// cp.async):
-//   forward: z to a bf16 scratch, then out = z W2^T;
-//   backward: dh1 | dh3 and z to the scratches, dx = [dh1 dh3] [W1; W3], then
-//     the weight gradients as above.
+// goes through one warp-specialized, persistent kernel skeleton (ffn_ws: a
+// TMA producer warpgroup and an mbarrier ring feeding two wgmma warpgroups;
+// see its section) in three modes:
+//   forward (2 launches): the producer (h1 | h3 over 128 x 128 tiles of
+//     [R, F], z to a bf16 scratch), then the GEMM out = z W2^T;
+//   backward (3 launches): the producer (h1 | h3 and dz over 128 x 128 tiles,
+//     dh1 | dh3 and z to the scratches), then one GEMM launch for the weight
+//     gradients' row-split partials and dx = [dh1 dh3] [W1; W3], then their
+//     fixed-order sum.
 //
 // fp32 (every width): the same products on the tensor cores as split TF32
 // (tf32_split.cuh): each operand x as hi = tf32(x) and lo = tf32(x - hi),
@@ -79,6 +80,8 @@
 // below the bf16 rounding of z); fp32: 1 / (1 + expf(-h)). Plain C
 // interface; each entry returns cudaGetLastError() after its launches.
 #include <climits>
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
 #include "tf32_split.cuh"
 #include "wgmma.cuh"
@@ -146,22 +149,6 @@ __device__ __forceinline__ uint64_t desc_mn_sw(uint32_t base, int k0, int mn0, i
   return smem_desc(base + (mn0 / 64) * block + k0 * 128, block, 1024) | 1ull << 62;
 }
 
-// A K-major slice of ROWS rows x 64 of K into dst: rows below 64 from
-// lo + row * ld, the others from hi + (row - 64) * ld, each row from column
-// k0 on; rows at or past rlim are zero-filled. All threads of the block take
-// part; consecutive threads fill one row's eight chunks.
-template <int ROWS>
-__device__ __forceinline__ void copy_kmajor(uint32_t dst, const bf16* lo,
-                                            const bf16* hi, long long ld,
-                                            int rlim, int k0) {
-  for (int i = threadIdx.x; i < ROWS * 8; i += blockDim.x) {
-    const int row = i >> 3, c = i & 7;
-    const bool ok = row < rlim;
-    const bf16* src = row < 64 ? lo + (long long)row * ld : hi + (long long)(row - 64) * ld;
-    cp_async16(dst + sw_off<128>(row, c), ok ? src + k0 + 8 * c : lo, ok);
-  }
-}
-
 // An MN-major slice of 64 K-rows x NN (MN contiguous) into dst, as NN / 64
 // blocks of 64 columns, 64 x 128 bytes each: K-row k from p + k * ld,
 // columns mn0 on; K-rows at or past klim are zero-filled.
@@ -177,11 +164,8 @@ __device__ __forceinline__ void copy_mnmajor(uint32_t dst, const bf16* p,
   }
 }
 
-// Descriptors of k-step st of a 64 x 16 A piece or a 16 x N B piece whose
+// Descriptor of k-step st of a 64 x 16 A piece or a 16 x N B piece whose
 // first row or column is mn0 (a multiple of 64), in a slice copied as above.
-__device__ __forceinline__ uint64_t desc_k(uint32_t base, int mn0, int st) {
-  return desc_sw<128>(base + mn0 * 128 + st * 32);
-}
 __device__ __forceinline__ uint64_t desc_mn(uint32_t base, int mn0, int st) {
   return desc_mn_sw(base, 16 * st, mn0, 8192);
 }
@@ -195,7 +179,7 @@ __device__ __forceinline__ void ring_landed() {
   __syncthreads();
 }
 
-// The K-slice pipeline shared by the GEMM and producer kernels: NST stages,
+// The K-slice pipeline of the weight-gradient GEMM: NST stages,
 // NST - 2 slices in flight, one barrier per slice. load(kt, stage) issues the
 // cp.async copies of slice kt; mma(stage) issues its wgmmas. Slice kt - 1's
 // wgmmas stay in flight while slice kt's are issued; the copy into a stage
@@ -222,12 +206,11 @@ __device__ __forceinline__ void k_pipeline(int nk, uint32_t sbase, int stage_byt
   wg_wait<0>();
 }
 
-// ---- the generic GEMM: C[i, j] = sum_k A[i, k] B[k, j] over one 128 x 128
-// tile of C, K from k_begin to k_end (a multiple of 64 apart, but for the
-// last split). AMN / BMN: the operand is MN-major (A[k * lda + i],
-// B[k * ldb + j]) rather than K-major (A[i * lda + k], B[j * ldb + k]).
-// Epilogue: bf16 C (rows past `rows` dropped) or an fp32 partial of split
-// blockIdx.z.
+// ---- the weight-gradient GEMM of the fused route: C[i, j] = sum_k A[i, k]
+// B[k, j] over one 128 x BN tile of C, K from k_begin to k_end (a multiple of
+// 64 apart, but for the last split), both operands MN-major (A[k * lda + i],
+// B[k * ldb + j]); C the fp32 partial of split blockIdx.z (rows past `rows`
+// dropped).
 constexpr int GT = 128;                   // C tile rows
 constexpr int GNST = 4;                   // stages of the ring
 template <int BN>                         // C tile columns
@@ -245,13 +228,11 @@ struct GemmArgs {
   void* c;
   long long ldc, split_stride;
   int rows, cols, k, k_per_split;
-  const bf16* b_hi = nullptr;   // an MN-major B's K-rows from k_split on
-  int k_split = 1 << 30;
 };
 
 // One launch may run two products of the same kind (the weight gradients):
 // blocks below tiles0 (along x) take g0's tiles, the others g1's.
-template <int AMN, int BMN, int F32OUT, int BN>
+template <int BN>
 __global__ void __launch_bounds__(256) ffn_gemm(GemmArgs g0, GemmArgs g1, int tiles0) {
   using Tl = GemmTile<BN>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -271,27 +252,13 @@ __global__ void __launch_bounds__(256) ffn_gemm(GemmArgs g0, GemmArgs g1, int ti
 
   auto load = [&](int kt, uint32_t st) {
     const int k0 = kb + kt * 64;
-    if constexpr (AMN)
-      copy_mnmajor<GT>(st, g.a + (long long)k0 * g.lda, g.lda, ke - k0, i0);
-    else
-      copy_kmajor<GT>(st, g.a + (long long)i0 * g.lda, g.a + (long long)(i0 + 64) * g.lda,
-                      g.lda, g.rows - i0, k0);
-    if constexpr (BMN)
-      copy_mnmajor<BN>(st + Tl::A,
-                       k0 < g.k_split ? g.b + (long long)k0 * g.ldb
-                                      : g.b_hi + (long long)(k0 - g.k_split) * g.ldb,
-                       g.ldb, ke - k0, j0);
-    else
-      copy_kmajor<BN>(st + Tl::A, g.b + (long long)j0 * g.ldb,
-                      g.b + (long long)(j0 + 64) * g.ldb, g.ldb, BN, k0);
+    copy_mnmajor<GT>(st, g.a + (long long)k0 * g.lda, g.lda, ke - k0, i0);
+    copy_mnmajor<BN>(st + Tl::A, g.b + (long long)k0 * g.ldb, g.ldb, ke - k0, j0);
   };
   auto mma = [&](uint32_t st) {
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const uint64_t da = AMN ? desc_mn(st, 64 * wg, s) : desc_k(st, 64 * wg, s);
-      const uint64_t db = BMN ? desc_mn(st + Tl::A, 0, s) : desc_k(st + Tl::A, 0, s);
-      WgmmaSS<BN, AMN, BMN>::run(acc, da, db, 1);
-    }
+    for (int s = 0; s < 4; ++s)
+      WgmmaSS<BN, 1, 1>::run(acc, desc_mn(st, 64 * wg, s), desc_mn(st + Tl::A, 0, s), 1);
   };
   k_pipeline<GNST>(nk, sbase, Tl::STAGE, load, mma);
 #pragma unroll
@@ -299,111 +266,16 @@ __global__ void __launch_bounds__(256) ffn_gemm(GemmArgs g0, GemmArgs g1, int ti
 
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int r0 = i0 + 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  float* c = static_cast<float*>(g.c) + blockIdx.z * g.split_stride;
 #pragma unroll
   for (int n = 0; n < BN / 8; ++n) {
     const int col = j0 + 8 * n + 2 * (lane & 3);
-    if constexpr (F32OUT) {
-      float* c = static_cast<float*>(g.c) + blockIdx.z * g.split_stride;
-      if (r0 < g.rows)
-        *reinterpret_cast<float2*>(c + (long long)r0 * g.ldc + col) =
-            make_float2(acc[4 * n], acc[4 * n + 1]);
-      if (r1 < g.rows)
-        *reinterpret_cast<float2*>(c + (long long)r1 * g.ldc + col) =
-            make_float2(acc[4 * n + 2], acc[4 * n + 3]);
-    } else {
-      bf16* c = static_cast<bf16*>(g.c);
-      if (r0 < g.rows)
-        *reinterpret_cast<uint32_t*>(c + (long long)r0 * g.ldc + col) =
-            pack_bf16(acc[4 * n], acc[4 * n + 1]);
-      if (r1 < g.rows)
-        *reinterpret_cast<uint32_t*>(c + (long long)r1 * g.ldc + col) =
-            pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
-    }
-  }
-}
-
-// ---- the producer: for 128 rows of x and 64 columns f0 .. f0 + 63 of F,
-// h1 and h3 as one product of N = 128 (the B rows are W1's 64 rows, then
-// W3's), K = M streamed in slices of 64. Forward (BWD = 0): z = silu(h1) h3
-// to z [R, F]. Backward: also dz = dout W2 (dout K-major A, W2's columns as
-// MN-major B), then dh1 | dh3 to dh [R, 2F] and z to z [R, F], all bf16.
-template <int BWD>
-struct Produce {
-  static constexpr int STAGE = 2 * GT * 64 * 2 + (BWD ? GT * 64 * 2 + 64 * 64 * 2 : 0);
-  static constexpr int NST = 4;
-  static constexpr int SMEM = NST * STAGE + 1024;
-  static_assert(SMEM <= kSmemMax, "SwiGLU producer stages exceed shared memory");
-};
-
-template <int BWD>
-__global__ void __launch_bounds__(256)
-ffn_produce(const bf16* __restrict__ x, const bf16* __restrict__ dout,
-            const bf16* __restrict__ w1, const bf16* __restrict__ w3,
-            const bf16* __restrict__ w2, bf16* __restrict__ z,
-            bf16* __restrict__ dh, int R, int M, int F) {
-  using P = Produce<BWD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sbase = smem_base_1k(smem);
-  const int f0 = blockIdx.x * 64, i0 = blockIdx.y * GT;
-  const int wg = threadIdx.x >> 7;
-  constexpr int B = GT * 64 * 2, A2 = 2 * B, B2 = 3 * B;   // stage offsets
-
-  float h[64], dz[BWD ? 32 : 1];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) h[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (BWD ? 32 : 1); ++i) dz[i] = 0.f;
-
-  auto load = [&](int kt, uint32_t st) {
-    const int k0 = kt * 64;
-    copy_kmajor<GT>(st, x + (long long)i0 * M, x + (long long)(i0 + 64) * M, M, R - i0, k0);
-    copy_kmajor<GT>(st + B, w1 + (long long)f0 * M, w3 + (long long)f0 * M, M, GT, k0);
-    if constexpr (BWD) {
-      copy_kmajor<GT>(st + A2, dout + (long long)i0 * M, dout + (long long)(i0 + 64) * M,
-                      M, R - i0, k0);
-      copy_mnmajor<64>(st + B2, w2 + (long long)k0 * F, F, 64, f0);
-    }
-  };
-  auto mma = [&](uint32_t st) {
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      WgmmaSS<GT, 0, 0>::run(h, desc_k(st, 64 * wg, s), desc_k(st + B, 0, s), 1);
-      if constexpr (BWD)
-        WgmmaSS<64, 0, 1>::run(dz, desc_k(st + A2, 64 * wg, s),
-                               desc_mn(st + B2, 0, s), 1);
-    }
-  };
-  k_pipeline<P::NST>(M / 64, sbase, P::STAGE, load, mma);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) reg_fence(h[i]);
-#pragma unroll
-  for (int i = 0; i < (BWD ? 32 : 1); ++i) reg_fence(dz[i]);
-
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int r0 = i0 + 64 * wg + 16 * warp + (lane >> 2);
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {       // f = f0 + 8n + 2t (+1); h3 in n-tile n + 8
-    const int f = f0 + 8 * n + 2 * (lane & 3);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + 8 * half;
-      if (r >= R) continue;
-      const int e = 4 * n + 2 * half;
-      if constexpr (BWD) {
-        float d1[2], d3[2], zz[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-          swiglu_grads(h[e + u], h[e + 32 + u], dz[e + u], d1[u], d3[u], zz[u]);
-        bf16* row = dh + (long long)r * 2 * F;
-        *reinterpret_cast<uint32_t*>(row + f) = pack_bf16(d1[0], d1[1]);
-        *reinterpret_cast<uint32_t*>(row + F + f) = pack_bf16(d3[0], d3[1]);
-        *reinterpret_cast<uint32_t*>(z + (long long)r * F + f) = pack_bf16(zz[0], zz[1]);
-      } else {
-        const float z0 = h[e] * sigmoid_fast(h[e]) * h[e + 32];
-        const float z1 = h[e + 1] * sigmoid_fast(h[e + 1]) * h[e + 33];
-        *reinterpret_cast<uint32_t*>(z + (long long)r * F + f) = pack_bf16(z0, z1);
-      }
-    }
+    if (r0 < g.rows)
+      *reinterpret_cast<float2*>(c + (long long)r0 * g.ldc + col) =
+          make_float2(acc[4 * n], acc[4 * n + 1]);
+    if (r1 < g.rows)
+      *reinterpret_cast<float2*>(c + (long long)r1 * g.ldc + col) =
+          make_float2(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
@@ -820,6 +692,478 @@ ffn_bwd_rows(const bf16* __restrict__ x, const bf16* __restrict__ dout,
 using Bwd128 = BwdRows<128, 32, 4>;
 using Bwd256 = BwdRows<256, 32, 2>;
 
+// ---- the bf16 general route (every width the gate takes but M = 128, 256):
+// one warp-specialized, persistent kernel (ffn_ws) for the SwiGLU producers
+// and the GEMMs. A block has three warpgroups. Warpgroup 0 keeps a ring of
+// NST shared-memory stages full by TMA: one thread issues the copies (boxes
+// zero-filled past a tensor's edge, in the swizzled layouts that desc_sw and
+// desc_mn_sw read), counted on the stage's full mbarrier. Warpgroups 1 and 2
+// each own 64 rows of a 128-row output tile; they run its products on wgmma
+// as the stages land and release each stage on its empty mbarrier once the
+// wgmmas that read it have completed (no block barrier per K-slice).
+// setmaxnreg moves the producer's registers to the consumers. Blocks run in
+// pairs (clusters of two) on neighbouring bands of rows: each loads half of a
+// stage's B (weight-side) boxes and multicasts them to both, which halves the
+// L2 reads of B, and a stage's empty barrier counts the consumers of both.
+// One pair for two SMs walks the tiles in a fixed order, consecutive tiles on
+// one band of rows, so that the band stays in L2; the producer loads the next
+// tile while the consumers finish this one. Epilogues: the producers stage
+// their bf16 outputs in shared memory and write them by TMA stores that drain
+// under the next tile's products (their direct stores took a fifth of the
+// backward producer's time); the GEMM stores 16 bytes a lane, gathered by
+// quad shuffles (quad_transpose), whole 32-byte sectors.
+//   FWD: h1 | h3 = x [W1; W3]^T over a 128-row x 128-column tile of F (one
+//     product of N = 256: 128 fp32 accumulators a thread), z = silu(h1) h3 to
+//     z [R, F] in bf16.
+//   BWD: over a 128 x 128 tile of F, h1 | h3 (N = 256) and dz = dout W2
+//     (N = 128, W2 read MN-major): 192 accumulators a thread (240 registers;
+//     at 64 columns of F each operand byte fed half the products, and the
+//     kernel ran 20% slower); dh1 | dh3 to dh [R, 2F] and z to z [R, F], bf16.
+//   GEMM: up to three products a launch (the backward's dW1 | dW3 = dh^T x and
+//     dW2 = dout^T z as row-split fp32 partials, and dx = dh [W1; W3]; the
+//     forward's out = z W2^T), C tiles of 128 x BN, A and B each K-major or
+//     MN-major (the descriptor's transpose bit); the weight gradients' long
+//     tiles are walked first.
+namespace ws {
+
+constexpr int BOX = 64 * 128;            // bytes of a 64 x 64 bf16 box
+constexpr int THREADS = 384;             // a producer and two consumer warpgroups
+enum { GEMM = 0, FWD = 1, BWD = 2 };
+
+// A stage holds one K-slice of KS = 32 columns: K-major operands in boxes of
+// 64 rows x 64 bytes (the 64-byte swizzle), MN-major ones in boxes of 32
+// K-rows x 64 columns (128 bytes, the 128-byte swizzle), 4 KB each. Narrow
+// slices keep more of the ring in flight: a consumer warpgroup holds two
+// stages (the slice its wgmmas read and the one before, until they complete).
+// The consumers' registers: 232 a thread (240 for BWD's 192 accumulators),
+// the producer's what the block's 168 a thread at launch leave over.
+template <int MODE, int BN>
+struct Cfg {
+  static constexpr int KS = 32;
+  static constexpr int KBOX = 64 * KS * 2;                       // a box
+  static constexpr int A = 2 * KBOX;                             // 128 rows of A
+  static constexpr int B = BN / 64 * KBOX;                       // BN rows or columns of B
+  static constexpr int STAGE = MODE == BWD ? 2 * A + B + 2 * KBOX   // + dout, W2
+                                           : A + B;
+  // A consumer warpgroup's staging of its epilogue's stores: 64 rows x 128
+  // columns of one (FWD: z) or two (BWD) outputs, in 64-column boxes.
+  static constexpr int OUT = MODE == GEMM ? 0 : MODE == FWD ? 2 * BOX : 4 * BOX;
+  static constexpr int FIT = (kSmemMax - 1024 - 2 * OUT) / STAGE;
+  static constexpr int NST = FIT > 8 ? 8 : FIT;
+  static constexpr int SMEM = NST * STAGE + 2 * OUT + 1024;
+  static constexpr int CONSUMER_REGS = MODE == BWD ? 240 : 232;
+  static constexpr int PRODUCER_REGS = (THREADS * 168 - 256 * CONSUMER_REGS) / 128;
+  static_assert(NST >= 3, "the ring needs three stages");
+};
+
+// One product of a GEMM launch: C[i, j] = sum_k A[i, k] B[k, j] over rows x
+// cols (cols a multiple of BN), K split `splits` ways (k_per_split a
+// multiple of 64); A[i, k] is the box element (k, i) of a when amn (MN-major),
+// else (i, k), likewise B; B's K-rows from k_split on come from b2 (as row
+// k - k_split). C in bf16, or (f32out) fp32 partials at c + split *
+// split_stride. `units`: its tiles times its splits.
+struct Prod {
+  CUtensorMap a, b, b2;
+  void* c;
+  long long ldc, split_stride;
+  int rows, cols, k, k_per_split, splits, k_split, amn, bmn, f32out, units;
+};
+
+struct Params {
+  Prod p[3];                             // GEMM: its products, walked in order
+  CUtensorMap x, w1, w3, dout, w2;       // FWD and BWD: their operands
+  CUtensorMap zo, dho;                   // FWD and BWD: their outputs, stored by TMA
+  int np, units, M, F, nft;              // nft: tiles of F (FWD and BWD)
+};
+
+// A cluster is a pair of blocks on neighbouring bands of 128 rows: they
+// share the B (weight-side) boxes of a stage, each loading half and
+// multicasting it to both. (Pairs along F sharing A as well, 2 x 2 blocks,
+// ran slower.)
+constexpr int PAIR = 2;
+
+// A tile as block `rank` of its pair takes it: a pair's tile spans two bands
+// of 128 rows, one a block.
+struct Unit {
+  const Prod* g;
+  int i0, j0, kb, nk;
+};
+
+template <int MODE, int BN>
+__device__ __forceinline__ Unit unit_of(const Params& p, int u, int rank) {
+  Unit t{nullptr, 0, 0, 0, 0};
+  if constexpr (MODE == GEMM) {
+    int q = 0;
+    while (q + 1 < p.np && u >= p.p[q].units) u -= p.p[q++].units;
+    const Prod& g = p.p[q];
+    const int tn = g.cols / BN, tiles = ((g.rows + 127) / 128 + PAIR - 1) / PAIR * tn;
+    const int tile = u % tiles, split = u / tiles;
+    t.g = &g;
+    t.i0 = (tile / tn * PAIR + rank) * 128;
+    t.j0 = tile % tn * BN;
+    t.kb = split * g.k_per_split;
+    const int ke = min(g.k, t.kb + g.k_per_split);
+    t.nk = ke > t.kb ? (ke - t.kb + Cfg<MODE, BN>::KS - 1) / Cfg<MODE, BN>::KS : 0;
+  } else {
+    t.i0 = (u / p.nft * PAIR + rank) * 128;
+    t.j0 = u % p.nft * 128;
+    t.nk = p.M / Cfg<MODE, BN>::KS;
+  }
+  return t;
+}
+
+// The n-th tile a pair walks: a snake over the pairs, so that a pair that
+// took one tile more in a round takes its neighbour's share of the next; -1
+// past the last.
+__device__ __forceinline__ int nth_unit(int n, int units, int pair, int pairs) {
+  const int u = n * pairs + (n & 1 ? pairs - 1 - pair : pair);
+  return u < units ? u : -1;
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// The same box into the same offset of both blocks of the pair, counted on
+// each block's barrier at offset bar.
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                   int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
+        "h"((uint16_t)3)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+// One arrival on the barrier at offset bar of block `rank` of the pair.
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(bar), "r"(rank)
+      : "memory");
+}
+
+// The producer's copies of K-slice k0 of tile t into stage s: its A-side
+// boxes, and the B-side (weight) boxes b with b % 2 == rank, multicast to the
+// pair.
+template <int MODE, int BN>
+__device__ __forceinline__ void load_stage(const Params& p, const Unit& t, int k0, uint32_t s,
+                                           uint32_t bar, int rank) {
+  using C = Cfg<MODE, BN>;
+  auto weight = [&](uint32_t dst, const CUtensorMap* map, int c0, int c1, int b) {
+    if (b % PAIR == rank) tma_load_multicast(dst, map, c0, c1, bar);
+  };
+  // The two boxes of a 128-row A-side tile at dst: K-major (box (k0, i0 +
+  // 64 b)) or MN-major (box (i0 + 64 b, k0)).
+  auto rows = [&](uint32_t dst, const CUtensorMap* map, int mn) {
+    for (int b = 0; b < 2; ++b)
+      tma_load(dst + b * C::KBOX, map, mn ? t.i0 + 64 * b : k0, mn ? k0 : t.i0 + 64 * b, bar);
+  };
+  if constexpr (MODE == GEMM) {
+    const Prod& g = *t.g;
+    rows(s, &g.a, g.amn);
+    const bool lo = k0 < g.k_split;
+    const CUtensorMap* bm = lo ? &g.b : &g.b2;
+    const int kk = lo ? k0 : k0 - g.k_split;
+    for (int b = 0; b < BN / 64; ++b) {
+      const int col = t.j0 + 64 * b;
+      weight(s + C::A + b * C::KBOX, bm, g.bmn ? col : kk, g.bmn ? kk : col, b);
+    }
+  } else {   // x; W1's 128 rows of the tile, then W3's; BWD: dout, W2's 128 columns
+    rows(s, &p.x, 0);
+    for (int b = 0; b < 4; ++b)
+      weight(s + C::A + b * C::KBOX, b < 2 ? &p.w1 : &p.w3, k0, t.j0 + 64 * (b & 1), b);
+    if constexpr (MODE == BWD) {
+      const uint32_t s2 = s + C::A + C::B;
+      rows(s2, &p.dout, 0);
+      for (int b = 0; b < 2; ++b)   // MN-major: boxes of 64 columns x 32 K-rows
+        weight(s2 + C::A + b * C::KBOX, &p.w2, t.j0 + 64 * b, k0, 4 + b);
+    }
+  }
+}
+
+// The stages of a consumer warpgroup's K-loop: wait for each to land, issue
+// its wgmmas (mma(stage)), and release the previous one once its wgmmas have
+// completed, to both blocks of the pair (either one's multicast copies land
+// in it); `st` and `ph` run on over the tiles.
+template <int NST, class Mma>
+__device__ __forceinline__ void consume(int nk, uint32_t ring, int stage_bytes, uint32_t full,
+                                        uint32_t empty, int& st, uint32_t& ph, Mma mma) {
+  auto release = [&](int stage) {
+    if ((threadIdx.x & 127) == 0)
+      for (int r = 0; r < PAIR; ++r) mbar_arrive_at(empty + 8 * stage, r);
+  };
+  int prev = -1;
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(full + 8 * st, ph);
+    wg_fence();
+    mma(ring + st * stage_bytes);
+    wg_commit();
+    wg_wait<1>();
+    if (prev >= 0) release(prev);
+    prev = st;
+    if (++st == NST) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  wg_wait<0>();
+  if (prev >= 0) release(prev);
+}
+
+// Stores 16 bytes of row `row` (its columns 32 q .. 32 q + 31 from row on):
+// p[j] holds this lane's two columns of n-tile 4 q + j; lane t of the quad
+// stores n-tile 4 q + t. Every lane of the warp takes part.
+__device__ __forceinline__ void store16(bf16* row, const uint32_t p[4], int t, bool ok) {
+  const uint4 v = quad_transpose(p, t);
+  if (ok) *reinterpret_cast<uint4*>(row + 8 * t) = v;
+}
+
+// The bf16 pair v at (row r, column c, c even) of a staged tile of 64-column
+// boxes of 64 rows x 128 bytes, in the 128-byte swizzle (conflict-free for a
+// warp's accumulator fragment: its 8 rows land on 8 distinct 16-byte chunks).
+__device__ __forceinline__ void st_staged(uint32_t tile, int r, int c, uint32_t v) {
+  const uint32_t a =
+      tile + (c >> 6) * BOX + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+// The consumer warpgroup's staged epilogue: its 128 threads meet at named
+// barrier 1 + wc; one thread issues the TMA stores, which drain while the
+// warpgroup goes on to the next tile's products, and waits for the stores'
+// reads of the staging before the warpgroup writes it again.
+struct Staged {
+  uint32_t tile;
+  int wc;
+  bool leader;
+  __device__ void sync() const { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wc) : "memory"); }
+  __device__ void reusable() const {   // the previous stores have read the staging
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    sync();
+  }
+  __device__ void written() const {    // the staging is written: visible to the stores
+    fence_proxy_async();
+    sync();
+  }
+  // Boxes b = 0, 1 of the staged tile at offset `from` to columns c0 + 64 b,
+  // rows r0 .. r0 + 63 of the output `map` (rows past its end are not written).
+  __device__ void store(const CUtensorMap* map, uint32_t from, int c0, int r0) const {
+    if (!leader) return;
+    for (int b = 0; b < 2; ++b) tma_store(map, tile + from + b * BOX, c0 + 64 * b, r0);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+};
+
+// acc (this warpgroup's 64 rows x N) += A B over one K-slice of 32: A's
+// rows 64 wc .. from the tile at sa, B's N rows (or columns) at sb, each
+// K-major (64-byte rows) or MN-major (TA, TB: 64-column boxes of 32 K-rows).
+template <int N, int TA, int TB>
+__device__ __forceinline__ void mma_slice(float* acc, uint32_t sa, uint32_t sb, int wc) {
+  constexpr int KBOX = 64 * 32 * 2;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    WgmmaSS<N, TA, TB>::run(
+        acc, TA ? desc_mn_sw(sa, 16 * k, 64 * wc, KBOX) : desc_sw<64>(sa + 64 * wc * 64 + 32 * k),
+        TB ? desc_mn_sw(sb, 16 * k, 0, KBOX) : desc_sw<64>(sb + 32 * k), 1);
+}
+
+template <int MODE, int BN>
+__global__ void __launch_bounds__(THREADS, 1) ffn_ws(const __grid_constant__ Params p) {
+  using C = Cfg<MODE, BN>;
+  constexpr int NST = C::NST;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[2 * NST];   // full, then empty
+  const uint32_t ring = smem_base_1k(smem);
+  const uint32_t full = static_cast<uint32_t>(__cvta_generic_to_shared(bars));
+  const uint32_t empty = full + 8 * NST;
+  const int rank = (int)cluster_rank();
+  const int pair = blockIdx.x / PAIR, pairs = gridDim.x / PAIR;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * PAIR);   // two consumer warpgroups a block
+    }
+    fence_mbar_init();
+  }
+  cluster_sync();   // no block's copies reach a barrier before it is initialised
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 0) {
+      int st = 0;
+      uint32_t ph = 0;
+      for (int n = 0;; ++n) {
+        const int u = nth_unit(n, p.units, pair, pairs);
+        if (u < 0) break;
+        const Unit t = unit_of<MODE, BN>(p, u, rank);
+        for (int kt = 0; kt < t.nk; ++kt) {
+          mbar_wait(empty + 8 * st, ph ^ 1);
+          mbar_expect_tx(full + 8 * st, C::STAGE);
+          load_stage<MODE, BN>(p, t, t.kb + C::KS * kt, ring + st * C::STAGE, full + 8 * st,
+                               rank);
+          if (++st == NST) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+      }
+      // Every stage released before the block exits: the other block of the
+      // pair arrives on this one's barriers.
+      for (int i = 0; i < NST; ++i) {
+        mbar_wait(empty + 8 * st, ph ^ 1);
+        if (++st == NST) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS) : "memory");
+    const int wc = wg - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, t4 = lane & 3;
+    const int rl = 16 * warp + (lane >> 2);   // this thread's first row of its 64
+    const Staged out{ring + NST * C::STAGE + wc * C::OUT, wc, (threadIdx.x & 127) == 0};
+    int st = 0;
+    uint32_t ph = 0;
+    for (int n = 0;; ++n) {
+      const int u = nth_unit(n, p.units, pair, pairs);
+      if (u < 0) break;
+      const Unit t = unit_of<MODE, BN>(p, u, rank);
+      if constexpr (MODE == GEMM) {
+        const Prod& g = *t.g;
+        const int r0 = t.i0 + 64 * wc + rl;
+        float acc[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        auto run = [&](auto mma) {
+          consume<NST>(t.nk, ring, C::STAGE, full, empty, st, ph, mma);
+        };
+        if (g.amn)
+          run([&](uint32_t s) { mma_slice<BN, 1, 1>(acc, s, s + C::A, wc); });
+        else if (g.bmn)
+          run([&](uint32_t s) { mma_slice<BN, 0, 1>(acc, s, s + C::A, wc); });
+        else
+          run([&](uint32_t s) { mma_slice<BN, 0, 0>(acc, s, s + C::A, wc); });
+        fence_all<BN / 2>(acc);
+        if (g.f32out) {
+          float* c = static_cast<float*>(g.c) + (long long)(t.kb / g.k_per_split) * g.split_stride;
+#pragma unroll
+          for (int nn = 0; nn < BN / 8; ++nn) {
+            const int col = t.j0 + 8 * nn + 2 * t4;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int r = r0 + 8 * hf;
+              if (r < g.rows)
+                *reinterpret_cast<float2*>(c + (long long)r * g.ldc + col) =
+                    make_float2(acc[4 * nn + 2 * hf], acc[4 * nn + 2 * hf + 1]);
+            }
+          }
+        } else {
+          bf16* c = static_cast<bf16*>(g.c);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = r0 + 8 * hf;
+            bf16* row = c + (long long)min(r, g.rows - 1) * g.ldc + t.j0;
+#pragma unroll
+            for (int q = 0; q < BN / 32; ++q) {
+              uint32_t pk[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int e = 4 * (4 * q + j) + 2 * hf;
+                pk[j] = pack_bf16(acc[e], acc[e + 1]);
+              }
+              store16(row + 32 * q, pk, t4, r < g.rows);
+            }
+          }
+        }
+      } else if constexpr (MODE == FWD) {
+        float h[128];   // n-tile n: h1 at column f0 + 8 n; n + 16: h3
+#pragma unroll
+        for (int i = 0; i < 128; ++i) h[i] = 0.f;
+        consume<NST>(t.nk, ring, C::STAGE, full, empty, st, ph, [&](uint32_t s) {
+          mma_slice<256, 0, 0>(h, s, s + C::A, wc);
+        });
+        fence_all<128>(h);
+        out.reusable();
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 4 * n + 2 * hf;
+            st_staged(out.tile, rl + 8 * hf, 8 * n + 2 * t4,
+                      pack_bf16(h[e] * sigmoid_fast(h[e]) * h[e + 64],
+                                h[e + 1] * sigmoid_fast(h[e + 1]) * h[e + 65]));
+          }
+        out.written();
+        out.store(&p.zo, 0, t.j0, t.i0 + 64 * wc);
+      } else {
+        float h[128], dz[64];   // n-tile n: h1 at f0 + 8 n, n + 16: h3; dz at f0 + 8 n
+#pragma unroll
+        for (int i = 0; i < 128; ++i) h[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) dz[i] = 0.f;
+        consume<NST>(t.nk, ring, C::STAGE, full, empty, st, ph, [&](uint32_t s) {
+          const uint32_t sd = s + C::A + C::B;
+          mma_slice<256, 0, 0>(h, s, s + C::A, wc);
+          mma_slice<128, 0, 1>(dz, sd, sd + C::A, wc);
+        });
+        fence_all<128>(h);
+        fence_all<64>(dz);
+        // dh1 and dh3 staged and stored, then z in dh1's place.
+        uint32_t zp[32];
+        out.reusable();
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 4 * n + 2 * hf, r = rl + 8 * hf, col = 8 * n + 2 * t4;
+            float d1[2], d3[2], zz[2];
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+              swiglu_grads(h[e + v], h[e + 64 + v], dz[e + v], d1[v], d3[v], zz[v]);
+            st_staged(out.tile, r, col, pack_bf16(d1[0], d1[1]));
+            st_staged(out.tile + 2 * BOX, r, col, pack_bf16(d3[0], d3[1]));
+            zp[2 * n + hf] = pack_bf16(zz[0], zz[1]);
+          }
+        out.written();
+        out.store(&p.dho, 0, t.j0, t.i0 + 64 * wc);
+        out.store(&p.dho, 2 * BOX, p.F + t.j0, t.i0 + 64 * wc);
+        out.reusable();
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            st_staged(out.tile, rl + 8 * hf, 8 * n + 2 * t4, zp[2 * n + hf]);
+        out.written();
+        out.store(&p.zo, 0, t.j0, t.i0 + 64 * wc);
+      }
+    }
+    if (out.leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+}  // namespace ws
+
 // ---- fp32: every product as three tf32 wgmmas of split operands
 // (tf32_split.cuh: hi = tf32(x), lo = tf32(x - hi), A B = A_lo B_hi +
 // A_hi B_lo + A_hi B_hi), both operands K-major in shared memory. A tile
@@ -1120,27 +1464,25 @@ int k_per_split(int k, int splits, int step) {
   return (per + step - 1) / step * step;
 }
 
-template <int AMN, int BMN, int F32OUT, int BN>
+template <int BN>
 cudaError_t gemm_bn(GemmArgs g0, GemmArgs g1, int splits, cudaStream_t s) {
   constexpr int smem = GemmTile<BN>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_gemm<AMN, BMN, F32OUT, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(ffn_gemm<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   g0.k_per_split = k_per_split(g0.k, splits, 64);
   g1.k_per_split = k_per_split(g1.k, splits, 64);
   auto tiles = [](const GemmArgs& g) { return (g.rows + GT - 1) / GT * (g.cols / BN); };
   const int t0 = tiles(g0);
-  ffn_gemm<AMN, BMN, F32OUT, BN><<<dim3(t0 + tiles(g1), 1, splits), 256, smem, s>>>(g0, g1, t0);
+  ffn_gemm<BN><<<dim3(t0 + tiles(g1), 1, splits), 256, smem, s>>>(g0, g1, t0);
   return cudaGetLastError();
 }
 
-// One product, or two in one launch (g1.rows > 0), C tiles of 256 columns
-// where every product's columns allow it, else 128.
-template <int AMN, int BMN, int F32OUT>
-cudaError_t gemm(GemmArgs g0, int splits, cudaStream_t s, GemmArgs g1 = GemmArgs{}) {
+// The fused route's two weight-gradient products in one launch, C tiles of
+// 256 columns where both products' columns allow it, else 128.
+cudaError_t wgrad_gemm(GemmArgs g0, GemmArgs g1, int splits, cudaStream_t s) {
   const bool wide = g0.cols % 256 == 0 && g1.cols % 256 == 0;
-  return wide ? gemm_bn<AMN, BMN, F32OUT, 256>(g0, g1, splits, s)
-              : gemm_bn<AMN, BMN, F32OUT, 128>(g0, g1, splits, s);
+  return wide ? gemm_bn<256>(g0, g1, splits, s) : gemm_bn<128>(g0, g1, splits, s);
 }
 
 // fp32: up to three products in one launch, each split p.splits ways
@@ -1201,18 +1543,6 @@ cudaError_t tf32_transpose(const f32::TJob* jobs, int nj, cudaStream_t s) {
 // Rows of the transposed K = R operands: R rounded up to 32 (128 bytes).
 long long rows_padded(int R) { return (R + 31LL) / 32 * 32; }
 
-template <int BWD>
-cudaError_t produce(const bf16* x, const bf16* dout, const bf16* w1, const bf16* w3,
-                    const bf16* w2, bf16* z, bf16* dh, int R, int M, int F, cudaStream_t s) {
-  using P = Produce<BWD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_produce<BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
-  if (err != cudaSuccess) return err;
-  ffn_produce<BWD><<<dim3(F / 64, (R + GT - 1) / GT), 256, P::SMEM, s>>>(
-      x, dout, w1, w3, w2, z, dh, R, M, F);
-  return cudaGetLastError();
-}
-
 // packed: the weights' chunk images, 3 F M bf16.
 template <class T>
 cudaError_t bwd_rows(const bf16* x, const bf16* dout, const bf16* w1, const bf16* w3,
@@ -1251,6 +1581,207 @@ cudaError_t fwd_fused(const bf16* x, const bf16* w1, const bf16* w3, const bf16*
 
 bool fused(int M) { return M == 128 || M == 256; }
 
+namespace ws {
+
+#define WS_TRY(e)                             \
+  do {                                        \
+    const cudaError_t e_ = (e);               \
+    if (e_ != cudaSuccess) return e_;         \
+  } while (0)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query,
+// so that the library links the CUDA runtime alone.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                            &q) == cudaSuccess &&
+                    q == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 [rows, cols] tensor as boxes of `width` columns (64 in
+// the 128-byte swizzle, 32 in the 64-byte one) by `height` rows, read as
+// zeros past its edges (and not written there).
+cudaError_t tensor_map(CUtensorMap* m, const void* p, long long rows, long long cols,
+                       int width, int height) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)width, (cuuint32_t)height}, step[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dim,
+                         stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// An operand's boxes of one K-slice: K-major (a tensor row is a tile row)
+// or MN-major (a tensor row is a K-row); an output's 64 x 64 boxes.
+cudaError_t kmajor(CUtensorMap* m, const void* p, long long rows, long long cols) {
+  return tensor_map(m, p, rows, cols, 32, 64);
+}
+cudaError_t mnmajor(CUtensorMap* m, const void* p, long long rows, long long cols) {
+  return tensor_map(m, p, rows, cols, 64, 32);
+}
+cudaError_t output(CUtensorMap* m, const void* p, long long rows, long long cols) {
+  return tensor_map(m, p, rows, cols, 64, 64);
+}
+
+// Tiles of pairs of blocks over `rows` rows (two bands of 128 a tile) and
+// `cols` column tiles.
+int pair_tiles(long long rows, int cols) {
+  return (int)(((rows + 127) / 128 + PAIR - 1) / PAIR * cols);
+}
+
+template <int MODE, int BN>
+cudaError_t launch(const Params& p, cudaStream_t s) {
+  using C = Cfg<MODE, BN>;
+  cudaError_t err = cudaFuncSetAttribute(ffn_ws<MODE, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess || p.units == 0) return err;
+  int dev = 0, sms = 132;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sms / PAIR * PAIR);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = PAIR;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  // One pair for each that fits on the card at once, or for each tile.
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, ffn_ws<MODE, BN>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3((fit < p.units ? fit : p.units) * PAIR);
+  err = cudaLaunchKernelEx(&cfg, ffn_ws<MODE, BN>, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The GEMM launch of g's products, C tiles of 128 x bn.
+cudaError_t gemm_launch(Params& g, int bn, cudaStream_t s) {
+  g.units = 0;
+  for (int q = 0; q < g.np; ++q) {
+    Prod& d = g.p[q];
+    d.k_per_split = k_per_split(d.k, d.splits, 64);
+    d.units = pair_tiles(d.rows, d.cols / bn) * d.splits;
+    g.units += d.units;
+  }
+  return bn == 256 ? launch<GEMM, 256>(g, s) : launch<GEMM, 128>(g, s);
+}
+
+// Forward: z = silu(x W1^T) (x W3^T) to the scratch, then out = z W2^T.
+cudaError_t forward(const bf16* x, const bf16* w1, const bf16* w3, const bf16* w2, bf16* z,
+                    bf16* out, int R, int M, int F, cudaStream_t s) {
+  Params p{};
+  WS_TRY(kmajor(&p.x, x, R, M));
+  WS_TRY(kmajor(&p.w1, w1, F, M));
+  WS_TRY(kmajor(&p.w3, w3, F, M));
+  WS_TRY(output(&p.zo, z, R, F));
+  p.M = M;
+  p.F = F;
+  p.nft = F / 128;
+  p.units = pair_tiles(R, p.nft);
+  WS_TRY((launch<FWD, 256>(p, s)));
+  Params g{};
+  Prod& o = g.p[0];   // out = z W2^T: W2 [M, F] is the K-major B
+  WS_TRY(kmajor(&o.a, z, R, F));
+  WS_TRY(kmajor(&o.b, w2, M, F));
+  o.b2 = o.b;
+  o.c = out;
+  o.ldc = M;
+  o.rows = R;
+  o.cols = M;
+  o.k = F;
+  o.splits = 1;
+  o.k_split = INT_MAX;
+  g.np = 1;
+  return gemm_launch(g, M % 256 == 0 ? 256 : 128, s);
+}
+
+// Backward: dh1 | dh3 and z to the scratches; then, in one launch, the
+// weight gradients' row-split partials and dx.
+cudaError_t backward(const bf16* x, const bf16* dout, const bf16* w1, const bf16* w3,
+                     const bf16* w2, bf16* dh, bf16* z, bf16* dx, float* part, int R, int M,
+                     int F, int splits, cudaStream_t s) {
+  Params p{};
+  WS_TRY(kmajor(&p.x, x, R, M));
+  WS_TRY(kmajor(&p.w1, w1, F, M));
+  WS_TRY(kmajor(&p.w3, w3, F, M));
+  WS_TRY(kmajor(&p.dout, dout, R, M));
+  WS_TRY(mnmajor(&p.w2, w2, M, F));   // dz = dout W2 reads W2 MN-major
+  WS_TRY(output(&p.zo, z, R, F));
+  WS_TRY(output(&p.dho, dh, R, 2LL * F));
+  p.M = M;
+  p.F = F;
+  p.nft = F / 128;
+  p.units = pair_tiles(R, p.nft);
+  WS_TRY((launch<BWD, 256>(p, s)));
+
+  const long long fm = (long long)F * M;
+  Params g{};
+  Prod &w13 = g.p[0], &w2g = g.p[1], &dxg = g.p[2];
+  // dW1 | dW3 [2F, M] = dh^T x, both MN-major (K = R).
+  WS_TRY(mnmajor(&w13.a, dh, R, 2LL * F));
+  WS_TRY(mnmajor(&w13.b, x, R, M));
+  w13.b2 = w13.b;
+  w13.c = part;
+  w13.ldc = M;
+  w13.split_stride = 3 * fm;
+  w13.rows = 2 * F;
+  w13.cols = M;
+  // dW2 [M, F] = dout^T z.
+  WS_TRY(mnmajor(&w2g.a, dout, R, M));
+  WS_TRY(mnmajor(&w2g.b, z, R, F));
+  w2g.b2 = w2g.b;
+  w2g.c = part + 2 * fm;
+  w2g.ldc = F;
+  w2g.split_stride = 3 * fm;
+  w2g.rows = M;
+  w2g.cols = F;
+  auto wgrad = [&](Prod& q) {
+    q.k = R;
+    q.splits = splits;
+    q.k_split = INT_MAX;
+    q.amn = q.bmn = q.f32out = 1;
+  };
+  wgrad(w13);
+  wgrad(w2g);
+  // dx [R, M] = [dh1 dh3] [W1; W3]: dh K-major, B's K-rows from W1, then W3.
+  WS_TRY(kmajor(&dxg.a, dh, R, 2LL * F));
+  WS_TRY(mnmajor(&dxg.b, w1, F, M));
+  WS_TRY(mnmajor(&dxg.b2, w3, F, M));
+  dxg.k_split = F;
+  dxg.bmn = 1;
+  dxg.c = dx;
+  dxg.ldc = M;
+  dxg.rows = R;
+  dxg.cols = M;
+  dxg.k = 2 * F;
+  dxg.splits = 1;
+  g.np = 3;
+  return gemm_launch(g, M % 256 == 0 && F % 256 == 0 ? 256 : 128, s);
+}
+
+}  // namespace ws
+
 }  // namespace
 
 // Scratch the forward (bwd = 0) or backward needs, in bytes: the bf16
@@ -1273,6 +1804,14 @@ extern "C" long long gaot_fused_ffn_scratch_bytes(int R, int M, int F, int dtype
 // Row splits of the weight-gradient products: about two waves of blocks
 // (one block an SM) over their tiles, each split at least 512 rows.
 extern "C" int gaot_fused_ffn_bwd_splits(int R, int M, int F, int dtype, int sms) {
+  if (dtype == 1 && !fused(M)) {
+    // The general route walks the weight gradients' tiles and dx's in one
+    // launch: splits that make a weight-gradient tile at most twice as long
+    // as a dx tile (K = 2F) balance the blocks' shares.
+    const long long w = (R + 63) / 64, d = 2LL * F / 64;
+    const long long splits = (w + 2 * d - 1) / (2 * d), most = (R + 511) / 512;
+    return (int)(splits < 1 ? 1 : splits > most ? (most < 1 ? 1 : most) : splits);
+  }
   int tiles;
   if (dtype == 0) {
     tiles = 3 * (F / f32::TR) * (M / f32::TR);
@@ -1302,8 +1841,7 @@ extern "C" int gaot_fused_ffn_fwd(const void* x, const void* w1, const void* w3,
     if (M == 128) return (int)fwd_fused<Fwd128>(xb, w1b, w3b, w2b, packed, ob, R, F, s);
     if (M == 256) return (int)fwd_fused<Fwd256>(xb, w1b, w3b, w2b, packed, ob, R, F, s);
     bf16* z = static_cast<bf16*>(scratch);
-    RETURN_IF(produce<0>(xb, nullptr, w1b, w3b, nullptr, z, nullptr, R, M, F, s));
-    return (int)gemm<0, 0, 0>({z, F, w2b, F, ob, M, 0, R, M, F, 0}, 1, s);
+    return (int)ws::forward(xb, w1b, w3b, w2b, z, ob, R, M, F, s);
   }
   const float *xf = static_cast<const float*>(x), *w1f = static_cast<const float*>(w1),
               *w3f = static_cast<const float*>(w3), *w2f = static_cast<const float*>(w2);
@@ -1336,18 +1874,16 @@ extern "C" int gaot_fused_ffn_bwd(const void* x, const void* w1, const void* w3,
                *w2b = static_cast<const bf16*>(w2);
     bf16* dxb = static_cast<bf16*>(dx);
     unsigned char* packed = reinterpret_cast<unsigned char*>(z + (long long)R * F);
-    if (M == 128) {
-      RETURN_IF(bwd_rows<Bwd128>(xb, db, w1b, w3b, w2b, packed, dxb, dh, z, R, F, s));
-    } else if (M == 256) {
-      RETURN_IF(bwd_rows<Bwd256>(xb, db, w1b, w3b, w2b, packed, dxb, dh, z, R, F, s));
+    if (!fused(M)) {
+      RETURN_IF(ws::backward(xb, db, w1b, w3b, w2b, dh, z, dxb, pf, R, M, F, splits, s));
     } else {
-      RETURN_IF(produce<1>(xb, db, w1b, w3b, w2b, z, dh, R, M, F, s));
-      // dx = [dh1 dh3] [W1; W3]: B's K-rows from W1, then from W3.
-      RETURN_IF((gemm<0, 1, 0>({dh, 2LL * F, w1b, M, dx, M, 0, R, M, 2 * F, 0, w3b, F}, 1, s)));
+      RETURN_IF(M == 128
+                    ? bwd_rows<Bwd128>(xb, db, w1b, w3b, w2b, packed, dxb, dh, z, R, F, s)
+                    : bwd_rows<Bwd256>(xb, db, w1b, w3b, w2b, packed, dxb, dh, z, R, F, s));
+      // dW1|dW3 = [dh1 dh3]^T x and dW2 = dout^T z, in one launch.
+      RETURN_IF(wgrad_gemm({dh, 2LL * F, xb, M, pf, M, 3 * fm, 2 * F, M, R, 0},
+                           {db, M, z, F, pf + 2 * fm, F, 3 * fm, M, F, R, 0}, splits, s));
     }
-    // dW1|dW3 = [dh1 dh3]^T x and dW2 = dout^T z, in one launch.
-    RETURN_IF((gemm<1, 1, 1>({dh, 2LL * F, xb, M, pf, M, 3 * fm, 2 * F, M, R, 0}, splits, s,
-                             {db, M, z, F, pf + 2 * fm, F, 3 * fm, M, F, R, 0})));
   } else {
     const float *xf = static_cast<const float*>(x), *df = static_cast<const float*>(dout);
     const float *w1f = static_cast<const float*>(w1), *w3f = static_cast<const float*>(w3),

@@ -32,10 +32,15 @@ no transposed copy:
   16·R·M·F operations, no recompute; the intermediates make one round trip
   through device memory.
 - Every other width the JAX gate takes (M % 128 == 0, F % 128 == 0; at 384
-  and above a warpgroup's fp32 output passes its registers): a producer
-  kernel writes z (forward) or dh1 | dh3 and z (backward) to a scratch, and
-  a GEMM kernel with runtime shapes does the rest (z·W2ᵀ; dx; the weight
-  gradients as above).
+  and above a warpgroup's fp32 output passes its registers), bf16: one
+  warp-specialized, persistent kernel skeleton. A producer warpgroup keeps a
+  ring of shared-memory stages full by TMA, counted on mbarriers; two
+  consumer warpgroups run the products on ``wgmma`` as the stages land; one
+  block an SM walks the tiles. Its producer mode writes z (forward, 128 × 128
+  tiles of [R, F]) or dh1 | dh3 and z (backward, 128 × 64 tiles, with dz) to
+  a scratch; its GEMM mode does the rest: z·W2ᵀ (2 launches a forward), or
+  the weight gradients' row-split partials and dx in one launch, then their
+  fixed-order sum (3 launches a backward).
 - fp32 (every M): every product on the tensor cores as split TF32, each
   fp32 operand held as hi = tf32(x) and lo = tf32(x − hi) and each product
   as lo·hi + hi·lo + hi·hi (three tf32 ``wgmma``s, fp32 accumulators, a
@@ -177,8 +182,9 @@ def fused_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                   w2: torch.Tensor, dout: torch.Tensor):
     """(dx in x.dtype, dw1, dw3, dw2 in fp32) of the fused SwiGLU. CPU
     tensors take the plain backward; CUDA tensors launch the backward
-    kernels (bf16: the rows kernel or producer and dx, the row-split dW
-    partials, their fixed-order sum; fp32: the transposes, the producer, dx
+    kernels (bf16 at M = 128, 256: the rows kernel, the row-split dW
+    partials, their fixed-order sum; bf16 at other widths: the producer, dx
+    with the dW partials, their sum; fp32: the transposes, the producer, dx
     with the dW partials, their sum)."""
     _check(x, w1, w3, w2)
     if dout.shape != x.shape:

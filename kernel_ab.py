@@ -8,6 +8,7 @@ side in one run on one NVIDIA card.
     python3 kernel_ab.py --only agno --kernels-only ROOT [ROOT ...]
     python3 kernel_ab.py --examples ROOT [ROOT ...]
     python3 kernel_ab.py --ffn-on ROOT [ROOT ...]
+    python3 kernel_ab.py --step-probe ROOT [ROOT ...]
 
 ROOT is the root of a checkout (its gaot_torch/, chip_smoke.py and config/
 are enough). Each ROOT runs in a process of its own, in the order given, so
@@ -25,7 +26,8 @@ and times, on tensors made from one seed:
     above head dim 128 at B 1, H 4 and (D, S) = (256, 4096), (512, 2048),
     (1024, 1024), (1024, 4096);
   - the bf16 SwiGLU forward and backward at the fx shape (R = 65536,
-    M = 256, F = 1024) and at the other fused width (M = 128, F = 512),
+    M = 256, F = 1024), at the other fused width (M = 128, F = 512) and on
+    the general route at M = 1024, F = 3584 and M = 640, F = 2560,
     and in fp32 (TF32 off for the library's products) at the fx rows,
     M = 256 and 640, F = 1024, with their largest error against the plain
     versions;
@@ -74,6 +76,18 @@ data): the fx recipe (run C), elasticity and naca0012, whose training step
 is also timed eager and captured as a CUDA graph; it reports each run's
 samples/s after its first evaluation and naca0012's step ms both ways.
 
+--step-probe runs the small fx GAOT of tests/test_torch_cuda.py
+(``_small_setup``: hidden 256, GQA 8:4, head dim 32, S 256, SwiGLU 1024) for
+two fp32 AdamW steps on the card and on the CPU with each ROOT's gaot_torch,
+as ``test_small_train_step_card_vs_cpu[None]`` does, and reports every
+parameter's gradient before each update, card against CPU, in units of
+1e-3 of that tensor's largest entry; the weights after the two updates
+against the test's rule (rtol 1e-3, atol 1e-4) and against the rule of
+tests/test_torch_parallel.py::_close (1e-3 of each tensor's largest entry
+plus 1e-2 of its largest update); and, for each weight entry past the
+test's rule, both sides' gradients and updates at each step and the
+learning rate.
+
 Prints each process's log, then a table of every number by ROOT and run;
 writes them to chiprun_out/kernel_ab.json.
 """
@@ -103,9 +117,13 @@ FLASH_F32 = {"fx": (64, 1024, 8, 32), "naca": (32, 1024, 8, 32)}
 # runs it)
 FLASH_WIDE = [(1, 4096, 4, 256), (1, 2048, 4, 512), (1, 1024, 4, 1024), (1, 4096, 4, 1024)]
 # (R, M, F, dtype) of the fx path's SwiGLU calls, of the other fused width,
-# and of the fp32 kernels (split-TF32 products) at the fx rows, M 256 and 640
+# of the fp32 kernels (split-TF32 products) at the fx rows, M 256 and 640,
+# and of the bf16 general route (every width but 128 and 256) at two widths
+# the gate takes
 SWIGLU = {"fx": (65536, 256, 1024, "bfloat16"), "M128": (65536, 128, 512, "bfloat16"),
-          "fx fp32": (65536, 256, 1024, "float32"), "M640 fp32": (65536, 640, 1024, "float32")}
+          "fx fp32": (65536, 256, 1024, "float32"), "M640 fp32": (65536, 640, 1024, "float32"),
+          "M1024 general": (65536, 1024, 3584, "bfloat16"),
+          "M640 general": (65536, 640, 2560, "bfloat16")}
 ITERS = 20
 
 
@@ -288,6 +306,10 @@ def kernel_times(only=None):
         x, dout = rnd(r, m).to(dt), rnd(r, m).to(dt)
         w1, w3 = (rnd(f, m) / m ** 0.5).to(dt), (rnd(f, m) / m ** 0.5).to(dt)
         w2 = (rnd(m, f) / f ** 0.5).to(dt)
+        # The bf16 plain versions' fp32 products take TF32: their operands
+        # hold bf16 values, which TF32 holds exactly (in FFMA they would take
+        # minutes at the general route's widths).
+        torch.backends.cuda.matmul.allow_tf32 = dt == torch.bfloat16
         err = float((ff.fused_ffn(x, w1, w3, w2).float()
                      - ff.fused_ffn_plain(x, w1, w3, w2).float()).abs().max())
         res[f"fused_ffn fwd {shape}"] = {
@@ -299,6 +321,7 @@ def kernel_times(only=None):
         want = ff.fused_ffn_bwd_plain(x, w1, w3, w2, dout)
         err = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
                   for g, w in zip(got, want))
+        torch.backends.cuda.matmul.allow_tf32 = False
         del got, want
         leaves = [t.detach().requires_grad_(True) for t in (x, w1, w3, w2)]
         out = (silu(leaves[0] @ leaves[1].t()) * (leaves[0] @ leaves[2].t())) @ leaves[3].t()
@@ -437,7 +460,115 @@ def ffn_on(root):
     cs.phase_ffn_on(path, card)
 
 
-def child(root, build_only, only, kernels_only, with_examples=False, with_ffn_on=False):
+def _probe_setup():
+    """tests/test_torch_cuda.py::_small_setup, copied."""
+    import numpy as np
+
+    from gaot_torch.core.config import ModelConfig, merge_config
+    from gaot_torch.data.graph_builder import GraphBuilder
+
+    cfg = merge_config(ModelConfig, {
+        "latent_tokens_size": [32, 32],
+        "args": {"magno": {"radius": 0.067, "hidden_size": 16,
+                           "lifting_channels": 8},
+                 "transformer": {"patch_size": 2, "hidden_size": 256,
+                                 "attn_config": {"num_heads": 8,
+                                                 "num_kv_heads": 4}}}})
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(-1, 1, (2000, 2)).astype(np.float32)
+    ax = np.linspace(-1, 1, 32)
+    lat = np.stack(np.meshgrid(ax, ax, indexing="ij"), -1).reshape(-1, 2)
+    lat = lat.astype(np.float32)
+    pndata = rng.normal(size=(2, 2000, 1)).astype(np.float32)
+    target = rng.normal(size=(2, 2000, 1)).astype(np.float32)
+    enc, dec = GraphBuilder().build_fx_graphs(coords, lat, 0.067, [1.0])
+    return cfg, coords, lat, pndata, target, enc, dec
+
+
+def step_probe():
+    """Two fp32 AdamW steps of the small fx GAOT on the card and the CPU
+    (test_small_train_step_card_vs_cpu[None]), every parameter's gradient
+    recorded before each update (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from gaot_torch.core.config import OptimizerConfig, merge_config
+    from gaot_torch.data.graph_builder import prepare_fx_device_graphs
+    from gaot_torch.models import GAOT
+    from gaot_torch.train.schedules import make_optimizer
+    from gaot_torch.train.static_trainer import FxGraphs, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, coords, lat, pndata, target, enc, dec = _probe_setup()
+    ocfg = merge_config(OptimizerConfig, {"args": {"epoch": 10}})
+    rec = {}
+    for dev in ("cuda", "cpu"):
+        g = prepare_fx_device_graphs(enc, dec, 2000, lat.shape[0], cfg.args.magno, device=dev)
+        model = GAOT(1, 1, cfg, dtype=None, device=dev,
+                     generator=torch.Generator().manual_seed(3))
+        names = [n for n, _ in model.named_parameters()]
+        params = [p for _, p in model.named_parameters()]
+        opt, sched = make_optimizer(ocfg, params, steps_per_epoch=1)
+        grads, before, lrs = [], [], []
+        step_fn = opt.step
+
+        def recorded_step(*a, **kw):
+            grads.append([p.grad.detach().double().cpu().clone() for p in params])
+            before.append([p.detach().double().cpu().clone() for p in params])
+            lrs.append(float(opt.param_groups[0]["lr"]))
+            return step_fn(*a, **kw)
+
+        opt.step = recorded_step
+        t = lambda a: torch.from_numpy(a).to(dev)
+        losses = [float(train_step(model, opt, sched, step, FxGraphs(t(lat), *g), t(coords),
+                                   t(pndata), t(target),
+                                   torch.ones(2, dtype=torch.bool, device=dev)))
+                  for step in range(2)]
+        rec[dev] = dict(names=names, grads=grads, before=before, lrs=lrs, losses=losses,
+                        after=[p.detach().double().cpu().clone() for p in params])
+    c, h = rec["cuda"], rec["cpu"]
+    out = {"losses": {"cuda": c["losses"], "cpu": h["losses"]},
+           "lr": {"cuda": c["lrs"], "cpu": h["lrs"]}, "grads": [], "past_test_rule": [],
+           "close_rule": []}
+    for step in range(2):
+        worst = []
+        for i, n in enumerate(h["names"]):
+            gc, gh = c["grads"][step][i], h["grads"][step][i]
+            scale = float(gh.abs().max())
+            worst.append((float((gc - gh).abs().max()) / max(scale, 1e-30) / 1e-3, n, scale))
+        worst.sort(reverse=True)
+        out["grads"].append({"step": step, "worst_in_1e-3_of_max": worst[:6],
+                             "all_within_1e-3": all(w[0] <= 1.0 for w in worst)})
+    n_test = 0
+    for i, n in enumerate(h["names"]):
+        wc, wh, w0 = c["after"][i], h["after"][i], h["before"][0][i]
+        diff = (wc - wh).abs()
+        bad = diff > 1e-4 + 1e-3 * wh.abs()
+        n_test += int(bad.sum())
+        for j in torch.nonzero(bad.reshape(-1)).reshape(-1)[:4].tolist():
+            out["past_test_rule"].append({
+                "param": n, "index": j, "numel": wh.numel(),
+                "weight": {"cuda": float(wc.reshape(-1)[j]), "cpu": float(wh.reshape(-1)[j])},
+                "grads": [{"cuda": float(c["grads"][s][i].reshape(-1)[j]),
+                           "cpu": float(h["grads"][s][i].reshape(-1)[j]),
+                           "tensor_max": float(h["grads"][s][i].abs().max())}
+                          for s in range(2)],
+                "updates": [{"cuda": float(((c["before"][s + 1][i] if s == 0 else c["after"][i])
+                                            - c["before"][s][i]).reshape(-1)[j]),
+                             "cpu": float(((h["before"][s + 1][i] if s == 0 else h["after"][i])
+                                           - h["before"][s][i]).reshape(-1)[j])}
+                            for s in range(2)]})
+        bound = 1e-3 * float(wh.abs().max()) + 10 * 1e-3 * float((wh - w0).abs().max())
+        out["close_rule"].append((float(diff.max()) / max(bound, 1e-30), n))
+    out["close_rule"] = sorted(out["close_rule"], reverse=True)[:4]
+    out["n_past_test_rule"] = n_test
+    out["weights"] = sum(int(w.numel()) for w in h["after"])
+    print("PROBE " + json.dumps(out), flush=True)
+
+
+def child(root, build_only, only, kernels_only, with_examples=False, with_ffn_on=False,
+          with_probe=False):
     sys.path.insert(0, root)
     import torch
 
@@ -454,6 +585,9 @@ def child(root, build_only, only, kernels_only, with_examples=False, with_ffn_on
     if with_ffn_on:
         build.build_all()
         ffn_on(root)
+        return
+    if with_probe:
+        step_probe()
         return
     if build_only:
         shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
@@ -525,11 +659,14 @@ def main():
                     help="train the fp32 example configs through each ROOT's chip_smoke.py")
     ap.add_argument("--ffn-on", action="store_true",
                     help="time the fx fp32 step with fused_ffn on and auto on each ROOT")
+    ap.add_argument("--step-probe", action="store_true",
+                    help="two fp32 AdamW steps of the small fx GAOT, card against CPU")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     if args.child:
-        child(roots[0], args.build, args.only, args.kernels_only, args.examples, args.ffn_on)
+        child(roots[0], args.build, args.only, args.kernels_only, args.examples, args.ffn_on,
+              args.step_probe)
         return 0
     runs = []
     for i, root in enumerate(roots):
@@ -544,6 +681,8 @@ def main():
             cmd.append("--examples")
         if args.ffn_on:
             cmd.append("--ffn-on")
+        if args.step_probe:
+            cmd.append("--step-probe")
         print(f"=== run {i}: {root}", flush=True)
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         print(proc.stdout, flush=True)
@@ -552,7 +691,11 @@ def main():
             print(f"kernel_ab FAILED: run {i} ({root}) exited {proc.returncode}",
                   file=sys.stderr)
             return 1
+        if args.step_probe:
+            continue
         runs.append({"root": root, **parse(proc.stdout)})
+    if args.step_probe:
+        return 0
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT + (".build" if args.build else ".examples" if args.examples
                      else ".ffn_on" if args.ffn_on else ""), "w") as f:
